@@ -1,0 +1,219 @@
+"""Llama-3-family transformer, PyTorch port of gpu_docker_api_tpu/models/llama.py.
+
+Parameters keep the JAX package's layout, so weights convert one to one
+(convert.py): a plain dict of tensors, matrices stored [in, out], and the
+decoder layers stacked on a leading [L] axis. Numerics follow the
+reference: matmuls in the config dtype, RMSNorm statistics and the logits
+in f32, split-half RoPE in f32. Attention goes through ops/attention.py
+(the flash kernels on the card). Single device only: a mesh raises.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.attention import attention
+from .remat import remat_wrap
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    d_model: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    d_ff: int = 14336
+    max_seq_len: int = 8192
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    # long-context strategy when the sequence is sharded; only the
+    # single-device path is ported, so it is carried but unused
+    sp_attn: str = "ring"
+    # > 0 = sliding-window attention: each position attends its last
+    # `sliding_window` keys only
+    sliding_window: int = 0
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    # ---- canned configs (the JAX package's) ----
+
+    @classmethod
+    def llama3_8b(cls) -> "LlamaConfig":
+        """Llama-3-8B."""
+        return cls()
+
+    @classmethod
+    def llama_mini(cls) -> "LlamaConfig":
+        """~45M params, head_dim 128."""
+        return cls(vocab_size=32000, d_model=512, n_layers=4, n_heads=4,
+                   n_kv_heads=2, d_ff=1408, max_seq_len=2048)
+
+    @classmethod
+    def llama_250m(cls) -> "LlamaConfig":
+        """~250M params."""
+        return cls(vocab_size=32000, d_model=1024, n_layers=16, n_heads=8,
+                   n_kv_heads=4, d_ff=2816, max_seq_len=4096)
+
+    @classmethod
+    def llama_1b(cls) -> "LlamaConfig":
+        """~1.07B params: 20 layers, d_model 2048, 16 heads over 8 kv
+        heads, head_dim 128 — the port's single-card training config."""
+        return cls(vocab_size=32000, d_model=2048, n_layers=20, n_heads=16,
+                   n_kv_heads=8, d_ff=5632, max_seq_len=4096)
+
+    @classmethod
+    def mistral_7b(cls) -> "LlamaConfig":
+        """Mistral-7B-v0.1: the Llama trunk with a 4096-token window."""
+        return cls(vocab_size=32000, d_model=4096, n_layers=32, n_heads=32,
+                   n_kv_heads=8, d_ff=14336, max_seq_len=32768,
+                   rope_theta=10000.0, sliding_window=4096)
+
+    @classmethod
+    def tiny(cls) -> "LlamaConfig":
+        """Unit-test config."""
+        return cls(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
+                   n_kv_heads=2, d_ff=128, max_seq_len=128,
+                   dtype=torch.float32)
+
+
+# ---- parameters -------------------------------------------------------------
+
+def param_shapes(config: LlamaConfig) -> dict:
+    """{name: (shape, dtype)} tree of init_params, without allocating."""
+    c = config
+    lq, lkv = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+    n, f32 = c.n_layers, torch.float32
+    return {
+        "embed": ((c.vocab_size, c.d_model), c.dtype),
+        "layers": {
+            "attn_norm": ((n, c.d_model), f32),
+            "wq": ((n, c.d_model, lq), c.dtype),
+            "wk": ((n, c.d_model, lkv), c.dtype),
+            "wv": ((n, c.d_model, lkv), c.dtype),
+            "wo": ((n, lq, c.d_model), c.dtype),
+            "mlp_norm": ((n, c.d_model), f32),
+            "w1": ((n, c.d_model, c.d_ff), c.dtype),   # gate
+            "w3": ((n, c.d_model, c.d_ff), c.dtype),   # up
+            "w2": ((n, c.d_ff, c.d_model), c.dtype),   # down
+        },
+        "final_norm": ((c.d_model,), f32),
+        "lm_head": ((c.d_model, c.vocab_size), c.dtype),
+    }
+
+
+def init_params(config: LlamaConfig, generator: torch.Generator) -> dict:
+    """Random parameters on the generator's device: norms at 1, every
+    matrix N(0, 0.02) drawn from `generator`. Same layout as the JAX
+    init_params (not the same numbers: convert.py carries JAX weights)."""
+    device = generator.device
+
+    def make(name, shape, dtype):
+        if name.endswith("norm"):
+            return torch.ones(shape, dtype=dtype, device=device)
+        return torch.empty(shape, dtype=dtype, device=device).normal_(
+            0.0, 0.02, generator=generator)
+
+    def build(tree):
+        return {name: build(v) if isinstance(v, dict) else make(name, *v)
+                for name, v in tree.items()}
+
+    return build(param_shapes(config))
+
+
+# ---- building blocks --------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm with f32 statistics regardless of activation dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight).to(x.dtype)
+
+
+def rope_frequencies(config: LlamaConfig, positions: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [..., head_dim/2] in f32 for positions [S] or [B, S]."""
+    d = config.head_dim
+    exponent = torch.arange(0, d, 2, dtype=torch.float32,
+                            device=positions.device) / d
+    inv_freq = 1.0 / (config.rope_theta ** exponent)
+    angles = positions.float()[..., None] * inv_freq
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x [B, S, H, Dh]; split-half rotation. cos/sin are [S, Dh/2] (shared
+    positions) or [B, S, Dh/2] (per-row positions)."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    c = cos[None, :, None, :] if cos.dim() == 2 else cos[:, :, None, :]
+    s = sin[None, :, None, :] if sin.dim() == 2 else sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
+
+
+def _require_single_device(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "multi-device attention (mesh, ring, ulysses) is not yet ported")
+
+
+def _attention_block(x, layer, config: LlamaConfig, cos, sin, impl: str,
+                     mesh=None):
+    """Norm + QKV + RoPE + attention + output projection + residual."""
+    _require_single_device(mesh)
+    c = config
+    b, s, _ = x.shape
+    h = rms_norm(x, layer["attn_norm"], c.norm_eps)
+    q = (h @ layer["wq"]).reshape(b, s, c.n_heads, c.head_dim)
+    k = (h @ layer["wk"]).reshape(b, s, c.n_kv_heads, c.head_dim)
+    v = (h @ layer["wv"]).reshape(b, s, c.n_kv_heads, c.head_dim)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = attention(q, k, v, causal=True, impl=impl,
+                    window=c.sliding_window)                 # [B, S, H, Dh]
+    return x + out.reshape(b, s, c.n_heads * c.head_dim) @ layer["wo"]
+
+
+def _mlp_block(x, layer, config: LlamaConfig):
+    h = rms_norm(x, layer["mlp_norm"], config.norm_eps)
+    gated = F.silu(h @ layer["w1"]) * (h @ layer["w3"])    # SwiGLU
+    return x + gated @ layer["w2"]
+
+
+# ---- forward ----------------------------------------------------------------
+
+_LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w1", "w3",
+               "w2")
+
+
+def llama_forward(params: dict, tokens: torch.Tensor, config: LlamaConfig,
+                  impl: str = "auto", mesh=None,
+                  remat: str = "none") -> torch.Tensor:
+    """tokens [B, S] int -> logits [B, S, V] f32. remat: "none" | "full" |
+    "dots" — per-layer checkpointing of the decoder body (models/remat.py)."""
+    _require_single_device(mesh)
+    c = config
+    s = tokens.shape[1]
+    x = F.embedding(tokens, params["embed"])
+    cos, sin = rope_frequencies(c, torch.arange(s, device=tokens.device))
+
+    def body(x, *weights):
+        layer = dict(zip(_LAYER_KEYS, weights))
+        x = _attention_block(x, layer, c, cos, sin, impl)
+        return _mlp_block(x, layer, c)
+
+    step = remat_wrap(body, remat)
+    # unbind once: the backward stacks the per-layer grads in one go
+    stacks = [params["layers"][name].unbind(0) for name in _LAYER_KEYS]
+    for weights in zip(*stacks):
+        x = step(x, *weights)
+    x = rms_norm(x, params["final_norm"], c.norm_eps)
+    # logits in f32: the loss softmax needs the headroom
+    return (x @ params["lm_head"]).float()
+

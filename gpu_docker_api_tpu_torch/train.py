@@ -1,0 +1,424 @@
+"""Training loop of the flagship workload, PyTorch port of gpu_docker_api_tpu/train.py.
+
+Single device so far: next-token cross-entropy in f32, AdamW written out to
+match the JAX package's optax chain (clip_by_global_norm, then adamw with
+decay on every leaf), gradient accumulation with f32 sums, atomic
+torch.save checkpoints (one directory per step) and the byte-compatible
+quiesce protocol the control plane's Backend.quiesce drives.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import shutil
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+from .data import to_device
+from .device import resolve_device
+from .models import family_for
+from .models.llama import param_shapes
+from .parallel.mesh import MeshPlan, require_single_device
+
+
+@dataclass
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    # LR schedule: warmup_steps > 0 enables linear warmup; decay_steps > 0
+    # adds cosine decay to min_lr_ratio * peak after warmup. Both 0 =
+    # constant LR.
+    warmup_steps: int = 0
+    decay_steps: int = 0
+    min_lr_ratio: float = 0.1
+    # accumulate gradients over this many equal micro-slices of the batch
+    # before the optimizer update (f32 sums; for llama this equals the
+    # full-batch step: mean CE is linear in equal slices)
+    accum_steps: int = 1
+    remat: bool = True   # per-layer checkpointing of the decoder body
+    # "dots" saves matmul outputs across the remat boundary; "full" saves
+    # only layer inputs (least memory, forward recomputed on backward)
+    remat_policy: str = "dots"
+
+
+# ---- optimizer --------------------------------------------------------------
+
+def make_schedule(tc: TrainConfig):
+    """The LR: a constant, or count -> LR with the optax shapes (linear
+    warmup from 0, then cosine decay to min_lr_ratio * peak, joined at the
+    warmup boundary)."""
+    if not tc.warmup_steps and not tc.decay_steps:
+        return tc.learning_rate
+    peak = tc.learning_rate
+    parts, bounds = [], []
+    if tc.warmup_steps:
+        w = tc.warmup_steps
+        parts.append(lambda n: peak * min(max(n, 0), w) / w)
+        bounds.append(w)
+    if tc.decay_steps:
+        d, alpha = tc.decay_steps, tc.min_lr_ratio
+
+        def cosine(n):
+            frac = 0.5 * (1 + math.cos(math.pi * min(n, d) / d))
+            return peak * ((1 - alpha) * frac + alpha)
+        parts.append(cosine)
+    else:
+        parts.append(lambda n: peak)
+
+    def schedule(count: int) -> float:
+        out = parts[0](count)
+        for boundary, part in zip(bounds, parts[1:]):
+            if count >= boundary:
+                out = part(count - boundary)
+        return out
+    return schedule if bounds else parts[0]
+
+
+def tree_leaves(tree: dict) -> list:
+    """Leaves of a nested dict in insertion order."""
+    out = []
+    for v in tree.values():
+        out.extend(tree_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def tree_map(fn, tree: dict) -> dict:
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf, in f32."""
+    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+
+
+class AdamW:
+    """optax.chain(clip_by_global_norm(clip), adamw(lr, b1, b2, eps=1e-8,
+    weight_decay)) written out, with optax's numerics:
+
+    - the clip scales by clip / norm only when norm >= clip (no epsilon);
+    - the moments live in the params' dtype (optax's mu_dtype=None);
+    - eps is added outside the square root; bias correction uses the
+      incremented count, the LR schedule the count before it;
+    - weight decay applies to every leaf, norms included.
+
+    Updates are in place on the parameters and moments."""
+
+    def __init__(self, tc: TrainConfig):
+        self.tc = tc
+        self.lr = make_schedule(tc)
+        self.eps = 1e-8
+
+    def init(self, params: dict) -> dict:
+        return {"count": 0, "mu": tree_map(torch.zeros_like, params),
+                "nu": tree_map(torch.zeros_like, params)}
+
+    @torch.no_grad()
+    def update(self, grads: list, state: dict, params: list) -> None:
+        tc = self.tc
+        norm = global_norm(grads)
+        clip = not bool(norm < tc.grad_clip)
+        count = state["count"]
+        lr = self.lr(count) if callable(self.lr) else self.lr
+        count += 1
+        # 1 - decay**count in f32, then cast to each leaf's dtype
+        bc1 = 1.0 - torch.tensor(tc.b1, dtype=torch.float32) ** count
+        bc2 = 1.0 - torch.tensor(tc.b2, dtype=torch.float32) ** count
+        for g, p, mu, nu in zip(grads, params, tree_leaves(state["mu"]),
+                                tree_leaves(state["nu"])):
+            if clip:
+                g = (g / norm.to(g.dtype)) * tc.grad_clip
+            mu.mul_(tc.b1).add_((1 - tc.b1) * g)
+            nu.mul_(tc.b2).add_((1 - tc.b2) * (g * g))
+            mu_hat = mu / bc1.to(mu.dtype).to(mu.device)
+            nu_hat = nu / bc2.to(nu.dtype).to(nu.device)
+            u = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+            u = u + tc.weight_decay * p
+            p.add_(u * -lr)
+        state["count"] = count
+
+
+# ---- loss -------------------------------------------------------------------
+
+def loss_fn(params, tokens, config, impl: str = "auto_grad", mesh=None,
+            n_microbatches: int = 0, remat: bool = True,
+            remat_policy: str = "dots"):
+    """Next-token CE in f32 (+ the family's extra loss). tokens [B, S];
+    predicts tokens[:, 1:]."""
+    if n_microbatches:
+        raise NotImplementedError(
+            "the pipelined trunk is not yet ported to PyTorch")
+    fam = family_for(config)
+    out = fam.forward(params, tokens, config, impl=impl, mesh=mesh,
+                      remat=remat_policy if remat else "none")   # f32
+    logits, extra = out if fam.returns_extra_loss else (out, 0.0)
+    targets = tokens[:, 1:]
+    logp = F.log_softmax(logits[:, :-1], dim=-1)
+    ll = logp.gather(-1, targets[..., None].long())[..., 0]
+    return -ll.mean() + extra
+
+
+# ---- trainer ----------------------------------------------------------------
+
+@dataclass
+class Trainer:
+    """Owns the train step on one device.
+
+    Usage:
+        trainer = Trainer.create(config)            # on the card
+        state = trainer.init(seed=0)
+        state, metrics = trainer.step(state, trainer.shard_batch(tokens))
+    """
+    config: Any
+    tc: TrainConfig
+    device: torch.device
+    plan: MeshPlan
+    optimizer: AdamW
+
+    @classmethod
+    def create(cls, config, plan: Optional[MeshPlan] = None,
+               tc: Optional[TrainConfig] = None,
+               device=None) -> "Trainer":
+        """device: None or "cuda" = the card (raises without one); "cpu"
+        only when asked for."""
+        plan = plan or MeshPlan()
+        require_single_device(plan)
+        tc = tc or TrainConfig()
+        return cls(config=config, tc=tc, device=resolve_device(device),
+                   plan=plan, optimizer=AdamW(tc))
+
+    def init(self, seed: int = 0) -> dict:
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        params = family_for(self.config).init_params(self.config, gen)
+        return self.state_from_params(params)
+
+    def state_from_params(self, params: dict) -> dict:
+        """A fresh train state around given parameters (e.g. converted from
+        the JAX package, convert.py)."""
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        return {"params": params, "opt_state": self.optimizer.init(params),
+                "step": 0}
+
+    def abstract_state(self) -> dict:
+        """Shapes and dtypes of the parameters, without allocating: the
+        template a restored checkpoint is checked against."""
+        return {"params": param_shapes(self.config)}
+
+    def _loss(self, params, tokens):
+        return loss_fn(params, tokens, self.config, remat=self.tc.remat,
+                       remat_policy=self.tc.remat_policy)
+
+    def step(self, state: dict, tokens: torch.Tensor):
+        """One optimizer step, in place on `state`. Returns (state,
+        {"loss", "grad_norm"}), grad_norm taken before the clip."""
+        params = state["params"]
+        leaves = tree_leaves(params)
+        accum = max(self.tc.accum_steps, 1)
+        if accum == 1:
+            loss = self._loss(params, tokens)
+            grads = torch.autograd.grad(loss, leaves)
+            loss = loss.detach()
+        else:
+            b = tokens.shape[0]
+            if b % accum:
+                raise ValueError(
+                    f"batch {b} not divisible by accum_steps {accum}")
+            grad_sum = [torch.zeros_like(p, dtype=torch.float32)
+                        for p in leaves]
+            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            for toks in tokens.reshape(accum, b // accum, *tokens.shape[1:]):
+                part = self._loss(params, toks)
+                # sum in f32: adding bf16 micro-grads would bleed precision
+                for acc, g in zip(grad_sum, torch.autograd.grad(part, leaves)):
+                    acc.add_(g.float())
+                loss += part.detach()
+            loss = loss / accum
+            grads = [(g / accum).to(p.dtype) for g, p in zip(grad_sum, leaves)]
+        gnorm = global_norm(grads)
+        self.optimizer.update(grads, state["opt_state"], leaves)
+        state["step"] += 1
+        return state, {"loss": loss, "grad_norm": gnorm}
+
+    def shard_batch(self, tokens) -> torch.Tensor:
+        """A host batch onto this trainer's device."""
+        return to_device(tokens, self.device)
+
+
+# ---- checkpointing (torch.save, one directory per step) ----------------------
+#
+# <path>/<step>/state.pt is written under <path>/<step>.tmp-<pid>/, fsync'd,
+# renamed into place and the parent directory fsync'd: a step directory
+# exists only once its state is durable. A crash mid-save leaves only a
+# *.tmp-* directory, which the resume path sweeps first.
+
+STATE_FILE = "state.pt"
+TMP_MARK = ".tmp-"
+
+
+def save_checkpoint(path: str, state: dict, step: int) -> None:
+    os.makedirs(path, exist_ok=True)
+    final = os.path.join(path, str(step))
+    tmp = os.path.join(path, f"{step}{TMP_MARK}{os.getpid()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    with open(os.path.join(tmp, STATE_FILE), "wb") as f:
+        torch.save(state, f)
+        f.flush()
+        os.fsync(f.fileno())
+    _fsync_dir(tmp)
+    if os.path.exists(final):       # an earlier save of this same step
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    _fsync_dir(path)
+
+
+def purge_incomplete_checkpoints(path: str) -> int:
+    """Remove uncommitted step directories (*.tmp-*), the debris a kill
+    lands mid-save. Returns how many were removed."""
+    try:
+        entries = os.listdir(path)
+    except OSError:
+        return 0
+    n = 0
+    for entry in entries:
+        if TMP_MARK in entry:
+            shutil.rmtree(os.path.join(path, entry), ignore_errors=True)
+            n += 1
+    return n
+
+
+def latest_step(path: str) -> Optional[int]:
+    """The newest committed step under `path`, or None."""
+    try:
+        entries = os.listdir(path)
+    except OSError:
+        return None
+    steps = [int(e) for e in entries if e.isdigit()
+             and os.path.exists(os.path.join(path, e, STATE_FILE))]
+    return max(steps, default=None)
+
+
+def _check_template(params: dict, shapes: dict, path: str = "") -> None:
+    if set(params) != set(shapes):
+        raise ValueError(f"checkpoint {path or 'params'} keys "
+                         f"{sorted(params)} != {sorted(shapes)}")
+    for name, spec in shapes.items():
+        if isinstance(spec, dict):
+            _check_template(params[name], spec, f"{path}{name}.")
+        elif (tuple(params[name].shape), params[name].dtype) != spec:
+            raise ValueError(
+                f"checkpoint {path}{name}: {tuple(params[name].shape)} "
+                f"{params[name].dtype} != {spec[0]} {spec[1]}")
+
+
+def restore_checkpoint(path: str, abstract_state: Optional[dict] = None,
+                       device="cpu") -> tuple[dict, int]:
+    """(state, step) of the newest committed checkpoint, loaded onto
+    `device`. FileNotFoundError when there is none; a checkpoint whose
+    parameters do not match `abstract_state` raises ValueError."""
+    purge_incomplete_checkpoints(path)
+    step = latest_step(path)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {path}")
+    state = torch.load(os.path.join(path, str(step), STATE_FILE),
+                       map_location=device, weights_only=True)
+    if abstract_state is not None:
+        _check_template(state["params"], abstract_state["params"])
+    for p in tree_leaves(state["params"]):
+        p.requires_grad_(True)
+    return state, step
+
+
+# ---- workload quiesce (checkpoint-on-drain) ----------------------------------
+#
+# The workload half of the backend quiesce contract (Backend.quiesce): on
+# SIGUSR1 the workload finishes its in-flight step, saves a checkpoint at that
+# exact step, writes a durable `QUIESCED <step>` marker next to it, writes the
+# `.quiesced` ack the backend polls for, and parks until the control plane
+# stops it. Byte-compatible with gpu_docker_api_tpu/train.py.
+
+QUIESCE_MARKER = "QUIESCED"
+
+
+class QuiesceSignal:
+    """Installs the SIGUSR1 handler; the training loop polls `requested` at
+    step boundaries (the handler only flips a flag)."""
+
+    def __init__(self):
+        import signal
+        self.requested = False
+        signal.signal(signal.SIGUSR1, self._on_signal)
+
+    def _on_signal(self, signum, frame):
+        self.requested = True
+
+    @staticmethod
+    def park() -> None:
+        """Hold the process alive until the control plane's stop (SIGTERM)."""
+        import signal
+        while True:
+            signal.pause()
+
+
+def _fsync_dir(path: str) -> None:
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _durable_write(path: str, payload: str) -> None:
+    """Atomic + durable: tmp-write, fsync, rename, fsync dir."""
+    tmp = path + ".tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        f.write(payload)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    _fsync_dir(os.path.dirname(path) or ".")
+
+
+def write_quiesce_marker(ckpt_dir: str, step: int) -> None:
+    """Durable `QUIESCED <step>` next to the checkpoints, written after the
+    checkpoint is durable, so marker implies checkpoint."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    _durable_write(os.path.join(ckpt_dir, QUIESCE_MARKER), f"{step}\n")
+
+
+def read_quiesce_marker(ckpt_dir: str):
+    """The parked step, or None when no quiesce marker exists."""
+    try:
+        with open(os.path.join(ckpt_dir, QUIESCE_MARKER)) as f:
+            return int(f.read().strip())
+    except (OSError, ValueError):
+        return None
+
+
+def clear_quiesce_marker(ckpt_dir: str) -> None:
+    """Consume the marker on resume (idempotent)."""
+    try:
+        os.unlink(os.path.join(ckpt_dir, QUIESCE_MARKER))
+    except OSError:
+        return
+    _fsync_dir(ckpt_dir)
+
+
+def write_quiesce_ack(step: int) -> None:
+    """The ack the backend polls for at the container's writable-layer root,
+    written last: it is the 'safe to stop me' promise."""
+    root = os.environ.get("CONTAINER_ROOT") or os.getcwd()
+    _durable_write(os.path.join(root, ".quiesced"),
+                   json.dumps({"step": step}))

@@ -1,0 +1,194 @@
+"""The flagship scheduled workload, PyTorch port: resumable Llama training.
+
+What runs inside a replicaSet container, with the JAX workload's contract
+(gpu_docker_api_tpu/workloads/train_llama.py): the same flags, all durable
+state (checkpoints, metrics.jsonl) under --workdir, resume-first from the
+newest checkpoint, the same metrics.jsonl schema and the quiesce park on
+SIGUSR1. It trains on the CUDA card the container was given; --device cpu
+runs on the CPU instead (tests). Multi-device plans and multi-worker
+contracts are not yet ported and are refused.
+
+Run: python -m gpu_docker_api_tpu_torch.workloads.train_llama \
+        --config tiny --steps 100 --workdir /path/to/run1
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+
+def _refuse_multi_worker(env=None) -> None:
+    """The control plane's multi-worker contract (TPU_WORKER_HOSTNAMES over
+    more than one host) needs a distributed runtime the port lacks."""
+    e = os.environ if env is None else env
+    hosts = [h for h in e.get("TPU_WORKER_HOSTNAMES", "").split(",") if h]
+    if len(hosts) > 1:
+        raise NotImplementedError(
+            f"a {len(hosts)}-worker grant: multi-worker training is not yet "
+            f"ported to PyTorch")
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--family", default="llama", choices=["llama", "moe"])
+    p.add_argument("--config", default="tiny",
+                   help="named config for the family (models.NAMED_CONFIGS)")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--seq", type=int, default=64)
+    p.add_argument("--workdir", default=os.environ.get("CONTAINER_ROOT", "."))
+    p.add_argument("--checkpoint-every", type=int, default=10)
+    p.add_argument("--tp", type=int, default=0, help="0 = auto from devices")
+    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline stages (llama family)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel width (moe family)")
+    p.add_argument("--microbatches", type=int, default=4,
+                   help="pipeline microbatches when --pp > 1")
+    p.add_argument("--virtual-stages", type=int, default=1,
+                   help="interleaved pipeline schedule: layer chunks per "
+                        "stage")
+    p.add_argument("--data", default="",
+                   help="flat binary token file (uint16, or uint32 with a "
+                        ".u32 suffix — the nanoGPT/llm.c format); empty = "
+                        "synthetic random tokens")
+    p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--warmup-steps", type=int, default=0,
+                   help="linear LR warmup (0 = constant)")
+    p.add_argument("--decay-steps", type=int, default=0,
+                   help="cosine decay horizon after warmup (0 = none)")
+    p.add_argument("--min-lr-ratio", type=float, default=0.1,
+                   help="cosine decay floor as a fraction of peak LR")
+    p.add_argument("--accum-steps", type=int, default=1,
+                   help="gradient accumulation micro-slices per step")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where to train: the CUDA card (default; raises "
+                        "without one) or, when asked, the CPU")
+    args = p.parse_args(argv)
+
+    from ..device import resolve_device
+    device = resolve_device(args.device)   # no card and no --device cpu: raise
+    _refuse_multi_worker()
+    for flag in ("tp", "sp", "pp", "ep", "virtual_stages"):
+        if getattr(args, flag) > 1:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} {getattr(args, flag)}: "
+                f"multi-device training is not yet ported to PyTorch")
+
+    from ..data import Prefetcher, make_dataset
+    from ..models import named_config
+    from ..parallel.mesh import MeshPlan, plan_from_env, require_single_device
+    from ..train import (
+        QuiesceSignal, Trainer, TrainConfig, clear_quiesce_marker,
+        read_quiesce_marker, restore_checkpoint,
+    )
+
+    # gang contract: a plan the control plane stamped must be honoured
+    # exactly, and the port runs only the one-device plan
+    plan = plan_from_env() or MeshPlan()
+    require_single_device(plan)
+
+    # checkpoint-on-drain: install the SIGUSR1 handler before the loop, so
+    # a drain arriving any time after startup is honoured at the next step
+    # boundary (train.py QuiesceSignal)
+    quiesce = QuiesceSignal()
+
+    os.makedirs(args.workdir, exist_ok=True)
+    ckpt_dir = os.path.abspath(os.path.join(args.workdir, "checkpoints"))
+    metrics_path = os.path.join(args.workdir, "metrics.jsonl")
+
+    try:
+        config = named_config(args.family, args.config)
+    except KeyError as e:
+        p.error(str(e))
+
+    trainer = Trainer.create(
+        config, plan, tc=TrainConfig(learning_rate=args.lr,
+                                     warmup_steps=args.warmup_steps,
+                                     decay_steps=args.decay_steps,
+                                     min_lr_ratio=args.min_lr_ratio,
+                                     accum_steps=args.accum_steps),
+        device=device)
+
+    # resume-first: a fresh init only when there is no checkpoint at all
+    start_step = 0
+    try:
+        state, start_step = restore_checkpoint(
+            ckpt_dir, trainer.abstract_state(), device=trainer.device)
+        q_step = read_quiesce_marker(ckpt_dir)
+        if q_step is not None:
+            # a prior generation parked here via quiesce; consume the marker
+            print(f"resuming quiesced run: marker step {q_step}, "
+                  f"checkpoint step {start_step}", flush=True)
+            clear_quiesce_marker(ckpt_dir)
+        print(f"resumed from checkpoint step {start_step}", flush=True)
+    except FileNotFoundError:
+        # no checkpoint yet. Anything else (a shape mismatch from a changed
+        # --config, a corrupt payload) fails loudly: silently starting over
+        # would discard real progress on the same workdir.
+        state = trainer.init(seed=0)
+
+    # deterministic (seed, step) batches — resume replays the exact stream —
+    # staged onto the device while the step runs
+    dataset = make_dataset(
+        args.data, config.vocab_size, args.batch, args.seq, seed=args.seed)
+    prefetch = Prefetcher(dataset.iter_from(start_step),
+                          place=trainer.shard_batch)
+
+    metrics_f = open(metrics_path, "a", encoding="utf-8")
+    try:
+        _train_loop(args, trainer, state, start_step, prefetch, metrics_f,
+                    ckpt_dir, plan, quiesce)
+    finally:
+        metrics_f.close()
+        prefetch.close()
+    print(f"done: {args.steps} steps", flush=True)
+    return 0
+
+
+def _ckpt_record(metrics_f, rec: dict) -> None:
+    """Checkpoint-marker jsonl append, flushed and fsync'd: a durable
+    checkpoint never lacks its marker line."""
+    metrics_f.write(json.dumps(rec) + "\n")
+    metrics_f.flush()
+    os.fsync(metrics_f.fileno())
+
+
+def _train_loop(args, trainer, state, start_step, prefetch, metrics_f,
+                ckpt_dir, plan, quiesce):
+    from ..train import (
+        save_checkpoint, write_quiesce_ack, write_quiesce_marker,
+    )
+    for step in range(start_step, args.steps):
+        tokens = next(prefetch)
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, tokens)
+        loss = float(metrics["loss"])       # waits for the step to finish
+        rec = {"step": step + 1, "loss": round(loss, 5),
+               "step_time_s": round(time.perf_counter() - t0, 4),
+               "devices": plan.size, "plan": str(plan), "time": time.time()}
+        metrics_f.write(json.dumps(rec) + "\n")
+        metrics_f.flush()
+        if quiesce.requested:
+            # park at exactly step+1: checkpoint, durable marker, then the
+            # ack, strictly in that order so ack implies durable checkpoint
+            save_checkpoint(ckpt_dir, state, step + 1)
+            write_quiesce_marker(ckpt_dir, step + 1)
+            _ckpt_record(metrics_f, {"checkpoint": step + 1,
+                                     "quiesced": True, "time": time.time()})
+            write_quiesce_ack(step + 1)
+            print(f"quiesced at step {step + 1}; parking", flush=True)
+            quiesce.park()      # until the control plane's stop (SIGTERM)
+        if (step + 1) % args.checkpoint_every == 0 or step + 1 == args.steps:
+            save_checkpoint(ckpt_dir, state, step + 1)
+            _ckpt_record(metrics_f, {"checkpoint": step + 1,
+                                     "time": time.time()})
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
