@@ -11,9 +11,11 @@ runtimes draw the same batches from the same (seed, step):
   ... with no iterator state to checkpoint.
 - **Per-process streams**: each process draws from a disjoint stream
   (seed folded with process_id); the port runs one process for now.
-- **Prefetch**: a background thread stages the NEXT batch onto the device
-  while the current step runs (`to_device`: pinned host memory and a
-  non-blocking copy), so the host-to-device transfer overlaps compute.
+- **Prefetch**: a background thread prepares the NEXT batch (crop, pinned
+  host copy) while the current step runs. The non-blocking device copy
+  (`to_device`) is issued on the device's default stream, the one the step
+  runs on, so it waits for the running step: only the host-side work
+  overlaps compute.
 """
 
 from __future__ import annotations
@@ -112,7 +114,8 @@ class Prefetcher:
 
     place(np_batch) -> device tensor runs in a background thread (it calls
     Trainer.shard_batch, i.e. to_device); `depth` batches are in flight, so
-    the host->device transfer of step N+1 overlaps the compute of step N.
+    the host-side preparation of step N+1 overlaps the compute of step N
+    (the device copy itself queues behind step N on the default stream).
     Iterate, or call next(); close() (or exhaustion) joins the thread.
     """
 
