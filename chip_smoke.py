@@ -7,19 +7,26 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero and prints no result):
   0. print the card's name and power limit; build the three flash kernels
-     from gpu_docker_api_tpu_torch/csrc with nvcc (sm_90a), all at once.
+     from gpu_docker_api_tpu_torch/csrc with nvcc (sm_90a), all at once;
+     the wgmma kernels must compile with no spill stores, no serialised
+     wgmma and no ignored setmaxnreg, and the forward's and dK/dV's machine
+     code must hold wgmma and TMA instructions.
   1. hold each kernel against its plain PyTorch version on the same inputs:
-     f32 and bf16; causal, full and windowed; GQA groups 1 and 2; a ragged
-     S; with and without an lse cotangent; and at the main path's shape,
-     where the bf16 check must also reject every planted fault, and each
-     kernel, its plain version and the SDPA yardstick are timed.
+     f32 and bf16; causal, full and windowed; GQA groups 1, 2 and 4;
+     ragged and odd S; with and without an lse cotangent; bf16 at S=4096,
+     causal and with
+     a 1024 window (many trips round the kernels' load rings); and at the
+     main path's shape, where the bf16 check must also reject every planted
+     fault, a second run of each kernel must give the same bits, and each
+     kernel, its plain version and the SDPA yardsticks are timed.
   2. the main path: train_llama at the llama 1b config, B=4, S=2048, for a
      few steps, with the launch counters set to 0 just before and read just
      after; losses finite, the first near its value at init; every attention
      call went through the kernels. Then the 1b trunk's logits and loss
      gradients on a small input, through the kernels and through the
      reference attention: in f32 against each other, in bf16 each against
-     the f32 run.
+     the f32 run, where every planted fault standing in for its kernel must
+     be rejected.
   3. resume: tiny config, 4 steps with checkpoints every 2, a restart, 2
      more steps; the metrics.jsonl step sequence must be 1..6 with no gap.
 
@@ -63,9 +70,14 @@ BAND = 64
 BF16_TOL = 0.1
 BF16_FROB = 0.006
 # bf16 trunk: the kernels' error against the f32 reference run may be at
-# most this multiple of the bf16 reference attention's (1.04 read on the
-# H100, PERF.md)
-TRUNK_MARGIN = 1.1
+# most this multiple of the bf16 reference attention's, and every planted
+# fault's must exceed it. Set between the readings of
+# scripts/torch_trunk_margin.py on the H100 over six seeds (PERF.md): sound
+# kernels and controls at most 1.143 (the logits' largest error, one
+# element's worst case, scatters by about 0.1 from seed to seed), planted
+# faults at least 3.94.
+TRUNK_MARGIN = 1.5
+TRUNK_S = 256     # the trunk check's sequence length (B=1)
 
 REPLACES = {
     "flash_fwd": "gpu_docker_api_tpu/ops/attention.py:108",
@@ -199,8 +211,9 @@ def kernel_case(torch, att, *, b, s, h, hkv, d, dtype, causal=True, window=0,
 def planted_faults(torch, att, q, k, v, o, do, lse):
     """What kernels with known bugs would output at these inputs (causal,
     bf16): each fault is modelled in f32 from the plain math and rounded to
-    bf16 as the kernels round their outputs. Yields (name, kernel, outputs);
-    the first entry of each kernel plants no fault (a control)."""
+    bf16 as the kernels round their outputs. Returns [(name, kernel, a
+    function giving the kernel's outputs)]; the first entry of each kernel
+    plants no fault (a control)."""
     b, s, h, d = q.shape
     group = h // k.shape[2]
     n = -(-s // BAND)
@@ -272,8 +285,7 @@ def planted_faults(torch, att, q, k, v, o, do, lse):
         ("causal mask col < row", "flash_bwd_dkv",
          lambda: dkv_of(rows == cols)),
     ]
-    for name, kernel, outputs in faults:
-        yield name, kernel, outputs()
+    return faults
 
 
 def check_planted_faults(torch, att, inputs, refs):
@@ -284,7 +296,7 @@ def check_planted_faults(torch, att, inputs, refs):
     missed, least = [], {}
     for name, kernel, outputs in planted_faults(torch, att, *inputs):
         rd = [bf16_readings(torch, got, ref)
-              for got, ref in zip(outputs, refs[kernel])]
+              for got, ref in zip(outputs(), refs[kernel])]
         readings = (max(x[0] for x in rd), max(x[1] for x in rd))
         caught = not bf16_ok(readings)
         print(f"    {kernel}: {name}: ratio {readings[0]:.4g}, frob "
@@ -300,6 +312,21 @@ def check_planted_faults(torch, att, inputs, refs):
         least[kernel] = (min(old[0], readings[0]), min(old[1], readings[1]))
     check(not missed, f"the bf16 check passes planted faults: {missed}")
     return least
+
+
+def check_repeatable(torch, att, q, k, v, o, do, lse):
+    """The kernels run twice on the same inputs must give the same bits:
+    a ring stage released early, or a sum whose order depends on timing,
+    shows up here before it shows up as a wrong number."""
+    for name, run in (
+            ("flash_fwd", lambda: att.flash_fwd(q, k, v)),
+            ("flash_bwd_dq", lambda: (att.flash_bwd_dq(q, k, v, o, do, lse),)),
+            ("flash_bwd_dkv", lambda: att.flash_bwd_dkv(q, k, v, o, do, lse))):
+        first, second = run(), run()
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        check(same, f"{name}: two runs on the same inputs differ")
+    print("  bitwise repeat at the main shape: fwd (o, lse), dq, dkv (dk, dv) "
+          "identical", flush=True)
 
 
 def bounds(shape, dtype_bytes):
@@ -339,6 +366,11 @@ def phase_kernels(torch, att):
         dict(b=1, s=160, h=4, hkv=2, d=128, window=70),      # window, ragged
         dict(b=1, s=128, h=4, hkv=2, d=64, with_dlse=True),  # lse cotangent
         dict(b=1, s=96, h=2, hkv=1, d=32, causal=False, with_dlse=True),
+        dict(b=2, s=97, h=4, hkv=1, d=16, window=33),      # odd S, group 4
+    ]
+    long = [  # bf16 only: the f32 plain versions' [S, S] terms would not fit
+        dict(b=1, s=4096, h=16, hkv=8, d=128),
+        dict(b=1, s=4096, h=16, hkv=8, d=128, window=1024),
     ]
     sound = {}   # kernel -> worst bf16 (ratio, frob) of the kernels
 
@@ -353,9 +385,12 @@ def phase_kernels(torch, att):
     for dtype in (torch.float32, torch.bfloat16):
         for i, kw in enumerate(small):
             case(dtype=dtype, seed=i, **kw)
+    for i, kw in enumerate(long):
+        case(dtype=torch.bfloat16, seed=50 + i, **kw)
     errs, inputs, refs = case(dtype=torch.bfloat16, seed=99, **MAIN_SHAPE)
     faults = check_planted_faults(torch, att, inputs, refs)
     del refs
+    check_repeatable(torch, att, *inputs)
     bf16_check = {name: {"kernels_ratio": sound[name][0],
                          "kernels_frob": sound[name][1],
                          "least_fault_ratio": faults[name][0],
@@ -403,6 +438,12 @@ def phase_kernels(torch, att):
         "sdpa_fwd_bwd_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
             *lib, is_causal=True, enable_gqa=True).backward(do_t), 10),
     }
+    # the pair dq + dkv against SDPA's backward alone (its fwd+bwd less its
+    # forward)
+    fwd_bwd["kernels_bwd_ms"] = (results["flash_bwd_dq"]["ms"]
+                                 + results["flash_bwd_dkv"]["ms"])
+    fwd_bwd["sdpa_bwd_ms"] = (fwd_bwd["sdpa_fwd_bwd_ms"]
+                              - results["flash_fwd"]["library_ms"])
     print(f"  attention fwd+bwd: {fwd_bwd}", flush=True)
     return results, fwd_bwd, bf16_check
 
@@ -455,77 +496,152 @@ def phase_main_path(torch, att, steps: int):
     step_s = statistics.median(times)
     tokens_s = b * s / step_s
 
-    trunk = trunk_check(torch, cfg)
+    trunk = trunk_check(torch, att, cfg)
     return {"launches": launches, "losses": losses, "step_s": step_s,
             "step_times_s": times, "tokens_s": tokens_s, "trunk": trunk}
 
 
-def trunk_check(torch, cfg):
-    """The 1b trunk at full width on a small input (B=1, S=256): logits and
-    every parameter's gradient of the training loss through the kernels
-    ("auto") and through the reference attention ("xla"), from one set of
-    bf16-valued weights. In f32 the kernels must agree with the reference to
-    F32_TOL. In bf16 the residual stream's roundings compound over the
-    layers, so both bf16 runs are held to the f32 reference run, and the
-    kernels' error may be at most TRUNK_MARGIN times the reference's."""
+def trunk_fault_models(torch, att):
+    """[(kernel, fault name)] of the entries of planted_faults at the
+    trunk's length, the controls included."""
+    q = torch.zeros(1, TRUNK_S, 2, 16, dtype=torch.bfloat16)
+    kv = torch.zeros(1, TRUNK_S, 1, 16, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, TRUNK_S)
+    return [(kernel, name) for name, kernel, _ in
+            planted_faults(torch, att, q, kv, kv, q, q, lse)]
+
+
+def planted_kernel(torch, att, index):
+    """A stand-in for one kernel wrapper: entry `index` of planted_faults,
+    computed from whatever inputs the trunk gives it (causal, no window, no
+    lse cotangent). The forward's stand-in returns the plain version's lse."""
+    kernel = trunk_fault_models(torch, att)[index][0]
+
+    def model(q, k, v, o, do, lse):
+        # contiguous, as the kernels write them (the next kernel checks it)
+        return [t.contiguous() for t in
+                planted_faults(torch, att, q, k, v, o, do, lse)[index][2]()]
+
+    def fwd(q, k, v, causal=True, window=0, want_lse=True):
+        o, lse = att.flash_fwd_plain(q, k, v, causal, window)
+        return model(q, k, v, o, torch.zeros_like(q), lse)[0], lse
+
+    def bwd(q, k, v, o, do, lse, causal=True, window=0, dlse=None):
+        out = model(q, k, v, o, do, lse)
+        return out[0] if kernel == "flash_bwd_dq" else tuple(out)
+
+    return kernel, fwd if kernel == "flash_fwd" else bwd
+
+
+def trunk_readings(torch, att, cfg, seed=7, faults=(), device="cuda"):
+    """The 1b trunk at full width on a small input (B=1, S=TRUNK_S): logits
+    and every parameter's gradient of the training loss, from one set of
+    bf16-valued weights and tokens made from `seed`; in f32 and bf16,
+    through the kernels ("auto") and the reference attention ("xla"), and in
+    bf16 once more for each index in `faults`, with that entry of
+    planted_faults standing in for its kernel. Returns (f32: the kernels'
+    max |err| over max |ref| against the reference attention, bf16: {run:
+    errors against the f32 reference run})."""
     from gpu_docker_api_tpu_torch.models import llama
     from gpu_docker_api_tpu_torch.train import loss_fn, tree_leaves, tree_map
 
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    cfgs = {"bf16": cfg, "f32": dataclasses.replace(cfg, dtype=torch.float32)}
-    params = {"bf16": llama.init_params(cfg, gen)}
-    params["f32"] = tree_map(lambda t: t.float(), params["bf16"])
-    tokens = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
-                           device="cuda")
-    logits, grads = {}, {}
-    for prec in ("f32", "bf16"):
-        leaves = tree_leaves(params[prec])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p16 = llama.init_params(cfg, gen)
+    p32 = tree_map(lambda t: t.float(), p16)
+    tokens = torch.randint(0, cfg.vocab_size, (1, TRUNK_S), generator=gen,
+                           device=device)
+
+    def run(params, c, impl):
+        leaves = tree_leaves(params)
         for t in leaves:
             t.requires_grad_(True)
-        for impl in ("auto", "xla"):
-            with torch.no_grad():
-                logits[prec, impl] = llama.llama_forward(
-                    params[prec], tokens, cfgs[prec], impl=impl)
-            grads[prec, impl] = torch.autograd.grad(
-                loss_fn(params[prec], tokens, cfgs[prec], impl=impl), leaves)
-    del params
-    ref_l, ref_g = logits["f32", "xla"], grads["f32", "xla"]
-    for key, got in logits.items():
-        check(bool(torch.isfinite(got).all()) and got.shape == ref_l.shape,
-              f"1b logits {key} not finite / wrong shape")
+        with torch.no_grad():
+            logits = llama.llama_forward(params, tokens, c, impl=impl)
+        check(bool(torch.isfinite(logits).all())
+              and logits.shape == (1, TRUNK_S, cfg.vocab_size),
+              f"1b logits ({c.dtype}, {impl}) not finite / wrong shape")
+        return logits, torch.autograd.grad(
+            loss_fn(params, tokens, c, impl=impl), leaves)
 
     def max_rel(got, ref):
         return float((got.float() - ref).abs().max()
                      / ref.abs().max().clamp_min(1e-30))
 
-    f32 = {"logits": max_rel(logits["f32", "auto"], ref_l),
-           "grads_worst_leaf": max(max_rel(g, r) for g, r in
-                                   zip(grads["f32", "auto"], ref_g))}
-    print(f"  1b f32 trunk (B=1, S=256), kernels vs reference attention, "
-          f"max |err| over max |ref|: {f32}", flush=True)
-    check(all(e <= F32_TOL for e in f32.values()),
-          f"1b f32 trunk err {f32} > {F32_TOL}")
+    ref_l, ref_g = run(p32, cfg32, "xla")
+    logits, grads = run(p32, cfg32, "auto")
+    f32 = {"logits": max_rel(logits, ref_l),
+           "grads_worst_leaf": max(max_rel(g, r)
+                                   for g, r in zip(grads, ref_g))}
+    del logits, grads, p32
 
-    def bf16_err(impl):
-        d_l = logits["bf16", impl] - ref_l
-        d_g = [(g.float() - r).norm() for g, r in zip(grads["bf16", impl],
-                                                       ref_g)]
+    def bf16_err(logits, grads):
+        d_g = [(g.float() - r).norm() for g, r in zip(grads, ref_g)]
         r_g = [r.norm() for r in ref_g]
-        return {"logits_frob": float(d_l.norm() / ref_l.norm()),
-                "logits_max": max_rel(logits["bf16", impl], ref_l),
+        return {"logits_frob": float((logits - ref_l).norm() / ref_l.norm()),
+                "logits_max": max_rel(logits, ref_l),
                 "grads_frob": float(torch.stack(d_g).norm()
                                     / torch.stack(r_g).norm()),
                 "grads_worst_leaf": max(float(d / r.clamp_min(1e-30))
                                         for d, r in zip(d_g, r_g))}
 
-    bf16 = {"kernels": bf16_err("auto"), "reference": bf16_err("xla")}
-    print(f"  1b bf16 trunk (B=1, S=256) against the f32 reference run: "
-          f"{bf16}", flush=True)
-    worse = [key for key, e in bf16["kernels"].items()
-             if e > TRUNK_MARGIN * bf16["reference"][key]]
-    check(not worse, f"1b bf16 trunk: the kernels' error exceeds "
-                     f"{TRUNK_MARGIN} x the reference attention's in {worse}")
-    return {"f32": f32, "bf16": bf16}
+    bf16 = {"kernels": bf16_err(*run(p16, cfg, "auto")),
+            "reference": bf16_err(*run(p16, cfg, "xla"))}
+    models = trunk_fault_models(torch, att)
+    for i in faults:
+        kernel, stand_in = planted_kernel(torch, att, i)
+        real = getattr(att, kernel)
+        setattr(att, kernel, stand_in)
+        try:
+            bf16[f"{kernel}: {models[i][1]}"] = bf16_err(
+                *run(p16, cfg, "auto"))
+        finally:
+            setattr(att, kernel, real)
+    return f32, bf16
+
+
+def trunk_excess(bf16):
+    """{run: the largest ratio, over the bf16 readings, of the run's error
+    to the reference attention's} of every run but the reference."""
+    ref = bf16["reference"]
+    return {run: max(e[key] / ref[key] for key in ref)
+            for run, e in bf16.items() if run != "reference"}
+
+
+def trunk_check(torch, att, cfg):
+    """The 1b trunk (trunk_readings) with every planted fault. In f32 the
+    kernels must agree with the reference attention to F32_TOL. In bf16 the
+    residual stream's roundings compound over the layers, so every bf16 run
+    is held to the f32 reference run: the kernels' error, and each
+    control's, may be at most TRUNK_MARGIN times the reference attention's,
+    and each planted fault's must exceed it."""
+    models = trunk_fault_models(torch, att)
+    f32, bf16 = trunk_readings(torch, att, cfg, faults=range(len(models)))
+    print(f"  1b f32 trunk (B=1, S={TRUNK_S}), kernels vs reference "
+          f"attention, max |err| over max |ref|: {f32}", flush=True)
+    check(all(e <= F32_TOL for e in f32.values()),
+          f"1b f32 trunk err {f32} > {F32_TOL}")
+    print(f"  1b bf16 trunk (B=1, S={TRUNK_S}) against the f32 reference "
+          f"run: kernels {bf16['kernels']}, reference attention "
+          f"{bf16['reference']}", flush=True)
+    excess = trunk_excess(bf16)
+    print(f"  1b bf16 trunk, error over the reference attention's (limit "
+          f"{TRUNK_MARGIN}):", flush=True)
+    over, missed = [], []
+    for run, x in excess.items():
+        control = run == "kernels" or run.endswith(": none")
+        ok = x <= TRUNK_MARGIN
+        print(f"    {run}: {x:.4g} -> {'passed' if ok else 'rejected'}",
+              flush=True)
+        if control and not ok:
+            over.append(run)
+        if not control and ok:
+            missed.append(run)
+    check(not over, f"1b bf16 trunk: error over {TRUNK_MARGIN} x the "
+                    f"reference attention's in {over}")
+    check(not missed, f"1b bf16 trunk: planted faults within "
+                      f"{TRUNK_MARGIN} x the reference's: {missed}")
+    return {"f32": f32, "bf16": bf16, "excess": excess}
 
 
 def phase_resume():
@@ -574,7 +690,70 @@ def build_kernels(torch):
         print(f"  ptxas {name}: {len(regs)} instantiations, registers <= "
               f"{max(regs, default=0)}, spill stores <= "
               f"{max(spills, default=0)} bytes", flush=True)
+        for fn, fn_regs, fn_spill in ptxas_entries(log):
+            if "wgmma" in fn:
+                print(f"    {fn}: {fn_regs} registers, {fn_spill} bytes "
+                      f"spill stores", flush=True)
+                check(fn_spill == 0, f"{fn} spills {fn_spill} bytes")
+        for line in log.splitlines():
+            if "Performance Loss" in line or "warning" in line.lower():
+                print(f"    {line.strip()}", flush=True)
+        lost = ptxas_wgmma_losses(log)
+        check(not lost, f"{name}: ptxas undid the wgmma design: {lost}")
+    check_sass(_build)
     return smi, att
+
+
+def check_sass(_build):
+    """The redesigned kernels' machine code must hold the Hopper
+    instructions they were written for: HGMMA (wgmma) and UTMALDG (TMA
+    loads)."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    for name in ("flash_fwd", "flash_bwd_dkv"):
+        sass = subprocess.run([cuobjdump, "-sass", str(_build._lib_path(name))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass))
+                  for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+        print(f"  sass {name}: {counts}", flush=True)
+        check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+              f"{name}: no wgmma / TMA instructions in its machine code")
+
+
+def ptxas_entries(log):
+    """(demangled-ish kernel name, registers, spill-store bytes) of each
+    entry function in an `nvcc -Xptxas -v` report."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((re.sub(r"^_ZN5flash3hop\d+|EEEv.*$", "", name),
+                        int(m.group(1)), spill))
+            name, spill = None, 0
+    return out
+
+
+def ptxas_wgmma_losses(log):
+    """ptxas's "Potential Performance Loss" notes that undo the wgmma
+    kernels' design without a spill: wgmmas serialised in a *_wgmma
+    function (each waits for the one before), or a setmaxnreg ignored (only
+    the wgmma kernels reallocate registers; the note names no function)."""
+    lost = []
+    for line in log.splitlines():
+        if "Performance Loss" not in line:
+            continue
+        m = re.search(r"wgmma\.mma_async instructions are serialized.*"
+                      r"function '(\w+)'", line)
+        if (m and "wgmma" in m.group(1)) or "'setmaxnreg' ignored" in line:
+            lost.append(line.split("Performance Loss:")[-1].strip())
+    return lost
 
 
 def main() -> int:

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "hopper.cuh")
 # kernel name -> (source, C argument types after the dtype code)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,7 +34,7 @@ KERNELS = {
                      [_P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _P]),
     "flash_bwd_dkv": ("flash_bwd_dkv.cu",
-                      [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -261,9 +261,12 @@ def flash_bwd_dkv(q, k, v, o, do, lse, causal=True, window=0, dlse=None):
     b, s, h, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    # bf16: the kernel's pre-pass writes delta = rowsum(dO * O) - dlse here
+    delta = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+             if q.dtype == torch.bfloat16 else None)
     _launch("flash_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), _ptr(dlse),
-            dk.data_ptr(), dv.data_ptr(), b, s, h, k.shape[2], d,
+            _ptr(delta), dk.data_ptr(), dv.data_ptr(), b, s, h, k.shape[2], d,
             int(causal), int(window))
     return dk, dv
 

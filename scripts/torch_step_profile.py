@@ -28,6 +28,10 @@ sys.path.insert(0, REPO)
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
 CONFIG, BATCH, SEQ = "1b", 4, 2048
 WARMUP, STEPS = 2, 3
+# a device function whose name holds one of these belongs to that kernel's
+# family: flash_fwd_kernel_wgmma (bf16) and flash_fwd_kernel (f32) to the
+# forward, flash_bwd_dkv_kernel_delta (the delta pre-pass) and
+# flash_bwd_dkv_kernel_wgmma to dK/dV. Matched before GEMM_MARKS.
 FLASH = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 GEMM_MARKS = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_")
 

@@ -89,6 +89,44 @@ def test_every_kernel_source_is_listed_for_the_build():
     assert len(_modules()) >= 12
 
 
+def _c_entry_points():
+    """{name: [parameter kinds]} of every `extern "C" int name(...)` in
+    csrc/*.cu, each parameter "pointer" or "int"."""
+    import re
+    from gpu_docker_api_tpu_torch import _build
+    found = {}
+    for f in sorted(os.listdir(_build.CSRC)):
+        if not f.endswith(".cu"):
+            continue
+        text = open(_build.CSRC / f, encoding="utf-8").read()
+        for name, params in re.findall(
+                r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', text):
+            kinds = []
+            for p in params.split(","):
+                p = " ".join(p.split())
+                if "*" in p:
+                    kinds.append("pointer")
+                elif re.fullmatch(r"(const )?int \w+", p):
+                    kinds.append("int")
+                else:
+                    kinds.append(f"unknown: {p}")
+            found[name] = kinds
+    return found
+
+
+def test_every_c_entry_point_matches_its_ctypes_argtypes():
+    """ctypes passes whatever argtypes say: a pointer declared c_int would be
+    cut to 32 bits, an argument missing from the list would shift the rest.
+    Each extern "C" signature must match [c_int, *KERNELS[name][1]]."""
+    import ctypes
+    from gpu_docker_api_tpu_torch import _build
+    kind = {ctypes.c_void_p: "pointer", ctypes.c_int: "int"}
+    found = _c_entry_points()
+    assert sorted(found) == sorted(_build.KERNELS)
+    for name, (_, argtypes) in _build.KERNELS.items():
+        assert found[name] == [kind[t] for t in (ctypes.c_int, *argtypes)], name
+
+
 def test_chip_smoke_alone_or_without_a_card_fails_and_prints_no_result(
         tmp_path):
     """chip_smoke.py exits non-zero with no result line where there is no

@@ -64,3 +64,109 @@ def test_bf16_check_rejects_every_planted_fault(faults_case):
     assert set(least) == set(refs)
     for ratio, frob in least.values():
         assert ratio > cs.BF16_TOL or frob > cs.BF16_FROB
+
+
+def test_repeat_check_passes_deterministic_kernels(faults_case):
+    inputs, _ = faults_case
+    cs.check_repeatable(torch, att, *inputs)
+
+
+def test_repeat_check_rejects_a_kernel_whose_bits_change(faults_case,
+                                                          monkeypatch):
+    inputs, _ = faults_case
+    calls = []
+
+    def drifting(*args, **kw):
+        calls.append(1)
+        dk, dv = att.flash_bwd_dkv_plain(*args, **kw)
+        return dk, dv + (len(calls) % 2) * 2.0 ** -6
+
+    monkeypatch.setattr(att, "flash_bwd_dkv", drifting)
+    with pytest.raises(cs.SmokeFailure, match="flash_bwd_dkv"):
+        cs.check_repeatable(torch, att, *inputs)
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN5flash3hop22flash_fwd_kernel_wgmmaILi128EEEv14CUtensorMap_stS2_S2_S2_Pfiiifii' for 'sm_90a'
+ptxas info    : Function properties for _ZN5flash3hop22flash_fwd_kernel_wgmmaILi128EEEv14CUtensorMap_stS2_S2_S2_Pfiiifii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_ZN5flash3hop26flash_bwd_dkv_kernel_wgmmaILi64EEEv14CUtensorMap_stS2_S2_S2_S2_S2_PKfS4_iiifii' for 'sm_90a'
+    32 bytes stack frame, 36 bytes spill stores, 48 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers, 32 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN5flash16flash_fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_Pfiiifii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers
+"""
+
+
+def test_ptxas_entries_reads_registers_and_spills_per_kernel():
+    got = cs.ptxas_entries(PTXAS_LOG)
+    assert got == [("flash_fwd_kernel_wgmmaILi128", 168, 0),
+                   ("flash_bwd_dkv_kernel_wgmmaILi64", 168, 36),
+                   ("_ZN5flash16flash_fwd_kernelIfLi128", 40, 0)]
+
+
+PTXAS_NOTES = """\
+ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are serialized due to insufficient register resources for the function '_ZN5flash3hop26flash_bwd_dkv_kernel_wgmmaILi128EEEv14CUtensorMap_stS2_S2_S2_S2_S2_PKfS4_iiifii'
+ptxas info    : (C7508) Potential Performance Loss: 'setmaxnreg' ignored; unable to determine register count at entry.
+ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized due to the presence of Extern calls in the function '_ZN5other6kernelEv'
+ptxas info    : 0 bytes gmem
+"""
+
+
+@pytest.mark.parametrize("log, want", [
+    (PTXAS_LOG, []),
+    (PTXAS_NOTES, [
+        "wgmma.mma_async instructions are serialized due to insufficient "
+        "register resources for the function "
+        "'_ZN5flash3hop26flash_bwd_dkv_kernel_wgmmaILi128EEEv14CUtensorMap_"
+        "stS2_S2_S2_S2_S2_PKfS4_iiifii'",
+        "'setmaxnreg' ignored; unable to determine register count at entry.",
+    ]),
+])
+def test_ptxas_wgmma_losses_flags_serialised_wgmma_and_ignored_setmaxnreg(
+        log, want):
+    assert cs.ptxas_wgmma_losses(log) == want
+
+
+def test_trunk_check_passes_its_controls_and_rejects_planted_faults():
+    """trunk_readings at a tiny width on the CPU (the kernels' plain versions
+    stand in for the kernels): every run is read, the controls sit near the
+    reference attention and a gross fault of each kernel far above it."""
+    import dataclasses
+    from gpu_docker_api_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.bfloat16,
+                              max_seq_len=cs.TRUNK_S)
+    models = cs.trunk_fault_models(torch, att)
+    assert len(models) == 14
+    f32, bf16 = cs.trunk_readings(torch, att, cfg, faults=range(len(models)),
+                                  device="cpu")
+    assert all(e <= cs.F32_TOL for e in f32.values())
+    excess = cs.trunk_excess(bf16)
+    assert len(excess) == 1 + len(models)
+    for run, x in excess.items():
+        if run == "kernels" or run.endswith(": none"):
+            assert x <= cs.TRUNK_MARGIN, run
+        if run.endswith("causal mask col < row"):
+            assert x > cs.TRUNK_MARGIN, run
+
+
+@pytest.mark.parametrize("name, fam", [
+    ("void flash::hop::flash_fwd_kernel_wgmma<128>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float*, int, int, int, "
+     "float, int, int)", "flash_fwd_kernel"),
+    ("void flash::hop::flash_bwd_dkv_kernel_delta<128>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, float const*, float*, long long, int, int)",
+     "flash_bwd_dkv_kernel"),
+    ("void flash::hop::flash_bwd_dkv_kernel_wgmma<128>(CUtensorMap_st)",
+     "flash_bwd_dkv_kernel"),
+    ("void flash::flash_bwd_dq_kernel<__nv_bfloat16, 128>(...)",
+     "flash_bwd_dq_kernel"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "gemm"),
+    ("void at::native::vectorized_elementwise_kernel<4>(...)", "other"),
+])
+def test_step_profile_puts_each_kernel_in_its_family(name, fam):
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_step_profile
+    assert torch_step_profile.family(name) == fam
