@@ -8,17 +8,18 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero and prints no result):
   0. print the card's name and power limit; build the three flash kernels
      from gpu_docker_api_tpu_torch/csrc with nvcc (sm_90a), all at once;
-     the wgmma kernels must compile with no spill stores, no serialised
-     wgmma and no ignored setmaxnreg, and the forward's and dK/dV's machine
-     code must hold wgmma and TMA instructions.
+     the wgmma kernels (bf16 forward, dQ and dK/dV) must compile with no
+     spill stores, no serialised wgmma and no ignored setmaxnreg, and each
+     kernel library's machine code must hold wgmma and TMA instructions.
   1. hold each kernel against its plain PyTorch version on the same inputs:
      f32 and bf16; causal, full and windowed; GQA groups 1, 2 and 4;
      ragged and odd S; with and without an lse cotangent; bf16 at S=4096,
      causal and with
      a 1024 window (many trips round the kernels' load rings); and at the
      main path's shape, where the bf16 check must also reject every planted
-     fault, a second run of each kernel must give the same bits, and each
-     kernel, its plain version and the SDPA yardsticks are timed.
+     fault, a second run of each kernel must give the same bits, so must a
+     first call on a fresh thread, and each kernel, its plain version and
+     the SDPA yardsticks are timed.
   2. the main path: train_llama at the llama 1b config, B=4, S=2048, for a
      few steps, with the launch counters set to 0 just before and read just
      after; losses finite, the first near its value at init; every attention
@@ -249,6 +250,21 @@ def planted_faults(torch, att, q, k, v, o, do, lse):
         dq = torch.einsum("bhqk,bkhd->bqhd", ds.masked_fill(drop, 0.0), kr)
         return ((dq / math.sqrt(d)).to(bf),)
 
+    def dq_rows_swapped():
+        # a lane of the wgmma kernel holds rows r and r + 8 of each 16-row
+        # group; here they trade their lse and delta (a partner at or past S
+        # reads 0, as the kernel holds for such rows)
+        partner = idx ^ 8
+        inside = partner < s
+        partner = partner.clamp(max=s - 1)
+        delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)
+        lse_sw, delta_sw = (torch.where(inside, x[..., partner], 0.0)
+                            for x in (lse, delta))
+        dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vr)
+        ds_sw = att._probs(scores, lse_sw) * (dp - delta_sw[..., None])
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds_sw, kr)
+        return ((dq / math.sqrt(d)).to(bf),)
+
     def dkv_of(drop):
         dv = torch.einsum("bhqk,bqhd->bkhd", p.masked_fill(drop, 0.0),
                           do.float())
@@ -274,6 +290,8 @@ def planted_faults(torch, att, q, k, v, o, do, lse):
          lambda: dq_of(t_r == t_c)),
         ("causal mask col < row", "flash_bwd_dq",
          lambda: dq_of(rows == cols)),
+        ("rows r and r + 8 swap their lse and delta", "flash_bwd_dq",
+         dq_rows_swapped),
         ("none", "flash_bwd_dkv", lambda: dkv_of(none)),
         (f"q tile {5 * n // 8} skipped for kv tile {n // 4}",
          "flash_bwd_dkv",
@@ -327,6 +345,41 @@ def check_repeatable(torch, att, q, k, v, o, do, lse):
         check(same, f"{name}: two runs on the same inputs differ")
     print("  bitwise repeat at the main shape: fwd (o, lse), dq, dkv (dk, dv) "
           "identical", flush=True)
+
+
+def check_fresh_thread(torch, att, q, k, v, o, do, lse):
+    """Each kernel's first call on a thread that has made no CUDA call yet
+    (autograd runs the backward on such a thread) must launch and give the
+    main thread's bits. The launch must not lean on a CUDA context that an
+    earlier call on the thread left current, so the thread's outputs come
+    from blocks the allocator already holds: no cudaMalloc there either."""
+    import threading
+    for name, run in (
+            ("flash_fwd", lambda: att.flash_fwd(q, k, v)),
+            ("flash_bwd_dq", lambda: (att.flash_bwd_dq(q, k, v, o, do, lse),)),
+            ("flash_bwd_dkv", lambda: att.flash_bwd_dkv(q, k, v, o, do, lse))):
+        want = run()
+        run()   # its outputs are freed at once: the thread's run reuses them
+        sync = torch.cuda.synchronize if q.is_cuda else (lambda: None)
+        sync()
+        got, error = [], []
+
+        def body():
+            try:
+                got.extend(run())
+                sync()
+            except Exception as e:  # reported by the check below
+                error.append(repr(e))
+
+        thread = threading.Thread(target=body, daemon=True)
+        thread.start()
+        thread.join(timeout=300)
+        check(not thread.is_alive(), f"{name} on a fresh thread: no return")
+        check(not error, f"{name} on a fresh thread: {error}")
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{name} on a fresh thread differs from the main thread's")
+    print("  fresh thread: fwd, dq, dkv launch and give the same bits",
+          flush=True)
 
 
 def bounds(shape, dtype_bytes):
@@ -391,6 +444,7 @@ def phase_kernels(torch, att):
     faults = check_planted_faults(torch, att, inputs, refs)
     del refs
     check_repeatable(torch, att, *inputs)
+    check_fresh_thread(torch, att, *inputs)
     bf16_check = {name: {"kernels_ratio": sound[name][0],
                          "kernels_frob": sound[name][1],
                          "least_fault_ratio": faults[name][0],
@@ -705,11 +759,11 @@ def build_kernels(torch):
 
 
 def check_sass(_build):
-    """The redesigned kernels' machine code must hold the Hopper
-    instructions they were written for: HGMMA (wgmma) and UTMALDG (TMA
-    loads)."""
+    """Every kernel library's machine code must hold the Hopper
+    instructions its bf16 kernel was written for: HGMMA (wgmma) and UTMALDG
+    (TMA loads); UTMASTG (the TMA-store epilogue) is printed."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    for name in ("flash_fwd", "flash_bwd_dkv"):
+    for name in _build.KERNELS:
         sass = subprocess.run([cuobjdump, "-sass", str(_build._lib_path(name))],
                               capture_output=True, text=True, timeout=120,
                               check=True).stdout

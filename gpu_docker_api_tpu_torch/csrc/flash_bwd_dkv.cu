@@ -70,19 +70,7 @@ __global__ void __launch_bounds__(256)
   const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
   const long long row = idx / L;
   const int part = idx % L;
-  float acc = 0.0f;
-  if (row < rows) {
-    const uint4 a = *reinterpret_cast<const uint4*>(o + row * D + part * 8);
-    const uint4 g = *reinterpret_cast<const uint4*>(dout + row * D + part * 8);
-    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 x = __bfloat1622float2(a2[e]), y = __bfloat1622float2(g2[e]);
-      acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
-    }
-  }
-  acc = row_sum<L>(acc);
+  const float acc = row_dot<D>(o + row * D, dout + row * D, part, row < rows);
   if (part == 0 && row < rows) {
     const long long b = row / ((long long)S * H);
     const int s = (row / H) % S, h = row % H;
@@ -289,6 +277,12 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            void* dk, void* dv, int B, int S, int H, int Hkv, int causal,
            int window, cudaStream_t stream) {
   if (delta == nullptr) return (int)cudaErrorInvalidValue;
+  // a runtime call first: it makes a context current, which make_map needs
+  constexpr int smem = sizeof(DkvSmem<D>) + 1024;  // + base alignment
+  auto kernel = flash_bwd_dkv_kernel_wgmma<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
   CUtensorMap mq, mk, mv, mdo, mdk, mdv;
   int rc = hopper::make_map<D>(&mq, q, B, S, H, BQ);
   if (!rc) rc = hopper::make_map<D>(&mdo, dout, B, S, H, BQ);
@@ -304,13 +298,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                                   stream>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
       static_cast<const float*>(dlse), static_cast<float*>(delta), rows, S, H);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  constexpr int smem = sizeof(DkvSmem<D>) + 1024;  // + base alignment
-  auto kernel = flash_bwd_dkv_kernel_wgmma<D>;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * Hkv, cdiv(S, BK));
   kernel<<<grid, kThreads, smem, stream>>>(

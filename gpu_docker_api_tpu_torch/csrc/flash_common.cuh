@@ -1,6 +1,8 @@
 // Shared pieces of the three flash-attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu): tile shapes per element type, the
-// global->shared row loader, the shared-memory tile product and the mask.
+// flash_bwd_dq.cu, flash_bwd_dkv.cu): the mask, the row reductions, the
+// bf16 row dot product of delta = rowsum(dO * O), and the f32 parity
+// path's tile shapes, global->shared row loader, CUDA-core tile product and
+// per-tile delta. (bf16 runs the wgmma kernels built from hopper.cuh.)
 //
 // Layouts are the JAX package's public ones, read in place (no transposes):
 //   q, o, do   [B, S, H, D]      row (b, s, h) at ((b*S + s)*H + h)*D
@@ -13,47 +15,30 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace flash {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;  // 8 warps per block
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;  // 8 warps per block (f32 path)
 
-// Tile shapes. bf16 feeds the tensor cores through WMMA (16x16x16, f32
-// accumulate), so its shared rows are padded by 8 elements (16 bytes: keeps
-// WMMA's 32-byte fragment alignment and staggers banks). f32 runs on the CUDA
-// cores; one float of padding makes the column walks conflict-free, and the
-// smaller tiles keep the dK/dV kernel's five f32 tiles under 227 KB.
+// Tile shapes of the f32 parity path (CUDA cores): one float of padding
+// makes the column walks conflict-free, and the small tiles keep the dK/dV
+// kernel's five f32 tiles under 227 KB.
 template <typename T>
 struct Tile;
 template <>
-struct Tile<bf16> {
-  static constexpr int BQ = 64, BK = 64, PAD = 8;
-  static constexpr bool kTensorCores = true;
-};
-template <>
 struct Tile<float> {
   static constexpr int BQ = 32, BK = 32, PAD = 1;
-  static constexpr bool kTensorCores = false;
 };
-constexpr int kAccPad = 4;  // f32 scratch rows: WMMA wants ldm % 4 == 0
+constexpr int kAccPad = 4;  // floats of padding of the f32 scratch rows
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -80,68 +65,31 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* g,
     if (row < S) {
       val = *reinterpret_cast<const uint4*>(g + row * row_stride + c);
     }
-    if constexpr (sizeof(T) == 2) {
-      // (D + 8) * 2 bytes per row: 16-byte aligned stores
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-    } else {
-      // the odd f32 row stride forbids vector stores
-      const float* f = reinterpret_cast<const float*>(&val);
+    // the odd f32 row stride forbids vector stores
+    const T* e = reinterpret_cast<const T*>(&val);
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) dst[r * ld + c + e] = f[e];
-    }
+    for (int i = 0; i < kVec; ++i) dst[r * ld + c + i] = e[i];
   }
 }
 
 // C[M x N] (+)= A[M x K] * B[K x N], all in shared memory; C is f32.
 // A_T: A is stored transposed (A(m, k) at A[k * lda + m]), else row-major.
 // B_T: B is stored transposed (B(k, n) at B[n * ldb + k]), else row-major.
-// bf16 runs on the tensor cores (WMMA, one 16x16 output tile per warp at a
-// time, f32 accumulate); f32 is a plain CUDA-core dot product per element.
+// A plain CUDA-core dot product per element (the f32 parity path).
 // The caller synchronises before (operands written) and after (C read).
 template <typename T, bool A_T, bool B_T, int M, int N, int K>
 __device__ __forceinline__ void tile_mm(float* C, int ldc, const T* A, int lda,
                                         const T* B, int ldb, bool accumulate) {
-  if constexpr (Tile<T>::kTensorCores) {
-    using namespace nvcuda;
-    using ALayout =
-        typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
-    using BLayout =
-        typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type;
-    constexpr int TM = M / 16, TN = N / 16;
-    const int warp = threadIdx.x / 32;
-    for (int t = warp; t < TM * TN; t += kWarps) {
-      const int tm = t / TN, tn = t % TN;
-      float* cp = C + tm * 16 * ldc + tn * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      if (accumulate) {
-        wmma::load_matrix_sync(acc, cp, ldc, wmma::mem_row_major);
-      } else {
-        wmma::fill_fragment(acc, 0.0f);
-      }
-#pragma unroll 4
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, ALayout> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, BLayout> b;
-        const T* ap = A_T ? A + k0 * lda + tm * 16 : A + tm * 16 * lda + k0;
-        const T* bp = B_T ? B + tn * 16 * ldb + k0 : B + k0 * ldb + tn * 16;
-        wmma::load_matrix_sync(a, ap, lda);
-        wmma::load_matrix_sync(b, bp, ldb);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(cp, acc, ldc, wmma::mem_row_major);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < M * N; idx += kThreads) {
-      const int m = idx / N, n = idx % N;
-      float s = accumulate ? C[m * ldc + n] : 0.0f;
+  for (int idx = threadIdx.x; idx < M * N; idx += kThreads) {
+    const int m = idx / N, n = idx % N;
+    float s = accumulate ? C[m * ldc + n] : 0.0f;
 #pragma unroll 8
-      for (int k = 0; k < K; ++k) {
-        const float a = to_f(A_T ? A[k * lda + m] : A[m * lda + k]);
-        const float b = to_f(B_T ? B[n * ldb + k] : B[k * ldb + n]);
-        s = fmaf(a, b, s);
-      }
-      C[m * ldc + n] = s;
+    for (int k = 0; k < K; ++k) {
+      const float a = to_f(A_T ? A[k * lda + m] : A[m * lda + k]);
+      const float b = to_f(B_T ? B[n * ldb + k] : B[k * ldb + n]);
+      s = fmaf(a, b, s);
     }
+    C[m * ldc + n] = s;
   }
 }
 
@@ -166,6 +114,29 @@ __device__ __forceinline__ float row_max(float x) {
   for (int o = width / 2; o > 0; o >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
+}
+
+// sum_d O[d] * dO[d] of one bf16 row of D columns, taken by its D / 8
+// consecutive lanes together (`part` = the lane's index among them), each
+// with one 16-byte load of O and of dO; a lane with `valid` false adds 0.
+// Every lane of the warp calls it (the sum shuffles over the full mask).
+// delta's row sum in the bf16 backward kernels.
+template <int D>
+__device__ __forceinline__ float row_dot(const bf16* o_row, const bf16* do_row,
+                                         int part, bool valid) {
+  float acc = 0.0f;
+  if (valid) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o_row + part * 8);
+    const uint4 g = *reinterpret_cast<const uint4*>(do_row + part * 8);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(a2[e]), y = __bfloat1622float2(g2[e]);
+      acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
+    }
+  }
+  return row_sum<D / 8>(acc);
 }
 
 // delta_r = sum_d dO[r, d] * O[r, d] (minus dlse_r when given), for the R rows

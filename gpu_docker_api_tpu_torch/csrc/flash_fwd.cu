@@ -228,17 +228,18 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int S, int H, int Hkv, int causal, int window,
            cudaStream_t stream) {
+  // a runtime call first: it makes a context current, which make_map needs
+  constexpr int smem = sizeof(FwdSmem<D>) + 1024;  // + base alignment
+  auto kernel = flash_fwd_kernel_wgmma<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
   CUtensorMap mq, mk, mv, mo;
   int rc = hopper::make_map<D>(&mq, q, B, S, H, BQ);
   if (!rc) rc = hopper::make_map<D>(&mk, k, B, S, Hkv, BK);
   if (!rc) rc = hopper::make_map<D>(&mv, v, B, S, Hkv, BK);
   if (!rc) rc = hopper::make_map<D>(&mo, o, B, S, H, 64);
   if (rc) return rc;
-  constexpr int smem = sizeof(FwdSmem<D>) + 1024;  // + base alignment
-  auto kernel = flash_fwd_kernel_wgmma<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   const float log2e = 1.4426950408889634f;
   dim3 grid(B * H, cdiv(S, BQ));
   kernel<<<grid, kThreads, smem, stream>>>(

@@ -368,7 +368,10 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 
 // Map over a bf16 [B, S, heads, D] tensor, dims (D, heads, S, B), whose box
 // is one column chunk of `rows` rows of one head. Rows at or past S read as
-// zeros and are not written. Returns 0 or a cudaError_t.
+// zeros and are not written. Returns 0 or a cudaError_t. The encoder needs a
+// current context on the calling thread, and a thread that has made no CUDA
+// call yet (as autograd's device thread may be) has none: make a runtime
+// call first.
 template <int D>
 inline int make_map(CUtensorMap* map, const void* base, int B, int S,
                     int heads, int rows) {

@@ -30,7 +30,8 @@ CONFIG, BATCH, SEQ = "1b", 4, 2048
 WARMUP, STEPS = 2, 3
 # a device function whose name holds one of these belongs to that kernel's
 # family: flash_fwd_kernel_wgmma (bf16) and flash_fwd_kernel (f32) to the
-# forward, flash_bwd_dkv_kernel_delta (the delta pre-pass) and
+# forward, flash_bwd_dq_kernel_wgmma and flash_bwd_dq_kernel to dQ,
+# flash_bwd_dkv_kernel_delta (the delta pre-pass) and
 # flash_bwd_dkv_kernel_wgmma to dK/dV. Matched before GEMM_MARKS.
 FLASH = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 GEMM_MARKS = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_")

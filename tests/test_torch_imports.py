@@ -89,6 +89,17 @@ def test_every_kernel_source_is_listed_for_the_build():
     assert len(_modules()) >= 12
 
 
+def test_no_kernel_source_uses_wmma():
+    """Every bf16 kernel is the wgmma design: no source under csrc/ reaches
+    the WMMA API (f32 runs on the CUDA cores)."""
+    from gpu_docker_api_tpu_torch import _build
+    users = []
+    for f in sorted(os.listdir(_build.CSRC)):
+        text = open(_build.CSRC / f, encoding="utf-8").read()
+        users += [(f, x) for x in ("nvcuda", "wmma::", "<mma.h>") if x in text]
+    assert users == []
+
+
 def _c_entry_points():
     """{name: [parameter kinds]} of every `extern "C" int name(...)` in
     csrc/*.cu, each parameter "pointer" or "int"."""

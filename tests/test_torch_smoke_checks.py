@@ -86,6 +86,26 @@ def test_repeat_check_rejects_a_kernel_whose_bits_change(faults_case,
         cs.check_repeatable(torch, att, *inputs)
 
 
+def test_fresh_thread_check_passes_kernels_that_launch_anywhere(faults_case):
+    inputs, _ = faults_case
+    cs.check_fresh_thread(torch, att, *inputs)
+
+
+def test_fresh_thread_check_rejects_a_kernel_that_fails_off_the_main_thread(
+        faults_case, monkeypatch):
+    import threading
+    inputs, _ = faults_case
+
+    def main_thread_only(*args, **kw):
+        if threading.current_thread() is not threading.main_thread():
+            raise RuntimeError("flash_bwd_dq kernel launch failed: CUDA error 1")
+        return att.flash_bwd_dq_plain(*args, **kw)
+
+    monkeypatch.setattr(att, "flash_bwd_dq", main_thread_only)
+    with pytest.raises(cs.SmokeFailure, match="flash_bwd_dq on a fresh thread"):
+        cs.check_fresh_thread(torch, att, *inputs)
+
+
 PTXAS_LOG = """\
 ptxas info    : Compiling entry function '_ZN5flash3hop22flash_fwd_kernel_wgmmaILi128EEEv14CUtensorMap_stS2_S2_S2_Pfiiifii' for 'sm_90a'
 ptxas info    : Function properties for _ZN5flash3hop22flash_fwd_kernel_wgmmaILi128EEEv14CUtensorMap_stS2_S2_S2_Pfiiifii
@@ -139,7 +159,7 @@ def test_trunk_check_passes_its_controls_and_rejects_planted_faults():
     cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.bfloat16,
                               max_seq_len=cs.TRUNK_S)
     models = cs.trunk_fault_models(torch, att)
-    assert len(models) == 14
+    assert len(models) == 15
     f32, bf16 = cs.trunk_readings(torch, att, cfg, faults=range(len(models)),
                                   device="cpu")
     assert all(e <= cs.F32_TOL for e in f32.values())
@@ -161,7 +181,7 @@ def test_trunk_check_passes_its_controls_and_rejects_planted_faults():
      "flash_bwd_dkv_kernel"),
     ("void flash::hop::flash_bwd_dkv_kernel_wgmma<128>(CUtensorMap_st)",
      "flash_bwd_dkv_kernel"),
-    ("void flash::flash_bwd_dq_kernel<__nv_bfloat16, 128>(...)",
+    ("void flash::hop::flash_bwd_dq_kernel_wgmma<128>(CUtensorMap_st)",
      "flash_bwd_dq_kernel"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "gemm"),
     ("void at::native::vectorized_elementwise_kernel<4>(...)", "other"),
