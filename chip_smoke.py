@@ -30,9 +30,20 @@ Phases (any failure exits non-zero and prints no result):
      be rejected.
   3. resume: tiny config, 4 steps with checkpoints every 2, a restart, 2
      more steps; the metrics.jsonl step sequence must be 1..6 with no gap.
+  4. serving at llama 1b (infer.py, workloads/serve.py; no kernel on this
+     path): in f32, prefill and decode steps of the cached path held to
+     llama_forward through the forward kernel (teacher forcing: logits
+     within F32_TOL, greedy tokens its argmax, n_layers forward launches),
+     and again with the int8 KV cache (KV8_TOL); then `python -m
+     gpu_docker_api_tpu_torch.workloads.serve --config 1b` in a subprocess,
+     driven over HTTP (healthz, greedy tokens equal to in-process
+     generate(), top_k=1 greedy, a sampled request, the 400/404
+     envelopes, the traceparent echo), killed in every case; then prefill
+     and decode times in bf16 at B=1 and B=8, with the int8 KV cache and
+     with w8 weights, each beside its bound and the device-busy share.
 
-Prints one `{"kernels": [...]}` line, the readings, the nvidia-smi line,
-and last `{"ok": true, "device": {...}}`.
+Prints one `{"kernels": [...]}` line, the readings, one `{"serve": ...}`
+line, the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -716,6 +727,389 @@ def phase_resume():
     check(all(math.isfinite(r["loss"]) for r in step_recs), "non-finite loss")
 
 
+# ---- phase 4: serving ----------------------------------------------------------
+
+SERVE_B = 2            # the f32 oracle and the HTTP requests: two rows
+SERVE_PROMPT = 256     # the f32 oracle's prompt length
+SERVE_STEPS = 32       # the f32 oracle's decode steps
+HTTP_PROMPT = 128      # the HTTP greedy request: prompt, new tokens
+HTTP_NEW = 32
+TIME_CONTEXT = 512     # the timed prompt, and the decode steps' context
+TIME_STEPS = 64
+HTTP_DEADLINE_S = 300  # the serve subprocess must answer /healthz by then
+# kv8 cache against the f32 full forward: |err| <= KV8_TOL * (1 + |ref|).
+# Per-token-per-head int8 K/V moves the 1b logits far more than f32
+# summation order does: the card read 0.113 at the oracle's inputs (the
+# f32 cache 1.5e-5; PERF.md), and the limit sits at about twice that.
+KV8_TOL = 0.2
+
+
+def teacher_forced_check(torch, got, ref, tokens, tol, label):
+    """The cached path's logits `got` [B, N, V] against the full forward's
+    `ref` [B, N, V] on prompt + the tokens the cached path generated
+    (teacher forcing), and its greedy `tokens` [B, N] against the full
+    forward's argmax. Each logit must be within tol * (1 + |ref|). A token
+    may differ from the argmax only at a near tie: where the full
+    forward's logit of the token is within twice that limit of its
+    largest logit, which the logits' check allows. Returns {"err": largest
+    |err| / (1 + |ref|), "max_abs_err", "ties": the near ties taken}."""
+    got, ref = got.float(), ref.float()
+    check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+          f"{label}: logits {tuple(got.shape)} not finite or not "
+          f"{tuple(ref.shape)}")
+    err = (got - ref).abs()
+    ratio = float((err / (1 + ref.abs())).max())
+    check(ratio <= tol, f"{label}: logits off the full forward by "
+                        f"{ratio:.4g} x (1 + |ref|) > {tol}")
+    best, want = ref.max(dim=-1)
+    picked = ref.gather(-1, tokens[..., None].long())[..., 0]
+    limit = 2 * tol * (1 + best.abs())
+    differ = tokens.long() != want
+    check(bool((best - picked)[differ].le(limit[differ]).all()),
+          f"{label}: greedy tokens differ from the full forward's argmax "
+          f"beyond a near tie")
+    return {"err": ratio, "max_abs_err": float(err.max()),
+            "ties": int(differ.sum())}
+
+
+def serve_oracle(torch, att, cfg, b, prompt_len, steps, kv_quant, tol,
+                 device="cuda"):
+    """The cached path (prefill, then `steps` decode_steps, greedy) against
+    llama_forward(impl="auto") on the same weights, in one call over the
+    prompt and the fed tokens; generate() must give the same tokens.
+    Returns the readings of teacher_forced_check plus the forward kernel's
+    launches in the full forward."""
+    from gpu_docker_api_tpu_torch import infer
+    from gpu_docker_api_tpu_torch.models import llama
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = llama.init_params(cfg, gen)
+    prompt = torch.randint(0, cfg.vocab_size, (b, prompt_len), generator=gen,
+                           device=device)
+    cache = infer.init_cache(cfg, b, prompt_len + steps + 1,
+                             quantized=kv_quant, device=device)
+    logits, cache = infer.prefill(params, prompt, cache, cfg)
+    all_logits, tokens = [logits], [logits.argmax(dim=-1)]
+    for _ in range(steps):
+        logits, cache = infer.decode_step(params, tokens[-1], cache, cfg)
+        all_logits.append(logits)
+        tokens.append(logits.argmax(dim=-1))
+    tokens = torch.stack(tokens, dim=1)                       # [B, steps+1]
+    whole = infer.generate(params, prompt, cfg, steps + 1, kv_quant=kv_quant)
+    check(torch.equal(whole, tokens),
+          f"generate() differs from prefill + decode_step (kv8={kv_quant})")
+    att.reset_launches()
+    with torch.no_grad():
+        ref = llama.llama_forward(
+            params, torch.cat([prompt, tokens[:, :-1]], dim=1), cfg,
+            impl="auto")[:, prompt_len - 1:]
+    launches = att.LAUNCHES["flash_fwd"]
+    out = teacher_forced_check(torch, torch.stack(all_logits, dim=1), ref,
+                               tokens, tol, f"{cfg.dtype} kv8={kv_quant}")
+    out["flash_fwd_launches"] = launches
+    return out
+
+
+def weight_bytes(params) -> int:
+    """Bytes of the matrices a decode step reads: every projection and MLP
+    weight and lm_head (int8 weights with their scales); the embedding's
+    gathered rows and the norms are left out."""
+    from gpu_docker_api_tpu_torch.ops.quant import QTensor
+
+    def size(t):
+        if isinstance(t, QTensor):
+            return size(t.q) + size(t.s)
+        return t.numel() * t.element_size()
+    return (sum(size(w) for name, w in params["layers"].items()
+                if not name.endswith("norm")) + size(params["lm_head"]))
+
+
+def cache_bytes_per_token(cfg, kv_quant) -> int:
+    """K and V of one token over every layer: bf16/f32 values, or int8 with
+    an f32 scale per head."""
+    per_head = (cfg.head_dim + 4 if kv_quant
+                else cfg.head_dim * cfg.dtype.itemsize)
+    return 2 * cfg.n_layers * cfg.n_kv_heads * per_head
+
+
+def serve_bounds(cfg, w_bytes, b, t, ctx, kv_quant):
+    """(least ms, "bytes" | "operations") of one cached forward of t tokens
+    per row at context ctx: the weights read once, the cache read up to
+    the frontier and written for the new tokens, against the matmul
+    operations (2 per weight per token) and the attention's (4 * head_dim
+    per visible (query, key) pair and head) over the bf16 peak."""
+    per_tok = cache_bytes_per_token(cfg, kv_quant)
+    keys = sum(ctx + i + 1 for i in range(t))            # visible pairs / row
+    nbytes = w_bytes + b * (ctx + t) * per_tok
+    per_layer = (2 * cfg.d_model * cfg.head_dim
+                 * (cfg.n_heads + cfg.n_kv_heads) + 3 * cfg.d_model * cfg.d_ff)
+    n_matmul = cfg.n_layers * per_layer + cfg.d_model * cfg.vocab_size
+    flops = (2 * n_matmul * b * t
+             + 4 * cfg.head_dim * cfg.n_heads * cfg.n_layers * b * keys)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def busy_share(torch, windows):
+    """{name: device-busy share} of windows {name: (fn, reps)}, all traced in
+    one torch.profiler session: each window runs fn `reps` times under a
+    record_function range and ends in a synchronize; its share is the union
+    of the kernels' intervals inside the range over the span from the
+    first such kernel's start to the last one's end (None when the
+    profiler saw no device time there)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, (fn, reps) in windows.items():
+            with record_function(f"busy:{name}"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the ranges also appear on the device as annotations spanning their
+    # kernels: those are not kernels
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == cuda and not e.name.startswith("busy:")
+                     and e.time_range.end > e.time_range.start)
+    out = {}
+    for name in windows:
+        rng = next(e.time_range for e in events
+                   if e.name == f"busy:{name}" and e.device_type != cuda)
+        spans = [(s, e) for s, e in kernels
+                 if s >= rng.start and e <= rng.end]
+        if not spans:
+            out[name] = None
+            continue
+        busy, (lo, hi) = 0.0, spans[0]
+        for s, e in spans[1:]:
+            if s > hi:
+                busy, lo, hi = busy + hi - lo, s, e
+            else:
+                hi = max(hi, e)
+        busy += hi - lo
+        out[name] = busy / (spans[-1][1] - spans[0][0])
+    return out
+
+
+def serve_times(torch, cfg, params, label, b, kv_quant=False):
+    """Prefill of a TIME_CONTEXT-token prompt, then TIME_STEPS decode steps
+    from it; ms from the host clock around synchronised calls."""
+    from gpu_docker_api_tpu_torch import infer
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (b, TIME_CONTEXT),
+                           generator=gen, device="cuda")
+
+    def fresh():
+        return infer.init_cache(cfg, b, TIME_CONTEXT + 2 * TIME_STEPS + 1,
+                                quantized=kv_quant)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    prefill_ms = []
+    for _ in range(5):          # the first call warms up
+        cache = fresh()
+        ms, (logits, cache) = timed(
+            lambda: infer.prefill(params, prompt, cache, cfg))
+        prefill_ms.append(ms)
+    token = logits.argmax(dim=-1)
+    step_ms = []
+    for _ in range(TIME_STEPS):
+        ms, (logits, cache) = timed(
+            lambda: infer.decode_step(params, token, cache, cfg))
+        step_ms.append(ms)
+        token = logits.argmax(dim=-1)
+    state = {"cache": cache, "token": token}
+
+    def one_step():
+        logits, state["cache"] = infer.decode_step(
+            params, state["token"], state["cache"], cfg)
+        state["token"] = logits.argmax(dim=-1)
+
+    w_bytes = weight_bytes(params)
+    p_bound = serve_bounds(cfg, w_bytes, b, TIME_CONTEXT, 0, kv_quant)
+    d_bound = serve_bounds(cfg, w_bytes, b, 1,
+                           TIME_CONTEXT + TIME_STEPS // 2, kv_quant)
+    busy = busy_share(torch, {
+        "prefill": (lambda: infer.prefill(params, prompt, fresh(), cfg), 1),
+        "decode": (one_step, 4)})
+    out = {
+        "batch": b, "context": TIME_CONTEXT, "kv8": kv_quant,
+        "prefill_ms": statistics.median(prefill_ms[1:]),
+        "prefill_bound_ms": p_bound[0], "prefill_bound_by": p_bound[1],
+        "prefill_busy": busy["prefill"],
+        "decode_ms": statistics.median(step_ms),
+        "decode_ms_p10_p90": [sorted(step_ms)[len(step_ms) // 10],
+                              sorted(step_ms)[9 * len(step_ms) // 10]],
+        "decode_bound_ms": d_bound[0], "decode_bound_by": d_bound[1],
+        "decode_busy": busy["decode"],
+        "weight_bytes": w_bytes,
+    }
+    print(f"  {label}: {out}", flush=True)
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_call(port, method, path, body=None, headers=None):
+    """(envelope, response headers) of one request to the serve process."""
+    from http.client import HTTPConnection
+    conn = HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path,
+                     json.dumps(body) if body is not None else None,
+                     {"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        check(resp.status == 200, f"{method} {path}: HTTP {resp.status}")
+        return json.loads(resp.read()), dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def serve_http(torch, name, cfg, params, logs_dir, extra_args=()):
+    """The serving entry point as the control plane starts it: `python -m
+    gpu_docker_api_tpu_torch.workloads.serve --config <name>` (seed-0
+    weights; on the card unless extra_args ask for the CPU), driven over
+    HTTP and held to in-process generate() on the same seed-0 `params`. The
+    subprocess is killed in every case."""
+    from gpu_docker_api_tpu_torch import infer
+    from gpu_docker_api_tpu_torch.workloads.serve import _n_params
+
+    port = free_port()
+    log_path = os.path.join(logs_dir, "serve_subprocess.log")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(log_path, "w", encoding="utf-8") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "gpu_docker_api_tpu_torch.workloads.serve",
+             "--config", name, "--host", "127.0.0.1", "--port", str(port),
+             *extra_args], cwd=repo, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        t0 = time.perf_counter()
+        while True:
+            check(proc.poll() is None, "the serve process exited: "
+                  + open(log_path, encoding="utf-8").read()[-2000:])
+            check(time.perf_counter() - t0 < HTTP_DEADLINE_S,
+                  f"no /healthz within {HTTP_DEADLINE_S} s")
+            try:
+                health, _ = http_call(port, "GET", "/healthz")
+                break
+            except OSError:
+                time.sleep(0.5)
+        ready_s = time.perf_counter() - t0
+        want = {"model": f"llama/{name}", "params": _n_params(params),
+                "vocab": cfg.vocab_size, "maxSeqLen": cfg.max_seq_len}
+        check(health["code"] == 200 and health["data"] == want,
+              f"/healthz {health}, want data {want}")
+
+        gen = torch.Generator().manual_seed(11)
+        prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, HTTP_PROMPT),
+                               generator=gen)
+        tp = "00-4bf92f3577b34da6a3ce929d0e0e4736-00f067aa0ba902b7-01"
+        t1 = time.perf_counter()
+        greedy, hdrs = http_call(port, "POST", "/generate",
+                                 {"tokens": prompt.tolist(),
+                                  "max_new": HTTP_NEW},
+                                 headers={"traceparent": tp})
+        greedy_s = time.perf_counter() - t1
+        check(greedy["code"] == 200, f"greedy /generate: {greedy}")
+        check(hdrs.get("traceparent") == tp, "traceparent not echoed")
+        direct = infer.generate(params, prompt.to(params["embed"].device),
+                                cfg, HTTP_NEW)
+        check(greedy["data"]["tokens"] == direct.tolist(),
+              "greedy over HTTP differs from in-process generate()")
+        topk1, _ = http_call(port, "POST", "/generate",
+                             {"tokens": prompt.tolist(), "max_new": HTTP_NEW,
+                              "temperature": 1.5, "top_k": 1})
+        check(topk1["code"] == 200 and topk1["data"]["tokens"]
+              == greedy["data"]["tokens"], "top_k=1 at 1.5 is not greedy")
+        sampled, _ = http_call(port, "POST", "/generate",
+                               {"tokens": prompt.tolist(), "max_new": 8,
+                                "temperature": 0.8, "top_k": 50,
+                                "top_p": 0.9})
+        toks = sampled["data"]["tokens"] if sampled["code"] == 200 else None
+        check(toks is not None and len(toks) == SERVE_B
+              and all(len(r) == 8 and all(0 <= x < cfg.vocab_size for x in r)
+                      for r in toks), f"sampled /generate: {sampled}")
+        codes = {
+            "out of range": http_call(port, "POST", "/generate", {
+                "tokens": [[cfg.vocab_size]], "max_new": 2})[0],
+            "POST /nope": http_call(port, "POST", "/nope", {})[0],
+            "GET /nope": http_call(port, "GET", "/nope")[0],
+            "GET /kv": http_call(port, "GET", "/kv?key=x")[0],
+        }
+        check([c["code"] for c in codes.values()] == [400, 404, 404, 404],
+              f"error envelopes {codes}")
+        check(codes["GET /kv"]["msg"] == "kv export not found",
+              f"/kv {codes['GET /kv']}")
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    out = {"ready_s": ready_s, "greedy_request_s": greedy_s,
+           "greedy_tokens_equal": True}
+    print(f"  HTTP: /healthz {health['data']}; {out}", flush=True)
+    return out
+
+
+def phase_serve(torch, att):
+    """Phase 4: the serving path at llama 1b on the card."""
+    from gpu_docker_api_tpu_torch.models import llama
+    from gpu_docker_api_tpu_torch.ops.quant import quantize_params
+    from gpu_docker_api_tpu_torch.train import Trainer
+    from gpu_docker_api_tpu_torch.workloads.serve import _load_params
+
+    cfg = llama.LlamaConfig.llama_1b()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    print(f"phase 4: serving, llama 1b (f32 oracle B={SERVE_B}, prompt "
+          f"{SERVE_PROMPT}, {SERVE_STEPS} decode steps)", flush=True)
+    t0 = time.perf_counter()
+    oracle = {}
+    for kv8, tol in ((False, F32_TOL), (True, KV8_TOL)):
+        r = serve_oracle(torch, att, cfg32, SERVE_B, SERVE_PROMPT,
+                         SERVE_STEPS, kv8, tol)
+        print(f"  f32 kv8={kv8} against llama_forward (tol {tol}): {r}",
+              flush=True)
+        check(r["flash_fwd_launches"] == cfg.n_layers,
+              f"the oracle's full forward launched flash_fwd "
+              f"{r['flash_fwd_launches']} times, want {cfg.n_layers}")
+        oracle["kv8" if kv8 else "f32"] = r
+        torch.cuda.empty_cache()
+
+    # the serve process's own weights: a fresh seed-0 init on the card
+    wall = {"oracle_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    params = _load_params(Trainer.create(cfg), "")
+    with tempfile.TemporaryDirectory() as logs:
+        http = serve_http(torch, "1b", cfg, params, logs)
+    wall["http_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    print("  times (bf16, host clock around synchronised calls)", flush=True)
+    times = {
+        "bf16_b1": serve_times(torch, cfg, params, "bf16 B=1", 1),
+        "bf16_b8": serve_times(torch, cfg, params, "bf16 B=8", 8),
+        "kv8_b8": serve_times(torch, cfg, params, "kv8 B=8", 8,
+                              kv_quant=True),
+    }
+    w8 = quantize_params(params, "w8")
+    del params
+    times["w8_b1"] = serve_times(torch, cfg, w8, "w8 B=1", 1)
+    wall["times_s"] = time.perf_counter() - t0
+    print(f"  phase 4 wall time {wall}", flush=True)
+    return {"oracle": oracle, "http": http, "times": times, "wall": wall}
+
+
 def build_kernels(torch):
     """Phase 0: the card's name and power limit, then the kernels' build.
     Returns (nvidia-smi line, the attention module)."""
@@ -818,6 +1212,7 @@ def main() -> int:
         kernels, yardstick, bf16_check = phase_kernels(torch, att)
         m = phase_main_path(torch, att, MAIN_STEPS)
         phase_resume()
+        serve = phase_serve(torch, att)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -840,6 +1235,7 @@ def main() -> int:
         "losses": m["losses"]}}), flush=True)
     print(json.dumps({"attention_fwd_bwd": yardstick, "bf16_check": bf16_check,
                       "trunk": m["trunk"]}), flush=True)
+    print(json.dumps({"serve": serve}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

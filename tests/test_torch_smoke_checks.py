@@ -190,3 +190,101 @@ def test_step_profile_puts_each_kernel_in_its_family(name, fam):
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     import torch_step_profile
     assert torch_step_profile.family(name) == fam
+
+
+# ---- phase 4: serving ---------------------------------------------------------
+
+def _logits(seed, *shape):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32))
+
+
+def test_teacher_forced_check_passes_equal_logits_and_their_argmax():
+    ref = _logits(0, 2, 5, 32)
+    out = cs.teacher_forced_check(torch, ref.clone(), ref, ref.argmax(-1),
+                                  cs.F32_TOL, "same")
+    assert out == {"err": 0.0, "max_abs_err": 0.0, "ties": 0}
+
+
+def test_teacher_forced_check_rejects_a_logit_past_the_tolerance():
+    ref = _logits(1, 2, 5, 32)
+    got = ref.clone()
+    got[1, 3, 7] += 3 * cs.F32_TOL * (1 + ref[1, 3, 7].abs())
+    with pytest.raises(cs.SmokeFailure, match="logits off the full forward"):
+        cs.teacher_forced_check(torch, got, ref, ref.argmax(-1), cs.F32_TOL,
+                                "off")
+
+
+def test_teacher_forced_check_takes_a_near_tie_only():
+    ref = _logits(2, 1, 3, 16)
+    tokens = ref.argmax(-1).clone()
+    second = ref[0, 1].topk(2).indices[1]
+    # a token within twice the tolerance of the largest logit: a near tie
+    ref[0, 1, second] = ref[0, 1].max() - cs.F32_TOL
+    tokens[0, 1] = second
+    out = cs.teacher_forced_check(torch, ref.clone(), ref, tokens, cs.F32_TOL,
+                                  "tie")
+    assert out["ties"] == 1
+    # a token far below the largest logit is a wrong token
+    ref[0, 1, second] = ref[0, 1].max() - 1.0
+    with pytest.raises(cs.SmokeFailure, match="beyond a near tie"):
+        cs.teacher_forced_check(torch, ref.clone(), ref, tokens, cs.F32_TOL,
+                                "wrong")
+
+
+def test_serve_bounds_count_weights_cache_and_operations():
+    from gpu_docker_api_tpu_torch.models import llama
+    cfg = llama.LlamaConfig.llama_1b()
+    per_layer = 2048 * 128 * 2 * (16 + 8) + 3 * 2048 * 5632
+    n = 20 * per_layer + 2048 * 32000
+    assert cs.cache_bytes_per_token(cfg, False) == 2 * 20 * 8 * 128 * 2
+    assert cs.cache_bytes_per_token(cfg, True) == 2 * 20 * 8 * (128 + 4)
+    # decode at B=1, context 544: bytes (weights + the cache up to the
+    # frontier) bound it
+    ms, by = cs.serve_bounds(cfg, 2 * n, 1, 1, 544, False)
+    assert by == "bytes"
+    assert ms == pytest.approx((2 * n + 545 * 81920) / cs.PEAK_BYTES * 1e3)
+    # prefill of 8 x 512 tokens: operations bound it
+    ms, by = cs.serve_bounds(cfg, 2 * n, 8, 512, 0, False)
+    pairs = 8 * 512 * 513 // 2
+    flops = 2 * n * 8 * 512 + 4 * 128 * 16 * 20 * pairs
+    assert by == "operations"
+    assert ms == pytest.approx(flops / cs.PEAK_BF16_FLOPS * 1e3)
+
+
+def test_weight_bytes_count_int8_weights_with_their_scales():
+    from gpu_docker_api_tpu_torch.models import llama
+    from gpu_docker_api_tpu_torch.ops.quant import quantize_params
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    mats = [params["layers"][k] for k in ("wq", "wk", "wv", "wo", "w1", "w2",
+                                          "w3")] + [params["lm_head"]]
+    assert cs.weight_bytes(params) == 4 * sum(m.numel() for m in mats)
+    w8 = quantize_params(params, "w8")
+    assert cs.weight_bytes(w8) == sum(m.numel() + 4 * m.numel() // m.shape[-2]
+                                      for m in mats)
+
+
+@pytest.mark.parametrize("kv8", [False, True])
+def test_serve_oracle_runs_the_cached_path_against_the_full_forward(kv8):
+    """Phase 4's oracle on the CPU at the tiny width (the plain attention
+    stands in for the forward kernel, so nothing is launched)."""
+    from gpu_docker_api_tpu_torch.models import llama
+    out = cs.serve_oracle(torch, att, llama.LlamaConfig.tiny(), 2, 16, 6, kv8,
+                          cs.KV8_TOL if kv8 else cs.F32_TOL, device="cpu")
+    assert out["err"] <= (cs.KV8_TOL if kv8 else 1e-5)
+    assert out["flash_fwd_launches"] == 0
+
+
+def test_serve_http_drives_the_entry_point_in_a_subprocess(tmp_path):
+    """Phase 4's HTTP check against `python -m ...workloads.serve --device
+    cpu --config tiny`: healthz, greedy equal to in-process generate(),
+    top_k=1 greedy, a sampled request, the error envelopes."""
+    from gpu_docker_api_tpu_torch.models import llama
+    from gpu_docker_api_tpu_torch.train import Trainer
+    from gpu_docker_api_tpu_torch.workloads.serve import _load_params
+    cfg = llama.LlamaConfig.tiny()
+    params = _load_params(Trainer.create(cfg, device="cpu"), "")
+    out = cs.serve_http(torch, "tiny", cfg, params, str(tmp_path),
+                        extra_args=("--device", "cpu"))
+    assert out["greedy_tokens_equal"] is True
