@@ -41,9 +41,24 @@ Phases (any failure exits non-zero and prints no result):
      envelopes, the traceparent echo), killed in every case; then prefill
      and decode times in bf16 at B=1 and B=8, with the int8 KV cache and
      with w8 weights, each beside its bound and the device-busy share.
+  5. the dense continuous batcher at llama 1b (batching.py, the _Batcher of
+     workloads/serve.py; no kernel on this path). 5a, in-process, f32: six
+     staggered requests into 4 slots, each greedy stream held to its solo
+     (B=1) stream, where it may leave only at a near tie (top-2 gap under
+     TIE_GAP, at most one stream a run); again with chunked prefill, the
+     prefix cache and decode chunks over prompts sharing a 128-token prefix
+     (a prefix hit counted), and with a mini draft (speculative rounds,
+     acceptance printed); no flash kernel launched. 5b, bf16: `python -m
+     gpu_docker_api_tpu_torch.workloads.serve --config 1b --batch-slots 8
+     ...` under 32 requests from 16 clients, with --decode-chunk 1 and 8:
+     every response served with the batching headers, healthz counting 32
+     admissions, a two-row request refused; then --admit-queue 2 must shed
+     with the 429 envelope; then, in-process, the device-busy share and
+     step time of a traced window of 8-slot decode beside its bound.
 
 Prints one `{"kernels": [...]}` line, the readings, one `{"serve": ...}`
-line, the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+line, one `{"batching": ...}` line, the nvidia-smi line, and last
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -979,15 +994,12 @@ def http_call(port, method, path, body=None, headers=None):
         conn.close()
 
 
-def serve_http(torch, name, cfg, params, logs_dir, extra_args=()):
-    """The serving entry point as the control plane starts it: `python -m
-    gpu_docker_api_tpu_torch.workloads.serve --config <name>` (seed-0
-    weights; on the card unless extra_args ask for the CPU), driven over
-    HTTP and held to in-process generate() on the same seed-0 `params`. The
-    subprocess is killed in every case."""
-    from gpu_docker_api_tpu_torch import infer
-    from gpu_docker_api_tpu_torch.workloads.serve import _n_params
-
+def start_serve(name, logs_dir, extra_args=()):
+    """`python -m gpu_docker_api_tpu_torch.workloads.serve --config <name>`
+    on a free port, its output in logs_dir/serve_subprocess.log, as the
+    control plane starts it; waits for /healthz. Returns (process, port,
+    seconds to /healthz, the /healthz envelope). The caller kills the
+    process; so does this function when the wait fails."""
     port = free_port()
     log_path = os.path.join(logs_dir, "serve_subprocess.log")
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -1005,10 +1017,25 @@ def serve_http(torch, name, cfg, params, logs_dir, extra_args=()):
                   f"no /healthz within {HTTP_DEADLINE_S} s")
             try:
                 health, _ = http_call(port, "GET", "/healthz")
-                break
+                return proc, port, time.perf_counter() - t0, health
             except OSError:
                 time.sleep(0.5)
-        ready_s = time.perf_counter() - t0
+    except BaseException:
+        proc.kill()
+        proc.wait(timeout=60)
+        raise
+
+
+def serve_http(torch, name, cfg, params, logs_dir, extra_args=()):
+    """The serving entry point as the control plane starts it (start_serve;
+    seed-0 weights, on the card unless extra_args ask for the CPU), driven
+    over HTTP and held to in-process generate() on the same seed-0
+    `params`. The subprocess is killed in every case."""
+    from gpu_docker_api_tpu_torch import infer
+    from gpu_docker_api_tpu_torch.workloads.serve import _n_params
+
+    proc, port, ready_s, health = start_serve(name, logs_dir, extra_args)
+    try:
         want = {"model": f"llama/{name}", "params": _n_params(params),
                 "vocab": cfg.vocab_size, "maxSeqLen": cfg.max_seq_len}
         check(health["code"] == 200 and health["data"] == want,
@@ -1108,6 +1135,438 @@ def phase_serve(torch, att):
     wall["times_s"] = time.perf_counter() - t0
     print(f"  phase 4 wall time {wall}", flush=True)
     return {"oracle": oracle, "http": http, "times": times, "wall": wall}
+
+
+# ---- phase 5: the dense continuous batcher -------------------------------------
+
+# 5a, in-process, f32: the batcher's greedy streams against each prompt's
+# solo stream (B=1). A stream may leave its solo stream only at a near tie,
+# where the solo logits' top two are closer than TIE_GAP: a row decoded in
+# a batch of slots goes through other GEMM shapes than at B=1, and its
+# logits may differ by rounding. At most one stream a run may do so.
+BATCH_EXACT = dict(slots=4, max_len=512, lens=(37, 64, 100, 160, 200, 256),
+                   new=24, prefix=128, suffixes=(16, 40, 72, 100),
+                   prefill_chunk=64, prefix_cache=4, decode_chunk=8, gamma=4)
+TIE_GAP = 1e-4
+STAGGER_S = 0.2        # request i goes in i * STAGGER_S after the first
+# 5b, the serve process over HTTP, bf16: the batcher's flags, then the
+# traffic: requests from concurrent clients, prompt lengths and max_new drawn
+# from numpy.random.default_rng(5) (inclusive ranges)
+BATCH_SERVE = ("--batch-slots", "8", "--batch-max-len", "1024",
+               "--batch-prefill-chunk", "256")
+BATCH_TRAFFIC = dict(requests=32, clients=16, prompt=(128, 512),
+                     new=(64, 128))
+BATCH_ADMIT_QUEUE = 2
+BUSY_WINDOW_S = 1.0    # the timed window of steady 8-slot decode
+BUSY_STEPS = 16        # the traced decode steps (a multiple of 8)
+BATCH_HEADERS = ("X-TDAPI-Slots", "X-TDAPI-Active", "X-TDAPI-Queued",
+                 "X-TDAPI-Queue-Wait-EWMA-Ms", "X-TDAPI-Queue-Wait-Ms")
+MULTIROW_REFUSAL = (
+    "bad request: server runs in continuous-batching mode: send "
+    "single-sequence requests (one row; greedy or sampling), or start "
+    "without --batch-slots for multi-row batches")
+
+
+def solo_reference(torch, params, cfg, prompt, n):
+    """The B=1 greedy stream of prompt [T] (prefill, then decode_step:
+    generate()'s path, as phase 4 checks) and, per token, the gap between
+    the top two logits it was picked from."""
+    from gpu_docker_api_tpu_torch import infer
+    cache = infer.init_cache(cfg, 1, prompt.shape[0] + n,
+                             device=prompt.device)
+    logits, cache = infer.prefill(params, prompt[None], cache, cfg)
+    tokens, top2 = [], []
+    for j in range(n):
+        tokens.append(logits.argmax(dim=-1))
+        top2.append(logits[0].topk(2).values)
+        if j + 1 < n:
+            logits, cache = infer.decode_step(params, tokens[-1], cache, cfg)
+    top2 = torch.stack(top2)
+    return torch.cat(tokens).tolist(), (top2[:, 0] - top2[:, 1]).tolist()
+
+
+def near_tie_check(stream, solo, gaps, label) -> bool:
+    """False when `stream` equals the solo stream; True when it leaves it
+    first at a near tie (solo top-2 gap under TIE_GAP); fails otherwise."""
+    check(len(stream) == len(solo),
+          f"{label}: {len(stream)} tokens, want {len(solo)}")
+    for j, (got, want) in enumerate(zip(stream, solo)):
+        if got != want:
+            check(gaps[j] < TIE_GAP,
+                  f"{label}: token {j} is {got}, the solo stream's is {want},"
+                  f" at a top-2 gap of {gaps[j]:.3g} (a near tie is under "
+                  f"{TIE_GAP})")
+            return True
+    return False
+
+
+def batcher_streams(torch, cfg, params, prompts, max_new, first_alone=False,
+                    **kw):
+    """Each prompt submitted from a thread of its own to a new
+    _Batcher(cfg, params, **kw), request i going in i * STAGGER_S after the
+    first, so later ones join mid-decode (first_alone: the rest only once
+    the first prompt is in the prefix store). Returns (streams, the
+    batcher, wall s). The batcher is closed in every case."""
+    import threading
+    from gpu_docker_api_tpu_torch.workloads.serve import _Batcher
+
+    b = _Batcher(cfg, params, **kw)
+    out, errors = [None] * len(prompts), []
+
+    def ask(i):
+        try:
+            out[i] = b.submit(prompts[i], max_new)
+        except Exception as e:  # reported by the check below
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    try:
+        threads = []
+        for i in range(len(prompts)):
+            if i == 1 and first_alone:
+                while (not b._prefixes and threads[0].is_alive()
+                       and time.perf_counter() - t0 < 600):
+                    time.sleep(0.01)
+            elif i:
+                time.sleep(STAGGER_S)
+            threads.append(threading.Thread(target=ask, args=(i,),
+                                            daemon=True))
+            threads[-1].start()
+        for t in threads:
+            t.join(timeout=600)
+        check(not any(t.is_alive() for t in threads),
+              "a batcher request did not return")
+        check(not errors, f"batcher requests failed: {errors}")
+        return out, b, time.perf_counter() - t0
+    finally:
+        b.close()
+
+
+def batcher_exactness(torch, att, cfg, params, draft, sizes=BATCH_EXACT,
+                      device="cuda"):
+    """5a: three _Batcher runs on seed-made prompts, each stream held to
+    its solo stream under the near-tie rule: staggered admissions; chunked
+    prefill, the prefix cache and decode chunks over prompts sharing a
+    prefix (a prefix hit must be counted); speculative rounds with `draft`
+    (config, params). No flash kernel may launch: the serving path runs
+    none. Returns the readings."""
+    gen = torch.Generator(device=device).manual_seed(21)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                             device=device)
+
+    plain = [prompt(n) for n in sizes["lens"]]
+    base = prompt(sizes["prefix"])
+    shared = [torch.cat([base, prompt(n)]) for n in sizes["suffixes"]]
+    n = sizes["new"]
+    t0 = time.perf_counter()
+    solo = {id(p): solo_reference(torch, params, cfg, p, n)
+            for p in plain + shared}
+    slot_kw = dict(slots=sizes["slots"], max_len=sizes["max_len"])
+    runs = {
+        "staggered": (plain, {}, False),
+        "chunked prefill, prefix cache, decode chunk": (shared, dict(
+            prefill_chunk=sizes["prefill_chunk"],
+            prefix_cache=sizes["prefix_cache"],
+            decode_chunk=sizes["decode_chunk"]), True),
+        "speculative": (plain, dict(draft=draft, gamma=sizes["gamma"]),
+                        False),
+    }
+    out = {"solo_s": time.perf_counter() - t0}
+    att.reset_launches()
+    for name, (prompts, kw, first_alone) in runs.items():
+        streams, b, wall = batcher_streams(torch, cfg, params, prompts, n,
+                                           first_alone, **slot_kw, **kw)
+        ties = sum(near_tie_check(s, *solo[id(p)], f"5a {name}, request {i}")
+                   for i, (s, p) in enumerate(zip(streams, prompts)))
+        check(ties <= 1, f"5a {name}: {ties} streams left their solo "
+                         f"streams at near ties (at most 1)")
+        r = {"requests": len(prompts), "near_ties": ties, "wall_s": wall,
+             "prefix_hits": b.prefix_hits}
+        if "prefix_cache" in kw:
+            check(b.prefix_hits >= 1, f"5a {name}: no prefix hit")
+        if "draft" in kw:
+            r["speculative"] = {
+                "rounds": b.spec_rounds, "proposed": b.spec_proposed,
+                "accepted": b.spec_accepted, "emitted": b.spec_emitted,
+                "accept_rate": b.spec_accepted / max(b.spec_proposed, 1)}
+        out[name] = r
+        print(f"  5a {name}: {r}", flush=True)
+    launches = dict(att.LAUNCHES)
+    check(not any(launches.values()),
+          f"the batcher launched flash kernels: {launches}")
+    out["launches"] = launches
+    return out
+
+
+def http_traffic(vocab, traffic=BATCH_TRAFFIC, seed=5):
+    """[(prompt tokens, max_new)] of 5b's requests."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo, hi = traffic["prompt"]
+    lens = rng.integers(lo, hi + 1, traffic["requests"])
+    lo, hi = traffic["new"]
+    news = rng.integers(lo, hi + 1, traffic["requests"])
+    return [(rng.integers(0, vocab, int(n)).tolist(), int(m))
+            for n, m in zip(lens, news)]
+
+
+def percentile(values, q):
+    """Nearest-rank percentile q in [0, 1] of a non-empty list."""
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(q * len(ordered)))]
+
+
+def check_batching_headers(hdrs, label):
+    """The batcher's response headers: every BATCH_HEADERS entry, numbers
+    all of them."""
+    missing = [h for h in BATCH_HEADERS if h not in hdrs]
+    check(not missing, f"{label}: headers {missing} missing")
+    for h in BATCH_HEADERS:
+        float(hdrs[h])
+
+
+def drive_traffic(port, requests, clients):
+    """Every (tokens, max_new) of `requests` POSTed to /generate from
+    `clients` concurrent clients. Returns ([(envelope, headers, latency
+    s)], wall s)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(req):
+        tokens, max_new = req
+        t0 = time.perf_counter()
+        env, hdrs = http_call(port, "POST", "/generate",
+                              {"tokens": [tokens], "max_new": max_new})
+        return env, hdrs, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as ex:
+        results = list(ex.map(one, requests))
+    return results, time.perf_counter() - t0
+
+
+def batching_http(torch, name, cfg, logs_dir, decode_chunk,
+                  traffic=BATCH_TRAFFIC, extra_args=()):
+    """5b: the serve process with the batcher (BATCH_SERVE, --decode-chunk)
+    under http_traffic from concurrent clients: every response code 200
+    with its tokens and the batching headers, healthz counting every
+    admission, a two-row request refused with the JAX server's message.
+    Returns the readings. The subprocess is killed in every case."""
+    requests = http_traffic(cfg.vocab_size, traffic)
+    proc, port, ready_s, health = start_serve(
+        name, logs_dir, (*BATCH_SERVE, "--decode-chunk", str(decode_chunk),
+                         *extra_args))
+    try:
+        check(health["data"]["batching"]["alive"] is True,
+              f"/healthz {health}")
+        results, wall = drive_traffic(port, requests, traffic["clients"])
+        for i, ((env, hdrs, _), (_, max_new)) in enumerate(
+                zip(results, requests)):
+            toks = env["data"]["tokens"] if env["code"] == 200 else None
+            check(toks is not None and len(toks) == 1
+                  and len(toks[0]) == max_new
+                  and all(0 <= x < cfg.vocab_size for x in toks[0]),
+                  f"5b request {i}: {str(env)[:300]}")
+            check_batching_headers(hdrs, f"5b request {i}")
+        health, _ = http_call(port, "GET", "/healthz")
+        count = health["data"]["batching"]["queueWait"]["count"]
+        check(count == len(requests),
+              f"healthz queueWait.count {count}, want {len(requests)}")
+        refusal, _ = http_call(port, "POST", "/generate",
+                               {"tokens": [[1, 2], [3, 4]], "max_new": 2})
+        check(refusal == {"code": 400, "msg": MULTIROW_REFUSAL, "data": None},
+              f"two-row request: {refusal}")
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    latency = [r[2] for r in results]
+    waits = [float(r[1]["X-TDAPI-Queue-Wait-Ms"]) for r in results]
+    return {"decode_chunk": decode_chunk, "ready_s": ready_s,
+            "requests": len(requests), "wall_s": wall,
+            "tokens_s": sum(m for _, m in requests) / wall,
+            "latency_s_p50_p90": [percentile(latency, 0.5),
+                                  percentile(latency, 0.9)],
+            "queue_wait_ms_p50_p90": [percentile(waits, 0.5),
+                                      percentile(waits, 0.9)]}
+
+
+def batching_shed(torch, name, cfg, logs_dir, traffic=BATCH_TRAFFIC,
+                  serve_args=BATCH_SERVE, extra_args=()):
+    """5b with --admit-queue: the same burst must see at least one request
+    shed with the 429 envelope (Retry-After, X-TDAPI-Shed); every other
+    request is served. Returns the counts."""
+    requests = http_traffic(cfg.vocab_size, traffic)
+    proc, port, _, _ = start_serve(
+        name, logs_dir, (*serve_args, "--admit-queue",
+                         str(BATCH_ADMIT_QUEUE), *extra_args))
+    try:
+        results, _ = drive_traffic(port, requests, traffic["clients"])
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    shed = [(env, hdrs) for env, hdrs, _ in results if env["code"] == 429]
+    served = sum(env["code"] == 200 for env, _, _ in results)
+    check(shed, f"--admit-queue {BATCH_ADMIT_QUEUE}: no request shed")
+    for env, hdrs in shed:
+        check(env == {"code": 429, "msg": "replica queue full", "data": None}
+              and hdrs.get("Retry-After") == "1"
+              and hdrs.get("X-TDAPI-Shed") == "1", f"shed response {env}")
+    check(served + len(shed) == len(requests),
+          "requests neither served nor shed")
+    return {"admit_queue": BATCH_ADMIT_QUEUE, "shed": len(shed),
+            "served": served}
+
+
+def batcher_busy(torch, cfg, params, decode_chunk, slots=8, max_len=1024,
+                 prompt_len=256):
+    """Steady decode with every slot decoding, in-process on the serve
+    process's weights and batcher settings: the step time over an untraced
+    window of the scheduler thread (host clock over the steps the slots'
+    host lengths moved); then, with that thread stopped and its slots kept,
+    the device-busy
+    share of BUSY_STEPS decode steps of the same scheduler ticks (_tick)
+    run on this thread, since the profiler records the CPU side of its own
+    thread only; then check_decode_sync_free on the same slots; and the
+    bound of one full decode step at the mean context (serve_bounds). The
+    requests ask for every token the cache holds, so no slot finishes
+    before the windows end; the batcher is closed after them."""
+    import threading
+    from gpu_docker_api_tpu_torch.workloads.serve import _Batcher
+
+    b = _Batcher(cfg, params, slots=slots, max_len=max_len,
+                 prefill_chunk=256, decode_chunk=decode_chunk)
+    gen = torch.Generator(device=params["embed"].device).manual_seed(9)
+    prompts = torch.randint(0, cfg.vocab_size, (slots, prompt_len),
+                            generator=gen, device=gen.device)
+
+    def ask(p):
+        try:
+            b.submit(p, max_len - prompt_len)
+        except RuntimeError:       # closed after the window
+            pass
+
+    threads = [threading.Thread(target=ask, args=(p,), daemon=True)
+               for p in prompts]
+    try:
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        while not all(s is not None and s.get("stream") is not None
+                      for s in b.slots):
+            check(time.perf_counter() - t0 < 300 and b.alive,
+                  "the batcher never filled its slots")
+            time.sleep(0.01)
+
+        # steps are counted on the host mirror of the lengths, which moves
+        # a step at a time inside a decode chunk too (tokens reach the
+        # streams a chunk at a time); the window is one sleep, since a
+        # thread polling here would take the GIL from the scheduler
+        before = sum(b.cache["host_lengths"])
+        t0 = time.perf_counter()
+        time.sleep(BUSY_WINDOW_S)
+        window = time.perf_counter() - t0
+        after = sum(b.cache["host_lengths"])
+        steps, ctx = (after - before) / slots, (before + after) / 2 / slots
+
+        def emitted():
+            return sum(len(s["stream"]) for s in b.slots if s is not None)
+
+        b._stop = True
+        b.thread.join(timeout=60)
+        check(not b.thread.is_alive(), "the scheduler thread did not stop")
+        before = emitted()
+        with torch.no_grad():
+            busy = busy_share(torch, {"decode": (
+                b._tick, BUSY_STEPS // decode_chunk)})["decode"]
+        check(steps > 0 and emitted() - before == BUSY_STEPS * slots
+              and all(s is not None for s in b.slots),
+              "the slots did not decode through the windows")
+        check_decode_sync_free(torch, b)
+    finally:
+        b.close()
+        for t in threads:
+            t.join(timeout=60)
+    bound = serve_bounds(cfg, weight_bytes(params), slots, 1, ctx, False)
+    return {"decode_chunk": decode_chunk, "busy": busy,
+            "step_ms": window * 1e3 / steps, "context": ctx,
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def check_decode_sync_free(torch, b):
+    """A greedy decode step, a sampled one and a decode chunk over every
+    slot of the stopped batcher `b` queue their work without one device
+    sync (torch.cuda's sync debug mode "error"): the per-row frontiers are
+    host ints, and the active mask and tokens go up through pinned memory.
+    They move the cache past the streams; `b` is closed after."""
+    from gpu_docker_api_tpu_torch import batching
+    n = len(b.slots)
+    toks = torch.zeros(n, dtype=torch.long, device=b.device)
+    sample = (*b._sample_vectors(), b._gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            batching.slot_decode(b.params, toks, b.cache, [True] * n,
+                                 b.config)
+            batching.slot_decode_pick(b.params, toks, b.cache, [True] * n,
+                                      *sample, b.config)
+            batching.slot_decode_multi(b.params, toks, b.cache, [True] * n,
+                                       [8] * n, b.config, 8, sample=sample)
+    except RuntimeError as e:
+        raise SmokeFailure(f"a slot decode step synchronised: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def phase_batching(torch, att):
+    """Phase 5: the dense continuous batcher at llama 1b, full width and
+    depth: 5a in-process in f32, 5b the serve process over HTTP in bf16."""
+    from gpu_docker_api_tpu_torch.models import llama
+    from gpu_docker_api_tpu_torch.train import Trainer
+    from gpu_docker_api_tpu_torch.workloads.serve import _load_params
+
+    cfg = llama.LlamaConfig.llama_1b()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    mini32 = dataclasses.replace(llama.LlamaConfig.llama_mini(),
+                                 dtype=torch.float32)
+    print(f"phase 5: continuous batcher, llama 1b (5a f32 in-process: "
+          f"{BATCH_EXACT}; 5b bf16 serve process: {' '.join(BATCH_SERVE)}, "
+          f"{BATCH_TRAFFIC})", flush=True)
+    wall = {}
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg32, torch.Generator(device="cuda")
+                               .manual_seed(0))
+    draft = (mini32, llama.init_params(mini32, torch.Generator(
+        device="cuda").manual_seed(1)))
+    exact = batcher_exactness(torch, att, cfg32, params, draft)
+    del params, draft
+    torch.cuda.empty_cache()
+    wall["5a_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    http, busy = {}, {}
+    with tempfile.TemporaryDirectory() as logs:
+        for chunk in (1, 8):
+            http[f"decode_chunk_{chunk}"] = r = batching_http(
+                torch, "1b", cfg, logs, chunk)
+            print(f"  5b HTTP: {r}", flush=True)
+        shed = batching_shed(torch, "1b", cfg, logs)
+        print(f"  5b --admit-queue: {shed}", flush=True)
+    wall["5b_http_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = _load_params(Trainer.create(cfg), "")     # the server's weights
+    for chunk in (1, 8):
+        busy[f"decode_chunk_{chunk}"] = r = batcher_busy(torch, cfg, params,
+                                                         chunk)
+        print(f"  5b in-process decode window: {r}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    wall["5b_busy_s"] = time.perf_counter() - t0
+    print(f"  phase 5 wall time {wall}", flush=True)
+    return {"exact": exact, "http": http, "shed": shed, "busy": busy,
+            "wall": wall}
 
 
 def build_kernels(torch):
@@ -1213,6 +1672,7 @@ def main() -> int:
         m = phase_main_path(torch, att, MAIN_STEPS)
         phase_resume()
         serve = phase_serve(torch, att)
+        batching = phase_batching(torch, att)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -1236,6 +1696,7 @@ def main() -> int:
     print(json.dumps({"attention_fwd_bwd": yardstick, "bf16_check": bf16_check,
                       "trunk": m["trunk"]}), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
+    print(json.dumps({"batching": batching}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -88,10 +88,47 @@ def blocks_used(pos: int, t: int, blk: int) -> int:
     return (pos + t + blk - 1) // blk
 
 
+class Frontiers:
+    """Per-row frontiers of a slot batch (batching.py) for one step, built
+    once per step: `host` the positions as Python ints, which the attend's
+    key range and the window's dead-block skip read without a device sync,
+    and `dev` the same as one device tensor, which the cache writes and
+    RoPE read. The write indices are made once per (T, S_max) and shared by
+    every layer's writes."""
+
+    def __init__(self, host, dev: torch.Tensor):
+        self.host = [int(p) for p in host]
+        self.dev = dev.long()
+        self._writes = {}
+
+    def write_index(self, t: int, s_max: int):
+        """(rows [B,1], cols [B,t]) of a T-token write at each row's
+        frontier; a start past S_max - T is clamped, as
+        lax.dynamic_update_slice clamps it."""
+        key = (t, s_max)
+        if key not in self._writes:
+            dev = self.dev.device
+            start = self.dev.clamp(0, s_max - t)
+            self._writes[key] = (
+                torch.arange(len(self.host), device=dev)[:, None],
+                start[:, None] + torch.arange(t, device=dev))
+        return self._writes[key]
+
+
 def _per_row(pos) -> bool:
-    """True for a [B] vector of per-row positions, False for one position
-    (an int or a 0-d tensor)."""
-    return isinstance(pos, (list, tuple)) or getattr(pos, "ndim", 0) == 1
+    """True for per-row positions (Frontiers or a [B] vector), False for
+    one position (an int or a 0-d tensor)."""
+    return (isinstance(pos, (list, tuple, Frontiers))
+            or getattr(pos, "ndim", 0) == 1)
+
+
+def _frontiers(pos, device) -> Frontiers:
+    """Per-row positions as Frontiers; a [B] vector is read to the host
+    (one device sync when it is a device tensor)."""
+    if isinstance(pos, Frontiers):
+        return pos
+    dev = torch.as_tensor(pos, device=device).reshape(-1)
+    return Frontiers(dev.tolist(), dev)
 
 
 def _attend_cached(q, k_all, v_all, pos, k_scale=None, v_scale=None,
@@ -105,12 +142,13 @@ def _attend_cached(q, k_all, v_all, pos, k_scale=None, v_scale=None,
     With k_scale/v_scale (int8 cache, [B,S_max,Hkv,1] f32) the read blocks
     are dequantized here.
 
-    pos is an int (the whole batch at one frontier) or a [B] sequence of
-    per-row frontiers (the slot cache of continuous batching): the columns
-    then run to the furthest row's frontier with each row masked to its
-    own. The per-row bounds are read on the host (one device sync when pos
-    is a device tensor); `active` [B] bool marks the rows whose frontier
-    may move the window's first block.
+    pos is an int (the whole batch at one frontier) or per-row frontiers
+    (the slot cache of continuous batching): Frontiers, or a [B] sequence.
+    The columns then run to the furthest row's frontier with each row
+    masked to its own. The per-row bounds are read on the host: from
+    Frontiers.host with no device sync, else from pos (one sync when it is
+    a device tensor); `active` [B] bool (a host list in the batcher) marks
+    the rows whose frontier may move the window's first block.
 
     GQA: K/V are read at the Hkv head count; q is viewed as [B,T,Hkv,G,D],
     so no repeated K/V is made."""
@@ -120,14 +158,18 @@ def _attend_cached(q, k_all, v_all, pos, k_scale=None, v_scale=None,
     blk = _block_for(s_max)
     per_row = _per_row(pos)
     if per_row:
-        pos_t = torch.as_tensor(pos, device=q.device).reshape(-1)
-        pos_h = pos_t.tolist()
+        fr = _frontiers(pos, q.device)
+        pos_t, pos_h = fr.dev, fr.host
         far = max(pos_h)
         # `near` drives the window's dead-block skip; idle slot rows
         # (length 0) must not drag it to 0, so active rows only when a mask
         # is given
-        act = (torch.as_tensor(active).reshape(-1).tolist()
-               if active is not None else [True] * len(pos_h))
+        if active is None:
+            act = [True] * len(pos_h)
+        elif isinstance(active, (list, tuple)):
+            act = active
+        else:
+            act = torch.as_tensor(active).reshape(-1).tolist()
         near = min((p for p, a in zip(pos_h, act) if a), default=2 ** 30)
     else:
         far = near = pos = int(pos)
@@ -170,18 +212,15 @@ def _attend_cached(q, k_all, v_all, pos, k_scale=None, v_scale=None,
 
 def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
     """Write new [B,T,...] into cache [B,S_max,...] in place at start
-    position `pos`: an int (one frontier) or a [B] tensor (per-row
-    frontiers; a start past S_max - T is clamped, as
+    position `pos`: an int (one frontier), or Frontiers or a [B] tensor
+    (per-row frontiers; a start past S_max - T is clamped, as
     lax.dynamic_update_slice clamps it). Returns `cache`."""
     t = new.shape[1]
     if not _per_row(pos):
         pos = int(pos)
         cache[:, pos:pos + t] = new.to(cache.dtype)
         return cache
-    start = torch.as_tensor(pos, device=cache.device).reshape(-1).clamp(
-        0, cache.shape[1] - t)
-    rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
-    cols = start[:, None] + torch.arange(t, device=cache.device)
+    rows, cols = _frontiers(pos, cache.device).write_index(t, cache.shape[1])
     cache.index_put_((rows, cols), new.to(cache.dtype))
     return cache
 
@@ -190,8 +229,9 @@ def _layer_step(x, layer, cache_k, cache_v, pos, config, cos, sin,
                 scale_k=None, scale_v=None, active=None):
     """One decoder layer over a T-token slice with cache read + write.
     x [B,T,D]; cache_k/v [B,S_max,Hkv,D] (this layer's views, written in
-    place); pos = absolute start position (int, or [B] per row). With
-    scale_k/scale_v (int8 cache) new K/V quantize on write. Returns x."""
+    place); pos = absolute start position (int, or Frontiers / [B] per
+    row). With scale_k/scale_v (int8 cache) new K/V quantize on write.
+    Returns x."""
     if "we1" in layer:
         raise NotImplementedError("MoE decode is not yet ported to PyTorch")
     c = config
@@ -227,26 +267,37 @@ def _forward_cached(params, tokens, cache, config, last_only=False):
     """tokens [B,T] starting at absolute position host_length. Writes the
     cache in place; returns (logits [B,T,V] f32, or [B,1,V] of the last
     position when last_only, and the cache dict with its lengths moved)."""
-    c = config
     t = tokens.shape[1]
     pos = _host_length(cache)
     x = F.embedding(tokens, params["embed"])
     cos, sin = rope_frequencies(
-        c, torch.arange(pos, pos + t, device=tokens.device))
+        config, torch.arange(pos, pos + t, device=tokens.device))
+    logits = _run_layers(params, x, cache, pos, config, cos, sin,
+                         last_only=last_only)
+    out = dict(cache, length=cache["length"].new_full((), pos + t),
+               host_length=pos + t)
+    return logits, out
+
+
+def _run_layers(params, x, cache, pos, config, cos, sin, active=None,
+                last_only=False):
+    """Every decoder layer over x [B,T,D] with the cache read and written
+    in place at `pos` (int, or Frontiers per row), then the final norm and
+    lm_head: logits [B,T,V] f32 ([B,1,V] of the last position when
+    last_only)."""
+    c = config
     layers = params["layers"]
     stacks = [layers[name].unbind(0) for name in _LAYER_KEYS]
     quantized = "ks" in cache
     for i, weights in enumerate(zip(*stacks)):
         scales = (cache["ks"][i], cache["vs"][i]) if quantized else ()
         x = _layer_step(x, dict(zip(_LAYER_KEYS, weights)), cache["k"][i],
-                        cache["v"][i], pos, c, cos, sin, *scales)
+                        cache["v"][i], pos, c, cos, sin, *scales,
+                        active=active)
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, params["final_norm"], c.norm_eps)
-    logits = qmatmul(x, params["lm_head"]).float()
-    out = dict(cache, length=cache["length"].new_full((), pos + t),
-               host_length=pos + t)
-    return logits, out
+    return qmatmul(x, params["lm_head"]).float()
 
 
 def _checked_length(cache, new_tokens: int) -> None:

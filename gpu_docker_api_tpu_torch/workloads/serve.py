@@ -1,5 +1,5 @@
-"""Schedulable inference server, PyTorch port: the single-host,
-single-flight path of gpu_docker_api_tpu/workloads/serve.py.
+"""Schedulable inference server, PyTorch port of the single-host path of
+gpu_docker_api_tpu/workloads/serve.py.
 
 The control plane schedules this exactly like the training workload
 (`POST /replicaSet {"cmd": [... serve, ...]}`, the granted port passed via
@@ -8,24 +8,29 @@ checkpoint of a torch `train_llama` workdir) and answers token-level
 generation requests over HTTP, byte-compatible with the JAX server:
 
   GET  /healthz               -> {"code":200, "data":{"model","params",
-                                  "vocab","maxSeqLen"}}
+                                  "vocab","maxSeqLen"[, "batching"]}}
   POST /generate              body {"tokens": [[...]], "max_new": N,
                                     "temperature": 0.0, "top_k": 0,
                                     "top_p": 1.0}
                               -> {"code":200, "data":{"tokens": [[...]]}}
 
 Every response is HTTP 200 with the control plane's {code, msg, data}
-envelope. Serving is single-flight: one request at a time runs
-infer.generate (or infer.speculative_generate for one row when a draft is
-loaded) on the card. --device cpu serves from the CPU instead (tests).
+envelope (an --admit-queue shed is code 429 with Retry-After and
+X-TDAPI-Shed). Without --batch-slots serving is single-flight: one request
+at a time runs infer.generate (or infer.speculative_generate for one row
+when a draft is loaded). With --batch-slots N the dense continuous batcher
+(_Batcher over batching.py) serves single-row requests: they join a
+running slot batch between decode steps, and every response carries the
+batcher's X-TDAPI-Slots / -Active / -Queued / -Queue-Wait-EWMA-Ms headers.
+--device cpu serves from the CPU instead of the card (tests).
 
-Not yet ported, and refused at start-up: the continuous batcher
-(--batch-slots and every flag that configures it), paged KV and the /kv
-handoff, --host-load, tensor parallelism, multi-host serving and the MoE
-family.
+Not yet ported, and refused at start-up: paged KV (--kv-block, --kv-pool)
+and the /kv handoff, the co-tenancy regulator (TDAPI_TPU_SHARES /
+TDAPI_PRIORITY with --batch-slots), --host-load, tensor parallelism,
+multi-host serving and the MoE family.
 
 Run: python -m gpu_docker_api_tpu_torch.workloads.serve --config tiny \
-        --device cpu --port 8000
+        --device cpu --port 8000 [--batch-slots 4]
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import argparse
 import json
 import os
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 
@@ -64,6 +70,564 @@ def _n_params(params: dict) -> int:
                else x.numel() for x in tree_leaves(params))
 
 
+class _Batcher:
+    """Continuous batching (batching.py), dense slot cache: one background
+    thread owns the cache; requests enqueue, claim a free slot, prefill,
+    and then every decode step advances ALL active slots together, so a
+    new request joins between steps instead of waiting for the batch to
+    drain. The JAX _Batcher without its paged branches and its co-tenancy
+    regulator.
+
+    The cache lives where the weights are. The scheduler thread runs under
+    torch.no_grad() (grad mode is per thread). Sampling rows draw from one
+    torch.Generator per batcher, seeded from `seed`."""
+
+    def __init__(self, config, params, slots: int, max_len: int,
+                 prefill_chunk: int = 0, prefix_cache: int = 0,
+                 restarts: int = 3, kv_quant: bool = False,
+                 decode_chunk: int = 1, seed: int | None = None,
+                 draft: tuple | None = None, gamma: int = 4):
+        import collections
+        import queue
+
+        import torch
+
+        self.config = config
+        self.params = params
+        self.max_len = max_len
+        self.device = params["embed"].device
+        # speculative decoding INSIDE the batch: a draft model (own slot
+        # cache) proposes gamma tokens per active row each round; the
+        # target verifies every row's gamma+1 positions in ONE multi-token
+        # forward; acceptance and rollback are per row. The slot caches get
+        # gamma+1 positions of headroom: the verify step may overshoot a
+        # row's budget before its rollback.
+        self._draft = draft                  # (draft_config, draft_params)
+        self.gamma = int(gamma)
+        if draft is not None and draft[0].vocab_size != config.vocab_size:
+            raise ValueError("draft and target must share a vocab")
+        self._cache_len = max_len + (self.gamma + 1 if draft else 0)
+        self.spec_rounds = 0                 # spec telemetry (healthz)
+        self.spec_proposed = 0               # draft tokens proposed
+        self.spec_accepted = 0               # draft tokens accepted
+        self.spec_emitted = 0                # tokens emitted by spec rounds
+        # > 1: when nothing is waiting to join, decode up to this many
+        # steps per host sync; waiting work drops the loop back to single
+        # steps so admission latency stays one step
+        self.decode_chunk = max(int(decode_chunk), 1)
+        seed = (seed if seed is not None
+                else int.from_bytes(os.urandom(4), "big"))
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.kv_quant = kv_quant
+        # scheduler crash budget: a transient device error fails the
+        # in-flight requests, the loop rebuilds its cache and keeps
+        # serving; after `restarts` crashes the batcher stays dead
+        self._restarts_left = restarts
+        self._prefill_cursor = 0
+        # > 0: feed prompts to the model in pieces of this many tokens, one
+        # piece per loop tick, interleaved with decode steps for the others
+        self.prefill_chunk = prefill_chunk
+        # > 0: keep the KV of the last N distinct prompts; a request whose
+        # prompt extends a stored one restores that prefix's KV and
+        # prefills only the suffix. LRU by prompt.
+        self.prefix_cache = prefix_cache
+        self._prefixes: "collections.OrderedDict" = collections.OrderedDict()
+        self.prefix_hits = 0
+        self.queue: "queue.Queue" = queue.Queue()
+        # queue-wait telemetry (submit -> slot admission): the per-request
+        # value rides stats_out into the response header; the aggregates
+        # feed /healthz batching.queueWait. EWMA alpha 0.2.
+        self.queue_wait_count = 0
+        self.queue_wait_ms_total = 0.0
+        self.last_queue_wait_ms: "float | None" = None
+        self.queue_wait_ewma_ms: "float | None" = None
+        self.slots: list = [None] * slots
+        self._sample_vec = None   # per-slot sampling vectors (cached)
+        self._make_cache()
+        self._stop = False
+        self._dead: Exception | None = None   # loop crash / close reason
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _make_cache(self) -> None:
+        """(Re)build the slot caches: init and the crash-restart path."""
+        from ..batching import init_slot_cache
+        self.cache = init_slot_cache(self.config, len(self.slots),
+                                     self._cache_len, quantized=self.kv_quant,
+                                     device=self.device)
+        if self._draft is not None:
+            self.d_cache = init_slot_cache(
+                self._draft[0], len(self.slots), self._cache_len,
+                quantized=self.kv_quant, device=self.device)
+
+    def _release_slot(self, i: int) -> None:
+        self.slots[i] = None
+        self._sample_vec = None
+
+    def _finish(self, i: int, item) -> None:
+        """The stream is complete: free the slot, then wake the waiter (so
+        its response's X-TDAPI-Active already counts the slot free)."""
+        item["out"] = item["stream"]
+        self._release_slot(i)
+        item["done"].set()
+
+    def _extend(self, i: int, item, tokens: list) -> None:
+        """Append decoded tokens to slot i's stream; finish it at max_new."""
+        item["stream"].extend(tokens)
+        item["last"] = item["stream"][-1]
+        if len(item["stream"]) >= item["max_new"]:
+            self._finish(i, item)
+
+    def submit(self, prompt_row, max_new: int, temperature: float = 0.0,
+               top_k: int = 0, top_p: float = 1.0,
+               stats_out: dict | None = None) -> list[int]:
+        """Blocking: returns the stream for one sequence (prompt_row [T]
+        token ids), greedy at temperature 0, else per-request sampling.
+        Raises if the scheduler thread has died or the batcher is closed.
+        `stats_out` (a dict) receives queueWaitMs, the submit -> slot
+        admission wait, for the response headers."""
+        import math
+
+        import numpy as np
+        import torch
+
+        if self._stop or self._dead is not None:
+            raise RuntimeError(
+                f"batcher unavailable: {self._dead or 'closed'}")
+        prompt_row = torch.as_tensor(prompt_row).to(self.device, torch.long)
+        if prompt_row.shape[0] == 0:
+            raise ValueError("empty prompt")
+        # validate the F32-ROUNDED values: the sampling vectors are float32,
+        # so a subnormal f64 that rounds to 0.0f would empty the nucleus
+        temperature = float(np.float32(temperature))
+        top_p = float(np.float32(top_p))
+        if not (math.isfinite(temperature) and temperature >= 0):
+            raise ValueError("temperature must be finite and >= 0")
+        if not 0.0 < top_p <= 1.0:
+            raise ValueError("top_p must be in (0, 1]")
+        if top_k < 0:
+            raise ValueError("top_k must be >= 0")
+        # top_k >= vocab means "no filter": clamp to the vocab
+        top_k = min(int(top_k), self.config.vocab_size)
+        if prompt_row.shape[0] + max_new > self.max_len:
+            raise ValueError(
+                f"prompt {prompt_row.shape[0]} + max_new {max_new} exceeds "
+                f"the batcher's max_len {self.max_len}")
+        item = {"prompt": prompt_row, "max_new": int(max_new),
+                "temperature": float(temperature), "top_k": int(top_k),
+                "top_p": float(top_p), "enq_at": time.monotonic(),
+                "done": threading.Event(), "out": None, "error": None}
+        self.queue.put(item)
+        # re-check AFTER the put: _fail_all may have drained the queue
+        # between the check above and the put
+        if ((self._stop or self._dead is not None)
+                and not item["done"].is_set()):
+            item["error"] = self._dead or RuntimeError("batcher closed")
+            item["done"].set()
+        item["done"].wait()
+        if item["error"] is not None:
+            raise RuntimeError(f"batcher failed: {item['error']}")
+        if stats_out is not None and "wait_ms" in item:
+            stats_out["queueWaitMs"] = round(item["wait_ms"], 3)
+        return item["out"]
+
+    @property
+    def alive(self) -> bool:
+        """Scheduler thread is running and accepting work (/healthz)."""
+        return self._dead is None and not self._stop
+
+    @property
+    def queued(self) -> int:
+        """Requests waiting for a slot (/healthz)."""
+        return self.queue.qsize()
+
+    def close(self):
+        self._stop = True
+        self.thread.join(timeout=5)
+        self._fail_all(RuntimeError("batcher closed"))
+
+    def _fail_all(self, exc: Exception) -> None:
+        """Release every waiter, in-flight slots and queued items: the
+        scheduler is gone, and blocking forever is the only alternative."""
+        import queue
+        self._dead = self._dead or exc
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                s["error"] = exc
+                self._release_slot(i)
+                s["done"].set()
+        while True:
+            try:
+                item = self.queue.get_nowait()
+            except queue.Empty:
+                break
+            item["error"] = exc
+            item["done"].set()
+
+    def _run(self):
+        import torch
+        while True:
+            try:
+                with torch.no_grad():
+                    self._loop()
+                return
+            except Exception as e:  # noqa: BLE001 — device errors land
+                # here; every waiter must be released, not left hanging
+                import traceback
+                traceback.print_exc()
+                self._fail_all(e)
+                if self._stop or self._restarts_left <= 0:
+                    return
+                # the crash failed every in-flight waiter, so the cache
+                # holds only dead rows: rebuild it and resume
+                self._restarts_left -= 1
+                self._make_cache()
+                self._prefixes.clear()
+                if self._stop:
+                    # close() ran while we rebuilt: stay closed
+                    return
+                self._dead = None
+                print(f"batcher scheduler restarted after: {e!r} "
+                      f"({self._restarts_left} restarts left)", flush=True)
+
+    # ---- the scheduler loop (single thread owns the cache) ----
+
+    def _next_item(self):
+        """FIFO head of the queue; None = nothing waiting."""
+        import queue
+        try:
+            return self.queue.get_nowait()
+        except queue.Empty:
+            return None
+
+    def _admit(self):
+        """Claim free slots for queued items. Without chunking the whole
+        prompt prefills here; with chunking the item parks in the slot with
+        its pieces and _prefill_tick feeds them."""
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                continue
+            item = self._next_item()
+            if item is None:
+                return
+            # admission is the queue-wait boundary
+            item["wait_ms"] = (time.monotonic() - item["enq_at"]) * 1e3
+            self.queue_wait_count += 1
+            self.queue_wait_ms_total += item["wait_ms"]
+            self.last_queue_wait_ms = item["wait_ms"]
+            prev = self.queue_wait_ewma_ms
+            self.queue_wait_ewma_ms = (
+                item["wait_ms"] if prev is None
+                else 0.2 * item["wait_ms"] + 0.8 * prev)
+            try:
+                rem = self._restore_prefix(i, item)
+                if self.prefill_chunk > 0:
+                    c = self.prefill_chunk
+                    item["chunks"] = [rem[j:j + c]
+                                      for j in range(0, rem.shape[0], c)]
+                    if self._draft is not None:
+                        # the draft sees the FULL prompt (it has no prefix
+                        # store), chunked the same way
+                        item["dchunks"] = [
+                            item["prompt"][j:j + c]
+                            for j in range(0, item["prompt"].shape[0], c)]
+                    item["stream"] = None        # not decodable yet
+                    self.slots[i] = item
+                    self._sample_vec = None
+                else:
+                    self._prefill_piece(i, item, rem,
+                                        first=not item.get("_restored"))
+                    if self._draft is not None:
+                        self._draft_prefill(i, item["prompt"], first=True)
+                    self._arm_or_finish(i, item)
+            except Exception as e:
+                # the item is in neither the queue nor a slot: fail it
+                # here, then let the crash propagate (_run releases the rest)
+                item["error"] = e
+                item["done"].set()
+                raise
+
+    # ---- prefix cache (system-prompt KV reuse) ----
+
+    @staticmethod
+    def _prompt_key(item) -> tuple:
+        """Host prompt tuple, cached on the item (one device-to-host copy
+        per request)."""
+        key = item.get("_key") or tuple(item["prompt"].tolist())
+        item["_key"] = key
+        return key
+
+    @staticmethod
+    def _usable_lcp(a: tuple, b: tuple) -> int:
+        """Longest common prefix usable for KV reuse when serving prompt
+        `b`, capped at len(b)-1 so the last position's logits always come
+        from a real forward."""
+        lcp = 0
+        for x, y in zip(a, b):
+            if x != y:
+                break
+            lcp += 1
+        return min(lcp, len(b) - 1)
+
+    def _lcp_lookup(self, item):
+        """(best stored key, usable token count) for the item's prompt."""
+        key = self._prompt_key(item)
+        best_key, best_use = None, 0
+        for pk in self._prefixes:
+            usable = self._usable_lcp(pk, key)
+            if usable > best_use:
+                best_key, best_use = pk, usable
+        return best_key, best_use
+
+    def _restore_prefix(self, i, item):
+        """Longest stored prompt prefix -> COPY its KV into the slot row;
+        returns only the tokens still needing prefill."""
+        prompt = item["prompt"]
+        if not self.prefix_cache:
+            return prompt
+        from .. import batching
+        best_key, best_use = self._lcp_lookup(item)
+        if best_key is None or best_use < 8:     # not worth a restore
+            return prompt
+        entry = self._prefixes[best_key]
+        self._prefixes.move_to_end(best_key)
+        self.cache = batching.slot_restore_kv(self.cache, i, entry["bufs"],
+                                              best_use)
+        self.prefix_hits += 1
+        item["_restored"] = True
+        return prompt[best_use:]
+
+    def _store_prefix(self, i, item) -> None:
+        """After a full prefill, keep a copy of the prompt's KV for future
+        requests sharing the prefix (LRU-bounded; bucketed to 64 tokens as
+        the JAX version buckets its compiled extracts)."""
+        if not self.prefix_cache:
+            return
+        from .. import batching
+        key = self._prompt_key(item)
+        if key in self._prefixes:
+            self._prefixes.move_to_end(key)
+            return
+        if len(key) < 8:
+            # below the restore threshold: never restorable
+            return
+        # ceil-to-64 never exceeds max_len: submit() enforces
+        # len + max_new <= max_len with max_new >= 1
+        bucket = min(self.max_len, -(-len(key) // 64) * 64)
+        self._prefixes[key] = {
+            "bufs": batching.slot_extract_kv(self.cache, i, bucket)}
+        while len(self._prefixes) > self.prefix_cache:
+            self._prefixes.popitem(last=False)
+
+    def _prefill_piece(self, i, item, piece, first: bool):
+        from .. import batching
+        logits, self.cache = batching.slot_prefill(
+            self.params, piece[None], self.cache, i, self.config,
+            append=not first)
+        item["_last_logits"] = logits
+
+    def _draft_prefill(self, i, piece, first: bool):
+        """Feed a prompt piece into the DRAFT's slot cache (both caches hold
+        y_1..y_{m-1} between rounds); its logits are unused."""
+        from .. import batching
+        dcfg, dparams = self._draft
+        _, self.d_cache = batching.slot_prefill(
+            dparams, piece[None], self.d_cache, i, dcfg, append=not first)
+
+    def _sample_vectors(self):
+        """Per-slot (temperatures, top_ks, top_ps) on the device for the
+        shared decode step (idle/greedy rows: temperature 0 = argmax).
+        Cached: they change only on admit/release."""
+        if self._sample_vec is None:
+            import torch
+
+            from ..batching import to_device
+            temps, tks, tps = [], [], []
+            for s in self.slots:
+                temps.append(s["temperature"] if s else 0.0)
+                tks.append(s["top_k"] if s else 0)
+                tps.append(s["top_p"] if s else 1.0)
+            self._sample_vec = (to_device(temps, torch.float32, self.device),
+                                to_device(tks, torch.long, self.device),
+                                to_device(tps, torch.float32, self.device))
+        return self._sample_vec
+
+    def _sampling(self) -> bool:
+        """A sampling row is DECODING (a sampler still mid-prefill must not
+        tax the greedy rows with the rowwise filter)."""
+        return any(s is not None and s.get("stream") is not None
+                   and s["temperature"] > 0 for s in self.slots)
+
+    def _arm_or_finish(self, i, item):
+        """Prefill complete: the first token comes off the last piece's
+        logits; one-token requests answer at once."""
+        self._store_prefix(i, item)   # the row holds the full prompt's KV
+        logits = item.pop("_last_logits")
+        if item["temperature"] == 0.0:
+            tok = int(logits[0].argmax())
+        else:
+            import torch
+
+            from ..batching import rowwise_pick, to_device
+            tok = int(rowwise_pick(
+                logits, to_device([item["temperature"]], torch.float32,
+                                   self.device),
+                to_device([item["top_k"]], torch.long, self.device),
+                to_device([item["top_p"]], torch.float32, self.device),
+                self._gen)[0])
+        item["stream"] = [tok]
+        item["last"] = tok
+        if item["max_new"] <= 1:
+            self._finish(i, item)
+        else:
+            self.slots[i] = item
+            self._sample_vec = None
+
+    def _prefill_tick(self) -> bool:
+        """Feed ONE pending prompt piece (chunked mode). True if fed. Scans
+        round-robin from a rotating cursor so a chunked prefill in a high
+        slot is not starved by new admissions in lower slots."""
+        n = len(self.slots)
+        for off in range(n):
+            i = (self._prefill_cursor + off) % n
+            s = self.slots[i]
+            if s is None or not (s.get("chunks") or s.get("dchunks")):
+                continue
+            self._prefill_cursor = (i + 1) % n
+            if s.get("chunks"):
+                piece = s["chunks"].pop(0)
+                # a prefix-restored item APPENDS from its first piece
+                self._prefill_piece(i, s, piece,
+                                    first=("_last_logits" not in s
+                                           and not s.get("_restored")))
+            if s.get("dchunks"):
+                dpiece = s["dchunks"].pop(0)
+                self._draft_prefill(i, dpiece,
+                                    first=not s.get("_d_started"))
+                s["_d_started"] = True
+            if not s.get("chunks") and not s.get("dchunks"):
+                s.pop("chunks", None)
+                s.pop("dchunks", None)
+                s.pop("_d_started", None)
+                self._arm_or_finish(i, s)
+            return True
+        return False
+
+    def _spec_round(self, active: list, toks) -> None:
+        """One speculative round over the whole slot batch: the draft
+        proposes gamma per active row, the target verifies all rows in one
+        multi-token forward, per-row accept and cache rollback, 1..gamma+1
+        tokens emitted per row. One host sync per round."""
+        import torch
+
+        from .. import batching
+        dcfg, dparams = self._draft
+        g = self.gamma
+        sample = ((*self._sample_vectors(), self._gen) if self._sampling()
+                  else None)
+        drafts, dlogp, self.d_cache = batching.slot_spec_draft(
+            dparams, toks, self.d_cache, active, dcfg, g, sample)
+        blocks = torch.cat([toks[:, None], drafts], dim=1)
+        tlogits, self.cache = batching.slot_verify(
+            self.params, blocks, self.cache, active, self.config)
+        if sample is not None:
+            a, emit = batching.rowwise_spec_accept(tlogits, drafts, dlogp,
+                                                   *sample)
+        else:
+            a, emit = batching.spec_accept_greedy(tlogits, drafts)
+        got = torch.cat([a[:, None], emit], dim=1).tolist()  # ONE host sync
+        a_host = [row[0] for row in got]
+        # all-gamma-accepted rows miss the draft's entry for the last
+        # proposal (the draft never forwarded it): one draft step for
+        # exactly those rows fills it before the rollback
+        fill = [bool(active[i]) and a_host[i] == g
+                for i in range(len(self.slots))]
+        if any(fill):
+            _, self.d_cache = batching.slot_decode(
+                dparams, drafts[:, -1], self.d_cache, fill, dcfg)
+        # roll both caches back to exactly the accepted entries: the target
+        # wrote gamma+1 (keeps 1+a), the draft gamma (+1 for filled rows)
+        for cache, back in (
+                (self.cache, [g - x for x in a_host]),
+                (self.d_cache, [0 if x == g else g - 1 - x for x in a_host])):
+            batching.set_lengths(cache, [
+                n - b if act else n for n, b, act
+                in zip(cache["host_lengths"], back, active)])
+        self.spec_rounds += 1
+        for i, s in enumerate(self.slots):
+            if not active[i]:
+                continue
+            take = min(1 + a_host[i], s["max_new"] - len(s["stream"]))
+            self.spec_proposed += g
+            self.spec_accepted += a_host[i]
+            self.spec_emitted += take
+            self._extend(i, s, got[i][1:1 + take])
+
+    def _has_waiters(self) -> bool:
+        """Work is waiting to join (defers chunked decode so admission
+        latency stays one step)."""
+        return not self.queue.empty()
+
+    def _loop(self):
+        while not self._stop:
+            if not self._tick():
+                time.sleep(0.002)
+
+    def _tick(self) -> bool:
+        """One scheduler tick: admit, feed one prefill piece, one decode
+        step (or spec round, or decode chunk) for the active rows. False
+        when there was nothing to do (the loop sleeps)."""
+        import torch
+
+        from .. import batching
+        self._admit()
+        fed = self._prefill_tick()      # one prompt piece per tick
+        # decodable = prefill finished (mid-prefill slots sit out the step:
+        # their lengths must not advance)
+        active = [s is not None and s.get("stream") is not None
+                  for s in self.slots]
+        if not any(active):
+            return fed
+        toks = batching.to_device(
+            [s["last"] if active[i] else 0 for i, s in enumerate(self.slots)],
+            torch.long, self.device)
+        if self._draft is not None:
+            self._spec_round(active, toks)
+            return True
+        # chunked decode only when nothing is waiting to join and no prefill
+        # is mid-flight; otherwise single steps keep admission latency at
+        # one step. The chunk size stays fixed: stream tails run masked
+        # steps (their rows stop advancing at their budget)
+        chunk = self.decode_chunk
+        idle = chunk > 1 and not fed and not self._has_waiters()
+        # greedy fast path: no sampling row decoding -> pure argmax
+        sample = ((*self._sample_vectors(), self._gen) if self._sampling()
+                  else None)
+        if idle:
+            remaining = [s["max_new"] - len(s["stream"]) if active[i] else 0
+                         for i, s in enumerate(self.slots)]
+            steps, self.cache = batching.slot_decode_multi(
+                self.params, toks, self.cache, active, remaining,
+                self.config, chunk, sample=sample)
+            steps = steps.t().tolist()              # [slots, chunk]
+            for i, s in enumerate(self.slots):
+                if active[i]:
+                    self._extend(i, s, steps[i][:remaining[i]])
+            return True
+        if sample is not None:
+            picked, self.cache = batching.slot_decode_pick(
+                self.params, toks, self.cache, active, *sample, self.config)
+        else:
+            logits, self.cache = batching.slot_decode(
+                self.params, toks, self.cache, active, self.config)
+            picked = logits.argmax(dim=-1)
+        nxt = picked.tolist()
+        for i, s in enumerate(self.slots):
+            if active[i]:
+                self._extend(i, s, nxt[i:i + 1])
+        return True
+
+
 class _Server:
     def __init__(self, config, params, kv_quant: bool = False,
                  draft: tuple = None, gamma: int = 4):
@@ -73,11 +637,13 @@ class _Server:
         self.draft = draft             # (draft_config, draft_params) | None
         self.gamma = gamma
         self.device = params["embed"].device   # serve where the weights are
+        self.batcher: _Batcher | None = None
         self.lock = threading.Lock()   # single-flight: one card
         self.n_params = _n_params(params)
 
     def generate(self, tokens, max_new: int, temperature: float,
-                 top_k: int = 0, top_p: float = 1.0):
+                 top_k: int = 0, top_p: float = 1.0,
+                 stats_out: dict | None = None):
         import torch
 
         from ..infer import generate, speculative_generate
@@ -89,6 +655,21 @@ class _Server:
             raise ValueError("tokens must be [batch, prompt_len]")
         if int(prompt.max()) >= self.config.vocab_size or int(prompt.min()) < 0:
             raise ValueError("token id out of range")
+        # continuous batching: single-sequence requests (greedy or
+        # sampling) join the running slot batch without the single-flight
+        # lock; the batcher thread owns the cache
+        if self.batcher is not None:
+            if prompt.shape[0] == 1:
+                return [self.batcher.submit(
+                    prompt[0], int(max_new), temperature=float(temperature),
+                    top_k=int(top_k), top_p=float(top_p),
+                    stats_out=stats_out)]
+            # a multi-row request would run generate() beside the batcher's
+            # slot decode: two caches live at once on the card
+            raise ValueError(
+                "server runs in continuous-batching mode: send "
+                "single-sequence requests (one row; greedy or sampling), "
+                "or start without --batch-slots for multi-row batches")
         with self.lock:
             prompt = prompt.to(self.device)
             gen = torch.Generator(device=self.device).manual_seed(
@@ -111,7 +692,42 @@ class _Server:
             return out.cpu().tolist()
 
 
-def _handler_for(srv: _Server, model_name: str):
+def _ms(value):
+    """A queue-wait reading as /healthz reports it (3 decimals, or None)."""
+    return round(value, 3) if value is not None else None
+
+
+def _batching_health(b: _Batcher) -> dict:
+    """/healthz's `batching` block of the dense batcher."""
+    out = {
+        "slots": len(b.slots),
+        "active": sum(s is not None for s in b.slots),
+        "queued": b.queued,
+        "maxLen": b.max_len,
+        "alive": b.alive,
+        "prefixHits": b.prefix_hits,
+        "queueWait": {
+            "count": b.queue_wait_count,
+            "totalMs": round(b.queue_wait_ms_total, 3),
+            "lastMs": _ms(b.last_queue_wait_ms),
+            "ewmaMs": _ms(b.queue_wait_ewma_ms),
+        },
+    }
+    if b._draft is not None:
+        out["speculative"] = {
+            "gamma": b.gamma,
+            "rounds": b.spec_rounds,
+            "proposed": b.spec_proposed,
+            "accepted": b.spec_accepted,
+            "emitted": b.spec_emitted,
+            # fraction of PROPOSED draft tokens accepted (a round proposes
+            # gamma per ACTIVE row)
+            "acceptRate": round(b.spec_accepted / max(b.spec_proposed, 1), 3),
+        }
+    return out
+
+
+def _handler_for(srv: _Server, model_name: str, admit_queue: int = 0):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
         # keep-alive envelope responses flush headers and body as two
@@ -122,7 +738,8 @@ def _handler_for(srv: _Server, model_name: str):
         def log_message(self, *a):
             pass
 
-        def _send(self, code: int, msg: str, data):
+        def _send(self, code: int, msg: str, data,
+                  extra: "dict | None" = None):
             payload = json.dumps(
                 {"code": code, "msg": msg, "data": data}).encode()
             self.send_response(200)     # control-plane envelope style
@@ -132,17 +749,33 @@ def _handler_for(srv: _Server, model_name: str):
             tp = self.headers.get("traceparent")
             if tp:
                 self.send_header("traceparent", tp)
+            # replica-side admission surface: a fronting gateway reads the
+            # batcher's slot / queue state off EVERY response
+            b = srv.batcher
+            if b is not None:
+                self.send_header("X-TDAPI-Slots", str(len(b.slots)))
+                self.send_header("X-TDAPI-Active",
+                                 str(sum(s is not None for s in b.slots)))
+                self.send_header("X-TDAPI-Queued", str(b.queued))
+                if b.queue_wait_ewma_ms is not None:
+                    self.send_header("X-TDAPI-Queue-Wait-EWMA-Ms",
+                                     str(round(b.queue_wait_ewma_ms, 3)))
+            for k, v in (extra or {}).items():
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(payload)
 
         def do_GET(self):
             if self.path == "/healthz":
-                self._send(200, "Success", {
+                data = {
                     "model": model_name,
                     "params": srv.n_params,
                     "vocab": srv.config.vocab_size,
                     "maxSeqLen": srv.config.max_seq_len,
-                })
+                }
+                if srv.batcher is not None:
+                    data["batching"] = _batching_health(srv.batcher)
+                self._send(200, "Success", data)
             elif self.path.startswith("/kv?") or self.path == "/kv":
                 # the KV handoff exports come from the paged batcher, which
                 # this server does not run
@@ -153,6 +786,15 @@ def _handler_for(srv: _Server, model_name: str):
         def do_POST(self):
             if self.path != "/generate":
                 self._send(404, "route not found", None)
+                return
+            # --admit-queue: shed BEFORE submitting once the batcher's wait
+            # line is at the bound; the 429 (+ X-TDAPI-Shed) tells a
+            # fronting gateway to route elsewhere
+            b = srv.batcher
+            if (admit_queue > 0 and b is not None
+                    and b.queued >= admit_queue):
+                self._send(429, "replica queue full", None,
+                           extra={"Retry-After": "1", "X-TDAPI-Shed": "1"})
                 return
             try:
                 length = int(self.headers.get("Content-Length") or 0)
@@ -172,13 +814,23 @@ def _handler_for(srv: _Server, model_name: str):
                     raise ValueError("temperature must be in [0, 10]")
                 # the JAX server's buckets for the sampling parameters
                 # without a batcher (there they bound its compiled
-                # programs): 201 temperatures x 20 top_p x 129 top_k
-                temperature = round(temperature * 20) / 20
-                top_p = round(top_p * 20) / 20 or 0.05
-                top_k = min(top_k, 128)
+                # programs): 201 temperatures x 20 top_p x 129 top_k. The
+                # batcher takes them as data and serves what was asked.
+                if srv.batcher is None:
+                    temperature = round(temperature * 20) / 20
+                    top_p = round(top_p * 20) / 20 or 0.05
+                    top_k = min(top_k, 128)
+                stats: dict = {}
                 out = srv.generate(tokens, max_new, temperature,
-                                   top_k=top_k, top_p=top_p)
-                self._send(200, "Success", {"tokens": out})
+                                   top_k=top_k, top_p=top_p,
+                                   stats_out=stats)
+                extra = None
+                if "queueWaitMs" in stats:
+                    # per-request batcher queue wait, stitched into a
+                    # fronting worker's trace
+                    extra = {"X-TDAPI-Queue-Wait-Ms":
+                             str(stats["queueWaitMs"])}
+                self._send(200, "Success", {"tokens": out}, extra=extra)
             except (KeyError, TypeError, ValueError) as e:
                 self._send(400, f"bad request: {e}", None)
 
@@ -186,8 +838,11 @@ def _handler_for(srv: _Server, model_name: str):
 
 
 def _refuse_unported(args, env=None) -> None:
-    """SystemExit for what the port cannot serve yet; where the JAX server
-    itself refuses a combination, its message."""
+    """SystemExit for what the port cannot serve yet: multi-host grants,
+    the MoE family, --host-load, --tp > 1, and with --batch-slots the paged
+    cache (--kv-block, --kv-pool) and a co-tenancy env (TDAPI_TPU_SHARES or
+    TDAPI_PRIORITY, where the JAX server registers a regulator tenant).
+    Where the JAX server itself refuses a combination, its message."""
     e = os.environ if env is None else env
     hosts = [h for h in e.get("TPU_WORKER_HOSTNAMES", "").split(",") if h]
     if len(hosts) > 1:
@@ -214,14 +869,16 @@ def _refuse_unported(args, env=None) -> None:
         if args.kv_block or args.kv_pool:
             raise SystemExit("--kv-block/--kv-pool configure the batching "
                              "scheduler's cache; they need --batch-slots N")
-    batcher = [f"--{name.replace('_', '-')}" for name, default in (
-        ("batch_slots", 0), ("batch_max_len", 0), ("batch_prefill_chunk", 0),
-        ("prefix_cache", 0), ("kv_block", 0), ("kv_pool", 0),
-        ("decode_chunk", 1), ("admit_queue", 0))
-        if getattr(args, name) != default]
-    if batcher:
-        raise SystemExit(f"{' '.join(batcher)}: the continuous batcher is "
-                         f"not yet ported to PyTorch")
+    else:
+        if args.kv_block or args.kv_pool:
+            raise SystemExit("--kv-block/--kv-pool: paged KV for the "
+                             "batcher is not yet ported to PyTorch")
+        cotenancy = [k for k in ("TDAPI_TPU_SHARES", "TDAPI_PRIORITY")
+                     if e.get(k)]
+        if cotenancy:
+            raise SystemExit(f"{'/'.join(cotenancy)} with --batch-slots: the "
+                             f"co-tenancy regulator is not yet ported to "
+                             f"PyTorch")
     if args.tp > 1:
         raise SystemExit(f"--tp {args.tp}: tensor-parallel serving is not "
                          f"yet ported to PyTorch")
@@ -249,34 +906,45 @@ def main(argv=None) -> int:
                         "the attend)")
     p.add_argument("--draft-config", default="",
                    help="named config of a draft model for speculative "
-                        "decoding of B=1 requests (greedy stream exact; "
-                        "sampling exact via rejection sampling)")
+                        "decoding. Alone: B=1 requests (greedy stream exact; "
+                        "sampling exact via rejection sampling). With "
+                        "--batch-slots: speculative rounds inside the "
+                        "batcher (per-slot proposals, one shared verify "
+                        "forward, the same exactness per row)")
     p.add_argument("--draft-checkpoint", default="",
                    help="checkpoint for the draft (fresh init when empty — "
                         "useful only for testing)")
     p.add_argument("--gamma", type=int, default=4,
                    help="speculative proposal length per round")
     p.add_argument("--batch-slots", type=int, default=0,
-                   help="continuous batching (not yet ported)")
+                   help="continuous batching: N cache slots; single-sequence "
+                        "requests join the running batch between decode "
+                        "steps (0 = off)")
     p.add_argument("--batch-max-len", type=int, default=0,
-                   help="slot cache length (continuous batching)")
+                   help="slot cache length (default: the model's "
+                        "max_seq_len)")
     p.add_argument("--batch-prefill-chunk", type=int, default=0,
-                   help="chunked prefill (continuous batching)")
+                   help="chunked prefill: feed prompts in pieces of N tokens "
+                        "interleaved with decode steps (0 = whole prompt)")
     p.add_argument("--prefix-cache", type=int, default=0,
-                   help="prefix KV reuse (continuous batching)")
+                   help="keep the KV of the last N distinct prompts; a "
+                        "request extending a cached prompt prefills only the "
+                        "suffix (0 = off)")
     p.add_argument("--kv-block", type=int, default=0,
-                   help="paged slot cache block size (continuous batching)")
+                   help="paged slot cache block size (not yet ported)")
     p.add_argument("--kv-pool", type=int, default=0,
-                   help="paged pool size in blocks (continuous batching)")
+                   help="paged pool size in blocks (not yet ported)")
     p.add_argument("--decode-chunk", type=int, default=1,
-                   help="decode steps per host sync (continuous batching)")
+                   help="decode up to N steps per host sync when no request "
+                        "is waiting to join (1 = sync every step)")
     p.add_argument("--tp", type=int, default=0,
                    help="tensor-parallel width (not yet ported above 1)")
     p.add_argument("--shard-kv", action="store_true",
                    help="shard the slot cache over tp (multi-host serving)")
     p.add_argument("--admit-queue", type=int, default=0,
-                   help="replica-side admission bound of the batcher's "
-                        "queue (continuous batching)")
+                   help="replica-side admission bound: /generate sheds 429 "
+                        "(+ X-TDAPI-Shed) once the batcher's queue is this "
+                        "deep (0 = never shed)")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=0,
                    help="0 = the control plane's granted port ($PORT from "
@@ -323,18 +991,41 @@ def main(argv=None) -> int:
               f"gamma {args.gamma}", flush=True)
     srv = _Server(config, params, kv_quant=args.kv_quant, draft=draft,
                   gamma=args.gamma)
+    if args.batch_slots > 0:
+        # --draft-config composes (speculative rounds over the whole slot
+        # batch), so does --kv-quant (int8 slot caches, both models)
+        try:
+            srv.batcher = _Batcher(config, params, slots=args.batch_slots,
+                                   max_len=args.batch_max_len
+                                   or config.max_seq_len,
+                                   prefill_chunk=args.batch_prefill_chunk,
+                                   prefix_cache=args.prefix_cache,
+                                   kv_quant=args.kv_quant,
+                                   decode_chunk=args.decode_chunk,
+                                   draft=draft, gamma=args.gamma)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        spec = (f", speculative (draft {args.draft_config}, gamma "
+                f"{args.gamma})" if draft else "")
+        print(f"continuous batching: {args.batch_slots} slots x "
+              f"{srv.batcher.max_len} tokens, dense KV{spec}", flush=True)
 
     name = f"{args.family}/{args.config}"
-    httpd = ThreadingHTTPServer((args.host, args.port),
-                                _handler_for(srv, name))
-    print(f"serving {name} ({srv.n_params:,} params) on "
-          f"{args.host}:{httpd.server_address[1]}", flush=True)
     try:
-        httpd.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        httpd = ThreadingHTTPServer((args.host, args.port),
+                                    _handler_for(srv, name,
+                                                 admit_queue=args.admit_queue))
+        print(f"serving {name} ({srv.n_params:,} params) on "
+              f"{args.host}:{httpd.server_address[1]}", flush=True)
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            httpd.server_close()
     finally:
-        httpd.server_close()
+        if srv.batcher is not None:
+            srv.batcher.close()
     return 0
 
 

@@ -196,13 +196,12 @@ BASE = ["--device", "cpu", "--config", "tiny", "--port", "1"]
 
 
 @pytest.mark.parametrize("extra, env, message", [
-    (["--batch-slots", "4"], {}, "not yet ported"),
-    (["--batch-max-len", "64"], {}, "not yet ported"),
-    (["--batch-prefill-chunk", "8"], {}, "not yet ported"),
-    (["--decode-chunk", "4"], {}, "not yet ported"),
-    (["--admit-queue", "2"], {}, "not yet ported"),
-    (["--batch-slots", "4", "--prefix-cache", "8"], {}, "not yet ported"),
     (["--batch-slots", "4", "--kv-block", "16"], {}, "not yet ported"),
+    (["--batch-slots", "4", "--kv-pool", "64"], {}, "not yet ported"),
+    (["--batch-slots", "2"], {"TDAPI_TPU_SHARES": "2"},
+     "co-tenancy regulator is not yet ported"),
+    (["--batch-slots", "2"], {"TDAPI_PRIORITY": "latency"},
+     "co-tenancy regulator is not yet ported"),
     (["--host-load", "--quantize", "w8"], {}, "not yet ported"),
     (["--tp", "2"], {}, "not yet ported"),
     (["--family", "moe"], {}, "not yet ported"),
@@ -219,6 +218,71 @@ def test_not_yet_ported_flags_are_refused(monkeypatch, extra, env, message):
         monkeypatch.setenv(k, v)
     with pytest.raises(SystemExit, match=message):
         tserve.main(BASE + extra)
+
+
+class _NoHTTP:
+    """Stands in for ThreadingHTTPServer: binds nothing, serves nothing."""
+
+    def __init__(self, address, handler):
+        self.server_address = address
+
+    def serve_forever(self):
+        pass
+
+    def server_close(self):
+        pass
+
+
+@pytest.mark.parametrize("extra, want", [
+    (["--batch-slots", "4"], dict(slots=4, max_len=128)),
+    (["--batch-slots", "2", "--batch-max-len", "64"],
+     dict(slots=2, max_len=64)),
+    (["--batch-slots", "2", "--batch-prefill-chunk", "8"],
+     dict(prefill_chunk=8)),
+    (["--batch-slots", "2", "--decode-chunk", "4"], dict(decode_chunk=4)),
+    (["--batch-slots", "2", "--admit-queue", "2"], dict(slots=2)),
+    (["--batch-slots", "4", "--prefix-cache", "8"], dict(prefix_cache=8)),
+    (["--batch-slots", "2", "--kv-quant"], dict(kv_quant=True)),
+    (["--batch-slots", "2", "--draft-config", "tiny", "--gamma", "3"],
+     dict(gamma=3)),
+    # without --batch-slots the JAX server ignores them too: no batcher
+    (["--batch-max-len", "64"], None),
+    (["--batch-prefill-chunk", "8"], None),
+    (["--decode-chunk", "4"], None),
+    (["--admit-queue", "2"], None),
+])
+def test_batcher_flags_start_a_batcher(monkeypatch, capsys, extra, want):
+    """The batcher's flags are accepted: with --batch-slots main starts a
+    dense _Batcher configured by them (the HTTP server stood in for),
+    prints the JAX server's line, and closes it on the way out."""
+    made = []
+
+    class Recorded(tserve._Batcher):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(tserve, "ThreadingHTTPServer", _NoHTTP)
+    monkeypatch.setattr(tserve, "_Batcher", Recorded)
+    assert tserve.main(BASE + extra) == 0
+    out = capsys.readouterr().out
+    if want is None:
+        assert made == [] and "continuous batching" not in out
+        return
+    (b,) = made
+    got = dict(vars(b), slots=len(b.slots))
+    assert {name: got[name] for name in want} == want
+    spec = ", speculative (draft tiny, gamma 3)" if "--gamma" in extra else ""
+    assert (f"continuous batching: {len(b.slots)} slots x {b.max_len} tokens, "
+            f"dense KV{spec}\n") in out
+    assert not b.thread.is_alive() and not b.alive
+
+
+def test_batch_slots_without_device_cpu_raises_when_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tserve.main(["--config", "tiny", "--port", "1", "--batch-slots", "4"])
 
 
 def test_draft_with_another_vocab_is_refused(monkeypatch):

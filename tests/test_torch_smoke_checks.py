@@ -5,6 +5,7 @@ on the card at the main path's shape, here at a small one)."""
 
 import os
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -288,3 +289,118 @@ def test_serve_http_drives_the_entry_point_in_a_subprocess(tmp_path):
     out = cs.serve_http(torch, "tiny", cfg, params, str(tmp_path),
                         extra_args=("--device", "cpu"))
     assert out["greedy_tokens_equal"] is True
+
+
+# ---- phase 5: the continuous batcher --------------------------------------------
+
+def test_near_tie_check_takes_equal_streams_and_near_ties_only():
+    solo, gaps = [4, 8, 15, 16], [0.5, 2e-5, 0.3, 0.1]
+    assert cs.near_tie_check(list(solo), solo, gaps, "same") is False
+    # leaves at token 1, where the solo top two were 2e-5 apart: a near tie
+    assert cs.near_tie_check([4, 9, 1, 1], solo, gaps, "tie") is True
+    with pytest.raises(cs.SmokeFailure, match="token 2 is 7"):
+        cs.near_tie_check([4, 8, 7, 16], solo, gaps, "wrong")
+    with pytest.raises(cs.SmokeFailure, match="3 tokens"):
+        cs.near_tie_check([4, 8, 15], solo, gaps, "short")
+
+
+def test_check_batching_headers_wants_all_five_as_numbers():
+    hdrs = {"X-TDAPI-Slots": "8", "X-TDAPI-Active": "3",
+            "X-TDAPI-Queued": "0", "X-TDAPI-Queue-Wait-EWMA-Ms": "1.25",
+            "X-TDAPI-Queue-Wait-Ms": "0.4"}
+    cs.check_batching_headers(hdrs, "ok")
+    del hdrs["X-TDAPI-Queue-Wait-Ms"]
+    with pytest.raises(cs.SmokeFailure, match="Queue-Wait-Ms"):
+        cs.check_batching_headers(hdrs, "missing")
+
+
+def test_http_traffic_is_seeded_and_inside_its_ranges():
+    reqs = cs.http_traffic(32000)
+    assert reqs == cs.http_traffic(32000)
+    assert len(reqs) == cs.BATCH_TRAFFIC["requests"]
+    lo, hi = cs.BATCH_TRAFFIC["prompt"]
+    assert all(lo <= len(t) <= hi and all(0 <= x < 32000 for x in t)
+               for t, _ in reqs)
+    lo, hi = cs.BATCH_TRAFFIC["new"]
+    assert all(lo <= m <= hi for _, m in reqs)
+    assert cs.percentile([3, 1, 2, 4], 0.5) == 3
+    assert cs.percentile([3, 1, 2, 4], 0.9) == 4
+
+
+def test_batcher_exactness_at_tiny_width_on_the_cpu():
+    """5a's three runs on the CPU (tiny target, a tiny draft): every stream
+    equals its solo stream, a prefix hit is counted, nothing launched."""
+    from gpu_docker_api_tpu_torch.models import llama
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    draft = (cfg, llama.init_params(cfg, torch.Generator().manual_seed(1)))
+    sizes = dict(slots=2, max_len=64, lens=(5, 9, 13), new=6, prefix=16,
+                 suffixes=(2, 5, 7), prefill_chunk=8, prefix_cache=2,
+                 decode_chunk=3, gamma=3)
+    out = cs.batcher_exactness(torch, att, cfg, params, draft, sizes,
+                               device="cpu")
+    runs = [k for k in out if isinstance(out[k], dict) and "requests" in out[k]]
+    assert len(runs) == 3
+    assert all(out[k]["near_ties"] == 0 for k in runs)
+    assert out["chunked prefill, prefix cache, decode chunk"]["prefix_hits"] >= 1
+    assert out["speculative"]["speculative"]["rounds"] >= 1
+    assert not any(out["launches"].values())
+
+
+@pytest.mark.parametrize("decode_chunk", [1, 8])
+def test_batcher_busy_traces_the_ticks_on_its_own_thread(monkeypatch,
+                                                         decode_chunk):
+    """5b's decode window on the CPU (tiny; busy_share and the sync check,
+    which need the card, stood in for): the scheduler thread is stopped
+    with its slots kept, the traced window runs BUSY_STEPS decode steps of
+    _tick on the calling thread, and the sync check gets the full slots."""
+    from gpu_docker_api_tpu_torch.models import llama
+    traced, checked = [], []
+
+    def fake_busy(torch, windows):
+        for name, (fn, reps) in windows.items():
+            traced.append((threading.current_thread(), reps))
+            for _ in range(reps):
+                fn()
+        return {name: 0.5 for name in windows}
+
+    def fake_sync_check(torch, b):
+        checked.append((b.thread.is_alive(),
+                        all(s is not None for s in b.slots)))
+
+    monkeypatch.setattr(cs, "busy_share", fake_busy)
+    monkeypatch.setattr(cs, "check_decode_sync_free", fake_sync_check)
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    out = cs.batcher_busy(torch, cfg, params, decode_chunk, slots=2,
+                          max_len=512, prompt_len=16)
+    assert traced == [(threading.main_thread(),
+                       cs.BUSY_STEPS // decode_chunk)]
+    assert checked == [(False, True)]
+    assert out["busy"] == 0.5 and out["step_ms"] > 0
+    assert out["bound_by"] == "bytes"
+
+
+TINY_TRAFFIC = dict(requests=6, clients=3, prompt=(8, 24), new=(4, 8))
+
+
+def test_batching_http_drives_the_batcher_in_a_subprocess(tmp_path):
+    """5b's HTTP check against `serve --device cpu --config tiny` with the
+    batcher: every response, the headers, healthz's count, the two-row
+    refusal."""
+    from gpu_docker_api_tpu_torch.models import llama
+    out = cs.batching_http(torch, "tiny", llama.LlamaConfig.tiny(),
+                           str(tmp_path), 2, traffic=TINY_TRAFFIC,
+                           extra_args=("--device", "cpu"))
+    assert out["requests"] == 6 and out["tokens_s"] > 0
+
+
+def test_batching_shed_sees_the_429_envelope(tmp_path):
+    """--admit-queue 2 with one slot and 12 requests from 12 clients: the
+    queue builds, and the shed responses carry the 429 envelope."""
+    from gpu_docker_api_tpu_torch.models import llama
+    out = cs.batching_shed(
+        torch, "tiny", llama.LlamaConfig.tiny(), str(tmp_path),
+        traffic=dict(requests=12, clients=12, prompt=(8, 24), new=(40, 60)),
+        serve_args=("--batch-slots", "1"), extra_args=("--device", "cpu"))
+    assert out["shed"] >= 1 and out["shed"] + out["served"] == 12
