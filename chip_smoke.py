@@ -55,10 +55,24 @@ Phases (any failure exits non-zero and prints no result):
      admissions, a two-row request refused; then --admit-queue 2 must shed
      with the 429 envelope; then, in-process, the device-busy share and
      step time of a traced window of 8-slot decode beside its bound.
+  6. the paged KV cache at llama 1b (paging.py, the paged _Batcher; no
+     kernel on this path). 6a, in-process, f32: 5a's runs over 16-token
+     blocks, the staggered one on a pool of 60% of what its requests hold
+     (an admission must find the pool short), each stream held to its
+     solo stream as in 5a, every drained pool holding only the trie's
+     blocks, then the KV handoff between two paged batchers; no flash
+     kernel launched. 6b, bf16: 5b's burst against the serve process
+     with --kv-block 16 --prefix-cache 8 --decode-chunk 1 (the KV sketch
+     headers on every response, the pool drained to the trie's blocks),
+     printed beside 5b's; then the paged 8-slot decode window, no sync in
+     a decode step. 6c: a prefill replica and a decode replica (serve
+     --kv-block 16 --batch-slots 4), three handoffs over HTTP each equal
+     to the decode replica's full request, healthz counting the imports,
+     a taken key a 404, an untaken export freed after its TTL.
 
 Prints one `{"kernels": [...]}` line, the readings, one `{"serve": ...}`
-line, one `{"batching": ...}` line, the nvidia-smi line, and last
-`{"ok": true, "device": {...}}`.
+line, one `{"batching": ...}` line, one `{"paged": ...}` line, the
+nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -1000,14 +1014,29 @@ def start_serve(name, logs_dir, extra_args=()):
     control plane starts it; waits for /healthz. Returns (process, port,
     seconds to /healthz, the /healthz envelope). The caller kills the
     process; so does this function when the wait fails."""
+    return wait_serve(*spawn_serve(name, logs_dir, extra_args))
+
+
+def spawn_serve(name, logs_dir, extra_args=(), env=None,
+                log_name="serve_subprocess.log"):
+    """start_serve's first half: the process (env: its environment, by
+    default this one's; its output in logs_dir/<log_name>), not waited
+    for. Returns (process, port, log path)."""
     port = free_port()
-    log_path = os.path.join(logs_dir, "serve_subprocess.log")
+    log_path = os.path.join(logs_dir, log_name)
     repo = os.path.dirname(os.path.abspath(__file__))
     with open(log_path, "w", encoding="utf-8") as log:
         proc = subprocess.Popen(
             [sys.executable, "-m", "gpu_docker_api_tpu_torch.workloads.serve",
              "--config", name, "--host", "127.0.0.1", "--port", str(port),
-             *extra_args], cwd=repo, stdout=log, stderr=subprocess.STDOUT)
+             *extra_args], cwd=repo, stdout=log, stderr=subprocess.STDOUT,
+            env=env)
+    return proc, port, log_path
+
+
+def wait_serve(proc, port, log_path):
+    """start_serve's second half: waits for /healthz, killing the process
+    when the wait fails."""
     try:
         t0 = time.perf_counter()
         while True:
@@ -1157,7 +1186,7 @@ BATCH_SERVE = ("--batch-slots", "8", "--batch-max-len", "1024",
 BATCH_TRAFFIC = dict(requests=32, clients=16, prompt=(128, 512),
                      new=(64, 128))
 BATCH_ADMIT_QUEUE = 2
-BUSY_WINDOW_S = 1.0    # the timed window of steady 8-slot decode
+BUSY_WINDOW_STEPS = 64  # the timed window of steady 8-slot decode, in steps
 BUSY_STEPS = 16        # the traced decode steps (a multiple of 8)
 BATCH_HEADERS = ("X-TDAPI-Slots", "X-TDAPI-Active", "X-TDAPI-Queued",
                  "X-TDAPI-Queue-Wait-EWMA-Ms", "X-TDAPI-Queue-Wait-Ms")
@@ -1205,13 +1234,27 @@ def batcher_streams(torch, cfg, params, prompts, max_new, first_alone=False,
     """Each prompt submitted from a thread of its own to a new
     _Batcher(cfg, params, **kw), request i going in i * STAGGER_S after the
     first, so later ones join mid-decode (first_alone: the rest only once
-    the first prompt is in the prefix store). Returns (streams, the
-    batcher, wall s). The batcher is closed in every case."""
+    the first prompt is in the prefix store). A paged batcher's admissions
+    that found the pool short are counted, and once every request is back
+    its free blocks must equal the pool less scratch and the trie's blocks
+    (no leak). Returns (streams, the batcher, wall s, shortages). The
+    batcher is closed in every case."""
     import threading
     from gpu_docker_api_tpu_torch.workloads.serve import _Batcher
 
     b = _Batcher(cfg, params, **kw)
     out, errors = [None] * len(prompts), []
+    shortages = [0]
+    if b._paged:
+        # nothing is admitted before the first submit: the scheduler
+        # thread calls the wrapper from then on
+        alloc = b._alloc.alloc
+
+        def counted(n):
+            got = alloc(n)
+            shortages[0] += got is None
+            return got
+        b._alloc.alloc = counted
 
     def ask(i):
         try:
@@ -1237,19 +1280,38 @@ def batcher_streams(torch, cfg, params, prompts, max_new, first_alone=False,
         check(not any(t.is_alive() for t in threads),
               "a batcher request did not return")
         check(not errors, f"batcher requests failed: {errors}")
-        return out, b, time.perf_counter() - t0
+        if b._paged:
+            check_no_leak(b, "the drained pool")
+        return out, b, time.perf_counter() - t0, shortages[0]
     finally:
         b.close()
 
 
+def check_no_leak(b, label):
+    """A paged batcher with no request in flight and no export pending
+    holds only the trie's blocks (block 0 is scratch)."""
+    held = len(b._trie) if b._trie is not None else 0
+    free = b._alloc.free_blocks
+    check(not b._kv_exports and free == b.kv_pool_blocks - 1 - held,
+          f"{label}: {free} free blocks, want {b.kv_pool_blocks - 1 - held} "
+          f"(pool {b.kv_pool_blocks}, {held} held by the trie; "
+          f"{len(b._kv_exports)} exports pending)")
+
+
 def batcher_exactness(torch, att, cfg, params, draft, sizes=BATCH_EXACT,
-                      device="cuda"):
+                      device="cuda", paged=None, label="5a"):
     """5a: three _Batcher runs on seed-made prompts, each stream held to
     its solo stream under the near-tie rule: staggered admissions; chunked
     prefill, the prefix cache and decode chunks over prompts sharing a
     prefix (a prefix hit must be counted); speculative rounds with `draft`
     (config, params). No flash kernel may launch: the serving path runs
-    none. Returns the readings."""
+    none. Returns the readings.
+
+    paged (6a: {"kv_block", "pool_share"}): the same runs over the paged
+    cache, the staggered one with a pool of pool_share of the blocks its
+    six requests hold at once, where an admission must find the pool
+    short; every drained pool must hold only the trie's blocks; then the
+    KV handoff between two paged batchers (handoff_exactness)."""
     gen = torch.Generator(device=device).manual_seed(21)
 
     def prompt(n):
@@ -1264,40 +1326,100 @@ def batcher_exactness(torch, att, cfg, params, draft, sizes=BATCH_EXACT,
     solo = {id(p): solo_reference(torch, params, cfg, p, n)
             for p in plain + shared}
     slot_kw = dict(slots=sizes["slots"], max_len=sizes["max_len"])
+    small_pool = {}
+    if paged:
+        blk = paged["kv_block"]
+        slot_kw["kv_block"] = blk
+        need = sum(-(-(p.shape[0] + n) // blk) for p in plain)
+        small_pool = dict(kv_pool_blocks=1 + math.ceil(
+            paged["pool_share"] * need))
     runs = {
-        "staggered": (plain, {}, False),
+        "staggered": (plain, small_pool, False),
         "chunked prefill, prefix cache, decode chunk": (shared, dict(
             prefill_chunk=sizes["prefill_chunk"],
             prefix_cache=sizes["prefix_cache"],
-            decode_chunk=sizes["decode_chunk"]), True),
+            decode_chunk=sizes["decode_chunk"]), not paged),
         "speculative": (plain, dict(draft=draft, gamma=sizes["gamma"]),
                         False),
     }
     out = {"solo_s": time.perf_counter() - t0}
     att.reset_launches()
     for name, (prompts, kw, first_alone) in runs.items():
-        streams, b, wall = batcher_streams(torch, cfg, params, prompts, n,
-                                           first_alone, **slot_kw, **kw)
-        ties = sum(near_tie_check(s, *solo[id(p)], f"5a {name}, request {i}")
+        streams, b, wall, short = batcher_streams(
+            torch, cfg, params, prompts, n, first_alone, **slot_kw, **kw)
+        ties = sum(near_tie_check(s, *solo[id(p)],
+                                  f"{label} {name}, request {i}")
                    for i, (s, p) in enumerate(zip(streams, prompts)))
-        check(ties <= 1, f"5a {name}: {ties} streams left their solo "
+        check(ties <= 1, f"{label} {name}: {ties} streams left their solo "
                          f"streams at near ties (at most 1)")
         r = {"requests": len(prompts), "near_ties": ties, "wall_s": wall,
              "prefix_hits": b.prefix_hits}
+        if paged:
+            r.update(pool_blocks=b.kv_pool_blocks, shortages=short,
+                     evictions=b.prefix_evictions)
+        if "kv_pool_blocks" in kw:
+            check(short >= 1, f"{label} {name}: no admission found the "
+                              f"{b.kv_pool_blocks}-block pool short")
         if "prefix_cache" in kw:
-            check(b.prefix_hits >= 1, f"5a {name}: no prefix hit")
+            check(b.prefix_hits >= 1, f"{label} {name}: no prefix hit")
         if "draft" in kw:
             r["speculative"] = {
                 "rounds": b.spec_rounds, "proposed": b.spec_proposed,
                 "accepted": b.spec_accepted, "emitted": b.spec_emitted,
                 "accept_rate": b.spec_accepted / max(b.spec_proposed, 1)}
         out[name] = r
-        print(f"  5a {name}: {r}", flush=True)
+        print(f"  {label} {name}: {r}", flush=True)
+    if paged:
+        out["handoff"] = r = handoff_exactness(
+            torch, cfg, params, plain[:2], n, solo, label, **slot_kw)
+        print(f"  {label} handoff: {r}", flush=True)
     launches = dict(att.LAUNCHES)
     check(not any(launches.values()),
           f"the batcher launched flash kernels: {launches}")
     out["launches"] = launches
     return out
+
+
+def handoff_exactness(torch, cfg, params, prompts, n, solo, label, **kw):
+    """The prefill/decode handoff between two paged batchers in-process: a
+    prefill-phase request exports each prompt's KV (one token), the
+    export is taken (once) and spliced into the decode batcher under
+    prompt + that token, and the one token plus the decode stream must be
+    the prompt's solo stream under the near-tie rule. Both pools drain
+    back to their free blocks. Returns the readings."""
+    from gpu_docker_api_tpu_torch.workloads.serve import _Batcher
+    pre, dec = _Batcher(cfg, params, **kw), _Batcher(cfg, params, **kw)
+    try:
+        ties = 0
+        for i, p in enumerate(prompts):
+            key = f"smoke-{i}"
+            first = pre.submit(p, 1, kv_key=key)
+            e = pre.kv_take(key)
+            check(e is not None and pre.kv_take(key) is None,
+                  f"{label} handoff {i}: the export is not taken once")
+            check(all(a.dtype.name in ("float32", "int8")
+                      for a in e["bufs"].values()),
+                  f"{label} handoff {i}: wire dtypes "
+                  f"{[a.dtype.name for a in e['bufs'].values()]}")
+            row = torch.cat([p, p.new_tensor(first)])
+            rest = dec.submit(row, n - 1, kv_import={
+                "tokens": e["tokens"], "bufs": e["bufs"]})
+            ties += near_tie_check(first + rest, *solo[id(p)],
+                                   f"{label} handoff {i}")
+        check(ties <= 1, f"{label} handoff: {ties} near ties (at most 1)")
+        check(dec.kv_handoffs_in == len(prompts),
+              f"{label} handoff: {dec.kv_handoffs_in} imports, want "
+              f"{len(prompts)}")
+        deadline = time.perf_counter() + 30
+        while pre._kv_exports and time.perf_counter() < deadline:
+            time.sleep(0.01)         # the scheduler frees taken exports
+        for b, name in ((pre, "prefill"), (dec, "decode")):
+            check_no_leak(b, f"{label} handoff, the {name} batcher")
+        return {"requests": len(prompts), "near_ties": ties,
+                "handoffs_in": dec.kv_handoffs_in}
+    finally:
+        pre.close()
+        dec.close()
 
 
 def http_traffic(vocab, traffic=BATCH_TRAFFIC, seed=5):
@@ -1327,6 +1449,17 @@ def check_batching_headers(hdrs, label):
         float(hdrs[h])
 
 
+def check_sketch_headers(hdrs, label):
+    """A paged batcher's KV-affinity headers (with --prefix-cache): the
+    sketch as SKETCH_WORDS 64-bit words of hex, the occupied blocks as a
+    count."""
+    sketch, occ = hdrs.get("X-TDAPI-KV-Sketch"), hdrs.get("X-TDAPI-KV-Occ")
+    check(sketch is not None and occ is not None,
+          f"{label}: the KV sketch headers are missing")
+    check(re.fullmatch(r"[0-9a-f]{64}", sketch) is not None
+          and occ.isdigit(), f"{label}: sketch {sketch!r}, occupancy {occ!r}")
+
+
 def drive_traffic(port, requests, clients):
     """Every (tokens, max_new) of `requests` POSTed to /generate from
     `clients` concurrent clients. Returns ([(envelope, headers, latency
@@ -1347,12 +1480,15 @@ def drive_traffic(port, requests, clients):
 
 
 def batching_http(torch, name, cfg, logs_dir, decode_chunk,
-                  traffic=BATCH_TRAFFIC, extra_args=()):
+                  traffic=BATCH_TRAFFIC, extra_args=(), paged=False):
     """5b: the serve process with the batcher (BATCH_SERVE, --decode-chunk)
     under http_traffic from concurrent clients: every response code 200
     with its tokens and the batching headers, healthz counting every
     admission, a two-row request refused with the JAX server's message.
-    Returns the readings. The subprocess is killed in every case."""
+    paged (6b, extra_args with --kv-block and --prefix-cache): every
+    response also carries the KV sketch headers, and healthz the paged
+    pool's block, drained back to what the trie holds. Returns the
+    readings. The subprocess is killed in every case."""
     requests = http_traffic(cfg.vocab_size, traffic)
     proc, port, ready_s, health = start_serve(
         name, logs_dir, (*BATCH_SERVE, "--decode-chunk", str(decode_chunk),
@@ -1369,10 +1505,18 @@ def batching_http(torch, name, cfg, logs_dir, decode_chunk,
                   and all(0 <= x < cfg.vocab_size for x in toks[0]),
                   f"5b request {i}: {str(env)[:300]}")
             check_batching_headers(hdrs, f"5b request {i}")
+            if paged:
+                check_sketch_headers(hdrs, f"6b request {i}")
         health, _ = http_call(port, "GET", "/healthz")
         count = health["data"]["batching"]["queueWait"]["count"]
         check(count == len(requests),
               f"healthz queueWait.count {count}, want {len(requests)}")
+        if paged:
+            pool = health["data"]["batching"]["paged"]
+            trie = health["data"]["batching"]["prefixCache"]
+            check(pool["freeBlocks"] == pool["poolBlocks"] - 1
+                  - trie["blocks"], f"6b healthz after the burst: {pool}, "
+                                    f"the trie holds {trie['blocks']}")
         refusal, _ = http_call(port, "POST", "/generate",
                                {"tokens": [[1, 2], [3, 4]], "max_new": 2})
         check(refusal == {"code": 400, "msg": MULTIROW_REFUSAL, "data": None},
@@ -1382,7 +1526,10 @@ def batching_http(torch, name, cfg, logs_dir, decode_chunk,
         proc.wait(timeout=60)
     latency = [r[2] for r in results]
     waits = [float(r[1]["X-TDAPI-Queue-Wait-Ms"]) for r in results]
-    return {"decode_chunk": decode_chunk, "ready_s": ready_s,
+    extra = ({"paged": pool, "prefix_cache": {
+        k: trie[k] for k in ("entries", "blocks", "evictions")}}
+        if paged else {})
+    return {**extra, "decode_chunk": decode_chunk, "ready_s": ready_s,
             "requests": len(requests), "wall_s": wall,
             "tokens_s": sum(m for _, m in requests) / wall,
             "latency_s_p50_p90": [percentile(latency, 0.5),
@@ -1419,23 +1566,31 @@ def batching_shed(torch, name, cfg, logs_dir, traffic=BATCH_TRAFFIC,
 
 
 def batcher_busy(torch, cfg, params, decode_chunk, slots=8, max_len=1024,
-                 prompt_len=256):
+                 prompt_len=256, window_steps=BUSY_WINDOW_STEPS, **kw):
     """Steady decode with every slot decoding, in-process on the serve
-    process's weights and batcher settings: the step time over an untraced
-    window of the scheduler thread (host clock over the steps the slots'
-    host lengths moved); then, with that thread stopped and its slots kept,
-    the device-busy
-    share of BUSY_STEPS decode steps of the same scheduler ticks (_tick)
-    run on this thread, since the profiler records the CPU side of its own
-    thread only; then check_decode_sync_free on the same slots; and the
-    bound of one full decode step at the mean context (serve_bounds). The
-    requests ask for every token the cache holds, so no slot finishes
-    before the windows end; the batcher is closed after them."""
+    process's weights and batcher settings (kw: more of them, such as
+    kv_block): the step time over an untraced window of the scheduler
+    thread, window_steps decode steps long (host clock over the steps the
+    slots' host lengths moved); then, with that thread stopped and its
+    slots kept, the device-busy share of BUSY_STEPS decode steps of the
+    same scheduler ticks (_tick) run on this thread, since the profiler
+    records the CPU side of its own thread only; then
+    check_decode_sync_free on the same slots; and the bound of one full
+    decode step at the mean context (serve_bounds).
+
+    The requests ask for every token the cache holds, and the windows are
+    counted in steps: the scheduler thread stops itself after
+    window_steps, so no slot can run out of budget inside the windows,
+    however fast the host. The batcher is closed after them."""
     import threading
     from gpu_docker_api_tpu_torch.workloads.serve import _Batcher
 
+    budget = max_len - prompt_len
+    check(window_steps + BUSY_STEPS + 2 * decode_chunk + 10 < budget,
+          f"a {window_steps}-step window does not fit a {budget}-token "
+          f"budget")
     b = _Batcher(cfg, params, slots=slots, max_len=max_len,
-                 prefill_chunk=256, decode_chunk=decode_chunk)
+                 prefill_chunk=256, decode_chunk=decode_chunk, **kw)
     gen = torch.Generator(device=params["embed"].device).manual_seed(9)
     prompts = torch.randint(0, cfg.vocab_size, (slots, prompt_len),
                             generator=gen, device=gen.device)
@@ -1458,21 +1613,39 @@ def batcher_busy(torch, cfg, params, decode_chunk, slots=8, max_len=1024,
                   "the batcher never filled its slots")
             time.sleep(0.01)
 
-        # steps are counted on the host mirror of the lengths, which moves
-        # a step at a time inside a decode chunk too (tokens reach the
-        # streams a chunk at a time); the window is one sleep, since a
+        # the window: the scheduler thread's own next ticks, until they
+        # have made window_steps decode steps; then it stops itself. Steps
+        # are counted on the host mirror of the lengths, which moves a step
+        # at a time inside a decode chunk too. This thread only waits: a
         # thread polling here would take the GIL from the scheduler
-        before = sum(b.cache["host_lengths"])
-        t0 = time.perf_counter()
-        time.sleep(BUSY_WINDOW_S)
-        window = time.perf_counter() - t0
-        after = sum(b.cache["host_lengths"])
+        marks, done, tick = [], threading.Event(), b._tick
+
+        def counted_tick():
+            if not marks:
+                marks.append((time.perf_counter(),
+                              sum(b.cache["host_lengths"])))
+            out = tick()
+            if sum(b.cache["host_lengths"]) - marks[0][1] >= (
+                    window_steps * slots):
+                marks.append((time.perf_counter(),
+                              sum(b.cache["host_lengths"])))
+                b._stop = True
+                done.set()
+            return out
+
+        b._tick = counted_tick
+        w0 = time.perf_counter()
+        while not done.wait(timeout=1.0):
+            check(b._dead is None and time.perf_counter() - w0 < 600,
+                  "the decode window did not end")
+        (t0, before), (t1, after) = marks
+        window = t1 - t0
         steps, ctx = (after - before) / slots, (before + after) / 2 / slots
+        del b._tick
 
         def emitted():
             return sum(len(s["stream"]) for s in b.slots if s is not None)
 
-        b._stop = True
         b.thread.join(timeout=60)
         check(not b.thread.is_alive(), "the scheduler thread did not stop")
         before = emitted()
@@ -1488,18 +1661,18 @@ def batcher_busy(torch, cfg, params, decode_chunk, slots=8, max_len=1024,
         for t in threads:
             t.join(timeout=60)
     bound = serve_bounds(cfg, weight_bytes(params), slots, 1, ctx, False)
-    return {"decode_chunk": decode_chunk, "busy": busy,
+    return {"decode_chunk": decode_chunk, "steps": steps, "busy": busy,
             "step_ms": window * 1e3 / steps, "context": ctx,
             "bound_ms": bound[0], "bound_by": bound[1]}
 
 
 def check_decode_sync_free(torch, b):
     """A greedy decode step, a sampled one and a decode chunk over every
-    slot of the stopped batcher `b` queue their work without one device
-    sync (torch.cuda's sync debug mode "error"): the per-row frontiers are
-    host ints, and the active mask and tokens go up through pinned memory.
-    They move the cache past the streams; `b` is closed after."""
-    from gpu_docker_api_tpu_torch import batching
+    slot of the stopped batcher `b` (dense or paged: its own entry points)
+    queue their work without one device sync (torch.cuda's sync debug mode
+    "error"): the per-row frontiers and the number of pages read are host
+    ints, and the active mask and tokens go up through pinned memory. They
+    move the cache past the streams; `b` is closed after."""
     n = len(b.slots)
     toks = torch.zeros(n, dtype=torch.long, device=b.device)
     sample = (*b._sample_vectors(), b._gen)
@@ -1507,11 +1680,11 @@ def check_decode_sync_free(torch, b):
     torch.cuda.set_sync_debug_mode("error")
     try:
         with torch.no_grad():
-            batching.slot_decode(b.params, toks, b.cache, [True] * n,
+            b._fn("slot_decode")(b.params, toks, b.cache, [True] * n,
                                  b.config)
-            batching.slot_decode_pick(b.params, toks, b.cache, [True] * n,
+            b._fn("slot_decode_pick")(b.params, toks, b.cache, [True] * n,
                                       *sample, b.config)
-            batching.slot_decode_multi(b.params, toks, b.cache, [True] * n,
+            b._fn("slot_decode_multi")(b.params, toks, b.cache, [True] * n,
                                        [8] * n, b.config, 8, sample=sample)
     except RuntimeError as e:
         raise SmokeFailure(f"a slot decode step synchronised: {e}") from e
@@ -1566,6 +1739,185 @@ def phase_batching(torch, att):
     wall["5b_busy_s"] = time.perf_counter() - t0
     print(f"  phase 5 wall time {wall}", flush=True)
     return {"exact": exact, "http": http, "shed": shed, "busy": busy,
+            "wall": wall}
+
+
+# ---- phase 6: the paged cache and the KV handoff ------------------------------
+
+# 6a, in-process, f32: 5a's runs over the paged cache (blocks of 16 tokens;
+# the staggered run's pool holds 60% of the blocks its six requests hold at
+# once, so admissions wait on blocks), then the handoff between two paged
+# batchers. 6b: 5b's serve process and burst with the paged cache and the
+# prefix trie, --decode-chunk 1. 6c: two paged serve processes, a prefill
+# replica and a decode replica, over HTTP.
+PAGED_EXACT = dict(kv_block=16, pool_share=0.6)
+PAGED_SERVE = ("--kv-block", "16", "--prefix-cache", "8")
+HANDOFF_SERVE = ("--kv-block", "16", "--batch-slots", "4")
+# prompt lengths drawn from default_rng(seed), none a whole number of
+# blocks, so every export ends in a partial block
+HANDOFF = dict(requests=3, prompt=(200, 300), new=16, ttl_s=2.0, seed=7)
+
+
+def handoff_requests(vocab, spec=HANDOFF):
+    """[prompt tokens] of 6c: lengths off the block edges."""
+    import numpy as np
+    rng = np.random.default_rng(spec["seed"])
+    out = []
+    while len(out) < spec["requests"]:
+        n = int(rng.integers(spec["prompt"][0], spec["prompt"][1] + 1))
+        if n % 16:
+            out.append(rng.integers(0, vocab, n).tolist())
+    return out
+
+
+def handoff_http(torch, name, cfg, logs_dir, spec=HANDOFF, extra_args=()):
+    """6c: a prefill replica and a decode replica (HANDOFF_SERVE, the
+    decode one with --prefix-cache so healthz counts its imports), both
+    with a TDAPI_KV_EXPORT_TTL_S of spec["ttl_s"]. For each prompt: the
+    prefill phase (X-TDAPI-Phase: prefill, X-TDAPI-KV-Key) on the prefill
+    replica gives one token; the decode phase (the key and X-TDAPI-KV-Source)
+    on the decode replica continues prompt + that token; a second GET /kv of
+    the key is a 404; and a full request of the same row to the decode
+    replica must give the same tokens. The same full request to the prefill
+    replica, which recomputes every position, is read beside it. healthz
+    counts one import per prompt; the prefill replica's blocks come back
+    once the exports are taken, and an export nobody takes is freed after
+    the TTL. Returns the readings; both processes are killed in every
+    case."""
+    env = dict(os.environ, TDAPI_KV_EXPORT_TTL_S=str(spec["ttl_s"]))
+    procs = []
+    try:
+        procs.append(spawn_serve(name, logs_dir, (*HANDOFF_SERVE, *extra_args),
+                                 env, "serve_prefill.log"))
+        procs.append(spawn_serve(name, logs_dir, (
+            *HANDOFF_SERVE, "--prefix-cache", "4", *extra_args), env,
+            "serve_decode.log"))
+        (_, pport, ready_p, _), (_, dport, ready_d, _) = (
+            wait_serve(*pr) for pr in procs)
+
+        def generate(port, row, max_new, headers=None):
+            out, hdrs = http_call(port, "POST", "/generate",
+                                  {"tokens": [row], "max_new": max_new},
+                                  headers)
+            check(out["code"] == 200, f"6c /generate: {str(out)[:300]}")
+            return out["data"]["tokens"][0], hdrs
+
+        def health(port):
+            return http_call(port, "GET", "/healthz")[0]["data"]["batching"]
+
+        n, rows, recompute = spec["new"], [], []
+        prompts = handoff_requests(cfg.vocab_size, spec)
+        t0 = time.perf_counter()
+        for i, prompt in enumerate(prompts):
+            key = f"smoke-{i}"
+            first, _ = generate(pport, prompt, n, {
+                "X-TDAPI-Phase": "prefill", "X-TDAPI-KV-Key": key})
+            check(len(first) == 1, f"6c prefill phase {i}: {first}")
+            row = prompt + first
+            got, hdrs = generate(dport, row, n - 1, {
+                "X-TDAPI-KV-Key": key,
+                "X-TDAPI-KV-Source": f"127.0.0.1:{pport}"})
+            check_sketch_headers(hdrs, f"6c decode phase {i}")
+            again, _ = http_call(pport, "GET", f"/kv?key={key}")
+            check(again == {"code": 404, "msg": "kv export not found",
+                            "data": None}, f"6c second /kv of {key}: {again}")
+            full, _ = generate(dport, row, n - 1)
+            check(got == full, f"6c request {i}: the handoff gave {got}, a "
+                               f"full request {full}")
+            other, _ = generate(pport, row, n - 1)
+            recompute.append(next((j for j, (a, b) in enumerate(
+                zip(got, other)) if a != b), None))
+            rows.append(len(prompt))
+        wall = time.perf_counter() - t0
+        dec = health(dport)["prefixCache"]
+        check(dec["handoffsIn"] == len(rows),
+              f"6c decode healthz: handoffsIn {dec['handoffsIn']}, want "
+              f"{len(rows)}")
+        pool = health(pport)["paged"]
+        check(pool["freeBlocks"] == pool["poolBlocks"] - 1,
+              f"6c prefill replica after the takes: {pool}")
+        # an export nobody takes holds its blocks until the TTL
+        generate(pport, prompts[0], n, {"X-TDAPI-Phase": "prefill",
+                                        "X-TDAPI-KV-Key": "orphan"})
+        held = pool["poolBlocks"] - 1 - health(pport)["paged"]["freeBlocks"]
+        check(held == -(-rows[0] // 16), f"6c orphan export holds {held} "
+                                          f"blocks")
+        t1 = time.perf_counter()
+        while health(pport)["paged"]["freeBlocks"] != pool["poolBlocks"] - 1:
+            check(time.perf_counter() - t1 < spec["ttl_s"] + 30,
+                  "6c the orphan export outlived its TTL")
+            time.sleep(0.25)
+        freed_s = time.perf_counter() - t1
+    finally:
+        for proc, _, _ in procs:
+            proc.kill()
+            proc.wait(timeout=60)
+    return {"requests": len(rows), "prompt_lens": rows, "new": n,
+            "handoffs_in": dec["handoffsIn"], "ready_s": [ready_p, ready_d],
+            "wall_s": wall, "orphan_blocks": held, "orphan_freed_s": freed_s,
+            "recompute_first_mismatch": recompute}
+
+
+def phase_paged(torch, att, dense):
+    """Phase 6: the paged cache at llama 1b, full width and depth: 6a
+    in-process in f32, 6b the paged serve process over HTTP in bf16 and its
+    decode window in-process, 6c the handoff between two serve processes.
+    `dense`: phase 5's readings, printed beside 6b's."""
+    from gpu_docker_api_tpu_torch.models import llama
+    from gpu_docker_api_tpu_torch.train import Trainer
+    from gpu_docker_api_tpu_torch.workloads.serve import _load_params
+
+    cfg = llama.LlamaConfig.llama_1b()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    mini32 = dataclasses.replace(llama.LlamaConfig.llama_mini(),
+                                 dtype=torch.float32)
+    print(f"phase 6: paged KV, llama 1b (6a f32 in-process: {PAGED_EXACT}; "
+          f"6b bf16 serve process: {' '.join(BATCH_SERVE + PAGED_SERVE)} "
+          f"--decode-chunk 1; 6c {' '.join(HANDOFF_SERVE)}: {HANDOFF})",
+          flush=True)
+    wall = {}
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg32, torch.Generator(device="cuda")
+                               .manual_seed(0))
+    draft = (mini32, llama.init_params(mini32, torch.Generator(
+        device="cuda").manual_seed(1)))
+    exact = batcher_exactness(torch, att, cfg32, params, draft,
+                              paged=PAGED_EXACT, label="6a")
+    del params, draft
+    torch.cuda.empty_cache()
+    wall["6a_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as logs:
+        http = batching_http(torch, "1b", cfg, logs, 1,
+                             extra_args=PAGED_SERVE, paged=True)
+        print(f"  6b HTTP: {http}", flush=True)
+        wall["6b_http_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        handoff = handoff_http(torch, "1b", cfg, logs)
+        print(f"  6c handoff: {handoff}", flush=True)
+        wall["6c_s"] = time.perf_counter() - t0
+    base = dense["http"]["decode_chunk_1"]
+    print("  6b against 5b's dense burst of this call (paged / dense): "
+          + ", ".join(f"{k} {http[k]} / {base[k]}" for k in (
+              "tokens_s", "latency_s_p50_p90", "queue_wait_ms_p50_p90")),
+          flush=True)
+    t0 = time.perf_counter()
+    params = _load_params(Trainer.create(cfg), "")     # the server's weights
+    att.reset_launches()
+    busy = batcher_busy(torch, cfg, params, 1, kv_block=16)
+    launches = dict(att.LAUNCHES)
+    check(not any(launches.values()),
+          f"the paged decode window launched flash kernels: {launches}")
+    del params
+    torch.cuda.empty_cache()
+    wall["6b_busy_s"] = time.perf_counter() - t0
+    base = dense["busy"]["decode_chunk_1"]
+    print(f"  6b in-process paged decode window: {busy}; the dense window "
+          f"of this call: step {base['step_ms']} ms, busy {base['busy']}",
+          flush=True)
+    print(f"  phase 6 wall time {wall}", flush=True)
+    return {"exact": exact, "http": http, "busy": busy, "handoff": handoff,
             "wall": wall}
 
 
@@ -1673,6 +2025,7 @@ def main() -> int:
         phase_resume()
         serve = phase_serve(torch, att)
         batching = phase_batching(torch, att)
+        paged = phase_paged(torch, att, batching)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -1697,6 +2050,7 @@ def main() -> int:
                       "trunk": m["trunk"]}), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"batching": batching}), flush=True)
+    print(json.dumps({"paged": paged}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,8 +28,11 @@ Differences from the JAX version:
 - sampling draws from an explicit torch.Generator (the JAX version folds a
   PRNG key), so sampled tokens differ from JAX's; greedy tokens agree.
 
-Not ported: kv_shard_specs (multi-host) and PrefixTrie (the paged cache).
-Every public function runs under torch.no_grad().
+PrefixTrie, the radix index of the paged block pool (paging.py), is the JAX
+class as it is: host-side Python.
+
+Not ported: kv_shard_specs (multi-host). Every public function runs under
+torch.no_grad().
 """
 
 from __future__ import annotations
@@ -368,3 +371,146 @@ def rowwise_spec_accept(tlogits, drafts, dlogp, temps, top_ks, top_ps,
     a = torch.where(sampling, a_s, a_g)
     emit = torch.where(sampling[:, None], _emit(drafts, a_s, tok_s), emit_g)
     return a, emit
+
+
+class PrefixTrie:
+    """Radix index over the paged block pool: which prompt prefixes are
+    block-resident, and in which physical blocks.
+
+    Host-side, owned by the scheduler thread (workloads/serve.py). Keys are
+    block-sized token chunks: a node at depth i holds ONE pool block —
+    the KV for tokens[i*block:(i+1)*block] of every prompt reaching it —
+    so two prompts sharing a 3-block prefix share 3 nodes (and 3 physical
+    blocks), diverging only below. The trie does NOT own refcounts: the
+    caller shares exactly the blocks `insert` reports as newly indexed
+    and frees exactly the blocks `evict_lru`/`clear` return, keeping the
+    BlockAllocator ledger the single source of truth.
+
+    Eviction is leaf-only and LRU: an interior block backs every cached
+    prefix running through it, so freeing one would orphan its subtree's
+    KV; dropping the least-recently-touched leaf always removes the
+    coldest *complete* prefix first. The serve loop evicts only when the
+    free list runs dry (admission pressure), never on a count bound.
+    """
+
+    __slots__ = ("block", "_root", "_clock")
+
+    class _Node:
+        __slots__ = ("chunk", "block", "parent", "children", "stamp")
+
+        def __init__(self, chunk, block, parent, stamp):
+            self.chunk = chunk
+            self.block = block
+            self.parent = parent
+            self.children = {}
+            self.stamp = stamp
+
+    def __init__(self, block: int):
+        if block <= 0:
+            raise ValueError("PrefixTrie needs a positive block size")
+        self.block = block
+        self._root = self._Node((), -1, None, 0)
+        self._clock = 0
+
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    def __len__(self) -> int:
+        """Number of indexed blocks (trie nodes, root excluded)."""
+        n = 0
+        stack = list(self._root.children.values())
+        while stack:
+            node = stack.pop()
+            n += 1
+            stack.extend(node.children.values())
+        return n
+
+    @property
+    def leaf_count(self) -> int:
+        """Number of distinct complete prefixes indexed."""
+        n = 0
+        stack = list(self._root.children.values())
+        while stack:
+            node = stack.pop()
+            if not node.children:
+                n += 1
+            stack.extend(node.children.values())
+        return n
+
+    def insert(self, key, blocks) -> list:
+        """Index `key`'s complete blocks; returns the block ids NEWLY
+        referenced (caller rc++'s exactly those). A level already present
+        keeps its existing block — the content is identical by key."""
+        n = min(len(key) // self.block, len(blocks))
+        node = self._root
+        added = []
+        stamp = self._tick()
+        for i in range(n):
+            chunk = tuple(key[i * self.block:(i + 1) * self.block])
+            child = node.children.get(chunk)
+            if child is None:
+                child = self._Node(chunk, blocks[i], node, stamp)
+                node.children[chunk] = child
+                added.append(blocks[i])
+            else:
+                child.stamp = stamp
+            node = child
+        return added
+
+    def lookup(self, key) -> tuple:
+        """Longest indexed prefix of `key`: (block ids, matched tokens).
+        Touches the matched path so lookups refresh LRU order."""
+        node = self._root
+        blocks = []
+        stamp = self._tick()
+        for i in range(len(key) // self.block):
+            chunk = tuple(key[i * self.block:(i + 1) * self.block])
+            child = node.children.get(chunk)
+            if child is None:
+                break
+            child.stamp = stamp
+            blocks.append(child.block)
+            node = child
+        return blocks, len(blocks) * self.block
+
+    def evict_lru(self) -> list:
+        """Drop the least-recently-touched LEAF; returns its block ids
+        (empty when the trie is empty). Caller frees them."""
+        victim = None
+        stack = list(self._root.children.values())
+        while stack:
+            node = stack.pop()
+            if node.children:
+                stack.extend(node.children.values())
+            elif victim is None or node.stamp < victim.stamp:
+                victim = node
+        if victim is None:
+            return []
+        del victim.parent.children[victim.chunk]
+        return [victim.block]
+
+    def clear(self) -> list:
+        """Drop everything; returns every indexed block id for freeing."""
+        freed = []
+        stack = list(self._root.children.values())
+        while stack:
+            node = stack.pop()
+            freed.append(node.block)
+            stack.extend(node.children.values())
+        self._root.children.clear()
+        return freed
+
+    def iter_leaf_prefixes(self):
+        """Token tuples of every complete indexed prefix (for sketch
+        builds: hashing a leaf's path covers all its ancestor levels)."""
+        out = []
+        stack = [(self._root, ())]
+        while stack:
+            node, prefix = stack.pop()
+            if node is not self._root:
+                prefix = prefix + node.chunk
+                if not node.children:
+                    out.append(prefix)
+            stack.extend((c, prefix) for c in node.children.values())
+        return out

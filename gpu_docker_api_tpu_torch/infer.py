@@ -152,10 +152,8 @@ def _attend_cached(q, k_all, v_all, pos, k_scale=None, v_scale=None,
 
     GQA: K/V are read at the Hkv head count; q is viewed as [B,T,Hkv,G,D],
     so no repeated K/V is made."""
-    b, t, h, d = q.shape
-    s_max, hkv = k_all.shape[1], k_all.shape[2]
-    group = h // hkv
-    blk = _block_for(s_max)
+    t = q.shape[1]
+    blk = _block_for(k_all.shape[1])
     per_row = _per_row(pos)
     if per_row:
         fr = _frontiers(pos, q.device)
@@ -179,13 +177,11 @@ def _attend_cached(q, k_all, v_all, pos, k_scale=None, v_scale=None,
     if hi <= lo:          # no row reaches a live block
         return torch.zeros_like(q)
 
-    qf = (q.float() / math.sqrt(d)).reshape(b, t, hkv, group, d)
     kb, vb = k_all[:, lo:hi].float(), v_all[:, lo:hi].float()
     if k_scale is not None:
         kb = kb * k_scale[:, lo:hi]
     if v_scale is not None:
         vb = vb * v_scale[:, lo:hi]
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb)
     cols = torch.arange(lo, hi, device=q.device)
     steps = torch.arange(t, device=q.device)
     if per_row:
@@ -199,6 +195,18 @@ def _attend_cached(q, k_all, v_all, pos, k_scale=None, v_scale=None,
         mask = cols[None, :] <= rows[:, None]
         if window:
             mask &= cols[None, :] > rows[:, None] - window
+    return _softmax_attend(q, kb, vb, mask)
+
+
+def _softmax_attend(q, kb, vb, mask):
+    """softmax(q kᵀ / sqrt(D)) v in f32: q [B,T,H,D]; kb, vb [B,S,Hkv,D]
+    f32 (dequantized); mask [B,1,1,T,S] or [T,S], True where a key is
+    visible. q is viewed [B,T,Hkv,G,D], so no repeated K/V is made. A row
+    that sees no key gives 0, not NaN. Returns [B,T,H,D] in q's dtype."""
+    b, t, h, d = q.shape
+    hkv = kb.shape[2]
+    qf = (q.float() / math.sqrt(d)).reshape(b, t, hkv, h // hkv, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb)
     s = s.masked_fill(~mask, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -232,6 +240,22 @@ def _layer_step(x, layer, cache_k, cache_v, pos, config, cos, sin,
     place); pos = absolute start position (int, or Frontiers / [B] per
     row). With scale_k/scale_v (int8 cache) new K/V quantize on write.
     Returns x."""
+    q, k, v = _qkv(x, layer, config, cos, sin)
+    if scale_k is not None:
+        k, ks_new = _quantize_kv(k)
+        v, vs_new = _quantize_kv(v)
+        _cache_write(scale_k, ks_new, pos)
+        _cache_write(scale_v, vs_new, pos)
+    _cache_write(cache_k, k, pos)
+    _cache_write(cache_v, v, pos)
+    out = _attend_cached(q, cache_k, cache_v, pos, scale_k, scale_v,
+                         window=config.sliding_window, active=active)
+    return _out_and_mlp(x, out, layer, config)
+
+
+def _qkv(x, layer, config, cos, sin):
+    """The attention inputs of one decoder layer over x [B,T,D]: q
+    [B,T,H,D] and k [B,T,Hkv,D] with RoPE applied, v [B,T,Hkv,D]."""
     if "we1" in layer:
         raise NotImplementedError("MoE decode is not yet ported to PyTorch")
     c = config
@@ -241,17 +265,14 @@ def _layer_step(x, layer, cache_k, cache_v, pos, config, cos, sin,
     q = qmatmul(h, layer["wq"]).reshape(b, t, c.n_heads, c.head_dim)
     k = qmatmul(h, layer["wk"]).reshape(b, t, c.n_kv_heads, c.head_dim)
     v = qmatmul(h, layer["wv"]).reshape(b, t, c.n_kv_heads, c.head_dim)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    if scale_k is not None:
-        k, ks_new = _quantize_kv(k)
-        v, vs_new = _quantize_kv(v)
-        _cache_write(scale_k, ks_new, pos)
-        _cache_write(scale_v, vs_new, pos)
-    _cache_write(cache_k, k, pos)
-    _cache_write(cache_v, v, pos)
-    out = _attend_cached(q, cache_k, cache_v, pos, scale_k, scale_v,
-                         window=c.sliding_window, active=active)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _out_and_mlp(x, out, layer, config):
+    """The rest of the decoder layer after the attention output out
+    [B,T,H,D]: the output projection and the MLP, each residual."""
+    c = config
+    b, t, _ = x.shape
     x = x + qmatmul(out.reshape(b, t, c.n_heads * c.head_dim), layer["wo"])
     hm = rms_norm(x, layer["mlp_norm"], c.norm_eps)
     return x + qmatmul(F.silu(qmatmul(hm, layer["w1"]))
@@ -280,18 +301,20 @@ def _forward_cached(params, tokens, cache, config, last_only=False):
 
 
 def _run_layers(params, x, cache, pos, config, cos, sin, active=None,
-                last_only=False):
+                last_only=False, layer_step=None):
     """Every decoder layer over x [B,T,D] with the cache read and written
     in place at `pos` (int, or Frontiers per row), then the final norm and
     lm_head: logits [B,T,V] f32 ([B,1,V] of the last position when
-    last_only)."""
+    last_only). `layer_step` (default _layer_step) runs one layer on its
+    cache buffers: the paged cache (paging.py) gives its own."""
     c = config
     layers = params["layers"]
     stacks = [layers[name].unbind(0) for name in _LAYER_KEYS]
     quantized = "ks" in cache
+    layer_step = layer_step or _layer_step
     for i, weights in enumerate(zip(*stacks)):
         scales = (cache["ks"][i], cache["vs"][i]) if quantized else ()
-        x = _layer_step(x, dict(zip(_LAYER_KEYS, weights)), cache["k"][i],
+        x = layer_step(x, dict(zip(_LAYER_KEYS, weights)), cache["k"][i],
                         cache["v"][i], pos, c, cos, sin, *scales,
                         active=active)
     if last_only:

@@ -13,24 +13,30 @@ generation requests over HTTP, byte-compatible with the JAX server:
                                     "temperature": 0.0, "top_k": 0,
                                     "top_p": 1.0}
                               -> {"code":200, "data":{"tokens": [[...]]}}
+  GET  /kv?key=K              -> a paged batcher's prompt-KV export (the
+                                  handoff; once, then 404)
 
 Every response is HTTP 200 with the control plane's {code, msg, data}
 envelope (an --admit-queue shed is code 429 with Retry-After and
 X-TDAPI-Shed). Without --batch-slots serving is single-flight: one request
 at a time runs infer.generate (or infer.speculative_generate for one row
-when a draft is loaded). With --batch-slots N the dense continuous batcher
+when a draft is loaded). With --batch-slots N the continuous batcher
 (_Batcher over batching.py) serves single-row requests: they join a
 running slot batch between decode steps, and every response carries the
 batcher's X-TDAPI-Slots / -Active / -Queued / -Queue-Wait-EWMA-Ms headers.
---device cpu serves from the CPU instead of the card (tests).
+With --kv-block B the batcher's cache is paged (paging.py): one block pool
+(--kv-pool), zero-copy prefix sharing, and prefill/decode disaggregation
+(the X-TDAPI-Phase: prefill / X-TDAPI-KV-Key / X-TDAPI-KV-Source request
+headers, GET /kv); with --prefix-cache too, every response carries the
+X-TDAPI-KV-Sketch / -Occ prefix sketch. --device cpu serves from the CPU
+instead of the card (tests). --tp is read by multi-host serving only.
 
-Not yet ported, and refused at start-up: paged KV (--kv-block, --kv-pool)
-and the /kv handoff, the co-tenancy regulator (TDAPI_TPU_SHARES /
-TDAPI_PRIORITY with --batch-slots), --host-load, tensor parallelism,
+Not yet ported, and refused at start-up: the co-tenancy regulator
+(TDAPI_TPU_SHARES / TDAPI_PRIORITY with --batch-slots), --host-load,
 multi-host serving and the MoE family.
 
 Run: python -m gpu_docker_api_tpu_torch.workloads.serve --config tiny \
-        --device cpu --port 8000 [--batch-slots 4]
+        --device cpu --port 8000 [--batch-slots 4 [--kv-block 16]]
 """
 
 from __future__ import annotations
@@ -71,20 +77,24 @@ def _n_params(params: dict) -> int:
 
 
 class _Batcher:
-    """Continuous batching (batching.py), dense slot cache: one background
-    thread owns the cache; requests enqueue, claim a free slot, prefill,
-    and then every decode step advances ALL active slots together, so a
-    new request joins between steps instead of waiting for the batch to
-    drain. The JAX _Batcher without its paged branches and its co-tenancy
-    regulator.
+    """Continuous batching (batching.py): one background thread owns the
+    cache; requests enqueue, claim a free slot, prefill, and then every
+    decode step advances ALL active slots together, so a new request joins
+    between steps instead of waiting for the batch to drain. The cache is
+    dense (slots x max_len) or, with kv_block > 0, paged (paging.py): one
+    shared block pool, admission that waits on free blocks, zero-copy
+    prefix sharing and the KV handoff exports of prefill/decode
+    disaggregation. The JAX _Batcher without its co-tenancy regulator.
 
-    The cache lives where the weights are. The scheduler thread runs under
-    torch.no_grad() (grad mode is per thread). Sampling rows draw from one
-    torch.Generator per batcher, seeded from `seed`."""
+    The cache lives where the weights are. Only the scheduler thread
+    touches the cache, the block allocator and the prefix trie; it runs
+    under torch.no_grad() (grad mode is per thread). Sampling rows draw
+    from one torch.Generator per batcher, seeded from `seed`."""
 
     def __init__(self, config, params, slots: int, max_len: int,
                  prefill_chunk: int = 0, prefix_cache: int = 0,
                  restarts: int = 3, kv_quant: bool = False,
+                 kv_block: int = 0, kv_pool_blocks: int = 0,
                  decode_chunk: int = 1, seed: int | None = None,
                  draft: tuple | None = None, gamma: int = 4):
         import collections
@@ -107,6 +117,13 @@ class _Batcher:
         if draft is not None and draft[0].vocab_size != config.vocab_size:
             raise ValueError("draft and target must share a vocab")
         self._cache_len = max_len + (self.gamma + 1 if draft else 0)
+        # paged x speculative: the verify step writes gamma+1 tokens from a
+        # row's frontier before its rollback, and that frontier tops out at
+        # prompt+max_new-2, so admission reserves prompt+max_new+gamma
+        # positions of blocks up front: no active row's verify write falls
+        # through the page table to the shared scratch block, and rollback
+        # stays length arithmetic over the row's own blocks
+        self._spec_pad = self.gamma if draft else 0
         self.spec_rounds = 0                 # spec telemetry (healthz)
         self.spec_proposed = 0               # draft tokens proposed
         self.spec_accepted = 0               # draft tokens accepted
@@ -119,6 +136,17 @@ class _Batcher:
                 else int.from_bytes(os.urandom(4), "big"))
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.kv_quant = kv_quant
+        # kv_block > 0: the PAGED cache; slots share a pool of
+        # kv_pool_blocks blocks of kv_block tokens (default: full capacity,
+        # which operators shrink to cap KV memory)
+        self._paged = kv_block > 0
+        self.kv_block = kv_block
+        if self._paged:
+            self._max_pages = -(-(max_len + self._spec_pad) // kv_block)
+            self.kv_pool_blocks = (kv_pool_blocks
+                                   or 1 + slots * self._max_pages)
+        else:
+            self.kv_pool_blocks = 0
         # scheduler crash budget: a transient device error fails the
         # in-flight requests, the loop rebuilds its cache and keeps
         # serving; after `restarts` crashes the batcher stays dead
@@ -141,7 +169,16 @@ class _Batcher:
         self.queue_wait_ms_total = 0.0
         self.last_queue_wait_ms: "float | None" = None
         self.queue_wait_ewma_ms: "float | None" = None
+        # KV handoff (prefill/decode disaggregation): prompt-KV exports
+        # parked for a decode replica's GET /kv, purged by the scheduler
+        # once taken or after the TTL, so a vanished decode peer never
+        # leaks pool blocks
+        self._kv_export_ttl = float(
+            os.environ.get("TDAPI_KV_EXPORT_TTL_S", "30"))
+        self.kv_handoffs_in = 0              # imports spliced (decode side)
+        self.prefix_evictions = 0            # trie leaves dropped (pressure)
         self.slots: list = [None] * slots
+        self._waiting = None      # paged: head-of-line item short on blocks
         self._sample_vec = None   # per-slot sampling vectors (cached)
         self._make_cache()
         self._stop = False
@@ -150,19 +187,65 @@ class _Batcher:
         self.thread.start()
 
     def _make_cache(self) -> None:
-        """(Re)build the slot caches: init and the crash-restart path."""
-        from ..batching import init_slot_cache
-        self.cache = init_slot_cache(self.config, len(self.slots),
-                                     self._cache_len, quantized=self.kv_quant,
-                                     device=self.device)
+        """(Re)build the caches and the host state that describes them:
+        init and the crash-restart path. Paged, the allocator, the prefix
+        trie, the exports and the sketch are rebuilt with the pool, so they
+        never disagree about which blocks are live."""
+        from .. import kvaffinity
+        from ..batching import PrefixTrie, init_slot_cache
+        self._kv_exports: dict = {}
+        self._trie = None
+        if self._paged:
+            from ..paging import BlockAllocator, init_paged_cache
+            self.cache = init_paged_cache(
+                self.config, self.kv_pool_blocks, self.kv_block,
+                len(self.slots), self._max_pages, quantized=self.kv_quant,
+                device=self.device)
+            self._alloc = BlockAllocator(self.kv_pool_blocks)
+            self._slot_blocks: list = [None] * len(self.slots)
+            # the paged prefix store is a trie over block-sized token
+            # chunks: prompts sharing a prefix share nodes and blocks
+            if self.prefix_cache:
+                self._trie = PrefixTrie(self.kv_block)
+            # (sketch hex, occupied blocks, indexed prefixes): rebuilt by
+            # the scheduler thread when the trie changes; the HTTP thread
+            # reads the tuple, which is replaced whole
+            self._sketch_pub = (
+                kvaffinity.encode_sketch_hex([0] * kvaffinity.SKETCH_WORDS),
+                0, 0)
+            self._sketch_dirty = False
+        else:
+            self.cache = init_slot_cache(
+                self.config, len(self.slots), self._cache_len,
+                quantized=self.kv_quant, device=self.device)
         if self._draft is not None:
             self.d_cache = init_slot_cache(
                 self._draft[0], len(self.slots), self._cache_len,
                 quantized=self.kv_quant, device=self.device)
 
+    # the cache entry points of batching.py, or their paged twins (the
+    # draft always keeps a dense cache: it is the small model, and one
+    # allocator per batcher keeps admission one source of truth)
+    _PAGED_FNS = {"slot_prefill": "paged_prefill",
+                  "slot_decode": "paged_decode",
+                  "slot_decode_pick": "paged_decode_pick",
+                  "slot_decode_multi": "paged_decode_multi",
+                  "slot_verify": "paged_verify"}
+
+    def _fn(self, name: str):
+        """batching.<name> for the target's cache, or its paged twin."""
+        from .. import batching, paging
+        if self._paged:
+            return getattr(paging, self._PAGED_FNS[name])
+        return getattr(batching, name)
+
     def _release_slot(self, i: int) -> None:
+        """Free a slot and (paged) return its blocks to the pool."""
         self.slots[i] = None
         self._sample_vec = None
+        if self._paged and self._slot_blocks[i]:
+            self._alloc.free(self._slot_blocks[i])
+            self._slot_blocks[i] = None
 
     def _finish(self, i: int, item) -> None:
         """The stream is complete: free the slot, then wake the waiter (so
@@ -180,12 +263,17 @@ class _Batcher:
 
     def submit(self, prompt_row, max_new: int, temperature: float = 0.0,
                top_k: int = 0, top_p: float = 1.0,
-               stats_out: dict | None = None) -> list[int]:
+               stats_out: dict | None = None, kv_key: str = "",
+               kv_import: dict | None = None) -> list[int]:
         """Blocking: returns the stream for one sequence (prompt_row [T]
         token ids), greedy at temperature 0, else per-request sampling.
         Raises if the scheduler thread has died or the batcher is closed.
         `stats_out` (a dict) receives queueWaitMs, the submit -> slot
-        admission wait, for the response headers."""
+        admission wait, for the response headers. Paged only: `kv_key`
+        exports the prompt's KV under that key once it is prefilled (the
+        prefill phase of a handoff); `kv_import` ({"tokens", "bufs"}, a
+        fetched export) is spliced in instead of prefilling those
+        tokens."""
         import math
 
         import numpy as np
@@ -213,10 +301,22 @@ class _Batcher:
             raise ValueError(
                 f"prompt {prompt_row.shape[0]} + max_new {max_new} exceeds "
                 f"the batcher's max_len {self.max_len}")
+        if self._paged:
+            needed = -(-(prompt_row.shape[0] + max_new + self._spec_pad)
+                       // self.kv_block)
+            if needed > self.kv_pool_blocks - 1:    # block 0 is scratch
+                raise ValueError(
+                    f"request needs {needed} KV blocks but the pool only "
+                    f"has {self.kv_pool_blocks - 1} — it could never be "
+                    f"admitted")
         item = {"prompt": prompt_row, "max_new": int(max_new),
                 "temperature": float(temperature), "top_k": int(top_k),
                 "top_p": float(top_p), "enq_at": time.monotonic(),
                 "done": threading.Event(), "out": None, "error": None}
+        if kv_key and self._paged:
+            item["_kv_key"] = kv_key
+        if kv_import is not None and self._paged:
+            item["_kv_import"] = kv_import
         self.queue.put(item)
         # re-check AFTER the put: _fail_all may have drained the queue
         # between the check above and the put
@@ -238,8 +338,9 @@ class _Batcher:
 
     @property
     def queued(self) -> int:
-        """Requests waiting for a slot (/healthz)."""
-        return self.queue.qsize()
+        """Requests waiting for a slot (/healthz), the parked head of the
+        line included."""
+        return self.queue.qsize() + (self._waiting is not None)
 
     def close(self):
         self._stop = True
@@ -247,8 +348,9 @@ class _Batcher:
         self._fail_all(RuntimeError("batcher closed"))
 
     def _fail_all(self, exc: Exception) -> None:
-        """Release every waiter, in-flight slots and queued items: the
-        scheduler is gone, and blocking forever is the only alternative."""
+        """Release every waiter, in-flight slots, the parked head-of-line
+        item and queued items: the scheduler is gone, and blocking forever
+        is the only alternative."""
         import queue
         self._dead = self._dead or exc
         for i, s in enumerate(self.slots):
@@ -256,6 +358,10 @@ class _Batcher:
                 s["error"] = exc
                 self._release_slot(i)
                 s["done"].set()
+        if self._waiting is not None:
+            self._waiting["error"] = exc
+            self._waiting["done"].set()
+            self._waiting = None
         while True:
             try:
                 item = self.queue.get_nowait()
@@ -293,8 +399,12 @@ class _Batcher:
     # ---- the scheduler loop (single thread owns the cache) ----
 
     def _next_item(self):
-        """FIFO head of the queue; None = nothing waiting."""
+        """FIFO head: the parked head-of-line item (paged admission short
+        on blocks) before anything newly queued. None = nothing waiting."""
         import queue
+        if self._waiting is not None:
+            item, self._waiting = self._waiting, None
+            return item
         try:
             return self.queue.get_nowait()
         except queue.Empty:
@@ -303,26 +413,48 @@ class _Batcher:
     def _admit(self):
         """Claim free slots for queued items. Without chunking the whole
         prompt prefills here; with chunking the item parks in the slot with
-        its pieces and _prefill_tick feeds them."""
+        its pieces and _prefill_tick feeds them. Paged, the request's blocks
+        are reserved from the shared pool first; short on blocks, the item
+        waits at the head of the line (later small requests must not starve
+        it)."""
         for i, s in enumerate(self.slots):
             if s is not None:
                 continue
             item = self._next_item()
             if item is None:
                 return
-            # admission is the queue-wait boundary
-            item["wait_ms"] = (time.monotonic() - item["enq_at"]) * 1e3
-            self.queue_wait_count += 1
-            self.queue_wait_ms_total += item["wait_ms"]
-            self.last_queue_wait_ms = item["wait_ms"]
-            prev = self.queue_wait_ewma_ms
-            self.queue_wait_ewma_ms = (
-                item["wait_ms"] if prev is None
-                else 0.2 * item["wait_ms"] + 0.8 * prev)
+            shared_tok, donor = 0, None
+            if self._paged:
+                shared_tok, donor = self._paged_reserve(i, item)
+                if shared_tok is None:
+                    self._waiting = item     # retried when blocks free up
+                    return
+            # admission is the queue-wait boundary: stamped once (a parked
+            # item is offered again; its wait runs on until it sticks)
+            if "wait_ms" not in item:
+                item["wait_ms"] = (time.monotonic() - item["enq_at"]) * 1e3
+                self.queue_wait_count += 1
+                self.queue_wait_ms_total += item["wait_ms"]
+                self.last_queue_wait_ms = item["wait_ms"]
+                prev = self.queue_wait_ewma_ms
+                self.queue_wait_ewma_ms = (
+                    item["wait_ms"] if prev is None
+                    else 0.2 * item["wait_ms"] + 0.8 * prev)
             try:
-                rem = self._restore_prefix(i, item)
-                if self.prefill_chunk > 0:
-                    c = self.prefill_chunk
+                rem = (item["prompt"][shared_tok:] if self._paged
+                       else self._restore_prefix(i, item))
+                # an in-flight donor still mid-prefill has not written the
+                # shared positions yet: park the suffix (even unchunked)
+                # until its write frontier passes shared_tok. _written stays
+                # 0 until then, so a third request sharing from THIS item
+                # waits too
+                awaiting = donor is not None
+                if awaiting:
+                    item["_await"] = (donor, shared_tok)
+                else:
+                    item["_written"] = shared_tok
+                if self.prefill_chunk > 0 or awaiting:
+                    c = self.prefill_chunk or rem.shape[0]
                     item["chunks"] = [rem[j:j + c]
                                       for j in range(0, rem.shape[0], c)]
                     if self._draft is not None:
@@ -346,6 +478,46 @@ class _Batcher:
                 item["error"] = e
                 item["done"].set()
                 raise
+
+    def _paged_reserve(self, i, item):
+        """Paged admission of `item` into slot i: (shared tokens, donor
+        item or None), or (None, None) when the pool cannot hold it yet.
+        A shared prefix's blocks enter the page table zero-copy (our
+        reference is taken first, so no eviction below can free them);
+        under pool pressure stored prefixes are evicted LRU, since they are
+        a cache, not a reservation. Then the page table is written and a
+        fetched KV export spliced in."""
+        from .. import batching, paging
+        shared, shared_tok, donor = self._paged_prefix_lookup(item)
+        if shared:
+            self._alloc.share(shared)
+        total = -(-(item["prompt"].shape[0] + item["max_new"]
+                    + self._spec_pad) // self.kv_block)
+        blocks = self._alloc.alloc(total - len(shared))
+        while blocks is None and self._evict_prefix():
+            blocks = self._alloc.alloc(total - len(shared))
+        if blocks is None:
+            if shared:
+                self._alloc.free(shared)        # release our claim
+            return None, None
+        if shared:
+            self.prefix_hits += 1
+            item["_restored"] = True
+        row_blocks = shared + blocks
+        self._slot_blocks[i] = row_blocks
+        paging.set_pages(self.cache, i, row_blocks)
+        # the decode side of a handoff: splice the prefill replica's prompt
+        # KV into this slot's private blocks. A local hit is already
+        # zero-copy, and wins
+        imp = item.pop("_kv_import", None)
+        if imp is not None and not shared_tok:
+            shared_tok = self._kv_inject(i, row_blocks, imp, item)
+            if shared_tok:
+                item["_restored"] = True
+                self.kv_handoffs_in += 1
+        if shared_tok:
+            batching._set_length(self.cache, i, shared_tok)
+        return shared_tok, donor
 
     # ---- prefix cache (system-prompt KV reuse) ----
 
@@ -397,14 +569,65 @@ class _Batcher:
         item["_restored"] = True
         return prompt[best_use:]
 
+    def _paged_prefix_lookup(self, item):
+        """Paged: (shared block list, shared token count, donor item or
+        None), the longest of two sources:
+
+        - the prefix trie (completed prompts kept by --prefix-cache): the
+          stored prefix's full blocks, capped at (len - 1) // block so the
+          last position's logits come from a real forward;
+        - in-flight slots: a running or mid-prefill request whose prompt
+          shares a block-aligned prefix donates those blocks the same way.
+          A donor still mid-prefill has not written them yet: the follower
+          comes back with the donor item and waits for the donor's write
+          frontier (_written). Acyclic: a follower only awaits an earlier
+          admission.
+
+        A shared block is never written again: the donor's decode writes
+        start at its prompt length, past the shared full blocks, and the
+        follower's prefill starts at the shared token count."""
+        key = self._prompt_key(item)
+        best_blocks, best_tok, best_donor = [], 0, None
+        if self._trie is not None:
+            blocks, _ = self._trie.lookup(key)
+            n_blk = min(len(blocks), (len(key) - 1) // self.kv_block)
+            if n_blk >= 1:
+                best_blocks = blocks[:n_blk]
+                best_tok = n_blk * self.kv_block
+        for j, sj in enumerate(self.slots):
+            if sj is None or self._slot_blocks[j] is None:
+                continue
+            usable = self._usable_lcp(self._prompt_key(sj), key)
+            n_blk = min(usable // self.kv_block, len(self._slot_blocks[j]))
+            if n_blk * self.kv_block > best_tok:
+                best_blocks = self._slot_blocks[j][:n_blk]
+                best_tok = n_blk * self.kv_block
+                # no wait once the donor's writes cover the prefix
+                best_donor = (sj if sj.get("_written", 0) < best_tok
+                              else None)
+        return best_blocks, best_tok, best_donor
+
     def _store_prefix(self, i, item) -> None:
-        """After a full prefill, keep a copy of the prompt's KV for future
-        requests sharing the prefix (LRU-bounded; bucketed to 64 tokens as
-        the JAX version buckets its compiled extracts)."""
+        """After a full prefill, keep the prompt's KV for future requests
+        sharing the prefix. Dense: a copy of the rows (LRU-bounded to
+        prefix_cache entries; bucketed to 64 tokens as the JAX version
+        buckets its compiled extracts). Paged: the prompt's full blocks
+        join the trie zero-copy, one more reference for each level the
+        trie did not hold; no count bound, evicted only under pool
+        pressure."""
         if not self.prefix_cache:
             return
         from .. import batching
         key = self._prompt_key(item)
+        if self._paged:
+            n_store = len(key) // self.kv_block
+            if n_store < 1:
+                return
+            new = self._trie.insert(key, self._slot_blocks[i][:n_store])
+            if new:
+                self._alloc.share(new)          # outlives the slot
+                self._sketch_dirty = True
+            return
         if key in self._prefixes:
             self._prefixes.move_to_end(key)
             return
@@ -419,12 +642,101 @@ class _Batcher:
         while len(self._prefixes) > self.prefix_cache:
             self._prefixes.popitem(last=False)
 
+    def _evict_prefix(self) -> bool:
+        """Paged, under pool pressure: drop the trie's LRU leaf (an
+        interior block backs every prefix through it, so leaves go first).
+        True when something was freed."""
+        freed = self._trie.evict_lru() if self._trie is not None else []
+        if not freed:
+            return False
+        self._alloc.free(freed)
+        self.prefix_evictions += 1
+        self._sketch_dirty = True
+        return True
+
+    # ---- KV handoff (prefill/decode disaggregation) ----
+
+    def _kv_export(self, i, item) -> None:
+        """Prefill phase done: copy the prompt's KV to the host for a
+        decode replica's GET /kv. The device gather runs here, on the
+        scheduler thread, the cache's only owner; the HTTP thread serves
+        the host copy. The prompt blocks also take one more reference each
+        for the export: the purge (on take or after the TTL), not the
+        fetching peer, frees them, so no crash between the phases leaks
+        pool blocks."""
+        from ..paging import paged_extract_blocks
+        key = self._prompt_key(item)
+        blocks = self._slot_blocks[i][:-(-len(key) // self.kv_block)]
+        self._alloc.share(blocks)
+        self._kv_exports[item["_kv_key"]] = {
+            "tokens": key, "len": len(key), "blocks": blocks,
+            "bufs": paged_extract_blocks(self.cache, blocks),
+            "at": time.monotonic()}
+
+    def _kv_inject(self, i, row_blocks, imp, item) -> int:
+        """Splice a fetched export into slot i's private blocks; returns
+        the tokens now resident (0: no match, prefill them instead). The
+        export must be a strict prefix of the prompt, so the first logits
+        come from a real forward; it may end in a partial block, whose
+        rest the suffix prefill fills."""
+        from ..paging import paged_inject_blocks
+        key = self._prompt_key(item)
+        toks = tuple(imp.get("tokens") or ())
+        if not toks or len(toks) >= len(key) or key[:len(toks)] != toks:
+            return 0
+        n_blk = -(-len(toks) // self.kv_block)
+        if n_blk > len(row_blocks):
+            return 0
+        try:
+            self.cache = paged_inject_blocks(self.cache, row_blocks[:n_blk],
+                                             imp["bufs"])
+        except (KeyError, ValueError, TypeError):
+            return 0                 # a malformed fetch: full prefill
+        return len(toks)
+
+    def kv_take(self, key: str):
+        """HTTP thread: claim an export's host KV, once. Its blocks are
+        freed on the scheduler thread (_purge_kv_exports): the allocator
+        has one owner."""
+        if not key:
+            return None
+        e = self._kv_exports.get(key)
+        if e is None or e.get("taken"):
+            return None
+        e["taken"] = True
+        return e
+
+    def _purge_kv_exports(self) -> None:
+        """Scheduler tick: free the blocks of taken and expired exports."""
+        if not self._kv_exports:
+            return
+        now = time.monotonic()
+        for k, e in list(self._kv_exports.items()):
+            if e.get("taken") or now - e["at"] > self._kv_export_ttl:
+                self._kv_exports.pop(k, None)
+                self._alloc.free(e["blocks"])
+
+    def _refresh_sketch(self) -> None:
+        """Rebuild the advertised prefix sketch from the trie (scheduler
+        thread; the HTTP thread reads the published tuple). Hashing a
+        leaf's path covers its ancestor levels, so leaves suffice."""
+        from .. import kvaffinity
+        hashes: list = []
+        for prefix in self._trie.iter_leaf_prefixes():
+            hashes.extend(kvaffinity.chunk_hashes(prefix))
+        self._sketch_pub = (
+            kvaffinity.encode_sketch_hex(kvaffinity.build_sketch(hashes)),
+            len(self._trie), self._trie.leaf_count)
+        self._sketch_dirty = False
+
     def _prefill_piece(self, i, item, piece, first: bool):
-        from .. import batching
-        logits, self.cache = batching.slot_prefill(
+        logits, self.cache = self._fn("slot_prefill")(
             self.params, piece[None], self.cache, i, self.config,
             append=not first)
         item["_last_logits"] = logits
+        # the write frontier: how many of the prompt's tokens are in the
+        # cache (a paged follower waits on its donor's)
+        item["_written"] = item.get("_written", 0) + int(piece.shape[0])
 
     def _draft_prefill(self, i, piece, first: bool):
         """Feed a prompt piece into the DRAFT's slot cache (both caches hold
@@ -462,6 +774,8 @@ class _Batcher:
         """Prefill complete: the first token comes off the last piece's
         logits; one-token requests answer at once."""
         self._store_prefix(i, item)   # the row holds the full prompt's KV
+        if item.get("_kv_key"):
+            self._kv_export(i, item)  # the handoff's prefill phase
         logits = item.pop("_last_logits")
         if item["temperature"] == 0.0:
             tok = int(logits[0].argmax())
@@ -493,6 +807,16 @@ class _Batcher:
             s = self.slots[i]
             if s is None or not (s.get("chunks") or s.get("dchunks")):
                 continue
+            if "_await" in s:
+                # a paged follower whose donor has not written the shared
+                # positions yet: skip it this tick. The donor's own prefill
+                # moves every tick, and a released donor (its prefill done)
+                # passes, since the item outlives its slot
+                d_item, need = s["_await"]
+                if d_item.get("_written", 0) < need:
+                    continue
+                del s["_await"]
+                s["_written"] = need
             self._prefill_cursor = (i + 1) % n
             if s.get("chunks"):
                 piece = s["chunks"].pop(0)
@@ -528,7 +852,7 @@ class _Batcher:
         drafts, dlogp, self.d_cache = batching.slot_spec_draft(
             dparams, toks, self.d_cache, active, dcfg, g, sample)
         blocks = torch.cat([toks[:, None], drafts], dim=1)
-        tlogits, self.cache = batching.slot_verify(
+        tlogits, self.cache = self._fn("slot_verify")(
             self.params, blocks, self.cache, active, self.config)
         if sample is not None:
             a, emit = batching.rowwise_spec_accept(tlogits, drafts, dlogp,
@@ -566,7 +890,7 @@ class _Batcher:
     def _has_waiters(self) -> bool:
         """Work is waiting to join (defers chunked decode so admission
         latency stays one step)."""
-        return not self.queue.empty()
+        return self._waiting is not None or not self.queue.empty()
 
     def _loop(self):
         while not self._stop:
@@ -580,8 +904,12 @@ class _Batcher:
         import torch
 
         from .. import batching
+        if self._paged:
+            self._purge_kv_exports()
         self._admit()
         fed = self._prefill_tick()      # one prompt piece per tick
+        if self._trie is not None and self._sketch_dirty:
+            self._refresh_sketch()
         # decodable = prefill finished (mid-prefill slots sit out the step:
         # their lengths must not advance)
         active = [s is not None and s.get("stream") is not None
@@ -606,7 +934,7 @@ class _Batcher:
         if idle:
             remaining = [s["max_new"] - len(s["stream"]) if active[i] else 0
                          for i, s in enumerate(self.slots)]
-            steps, self.cache = batching.slot_decode_multi(
+            steps, self.cache = self._fn("slot_decode_multi")(
                 self.params, toks, self.cache, active, remaining,
                 self.config, chunk, sample=sample)
             steps = steps.t().tolist()              # [slots, chunk]
@@ -615,10 +943,10 @@ class _Batcher:
                     self._extend(i, s, steps[i][:remaining[i]])
             return True
         if sample is not None:
-            picked, self.cache = batching.slot_decode_pick(
+            picked, self.cache = self._fn("slot_decode_pick")(
                 self.params, toks, self.cache, active, *sample, self.config)
         else:
-            logits, self.cache = batching.slot_decode(
+            logits, self.cache = self._fn("slot_decode")(
                 self.params, toks, self.cache, active, self.config)
             picked = logits.argmax(dim=-1)
         nxt = picked.tolist()
@@ -643,7 +971,8 @@ class _Server:
 
     def generate(self, tokens, max_new: int, temperature: float,
                  top_k: int = 0, top_p: float = 1.0,
-                 stats_out: dict | None = None):
+                 stats_out: dict | None = None, kv_key: str = "",
+                 kv_import: dict | None = None):
         import torch
 
         from ..infer import generate, speculative_generate
@@ -663,7 +992,8 @@ class _Server:
                 return [self.batcher.submit(
                     prompt[0], int(max_new), temperature=float(temperature),
                     top_k=int(top_k), top_p=float(top_p),
-                    stats_out=stats_out)]
+                    stats_out=stats_out, kv_key=kv_key,
+                    kv_import=kv_import)]
             # a multi-row request would run generate() beside the batcher's
             # slot decode: two caches live at once on the card
             raise ValueError(
@@ -698,7 +1028,9 @@ def _ms(value):
 
 
 def _batching_health(b: _Batcher) -> dict:
-    """/healthz's `batching` block of the dense batcher."""
+    """/healthz's `batching` block: the prefix trie's (paged with
+    --prefix-cache), the speculative rounds' and the pool's blocks when
+    they apply."""
     out = {
         "slots": len(b.slots),
         "active": sum(s is not None for s in b.slots),
@@ -713,6 +1045,16 @@ def _batching_health(b: _Batcher) -> dict:
             "ewmaMs": _ms(b.queue_wait_ewma_ms),
         },
     }
+    if b._trie is not None:
+        sketch_hex, occ, entries = b._sketch_pub
+        out["prefixCache"] = {
+            "entries": entries,
+            "blocks": occ,
+            "evictions": b.prefix_evictions,
+            "kvExports": len(b._kv_exports),
+            "handoffsIn": b.kv_handoffs_in,
+            "sketch": sketch_hex,
+        }
     if b._draft is not None:
         out["speculative"] = {
             "gamma": b.gamma,
@@ -724,7 +1066,46 @@ def _batching_health(b: _Batcher) -> dict:
             # gamma per ACTIVE row)
             "acceptRate": round(b.spec_accepted / max(b.spec_proposed, 1), 3),
         }
+    if b._paged:
+        out["paged"] = {
+            "blockSize": b.kv_block,
+            "poolBlocks": b.kv_pool_blocks,
+            "freeBlocks": b._alloc.free_blocks,
+        }
     return out
+
+
+def _fetch_kv(source: str, key: str) -> "dict | None":
+    """The decode side of the handoff: the prompt KV a prefill replica
+    exported (GET /kv on `source` = "host:port"), as {"tokens", "bufs":
+    {name: numpy array}}. ANY failure (peer gone, export expired or taken,
+    a malformed payload) returns None, and the request prefills in full:
+    the handoff is a fast path, never a correctness dependency."""
+    import base64
+    from http.client import HTTPConnection, HTTPException
+
+    import numpy as np
+    try:
+        host, _, port = source.rpartition(":")
+        conn = HTTPConnection(host or "127.0.0.1", int(port), timeout=5)
+        try:
+            conn.request("GET", "/kv?key=" + key)
+            payload = json.loads(conn.getresponse().read() or b"{}")
+        finally:
+            conn.close()
+        data = payload.get("data") or {}
+        if payload.get("code") != 200 or not data.get("tokens"):
+            return None
+        bufs = {
+            name: np.frombuffer(
+                base64.b64decode(d["b64"]),
+                dtype=np.dtype(d["dtype"])).reshape(d["shape"])
+            for name, d in (data.get("bufs") or {}).items()}
+        return {"tokens": data["tokens"], "bufs": bufs}
+    except (OSError, HTTPException, ValueError, KeyError, TypeError,
+            AttributeError):
+        # the peer is gone or sent what is not an export
+        return None
 
 
 def _handler_for(srv: _Server, model_name: str, admit_queue: int = 0):
@@ -760,6 +1141,12 @@ def _handler_for(srv: _Server, model_name: str, admit_queue: int = 0):
                 if b.queue_wait_ewma_ms is not None:
                     self.send_header("X-TDAPI-Queue-Wait-EWMA-Ms",
                                      str(round(b.queue_wait_ewma_ms, 3)))
+                # KV affinity: the prefix sketch and occupancy on every
+                # response, folded into a fronting router's state
+                if b._trie is not None:
+                    sketch_hex, occ, _ = b._sketch_pub
+                    self.send_header("X-TDAPI-KV-Sketch", sketch_hex)
+                    self.send_header("X-TDAPI-KV-Occ", str(occ))
             for k, v in (extra or {}).items():
                 self.send_header(k, v)
             self.end_headers()
@@ -777,11 +1164,26 @@ def _handler_for(srv: _Server, model_name: str, admit_queue: int = 0):
                     data["batching"] = _batching_health(srv.batcher)
                 self._send(200, "Success", data)
             elif self.path.startswith("/kv?") or self.path == "/kv":
-                # the KV handoff exports come from the paged batcher, which
-                # this server does not run
-                self._send(404, "kv export not found", None)
+                self._send_kv()
             else:
                 self._send(404, "route not found", None)
+
+        def _send_kv(self):
+            """GET /kv?key=: a prompt-KV export of the paged batcher, once
+            (the scheduler frees it on take or after its TTL)."""
+            import base64
+            from urllib.parse import parse_qs, urlparse
+            b = srv.batcher
+            key = (parse_qs(urlparse(self.path).query).get("key") or [""])[0]
+            e = b.kv_take(key) if b is not None and b._paged else None
+            if e is None:
+                self._send(404, "kv export not found", None)
+                return
+            bufs = {name: {"dtype": arr.dtype.name, "shape": list(arr.shape),
+                           "b64": base64.b64encode(arr.tobytes()).decode()}
+                    for name, arr in e["bufs"].items()}
+            self._send(200, "Success", {"tokens": list(e["tokens"]),
+                                        "len": e["len"], "bufs": bufs})
 
         def do_POST(self):
             if self.path != "/generate":
@@ -820,10 +1222,24 @@ def _handler_for(srv: _Server, model_name: str, admit_queue: int = 0):
                     temperature = round(temperature * 20) / 20
                     top_p = round(top_p * 20) / 20 or 0.05
                     top_k = min(top_k, 128)
+                # the handoff (paged batcher only): X-TDAPI-Phase: prefill
+                # with X-TDAPI-KV-Key runs the prefill alone (one token) and
+                # exports the prompt KV under the key; X-TDAPI-KV-Source
+                # with the key fetches that export and resumes without
+                # prefilling it. A failed fetch is a plain full request
+                hdr_key = self.headers.get("X-TDAPI-KV-Key") or ""
+                kv_src = self.headers.get("X-TDAPI-KV-Source") or ""
+                phase = self.headers.get("X-TDAPI-Phase") or ""
+                handoff = {}
+                if hdr_key and b is not None and b._paged:
+                    if phase == "prefill":
+                        handoff["kv_key"], max_new = hdr_key, 1
+                    elif kv_src:
+                        handoff["kv_import"] = _fetch_kv(kv_src, hdr_key)
                 stats: dict = {}
                 out = srv.generate(tokens, max_new, temperature,
                                    top_k=top_k, top_p=top_p,
-                                   stats_out=stats)
+                                   stats_out=stats, **handoff)
                 extra = None
                 if "queueWaitMs" in stats:
                     # per-request batcher queue wait, stitched into a
@@ -839,10 +1255,11 @@ def _handler_for(srv: _Server, model_name: str, admit_queue: int = 0):
 
 def _refuse_unported(args, env=None) -> None:
     """SystemExit for what the port cannot serve yet: multi-host grants,
-    the MoE family, --host-load, --tp > 1, and with --batch-slots the paged
-    cache (--kv-block, --kv-pool) and a co-tenancy env (TDAPI_TPU_SHARES or
-    TDAPI_PRIORITY, where the JAX server registers a regulator tenant).
-    Where the JAX server itself refuses a combination, its message."""
+    the MoE family, --host-load, and with --batch-slots a co-tenancy env
+    (TDAPI_TPU_SHARES or TDAPI_PRIORITY, where the JAX server registers a
+    regulator tenant). Where the JAX server itself refuses a combination,
+    its message. --tp is read on the multi-host path only; single-host
+    serving ignores it, as the JAX server does."""
     e = os.environ if env is None else env
     hosts = [h for h in e.get("TPU_WORKER_HOSTNAMES", "").split(",") if h]
     if len(hosts) > 1:
@@ -870,18 +1287,12 @@ def _refuse_unported(args, env=None) -> None:
             raise SystemExit("--kv-block/--kv-pool configure the batching "
                              "scheduler's cache; they need --batch-slots N")
     else:
-        if args.kv_block or args.kv_pool:
-            raise SystemExit("--kv-block/--kv-pool: paged KV for the "
-                             "batcher is not yet ported to PyTorch")
         cotenancy = [k for k in ("TDAPI_TPU_SHARES", "TDAPI_PRIORITY")
                      if e.get(k)]
         if cotenancy:
             raise SystemExit(f"{'/'.join(cotenancy)} with --batch-slots: the "
                              f"co-tenancy regulator is not yet ported to "
                              f"PyTorch")
-    if args.tp > 1:
-        raise SystemExit(f"--tp {args.tp}: tensor-parallel serving is not "
-                         f"yet ported to PyTorch")
 
 
 def main(argv=None) -> int:
@@ -929,16 +1340,25 @@ def main(argv=None) -> int:
     p.add_argument("--prefix-cache", type=int, default=0,
                    help="keep the KV of the last N distinct prompts; a "
                         "request extending a cached prompt prefills only the "
-                        "suffix (0 = off)")
+                        "suffix (0 = off). With paged KV (--kv-block) the "
+                        "reuse is zero-copy: shared blocks enter the new "
+                        "request's page table")
     p.add_argument("--kv-block", type=int, default=0,
-                   help="paged slot cache block size (not yet ported)")
+                   help="paged slot cache: block size in tokens; slots share "
+                        "a block pool instead of dense slots x max_len "
+                        "reservations, admission waits on free blocks, and "
+                        "block-aligned common prompt prefixes are shared "
+                        "with in-flight requests zero-copy (0 = dense)")
     p.add_argument("--kv-pool", type=int, default=0,
-                   help="paged pool size in blocks (not yet ported)")
+                   help="paged pool size in blocks (default: full capacity, "
+                        "slots x ceil(max_len/block) + scratch; shrink to "
+                        "cap KV memory)")
     p.add_argument("--decode-chunk", type=int, default=1,
                    help="decode up to N steps per host sync when no request "
                         "is waiting to join (1 = sync every step)")
     p.add_argument("--tp", type=int, default=0,
-                   help="tensor-parallel width (not yet ported above 1)")
+                   help="tensor-parallel width for multi-host serving (0 = "
+                        "auto); single-host serving ignores it")
     p.add_argument("--shard-kv", action="store_true",
                    help="shard the slot cache over tp (multi-host serving)")
     p.add_argument("--admit-queue", type=int, default=0,
@@ -993,7 +1413,9 @@ def main(argv=None) -> int:
                   gamma=args.gamma)
     if args.batch_slots > 0:
         # --draft-config composes (speculative rounds over the whole slot
-        # batch), so does --kv-quant (int8 slot caches, both models)
+        # batch), so does --kv-quant (int8 caches, both models), and so
+        # does --kv-block (paged_verify writes each row's gamma+1 tokens
+        # through its page table; admission reserves the overshoot)
         try:
             srv.batcher = _Batcher(config, params, slots=args.batch_slots,
                                    max_len=args.batch_max_len
@@ -1001,14 +1423,18 @@ def main(argv=None) -> int:
                                    prefill_chunk=args.batch_prefill_chunk,
                                    prefix_cache=args.prefix_cache,
                                    kv_quant=args.kv_quant,
+                                   kv_block=args.kv_block,
+                                   kv_pool_blocks=args.kv_pool,
                                    decode_chunk=args.decode_chunk,
                                    draft=draft, gamma=args.gamma)
         except ValueError as e:
             raise SystemExit(str(e))
+        mode = (f"paged ({srv.batcher.kv_pool_blocks} x {args.kv_block} "
+                f"token blocks)" if args.kv_block else "dense")
         spec = (f", speculative (draft {args.draft_config}, gamma "
                 f"{args.gamma})" if draft else "")
         print(f"continuous batching: {args.batch_slots} slots x "
-              f"{srv.batcher.max_len} tokens, dense KV{spec}", flush=True)
+              f"{srv.batcher.max_len} tokens, {mode} KV{spec}", flush=True)
 
     name = f"{args.family}/{args.config}"
     try:

@@ -611,7 +611,8 @@ def test_sampling_parameters_are_bucketed_only_without_a_batcher(tiny):
     body = {"tokens": ONE, "temperature": 0.73, "top_k": 300, "top_p": 0.93}
     # the response headers read a batcher's slots and queue: a stand-in
     stand_in = types.SimpleNamespace(slots=[None], queued=0,
-                                     queue_wait_ewma_ms=None)
+                                     queue_wait_ewma_ms=None, _trie=None,
+                                     _paged=False)
     for batcher in (None, stand_in):
         srv = Recording(tcfg, tp)
         srv.batcher = batcher

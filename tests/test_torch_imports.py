@@ -44,7 +44,7 @@ def test_port_imports_with_jax_blocked():
                          env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got["n"] >= 12                # every module of the port imported
+    assert got["n"] >= 14                # every module of the port imported
     assert got["leaked"] == []
     assert got["loaded"] == []           # no kernel built or loaded at import
 
@@ -70,6 +70,19 @@ def test_no_source_file_of_the_port_imports_jax_or_the_jax_package():
                                "gpu_docker_api_tpu"):
                         bad.append((os.path.relpath(path, REPO), name))
     assert bad == []
+
+
+def test_paging_and_kvaffinity_are_walked_and_kvaffinity_is_its_own():
+    """The paged cache and the sketch module are modules of the port, and
+    the port's kvaffinity is its own code, not the JAX module re-exported
+    (that one is stdlib-only too, so only its identity tells)."""
+    assert {"gpu_docker_api_tpu_torch.paging",
+            "gpu_docker_api_tpu_torch.kvaffinity"} <= set(_modules())
+    from gpu_docker_api_tpu_torch import kvaffinity
+    assert os.path.dirname(kvaffinity.__file__) == PORT_DIR
+    for name in ("chunk_hashes", "build_sketch", "encode_sketch_hex",
+                 "decode_sketch_hex", "hit_tokens", "score", "signed64"):
+        assert getattr(kvaffinity, name).__module__ == kvaffinity.__name__
 
 
 def test_chip_smoke_imports_nothing_of_jax():

@@ -196,14 +196,11 @@ BASE = ["--device", "cpu", "--config", "tiny", "--port", "1"]
 
 
 @pytest.mark.parametrize("extra, env, message", [
-    (["--batch-slots", "4", "--kv-block", "16"], {}, "not yet ported"),
-    (["--batch-slots", "4", "--kv-pool", "64"], {}, "not yet ported"),
     (["--batch-slots", "2"], {"TDAPI_TPU_SHARES": "2"},
      "co-tenancy regulator is not yet ported"),
     (["--batch-slots", "2"], {"TDAPI_PRIORITY": "latency"},
      "co-tenancy regulator is not yet ported"),
     (["--host-load", "--quantize", "w8"], {}, "not yet ported"),
-    (["--tp", "2"], {}, "not yet ported"),
     (["--family", "moe"], {}, "not yet ported"),
     ([], {"TPU_WORKER_HOSTNAMES": "w0,w1"}, "not yet ported"),
     # refused by the JAX server too: its messages
@@ -276,6 +273,62 @@ def test_batcher_flags_start_a_batcher(monkeypatch, capsys, extra, want):
     assert (f"continuous batching: {len(b.slots)} slots x {b.max_len} tokens, "
             f"dense KV{spec}\n") in out
     assert not b.thread.is_alive() and not b.alive
+
+
+class _OneHealthz(_NoHTTP):
+    """Stands in for ThreadingHTTPServer: serves the handler main built on
+    a free local port for one GET /healthz, recorded in HEALTH, then
+    returns."""
+    HEALTH = []
+
+    def __init__(self, address, handler):
+        super().__init__(address, handler)
+        self.handler = handler
+
+    def serve_forever(self):
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), self.handler)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            _, _, _, body = _raw(httpd.server_address[1], "GET", "/healthz")
+            self.HEALTH.append(json.loads(body)["data"])
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+
+
+@pytest.mark.parametrize("extra, want", [
+    (["--batch-slots", "4", "--kv-block", "16"],
+     {"blockSize": 16, "poolBlocks": 1 + 4 * 8, "freeBlocks": 4 * 8}),
+    (["--batch-slots", "4", "--kv-pool", "64", "--kv-block", "8"],
+     {"blockSize": 8, "poolBlocks": 64, "freeBlocks": 63}),
+    # single-host serving ignores --tp, as the JAX server does
+    (["--tp", "2"], None),
+])
+def test_paged_and_tp_flags_start_a_server(monkeypatch, capsys, extra, want):
+    """--kv-block / --kv-pool with --batch-slots start a paged batcher whose
+    healthz has the `paged` block and print the JAX server's paged line;
+    --tp 2 starts a server."""
+    _OneHealthz.HEALTH.clear()
+    monkeypatch.setattr(tserve, "ThreadingHTTPServer", _OneHealthz)
+    assert tserve.main(BASE + extra) == 0
+    (health,) = _OneHealthz.HEALTH
+    out = capsys.readouterr().out
+    assert "serving llama/tiny" in out
+    if want is None:
+        assert "batching" not in health
+        return
+    assert health["batching"]["paged"] == want
+    assert (f"continuous batching: 4 slots x 128 tokens, paged "
+            f"({want['poolBlocks']} x {want['blockSize']} token blocks) KV"
+            in out)
+
+
+def test_kv_block_without_device_cpu_raises_when_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tserve.main(["--config", "tiny", "--port", "1", "--batch-slots", "4",
+                     "--kv-block", "16", "--prefix-cache", "4"])
 
 
 def test_batch_slots_without_device_cpu_raises_when_no_card():

@@ -404,3 +404,107 @@ def test_batching_shed_sees_the_429_envelope(tmp_path):
         traffic=dict(requests=12, clients=12, prompt=(8, 24), new=(40, 60)),
         serve_args=("--batch-slots", "1"), extra_args=("--device", "cpu"))
     assert out["shed"] >= 1 and out["shed"] + out["served"] == 12
+
+
+def test_batcher_busy_window_is_counted_in_steps(monkeypatch):
+    """The window ends after window_steps decode steps of the scheduler
+    thread, however fast the host: a window the requests' budget could not
+    hold is refused up front, and the paged batcher's step runs the same
+    window."""
+    from gpu_docker_api_tpu_torch.models import llama
+
+    def fake_busy(torch, windows):
+        for fn, reps in windows.values():
+            for _ in range(reps):
+                fn()
+        return {name: 0.5 for name in windows}
+
+    monkeypatch.setattr(cs, "busy_share", fake_busy)
+    synced = []
+    monkeypatch.setattr(cs, "check_decode_sync_free",
+                        lambda torch, b: synced.append(b._paged))
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(cs.SmokeFailure, match="does not fit"):
+        cs.batcher_busy(torch, cfg, params, 1, slots=2, max_len=64,
+                        prompt_len=16)
+    out = cs.batcher_busy(torch, cfg, params, 1, slots=2, max_len=512,
+                          prompt_len=16, window_steps=32, kv_block=8)
+    assert out["steps"] == 32 and out["step_ms"] > 0
+    assert synced == [True]
+
+
+def test_check_sketch_headers_wants_hex_and_a_count():
+    good = {"X-TDAPI-KV-Sketch": "0f" * 32, "X-TDAPI-KV-Occ": "12"}
+    cs.check_sketch_headers(good, "ok")
+    for bad in ({"X-TDAPI-KV-Occ": "12"},
+                dict(good, **{"X-TDAPI-KV-Sketch": "0f" * 31}),
+                dict(good, **{"X-TDAPI-KV-Occ": "-1"})):
+        with pytest.raises(cs.SmokeFailure):
+            cs.check_sketch_headers(bad, "bad")
+
+
+def test_handoff_requests_end_in_partial_blocks():
+    reqs = cs.handoff_requests(32000)
+    assert reqs == cs.handoff_requests(32000)
+    assert len(reqs) == cs.HANDOFF["requests"]
+    lo, hi = cs.HANDOFF["prompt"]
+    assert all(lo <= len(r) <= hi and len(r) % 16 for r in reqs)
+
+
+def test_paged_exactness_at_tiny_width_on_the_cpu(monkeypatch):
+    """6a's runs on the CPU (tiny, 4-token blocks, requests at once): every
+    stream equals its solo stream, the small pool runs short, the shared
+    prefix is hit, the handoff imports, no pool leaks, nothing launched."""
+    from gpu_docker_api_tpu_torch.models import llama
+    monkeypatch.setattr(cs, "STAGGER_S", 0.0)
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    draft = (cfg, llama.init_params(cfg, torch.Generator().manual_seed(1)))
+    # ceil((5|9|13 + 20) / 4) = 7, 8, 9 blocks; 60% of 24 leaves 15
+    # usable: any two requests fill them, the third runs short
+    sizes = dict(slots=3, max_len=64, lens=(5, 9, 13), new=20, prefix=16,
+                 suffixes=(2, 5, 7), prefill_chunk=8, prefix_cache=2,
+                 decode_chunk=3, gamma=3)
+    out = cs.batcher_exactness(torch, att, cfg, params, draft, sizes,
+                               device="cpu", label="6a",
+                               paged=dict(kv_block=4, pool_share=0.6))
+    staggered = out["staggered"]
+    assert staggered["pool_blocks"] == 16 and staggered["shortages"] >= 1
+    assert out["chunked prefill, prefix cache, decode chunk"][
+        "prefix_hits"] >= 1
+    assert out["speculative"]["speculative"]["rounds"] >= 1
+    assert out["handoff"] == {"requests": 2, "near_ties": 0,
+                              "handoffs_in": 2}
+    assert all(out[k]["near_ties"] == 0 for k in out
+               if isinstance(out[k], dict) and "near_ties" in out[k])
+    assert not any(out["launches"].values())
+
+
+def test_paged_batching_http_checks_the_sketch_and_the_pool(tmp_path):
+    """6b's HTTP check against `serve --device cpu --config tiny` with the
+    paged batcher and the trie: the sketch headers on every response,
+    healthz's pool drained to the trie's blocks."""
+    from gpu_docker_api_tpu_torch.models import llama
+    out = cs.batching_http(
+        torch, "tiny", llama.LlamaConfig.tiny(), str(tmp_path), 1,
+        traffic=TINY_TRAFFIC, paged=True,
+        extra_args=("--device", "cpu", "--kv-block", "4",
+                    "--prefix-cache", "2"))
+    assert out["requests"] == 6 and out["prefix_cache"]["blocks"] > 0
+    assert out["paged"]["freeBlocks"] == (out["paged"]["poolBlocks"] - 1
+                                          - out["prefix_cache"]["blocks"])
+
+
+def test_handoff_http_between_two_serve_processes(tmp_path):
+    """6c against two `serve --device cpu --config tiny` processes: every
+    handoff equals the full request, healthz counts the imports, the taken
+    keys are 404s, and the orphan export is freed after its TTL."""
+    from gpu_docker_api_tpu_torch.models import llama
+    spec = dict(cs.HANDOFF, requests=2, prompt=(20, 40), new=5, ttl_s=0.5)
+    out = cs.handoff_http(torch, "tiny", llama.LlamaConfig.tiny(),
+                          str(tmp_path), spec=spec,
+                          extra_args=("--device", "cpu"))
+    assert out["handoffs_in"] == 2 and out["requests"] == 2
+    assert out["orphan_blocks"] == -(-out["prompt_lens"][0] // 16)
+    assert out["recompute_first_mismatch"] == [None, None]
