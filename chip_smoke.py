@@ -69,10 +69,31 @@ Phases (any failure exits non-zero and prints no result):
      --kv-block 16 --batch-slots 4), three handoffs over HTTP each equal
      to the decode replica's full request, healthz counting the imports,
      a taken key a 404, an untaken export freed after its TTL.
+  7. the MoE family at moe_1b (models/moe.py). 7a: train_llama --family
+     moe at batch 8, seq 2048 for a few steps, the launch counters set to
+     0 just before and read just after (every layer's attention through
+     the kernels); losses finite, the first near its value at init; the
+     model-FLOP share by the JAX bench's active-expert count; then the
+     trunk in f32 through the kernels and the reference attention, each
+     layer's routing recorded: a decision may differ only at a near tie
+     (router probabilities within TIE_GAP, at most one), the logits
+     compared before it. 7b, f32, in-process: the cached path against
+     moe_forward through the forward kernel with a capacity under which
+     nothing drops; the dense and the paged _Batcher driven by hand under
+     one schedule at the real capacity, each paged stream equal to its
+     dense one but where its routing moved for a reason schedule_moves
+     allows; no launch, no sync in a decode step. 7c, bf16: `serve
+     --family moe --config 1b --batch-slots 8` under a burst (headers,
+     healthz count); decode times at B=1 and B=8, dense and w8, beside
+     their bounds; --host-load in-process, its device peak under the int8
+     tree plus one leaf and its tree equal to --quantize w8's; `serve
+     --host-load --quantize w8` beside `serve --quantize w8`, equal greedy
+     tokens.
 
-Prints one `{"kernels": [...]}` line, the readings, one `{"serve": ...}`
-line, one `{"batching": ...}` line, one `{"paged": ...}` line, the
-nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+Prints one `{"kernels": [...]}` line (with each kernel's launches in 7a
+too), the readings, one `{"serve": ...}` line, one `{"batching": ...}`
+line, one `{"paged": ...}` line, one `{"moe": ...}` line, the nvidia-smi
+line, and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -804,15 +825,17 @@ def teacher_forced_check(torch, got, ref, tokens, tol, label):
 def serve_oracle(torch, att, cfg, b, prompt_len, steps, kv_quant, tol,
                  device="cuda"):
     """The cached path (prefill, then `steps` decode_steps, greedy) against
-    llama_forward(impl="auto") on the same weights, in one call over the
-    prompt and the fed tokens; generate() must give the same tokens.
-    Returns the readings of teacher_forced_check plus the forward kernel's
-    launches in the full forward."""
+    the family's full forward (llama_forward or moe_forward, impl="auto")
+    on the same weights, in one call over the prompt and the fed tokens;
+    generate() must give the same tokens. Returns the readings of
+    teacher_forced_check plus the forward kernel's launches in the full
+    forward."""
     from gpu_docker_api_tpu_torch import infer
-    from gpu_docker_api_tpu_torch.models import llama
+    from gpu_docker_api_tpu_torch.models import family_for
 
+    fam = family_for(cfg)
     gen = torch.Generator(device=device).manual_seed(0)
-    params = llama.init_params(cfg, gen)
+    params = fam.init_params(cfg, gen)
     prompt = torch.randint(0, cfg.vocab_size, (b, prompt_len), generator=gen,
                            device=device)
     cache = infer.init_cache(cfg, b, prompt_len + steps + 1,
@@ -829,9 +852,9 @@ def serve_oracle(torch, att, cfg, b, prompt_len, steps, kv_quant, tol,
           f"generate() differs from prefill + decode_step (kv8={kv_quant})")
     att.reset_launches()
     with torch.no_grad():
-        ref = llama.llama_forward(
-            params, torch.cat([prompt, tokens[:, :-1]], dim=1), cfg,
-            impl="auto")[:, prompt_len - 1:]
+        ref = fam.forward(params, torch.cat([prompt, tokens[:, :-1]], dim=1),
+                          cfg, impl="auto")
+        ref = (ref[0] if fam.returns_extra_loss else ref)[:, prompt_len - 1:]
     launches = att.LAUNCHES["flash_fwd"]
     out = teacher_forced_check(torch, torch.stack(all_logits, dim=1), ref,
                                tokens, tol, f"{cfg.dtype} kv8={kv_quant}")
@@ -839,18 +862,21 @@ def serve_oracle(torch, att, cfg, b, prompt_len, steps, kv_quant, tol,
     return out
 
 
+def leaf_bytes(t) -> int:
+    """Bytes of one parameter leaf: a tensor, or an int8 weight with its
+    scales."""
+    from gpu_docker_api_tpu_torch.ops.quant import QTensor
+    if isinstance(t, QTensor):
+        return leaf_bytes(t.q) + leaf_bytes(t.s)
+    return t.numel() * t.element_size()
+
+
 def weight_bytes(params) -> int:
     """Bytes of the matrices a decode step reads: every projection and MLP
-    weight and lm_head (int8 weights with their scales); the embedding's
-    gathered rows and the norms are left out."""
-    from gpu_docker_api_tpu_torch.ops.quant import QTensor
-
-    def size(t):
-        if isinstance(t, QTensor):
-            return size(t.q) + size(t.s)
-        return t.numel() * t.element_size()
-    return (sum(size(w) for name, w in params["layers"].items()
-                if not name.endswith("norm")) + size(params["lm_head"]))
+    weight (a MoE layer's router and every expert bank) and lm_head; the
+    embedding's gathered rows and the norms are left out."""
+    return (sum(leaf_bytes(w) for name, w in params["layers"].items()
+                if not name.endswith("norm")) + leaf_bytes(params["lm_head"]))
 
 
 def cache_bytes_per_token(cfg, kv_quant) -> int:
@@ -866,14 +892,24 @@ def serve_bounds(cfg, w_bytes, b, t, ctx, kv_quant):
     per row at context ctx: the weights read once, the cache read up to
     the frontier and written for the new tokens, against the matmul
     operations (2 per weight per token) and the attention's (4 * head_dim
-    per visible (query, key) pair and head) over the bf16 peak."""
+    per visible (query, key) pair and head) over the bf16 peak. A MoE
+    layer's FFN is its router (per token) and every expert's SwiGLU over
+    its capacity: the gather dispatch runs 3 * d_model * d_ff weights on
+    each of the E * C slots of the step (C = capacity(b * t)), used or
+    not; its bytes are all the banks (w_bytes)."""
     per_tok = cache_bytes_per_token(cfg, kv_quant)
     keys = sum(ctx + i + 1 for i in range(t))            # visible pairs / row
     nbytes = w_bytes + b * (ctx + t) * per_tok
+    swiglu = 3 * cfg.d_model * cfg.d_ff
+    if hasattr(cfg, "n_experts"):
+        ffn_tok = cfg.d_model * cfg.n_experts             # the router
+        ffn_slots = swiglu * cfg.n_experts * cfg.capacity(b * t)
+    else:
+        ffn_tok, ffn_slots = swiglu, 0
     per_layer = (2 * cfg.d_model * cfg.head_dim
-                 * (cfg.n_heads + cfg.n_kv_heads) + 3 * cfg.d_model * cfg.d_ff)
+                 * (cfg.n_heads + cfg.n_kv_heads) + ffn_tok)
     n_matmul = cfg.n_layers * per_layer + cfg.d_model * cfg.vocab_size
-    flops = (2 * n_matmul * b * t
+    flops = (2 * n_matmul * b * t + 2 * cfg.n_layers * ffn_slots
              + 4 * cfg.head_dim * cfg.n_heads * cfg.n_layers * b * keys)
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
@@ -923,17 +959,18 @@ def busy_share(torch, windows):
     return out
 
 
-def serve_times(torch, cfg, params, label, b, kv_quant=False):
-    """Prefill of a TIME_CONTEXT-token prompt, then TIME_STEPS decode steps
-    from it; ms from the host clock around synchronised calls."""
+def serve_times(torch, cfg, params, label, b, kv_quant=False,
+                context=TIME_CONTEXT, steps=TIME_STEPS):
+    """Prefill of a `context`-token prompt, then `steps` decode steps from
+    it; ms from the host clock around synchronised calls."""
     from gpu_docker_api_tpu_torch import infer
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    prompt = torch.randint(0, cfg.vocab_size, (b, TIME_CONTEXT),
+    prompt = torch.randint(0, cfg.vocab_size, (b, context),
                            generator=gen, device="cuda")
 
     def fresh():
-        return infer.init_cache(cfg, b, TIME_CONTEXT + 2 * TIME_STEPS + 1,
+        return infer.init_cache(cfg, b, context + 2 * steps + 1,
                                 quantized=kv_quant)
 
     def timed(fn):
@@ -951,7 +988,7 @@ def serve_times(torch, cfg, params, label, b, kv_quant=False):
         prefill_ms.append(ms)
     token = logits.argmax(dim=-1)
     step_ms = []
-    for _ in range(TIME_STEPS):
+    for _ in range(steps):
         ms, (logits, cache) = timed(
             lambda: infer.decode_step(params, token, cache, cfg))
         step_ms.append(ms)
@@ -964,14 +1001,14 @@ def serve_times(torch, cfg, params, label, b, kv_quant=False):
         state["token"] = logits.argmax(dim=-1)
 
     w_bytes = weight_bytes(params)
-    p_bound = serve_bounds(cfg, w_bytes, b, TIME_CONTEXT, 0, kv_quant)
-    d_bound = serve_bounds(cfg, w_bytes, b, 1,
-                           TIME_CONTEXT + TIME_STEPS // 2, kv_quant)
+    p_bound = serve_bounds(cfg, w_bytes, b, context, 0, kv_quant)
+    d_bound = serve_bounds(cfg, w_bytes, b, 1, context + steps // 2,
+                           kv_quant)
     busy = busy_share(torch, {
         "prefill": (lambda: infer.prefill(params, prompt, fresh(), cfg), 1),
         "decode": (one_step, 4)})
     out = {
-        "batch": b, "context": TIME_CONTEXT, "kv8": kv_quant,
+        "batch": b, "context": context, "kv8": kv_quant,
         "prefill_ms": statistics.median(prefill_ms[1:]),
         "prefill_bound_ms": p_bound[0], "prefill_bound_by": p_bound[1],
         "prefill_busy": busy["prefill"],
@@ -1921,6 +1958,566 @@ def phase_paged(torch, att, dense):
             "wall": wall}
 
 
+# ---- phase 7: the MoE family ----------------------------------------------------
+
+# 7a: JAX's MoE training cell (bench.py:346-347): moe_1b, batch 8, seq 2048,
+# accum_steps 1, at full width and depth. Then the trunk on a small input.
+MOE_TRAIN = dict(b=8, s=2048, steps=5)
+MOE_TRUNK_S = 256
+# 7b, in-process, f32: the cached path against moe_forward with a capacity
+# factor under which nothing drops (a one-token decode step and the full
+# forward route different token sets, and agree only without drops); then
+# the dense and the paged batcher under one schedule at the real capacity:
+# request i submitted just before scheduler tick at[i]
+MOE_ORACLE = dict(b=2, prompt=128, steps=16, capacity_factor=8.0)
+MOE_BATCH = dict(slots=4, max_len=512, lens=(37, 100, 64, 200, 160, 256),
+                 at=(0, 1, 2, 5, 9, 14), new=24, kv_block=16)
+# 7c, bf16: the serve process with the batcher under a burst (prompts and
+# max_new from default_rng(5)); decode times at B=1 and B=8 from 128-token
+# prompts, dense and w8 (the JAX moe_w8 cell, bench.py:630-656); the
+# host-load path; serve --host-load --quantize w8 beside serve --quantize w8
+MOE_SERVE = ("--family", "moe")
+MOE_TRAFFIC = dict(requests=16, clients=8, prompt=(128, 512), new=(64, 64))
+MOE_TIME = dict(context=128, steps=32)
+MOE_GREEDY = dict(b=2, prompt=128, new=16, seed=13)
+
+
+def moe_train_flops(cfg, batch, seq) -> float:
+    """Model FLOPs of one training step by the JAX bench's count
+    (bench.py:241-251): 6 per active matmul weight per token, the active
+    weights being the attention projections, top_k experts' SwiGLU and the
+    router in each layer plus lm_head; plus the causal attention's
+    products (half the keys on average), three times for fwd + bwd."""
+    kq, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    ffn = cfg.top_k * 3 * cfg.d_model * cfg.d_ff + cfg.d_model * cfg.n_experts
+    per_layer = cfg.d_model * (kq + 2 * kv) + kq * cfg.d_model + ffn
+    n_matmul = cfg.n_layers * per_layer + cfg.vocab_size * cfg.d_model
+    attn_fwd = (2 * 2 * batch * cfg.n_heads * seq * (seq / 2) * cfg.head_dim
+                * cfg.n_layers)
+    return 6.0 * n_matmul * batch * seq + 3.0 * attn_fwd
+
+
+def moe_first_loss(cfg) -> float:
+    """The loss at init: the CE's ln V + sigma^2 / 2 (sigma^2 = d_model *
+    0.02^2, the logits' variance) plus the router term of every layer,
+    aux_weight * 1 (balanced routing) + z_weight * (ln E + var / 2)^2, the
+    router logits being N(0, var) with var = d_model * 0.02^2 too."""
+    var = cfg.d_model * 0.02 ** 2
+    router = (cfg.router_aux_weight
+              + cfg.router_z_weight * (math.log(cfg.n_experts) + var / 2) ** 2)
+    return math.log(cfg.vocab_size) + var / 2 + cfg.n_layers * router
+
+
+class RoutingRecorder:
+    """While active, appends every moe._route call to `calls`: (gate_idx,
+    keep, the top_k + 1 largest router probabilities), one entry a layer
+    of a forward."""
+
+    def __init__(self, moe, calls=None):
+        self.moe = moe
+        self.calls = [] if calls is None else calls
+
+    def __enter__(self):
+        real = self.real = self.moe._route
+
+        def recording(ht, router, config):
+            out = real(ht, router, config)
+            probs, gate_idx, keep = out[1], out[3], out[6]
+            top = probs.sort(dim=-1, descending=True, stable=True).values
+            self.calls.append((gate_idx.clone(), keep.clone(),
+                               top[:, :config.top_k + 1].clone()))
+            return out
+        self.moe._route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.real
+
+
+def routing_flips(ref, got, label, tie_gap=TIE_GAP):
+    """Routing of two runs of the same forward (RoutingRecorder.calls, one
+    entry a layer). A decision (a token's top-k experts in order) may
+    differ only at a near tie: where the reference's router probabilities
+    of ranks 0..k are within tie_gap of each other, and at most once a
+    run. Only the first layer that differs counts: later layers see
+    hidden states the flip moved. Returns (flips [(layer, token, gap)],
+    the first token whose decisions or drops differ in that layer: the
+    positions before it are comparable, S when none differs)."""
+    s = ref[0][0].shape[0]
+    for layer, ((ri, rk, rtop), (gi, gk, _)) in enumerate(zip(ref, got)):
+        flipped = (ri != gi).any(dim=-1)
+        if not bool(flipped.any()) and bool((rk == gk).all()):
+            continue
+        gaps = (rtop[:, :-1] - rtop[:, 1:]).min(dim=-1).values
+        flips = [(layer, int(t), float(gaps[t]))
+                 for t in flipped.nonzero().flatten().tolist()]
+        wide = [f for f in flips if f[2] >= tie_gap]
+        check(not wide, f"{label}: routing differs at a router-probability "
+                        f"gap of {tie_gap} or more: {wide}")
+        check(len(flips) <= 1, f"{label}: {len(flips)} routing decisions "
+                               f"differ at near ties (at most 1): {flips}")
+        changed = flipped | (rk != gk).any(dim=-1)
+        return flips, int(changed.nonzero().min())
+    return [], s
+
+
+def moe_trunk_check(torch, cfg, seed=7, s=MOE_TRUNK_S, device="cuda"):
+    """The moe_1b trunk at full width on a small input (B=1,
+    S=MOE_TRUNK_S, f32): logits and router loss through the kernels
+    ("auto") against the reference attention ("xla"), each layer's
+    routing recorded. The routing may flip only at a near tie
+    (routing_flips), and the logits are compared before the first token a
+    flip moves; with no flip, the router loss and every parameter's
+    gradient of the training loss are compared too, all within F32_TOL of
+    the reference's largest magnitude."""
+    from gpu_docker_api_tpu_torch.models import moe
+    from gpu_docker_api_tpu_torch.train import loss_fn, tree_leaves
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = moe.init_params(cfg32, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
+                           device=device)
+    leaves = tree_leaves(params)
+
+    def run(impl):
+        with torch.no_grad(), RoutingRecorder(moe) as rec:
+            logits, rloss = moe.moe_forward(params, tokens, cfg32, impl=impl)
+        check(bool(torch.isfinite(logits).all()) and logits.shape
+              == (1, s, cfg.vocab_size),
+              f"moe 1b logits ({impl}) not finite / wrong shape")
+        return logits, rloss, rec.calls
+
+    def max_rel(got, ref):
+        return float((got - ref).abs().max()
+                     / ref.abs().max().clamp_min(1e-30))
+
+    ref_l, ref_r, ref_routes = run("xla")
+    logits, rloss, routes = run("auto")
+    flips, upto = routing_flips(ref_routes, routes, "moe 1b f32 trunk")
+    out = {"flips": flips, "compared_positions": upto,
+           "logits": max_rel(logits[:, :upto], ref_l[:, :upto])}
+    if not flips:
+        out["router_loss"] = abs(float(rloss - ref_r)) / abs(float(ref_r))
+        for p in leaves:
+            p.requires_grad_(True)
+        ref_g = torch.autograd.grad(
+            loss_fn(params, tokens, cfg32, impl="xla"), leaves)
+        grads = torch.autograd.grad(
+            loss_fn(params, tokens, cfg32, impl="auto"), leaves)
+        out["grads_worst_leaf"] = max(max_rel(g, r)
+                                      for g, r in zip(grads, ref_g))
+    print(f"  moe 1b f32 trunk (B=1, S={s}), kernels vs reference "
+          f"attention, max |err| over max |ref|: {out}", flush=True)
+    errs = {k: v for k, v in out.items()
+            if k not in ("flips", "compared_positions")}
+    check(all(e <= F32_TOL for e in errs.values()),
+          f"moe 1b f32 trunk err {errs} > {F32_TOL}")
+    return out
+
+
+def moe_train(torch, att, cfg):
+    """7a: train_llama --family moe at moe_1b through the kernels, the
+    launch counters set to 0 just before and read just after; then the
+    trunk (moe_trunk_check)."""
+    from gpu_docker_api_tpu_torch.workloads import train_llama
+
+    b, s, steps = MOE_TRAIN["b"], MOE_TRAIN["s"], MOE_TRAIN["steps"]
+    with tempfile.TemporaryDirectory() as wd:
+        att.reset_launches()
+        rc = train_llama.main([
+            "--family", "moe", "--config", "1b", "--batch", str(b),
+            "--seq", str(s), "--steps", str(steps), "--checkpoint-every",
+            str(steps), "--workdir", wd])
+        torch.cuda.synchronize()
+        launches = dict(att.LAUNCHES)
+        check(rc == 0, f"train_llama --family moe exited {rc}")
+        step_recs, _ = read_metrics(os.path.join(wd, "metrics.jsonl"))
+    losses = [r["loss"] for r in step_recs]
+    want0 = moe_first_loss(cfg)
+    print(f"  7a losses {losses} (at init, ln V + sigma^2/2 + router term = "
+          f"{want0:.4f})", flush=True)
+    print(f"  7a step_time_s {[r['step_time_s'] for r in step_recs]}",
+          flush=True)
+    print(f"  7a launches {launches}", flush=True)
+    check([r["step"] for r in step_recs] == list(range(1, steps + 1)),
+          f"moe step records {[r['step'] for r in step_recs]}")
+    check(all(math.isfinite(x) for x in losses),
+          f"non-finite moe loss {losses}")
+    check(abs(losses[0] - want0) < 0.1,
+          f"first moe loss {losses[0]} not near {want0:.3f}")
+    # remat "dots" reruns each layer's forward in the backward
+    want = {"flash_fwd": 2 * cfg.n_layers * steps,
+            "flash_bwd_dq": cfg.n_layers * steps,
+            "flash_bwd_dkv": cfg.n_layers * steps}
+    check(launches == want, f"moe launches {launches}, want {want}")
+    step_s = statistics.median(r["step_time_s"] for r in step_recs[1:])
+    flops = moe_train_flops(cfg, b, s)
+    out = {"launches": launches, "losses": losses, "first_loss_want": want0,
+           "step_s": step_s, "tokens_s": b * s / step_s,
+           "model_tflop_step": flops / 1e12,
+           "flop_share": flops / step_s / PEAK_BF16_FLOPS}
+    print(f"  7a step {step_s:.4f} s, {out['tokens_s']:.0f} tokens/s, model "
+          f"FLOP share {out['flop_share']:.4f} ({flops / 1e12:.2f} TFLOP a "
+          f"step, {flops / PEAK_BF16_FLOPS * 1e3:.1f} ms at the peak)",
+          flush=True)
+    out["trunk"] = moe_trunk_check(torch, cfg)
+    return out
+
+
+def scheduled_streams(b, tick, prompts, at, max_new, log=None):
+    """Drive batcher `b` (the port's or the JAX package's) by hand: its
+    scheduler thread is stopped, request i is submitted from a thread of
+    its own just before tick at[i], and `tick` runs on this thread until
+    every stream is back. A MoE decode step routes the whole slot batch
+    together, so a stream depends on the schedule: this one is the same
+    for every batcher it drives. log (a dict, the port's batchers only,
+    unchunked prefill) receives what _record_schedule records. Returns the
+    streams; the caller closes `b`."""
+    b._stop = True
+    b.thread.join(timeout=60)
+    check(not b.thread.is_alive(), "the scheduler thread did not stop")
+    b._stop = False
+    if log is not None:
+        _record_schedule(b, log)
+    out, threads = [None] * len(prompts), []
+
+    def ask(i):
+        out[i] = b.submit(prompts[i], max_new)
+
+    try:
+        _drive(b, tick, ask, at, threads)
+    finally:
+        if log is not None:             # the batcher's own methods again
+            del b._arm_or_finish, b._fn
+    check(all(o is not None for o in out), "a scheduled request failed")
+    return out
+
+
+def _drive(b, tick, ask, at, threads):
+    """scheduled_streams' loop: ask(i) on a new thread just before tick
+    at[i], ticks until every thread is done."""
+    import threading
+    for k in range(100000):
+        for i in [i for i, at_i in enumerate(at) if at_i == k]:
+            before = b.queue.qsize()
+            threads.append(threading.Thread(target=ask, args=(i,),
+                                            daemon=True))
+            threads[-1].start()
+            t0 = time.perf_counter()
+            while b.queue.qsize() == before:
+                check(time.perf_counter() - t0 < 60, "a submit never queued")
+                time.sleep(0.001)
+        if k >= max(at) and not any(t.is_alive() for t in threads):
+            break
+        tick()
+    for t in threads:
+        t.join(timeout=60)
+
+
+def _record_schedule(b, log):
+    """Log a port batcher's steps (unchunked prefill, greedy decode):
+    log["gaps"][prompt] gets the top-2 logit gap each of the request's
+    tokens was picked at; log["events"] gets ("prefill", prompt) before
+    each prefill and ("decode", [the prompt in each row, None where the
+    row is inactive]) before each decode step, into which a
+    RoutingRecorder on the same list appends each layer's routing."""
+    arm, fn = b._arm_or_finish, b._fn
+    gaps, events = log.setdefault("gaps", {}), log.setdefault("events", [])
+
+    def arm_gap(i, item):
+        top2 = item["_last_logits"][0].topk(2).values
+        gaps[tuple(item["prompt"].tolist())] = [float(top2[0] - top2[1])]
+        return arm(i, item)
+
+    def fn_logged(name):
+        f = fn(name)
+        if name == "slot_prefill":
+            def prefill(params, piece, cache, slot, config, append=False):
+                events.append(("prefill", tuple(piece[0].tolist())))
+                return f(params, piece, cache, slot, config, append=append)
+            return prefill
+        if name != "slot_decode":
+            return f
+
+        def decode(params, toks, cache, active, config):
+            rows = [tuple(s["prompt"].tolist()) if a else None
+                    for s, a in zip(b.slots, active)]
+            events.append(("decode", rows))
+            logits, cache = f(params, toks, cache, active, config)
+            top2 = logits.topk(2, dim=-1).values
+            g = (top2[:, 0] - top2[:, 1]).tolist()
+            for i, key in enumerate(rows):
+                if key is not None:
+                    gaps[key].append(g[i])
+            return logits, cache
+        return decode
+
+    b._arm_or_finish, b._fn = arm_gap, fn_logged
+
+
+def schedule_moves(ref, got, label, tie_gap=TIE_GAP):
+    """Two logs (_record_schedule) of the same schedule on two batchers.
+    A request's routing may move from the reference's in two ways only:
+    its own decision flips at a near tie (the reference's router
+    probabilities of ranks 0..k within tie_gap; at most one such flip a
+    run), or a capacity drop changes because another row's decision
+    differs in the same layer: an inactive row (it decodes token 0 over a
+    cache that the dense and the paged layouts hold differently) or a row
+    already moved. Returns ({prompt: the index of its first token that
+    may differ}, [near-tie flips (event, row, gap)])."""
+    check(len(ref) == len(got), f"{label}: the logs differ in length")
+    moved, emitted, flips = {}, {}, []
+    for n, (r, g) in enumerate(zip(ref, got)):
+        if isinstance(r[0], str):
+            check(r == g, f"{label}: the schedules differ at step {n}")
+            kind, what = r
+            if kind == "prefill":
+                # its layers route the request's T prompt tokens, whose
+                # logits give token 0
+                owner, token = None, {what: 0}
+                emitted[what] = 1
+                prefilled = what
+            else:
+                # one row a slot; each active row's step gives its next token
+                owner, prefilled = what, None
+                token = {k: emitted[k] for k in what if k is not None}
+                for k in token:
+                    emitted[k] += 1
+            continue
+        (ri, rk, rtop), (gi, gk, _) = r, g
+        gate = (ri != gi).any(dim=-1).tolist()
+        drop = (rk != gk).any(dim=-1).tolist()
+        if not any(gate) and not any(drop):
+            continue
+        gaps = (rtop[:, :-1] - rtop[:, 1:]).min(dim=-1).values.tolist()
+        rows = owner if prefilled is None else [prefilled] * len(gate)
+        for i, key in enumerate(rows):
+            if key is None or key in moved or not (gate[i] or drop[i]):
+                continue
+            if gate[i]:
+                check(gaps[i] < tie_gap,
+                      f"{label}: a routing decision differs at a router-"
+                      f"probability gap of {gaps[i]:.3g} (a near tie is "
+                      f"under {tie_gap})")
+                flips.append((n, i, gaps[i]))
+            moved[key] = token[key]
+    check(len(flips) <= 1, f"{label}: {len(flips)} routing decisions "
+                           f"differ at near ties (at most 1): {flips}")
+    return moved, flips
+
+
+def moe_batchers(torch, att, cfg, params, sizes=MOE_BATCH, device="cuda"):
+    """7b's batchers: the dense and the paged _Batcher under one schedule
+    (scheduled_streams), at the real capacity, every layer's routing
+    logged. A paged stream must equal its dense stream up to the token
+    where its routing moved for a reason schedule_moves allows, but at a
+    near tie (the dense stream's top-2 gap under TIE_GAP, at most one
+    stream); no flash kernel launches; then decode steps of both batchers
+    make no device sync (on the card)."""
+    from gpu_docker_api_tpu_torch.models import moe
+    from gpu_docker_api_tpu_torch.workloads.serve import _Batcher
+
+    gen = torch.Generator(device=device).manual_seed(23)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                             device=device) for n in sizes["lens"]]
+    kw = dict(slots=sizes["slots"], max_len=sizes["max_len"])
+    att.reset_launches()
+    runs, logs, walls = {}, {}, {}
+    for name, extra in (("dense", {}), ("paged",
+                                         {"kv_block": sizes["kv_block"]})):
+        b = _Batcher(cfg, params, **kw, **extra)
+        log = logs[name] = {"events": []}
+        try:
+            def tick(b=b):
+                with torch.no_grad():
+                    b._tick()
+            t0 = time.perf_counter()
+            with RoutingRecorder(moe, log["events"]):
+                runs[name] = scheduled_streams(
+                    b, tick, prompts, sizes["at"], sizes["new"], log)
+            walls[name] = time.perf_counter() - t0
+            if b._paged:
+                check_no_leak(b, "7b paged batcher")
+            if device == "cuda":
+                check_decode_sync_free(torch, b)
+        finally:
+            b.close()
+    moved, flips = schedule_moves(logs["dense"]["events"],
+                                  logs["paged"]["events"], "7b")
+    keys = [tuple(q.tolist()) for q in prompts]
+    ties, compared = 0, 0
+    for i, (p, d, key) in enumerate(zip(runs["paged"], runs["dense"], keys)):
+        m = moved.get(key, len(d))
+        compared += m
+        ties += near_tie_check(p[:m], d[:m], logs["dense"]["gaps"][key],
+                               f"7b paged request {i}")
+    check(ties <= 1, f"7b: {ties} paged streams left their dense streams at "
+                     f"near ties (at most 1)")
+    launches = dict(att.LAUNCHES)
+    check(not any(launches.values()),
+          f"the MoE batchers launched flash kernels: {launches}")
+    return {"requests": len(prompts), "near_ties": ties,
+            "routing_near_ties": flips,
+            "moved": {keys.index(k): t for k, t in moved.items()},
+            "tokens_compared": compared,
+            "tokens": sum(len(d) for d in runs["dense"]),
+            "streams_equal": sum(p == d for p, d in zip(runs["paged"],
+                                                          runs["dense"])),
+            "wall_s": walls, "launches": launches}
+
+
+def host_load_limit(cfg, served) -> tuple[int, int]:
+    """(bytes of the served int8 tree, bytes of the largest dense leaf):
+    what --host-load's device peak may reach, their sum, since the device
+    holds at most the int8 tree and one leaf in flight."""
+    from gpu_docker_api_tpu_torch.models import param_shapes
+    from gpu_docker_api_tpu_torch.train import tree_leaves
+    tree = sum(leaf_bytes(t) for t in tree_leaves(served))
+    largest = max(math.prod(shape) * dtype.itemsize
+                  for shape, dtype in tree_leaves(param_shapes(cfg)))
+    return tree, largest
+
+
+def moe_host_load(torch, cfg):
+    """--host-load in-process at moe_1b (w8): the device's peak allocation
+    from a reset must stay within host_load_limit, and the tree must equal
+    quantize_params of the ordinary seed-0 init bit for bit."""
+    from gpu_docker_api_tpu_torch.ops.quant import QTensor, quantize_params
+    from gpu_docker_api_tpu_torch.train import Trainer, tree_leaves
+    from gpu_docker_api_tpu_torch.workloads.serve import _host_load, _load_params
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    served = _host_load(Trainer.create(cfg), "", "w8")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    tree, largest = host_load_limit(cfg, served)
+    out = {"peak_bytes": peak, "int8_tree_bytes": tree,
+           "largest_leaf_bytes": largest, "wall_s": wall}
+    print(f"  7c host-load: {out}", flush=True)
+    check(peak <= tree + largest,
+          f"host-load peak {peak} bytes > int8 tree {tree} + largest leaf "
+          f"{largest}")
+    want = quantize_params(_load_params(Trainer.create(cfg), ""), "w8")
+    for a, b in zip(tree_leaves(want), tree_leaves(served)):
+        same = (torch.equal(a.q, b.q) and torch.equal(a.s, b.s)
+                if isinstance(a, QTensor) else torch.equal(a, b))
+        check(same, "the host-load tree differs from --quantize w8's")
+    out["equals_quantize_tree"] = True
+    return out
+
+
+def moe_host_load_http(torch, cfg, logs_dir, spec=MOE_GREEDY, name="1b",
+                       extra_args=()):
+    """serve --host-load --quantize w8 and serve --quantize w8, started
+    together: the same greedy request to both must give the same tokens
+    (and healthz the same data)."""
+    gen = torch.Generator().manual_seed(spec["seed"])
+    prompt = torch.randint(0, cfg.vocab_size, (spec["b"], spec["prompt"]),
+                           generator=gen).tolist()
+    procs = [spawn_serve(name, logs_dir, (*MOE_SERVE, *extra, *extra_args),
+                         log_name=f"serve_moe_{i}.log")
+             for i, extra in enumerate((("--quantize", "w8"),
+                                        ("--host-load", "--quantize", "w8")))]
+    try:
+        ready = [wait_serve(*pr) for pr in procs]
+        answers = [http_call(port, "POST", "/generate",
+                             {"tokens": prompt, "max_new": spec["new"]})[0]
+                   for _, port, _, _ in ready]
+    finally:
+        for proc, _, _ in procs:
+            proc.kill()
+            proc.wait(timeout=60)
+    health = [h["data"] for _, _, _, h in ready]
+    check(all(a["code"] == 200 for a in answers), f"greedy: {answers}")
+    check(health[0] == health[1], f"healthz {health}")
+    check(answers[0]["data"]["tokens"] == answers[1]["data"]["tokens"],
+          "serve --host-load --quantize w8 and --quantize w8 differ")
+    out = {"ready_s": [r[2] for r in ready], "tokens_equal": True,
+           "params": health[0]["params"]}
+    print(f"  7c host-load over HTTP: {out}", flush=True)
+    return out
+
+
+def phase_moe(torch, att):
+    """Phase 7: the MoE family at moe_1b, full width and depth: 7a
+    training through the kernels and the trunk; 7b serving in f32
+    in-process; 7c serving in bf16 (the batcher over HTTP, decode times,
+    --host-load)."""
+    from gpu_docker_api_tpu_torch.models import moe
+    from gpu_docker_api_tpu_torch.ops.quant import quantize_params
+    from gpu_docker_api_tpu_torch.train import Trainer
+    from gpu_docker_api_tpu_torch.workloads.serve import _load_params
+
+    cfg = moe.MoEConfig.moe_1b()
+    print(f"phase 7: MoE, moe_1b (7a train_llama --family moe --config 1b "
+          f"{MOE_TRAIN}; 7b f32 {MOE_ORACLE}, {MOE_BATCH}; 7c bf16 "
+          f"{MOE_TRAFFIC}, {MOE_TIME})", flush=True)
+    wall = {}
+    t0 = time.perf_counter()
+    train = moe_train(torch, att, cfg)
+    torch.cuda.empty_cache()
+    wall["7a_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    oracle = serve_oracle(
+        torch, att, dataclasses.replace(
+            cfg32, capacity_factor=MOE_ORACLE["capacity_factor"]),
+        MOE_ORACLE["b"], MOE_ORACLE["prompt"], MOE_ORACLE["steps"], False,
+        F32_TOL)
+    print(f"  7b f32 against moe_forward (capacity factor "
+          f"{MOE_ORACLE['capacity_factor']}, tol {F32_TOL}): {oracle}",
+          flush=True)
+    check(oracle["flash_fwd_launches"] == cfg.n_layers,
+          f"the 7b oracle's forward launched flash_fwd "
+          f"{oracle['flash_fwd_launches']} times, want {cfg.n_layers}")
+    params = moe.init_params(cfg32, torch.Generator(device="cuda")
+                             .manual_seed(0))
+    batchers = moe_batchers(torch, att, cfg32, params)
+    print(f"  7b batchers: {batchers}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    wall["7b_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as logs:
+        http = batching_http(torch, "1b", cfg, logs, 1, traffic=MOE_TRAFFIC,
+                             extra_args=MOE_SERVE)
+        print(f"  7c HTTP: {http}", flush=True)
+        wall["7c_http_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host_http = moe_host_load_http(torch, cfg, logs)
+        wall["7c_host_load_http_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = _load_params(Trainer.create(cfg), "")
+    times = {}
+    for b in (1, 8):
+        times[f"bf16_b{b}"] = serve_times(torch, cfg, params, f"moe bf16 B={b}",
+                                          b, **MOE_TIME)
+    w8 = quantize_params(params, "w8")
+    del params
+    for b in (1, 8):
+        times[f"w8_b{b}"] = serve_times(torch, cfg, w8, f"moe w8 B={b}", b,
+                                        **MOE_TIME)
+    del w8
+    torch.cuda.empty_cache()
+    wall["7c_times_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_load = moe_host_load(torch, cfg)
+    torch.cuda.empty_cache()
+    wall["7c_host_load_s"] = time.perf_counter() - t0
+    print(f"  phase 7 wall time {wall}", flush=True)
+    return {"train": train, "oracle": oracle, "batchers": batchers,
+            "http": http, "times": times, "host_load": host_load,
+            "host_load_http": host_http, "wall": wall}
+
+
 def build_kernels(torch):
     """Phase 0: the card's name and power limit, then the kernels' build.
     Returns (nvidia-smi line, the attention module)."""
@@ -2026,6 +2623,7 @@ def main() -> int:
         serve = phase_serve(torch, att)
         batching = phase_batching(torch, att)
         paged = phase_paged(torch, att, batching)
+        moe = phase_moe(torch, att)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -2037,6 +2635,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"gpu_docker_api_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": m["launches"][name],
+            "launches_moe": moe["train"]["launches"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": bnd[name][0],
             "bound_by": bnd[name][1], "library_ms": k["library_ms"]})
@@ -2051,6 +2650,7 @@ def main() -> int:
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"batching": batching}), flush=True)
     print(json.dumps({"paged": paged}), flush=True)
+    print(json.dumps({"moe": moe}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.llama import LlamaConfig, param_shapes
+from .models import param_shapes
 
 
 def _to_tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:
@@ -27,10 +27,10 @@ def _to_tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_numpy(tree: dict, config: LlamaConfig,
-                      device="cpu") -> dict:
+def params_from_numpy(tree: dict, config, device="cpu") -> dict:
     """JAX init_params pytree (numpy leaves) -> the port's parameters on
-    `device`. Shapes and dtypes are checked against the config."""
+    `device`. Shapes and dtypes are checked against the config's family
+    (models.param_shapes)."""
     def convert(sub, shapes, path):
         if set(sub) != set(shapes):
             raise ValueError(f"{path or 'params'}: keys {sorted(sub)} != "

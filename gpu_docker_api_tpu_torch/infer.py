@@ -1,7 +1,7 @@
 """Autoregressive inference with a static KV cache, PyTorch port of gpu_docker_api_tpu/infer.py.
 
-Prefill + single-token decode for the llama family, with the JAX
-package's cache layout and numerics:
+Prefill + single-token decode for both model families (llama, moe), with
+the JAX package's cache layout and numerics:
 
 - the cache is a static [L, B, S_max, Hkv, D] buffer written in place
   (slice copies), so a decode step never copies it. The JAX version
@@ -24,7 +24,11 @@ package's cache layout and numerics:
 The generation loops are Python loops over eager steps. Every public entry
 point runs under torch.no_grad(): served weights may carry requires_grad,
 and a recorded graph through the in-place cache writes would grow with
-every token. MoE decode is not yet ported.
+every token.
+
+MoE layers route the B x T tokens of each step together through
+models/moe.moe_block (one capacity over the whole step, as in the JAX
+package) and drop its aux losses.
 """
 
 from __future__ import annotations
@@ -36,8 +40,15 @@ import torch
 import torch.nn.functional as F
 
 from .device import resolve_device
-from .models.llama import _LAYER_KEYS, apply_rope, rms_norm, rope_frequencies
+from .models import family_for
+from .models.llama import LlamaConfig, apply_rope, rms_norm, rope_frequencies
+from .models.moe import MoEConfig, moe_block
 from .ops.quant import _round_int8, qmatmul
+
+
+def _llama_view(config) -> LlamaConfig:
+    """The attention-side config of either family."""
+    return config.as_llama() if isinstance(config, MoEConfig) else config
 
 
 @torch.no_grad()
@@ -51,7 +62,7 @@ def init_cache(config, batch: int, max_len: int, quantized: bool = False,
     ("ks"/"vs", ones until written): half the bytes a decode step reads
     from the cache."""
     dev = resolve_device(device)
-    c = config
+    c = _llama_view(config)
     shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.head_dim)
     length = torch.zeros((), dtype=torch.int32, device=dev)
     if not quantized:
@@ -249,16 +260,15 @@ def _layer_step(x, layer, cache_k, cache_v, pos, config, cos, sin,
     _cache_write(cache_k, k, pos)
     _cache_write(cache_v, v, pos)
     out = _attend_cached(q, cache_k, cache_v, pos, scale_k, scale_v,
-                         window=config.sliding_window, active=active)
+                         window=_llama_view(config).sliding_window,
+                         active=active)
     return _out_and_mlp(x, out, layer, config)
 
 
 def _qkv(x, layer, config, cos, sin):
     """The attention inputs of one decoder layer over x [B,T,D]: q
     [B,T,H,D] and k [B,T,Hkv,D] with RoPE applied, v [B,T,Hkv,D]."""
-    if "we1" in layer:
-        raise NotImplementedError("MoE decode is not yet ported to PyTorch")
-    c = config
+    c = _llama_view(config)
     b, t, _ = x.shape
     h = rms_norm(x, layer["attn_norm"], c.norm_eps)
     # qmatmul == `@` for dense weights; the int8 path for quantized serving
@@ -270,10 +280,14 @@ def _qkv(x, layer, config, cos, sin):
 
 def _out_and_mlp(x, out, layer, config):
     """The rest of the decoder layer after the attention output out
-    [B,T,H,D]: the output projection and the MLP, each residual."""
-    c = config
+    [B,T,H,D]: the output projection and the family's FFN (the dense MLP,
+    or the MoE block over the B x T tokens, its aux losses dropped), each
+    residual."""
+    c = _llama_view(config)
     b, t, _ = x.shape
     x = x + qmatmul(out.reshape(b, t, c.n_heads * c.head_dim), layer["wo"])
+    if "we1" in layer:
+        return moe_block(x, layer, config)[0]
     hm = rms_norm(x, layer["mlp_norm"], c.norm_eps)
     return x + qmatmul(F.silu(qmatmul(hm, layer["w1"]))
                        * qmatmul(hm, layer["w3"]), layer["w2"])
@@ -292,7 +306,7 @@ def _forward_cached(params, tokens, cache, config, last_only=False):
     pos = _host_length(cache)
     x = F.embedding(tokens, params["embed"])
     cos, sin = rope_frequencies(
-        config, torch.arange(pos, pos + t, device=tokens.device))
+        _llama_view(config), torch.arange(pos, pos + t, device=tokens.device))
     logits = _run_layers(params, x, cache, pos, config, cos, sin,
                          last_only=last_only)
     out = dict(cache, length=cache["length"].new_full((), pos + t),
@@ -309,12 +323,13 @@ def _run_layers(params, x, cache, pos, config, cos, sin, active=None,
     cache buffers: the paged cache (paging.py) gives its own."""
     c = config
     layers = params["layers"]
-    stacks = [layers[name].unbind(0) for name in _LAYER_KEYS]
+    keys = family_for(config).layer_keys
+    stacks = [layers[name].unbind(0) for name in keys]
     quantized = "ks" in cache
     layer_step = layer_step or _layer_step
     for i, weights in enumerate(zip(*stacks)):
         scales = (cache["ks"][i], cache["vs"][i]) if quantized else ()
-        x = layer_step(x, dict(zip(_LAYER_KEYS, weights)), cache["k"][i],
+        x = layer_step(x, dict(zip(keys, weights)), cache["k"][i],
                         cache["v"][i], pos, c, cos, sin, *scales,
                         active=active)
     if last_only:

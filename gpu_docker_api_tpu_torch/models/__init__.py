@@ -1,14 +1,17 @@
 """Model families of the workload runtime (PyTorch port).
 
 Each family exposes the surface of gpu_docker_api_tpu/models: init_params,
-forward(params, tokens, config, *, impl, mesh, remat) -> logits, and its
-config class. Only the llama family is ported; asking for "moe" raises.
+forward(params, tokens, config, *, impl, mesh, remat) -> logits (or
+(logits, extra_loss) for MoE, whose router loss the trainer adds to CE),
+its config class, and param_shapes, the tree a checkpoint or a converted
+tree is checked against.
 """
 
 from dataclasses import dataclass
 from typing import Any, Callable
 
 from . import llama as _llama
+from . import moe as _moe
 from .llama import LlamaConfig, init_params, llama_forward  # noqa: F401
 
 
@@ -18,6 +21,8 @@ class ModelFamily:
     init_params: Callable
     forward: Callable          # (params, tokens, config, *, impl, mesh, remat)
     config_cls: Any
+    param_shapes: Callable     # config -> {name: (shape, dtype)}
+    layer_keys: tuple          # the per-layer leaves, in the forward's order
     returns_extra_loss: bool = False
 
 
@@ -26,12 +31,24 @@ LLAMA = ModelFamily(
     init_params=_llama.init_params,
     forward=_llama.llama_forward,
     config_cls=_llama.LlamaConfig,
+    param_shapes=_llama.param_shapes,
+    layer_keys=_llama._LAYER_KEYS,
 )
 
-FAMILIES = {f.name: f for f in (LLAMA,)}
-NOT_YET_PORTED = ("moe",)
+MOE = ModelFamily(
+    name="moe",
+    init_params=_moe.init_params,
+    forward=_moe.moe_forward,
+    config_cls=_moe.MoEConfig,
+    param_shapes=_moe.param_shapes,
+    layer_keys=_moe._LAYER_KEYS,
+    returns_extra_loss=True,
+)
 
-# named configs per family — what the workload CLI resolves --config against
+FAMILIES = {f.name: f for f in (LLAMA, MOE)}
+
+# named configs per family — what both workload CLIs (train_llama, serve)
+# resolve --family/--config against
 NAMED_CONFIGS = {
     "llama": {"tiny": _llama.LlamaConfig.tiny,
               "mini": _llama.LlamaConfig.llama_mini,
@@ -39,15 +56,16 @@ NAMED_CONFIGS = {
               "1b": _llama.LlamaConfig.llama_1b,
               "llama3_8b": _llama.LlamaConfig.llama3_8b,
               "mistral_7b": _llama.LlamaConfig.mistral_7b},
+    "moe": {"tiny": _moe.MoEConfig.tiny,
+            "mini": _moe.MoEConfig.moe_mini,
+            "1b": _moe.MoEConfig.moe_1b,
+            "mixtral_8x7b": _moe.MoEConfig.mixtral_8x7b},
 }
 
 
 def named_config(family: str, name: str):
     """Resolve a (family, config-name) pair; raises KeyError with the valid
-    choices when unknown, NotImplementedError for a family not yet ported."""
-    if family in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"model family {family!r} is not yet ported to PyTorch")
+    choices when unknown."""
     table = NAMED_CONFIGS[family]
     if name not in table:
         raise KeyError(
@@ -62,3 +80,8 @@ def family_for(config) -> ModelFamily:
         if isinstance(config, fam.config_cls):
             return fam
     raise TypeError(f"no model family for config {type(config).__name__}")
+
+
+def param_shapes(config) -> dict:
+    """{name: (shape, dtype)} tree of the config's family's parameters."""
+    return family_for(config).param_shapes(config)

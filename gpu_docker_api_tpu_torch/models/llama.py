@@ -108,11 +108,16 @@ def param_shapes(config: LlamaConfig) -> dict:
     }
 
 
-def init_params(config: LlamaConfig, generator: torch.Generator) -> dict:
-    """Random parameters on the generator's device: norms at 1, every
-    matrix N(0, 0.02) drawn from `generator`. Same layout as the JAX
-    init_params (not the same numbers: convert.py carries JAX weights)."""
+def init_from_shapes(shapes: dict, generator: torch.Generator,
+                     place=None) -> dict:
+    """A parameter tree of `shapes` ({name: (shape, dtype)}, nested) drawn
+    on the generator's device, leaf by leaf in the tree's order: norms at
+    1, every other leaf N(0, 0.02) from `generator`. `place` (e.g.
+    Tensor.cpu) takes each leaf as soon as it is made, so the device holds
+    one leaf at a time when it moves them elsewhere; the draws, and so the
+    numbers, are the same either way."""
     device = generator.device
+    place = place or (lambda t: t)
 
     def make(name, shape, dtype):
         if name.endswith("norm"):
@@ -121,10 +126,18 @@ def init_params(config: LlamaConfig, generator: torch.Generator) -> dict:
             0.0, 0.02, generator=generator)
 
     def build(tree):
-        return {name: build(v) if isinstance(v, dict) else make(name, *v)
-                for name, v in tree.items()}
+        return {name: build(v) if isinstance(v, dict)
+                else place(make(name, *v)) for name, v in tree.items()}
 
-    return build(param_shapes(config))
+    return build(shapes)
+
+
+def init_params(config: LlamaConfig, generator: torch.Generator,
+                place=None) -> dict:
+    """Random parameters on the generator's device (init_from_shapes).
+    Same layout as the JAX init_params (not the same numbers: convert.py
+    carries JAX weights)."""
+    return init_from_shapes(param_shapes(config), generator, place)
 
 
 # ---- building blocks --------------------------------------------------------

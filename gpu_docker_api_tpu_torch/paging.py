@@ -39,8 +39,8 @@ import torch.nn.functional as F
 from .batching import (_active, _advance, _buf_keys, _set_length,
                        make_decode_multi, make_decode_pick, to_device)
 from .device import resolve_device
-from .infer import (Frontiers, _out_and_mlp, _qkv, _quantize_kv,
-                    _run_layers, _softmax_attend)
+from .infer import (Frontiers, _llama_view, _out_and_mlp, _qkv,
+                    _quantize_kv, _run_layers, _softmax_attend)
 from .models.llama import rope_frequencies
 
 
@@ -54,7 +54,7 @@ def init_paged_cache(config, n_blocks: int, block_size: int, slots: int,
     block backing token positions [j*block, (j+1)*block) of slot s; 0 is
     the scratch block."""
     dev = resolve_device(device)
-    c = config
+    c = _llama_view(config)
     shape = (c.n_layers, n_blocks, block_size, c.n_kv_heads, c.head_dim)
     dtype = torch.int8 if quantized else c.dtype
     out = {

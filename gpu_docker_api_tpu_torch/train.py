@@ -21,8 +21,7 @@ import torch.nn.functional as F
 
 from .data import to_device
 from .device import resolve_device
-from .models import family_for
-from .models.llama import param_shapes
+from .models import family_for, param_shapes
 from .parallel.mesh import MeshPlan, require_single_device
 
 

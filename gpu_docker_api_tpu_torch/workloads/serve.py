@@ -30,10 +30,14 @@ With --kv-block B the batcher's cache is paged (paging.py): one block pool
 headers, GET /kv); with --prefix-cache too, every response carries the
 X-TDAPI-KV-Sketch / -Occ prefix sketch. --device cpu serves from the CPU
 instead of the card (tests). --tp is read by multi-host serving only.
+--family moe serves the MoE family, dense or int8 (its expert banks always
+w8). --host-load --quantize w8|w8a8 builds the weights on the host and
+streams them to the card as int8, leaf by leaf: the card never holds the
+dense tree.
 
 Not yet ported, and refused at start-up: the co-tenancy regulator
-(TDAPI_TPU_SHARES / TDAPI_PRIORITY with --batch-slots), --host-load,
-multi-host serving and the MoE family.
+(TDAPI_TPU_SHARES / TDAPI_PRIORITY with --batch-slots) and multi-host
+serving.
 
 Run: python -m gpu_docker_api_tpu_torch.workloads.serve --config tiny \
         --device cpu --port 8000 [--batch-slots 4 [--kv-block 16]]
@@ -65,6 +69,34 @@ def _load_params(trainer, ckpt_dir: str | None, init_seed: int = 0) -> dict:
         print(f"restored checkpoint step {step}", flush=True)
         params = state["params"]
     return tree_map(lambda t: t.detach(), params)
+
+
+def _host_load(trainer, ckpt_dir: str | None, mode: str,
+               init_seed: int = 0) -> dict:
+    """--host-load: the served weights as int8 on the trainer's device,
+    without the dense tree ever on it. A checkpoint is restored onto the
+    host; a fresh init draws each leaf where Trainer.init(init_seed) draws
+    it (the trainer's device generator, in its order, so the numbers are
+    the same) and moves it to the host at once. Then quantize_params_
+    streaming quantizes leaf by leaf on the host and moves each int8 leaf
+    to the device on its own."""
+    import torch
+
+    from ..models import family_for
+    from ..ops.quant import quantize_params_streaming
+    from ..train import restore_checkpoint, tree_map
+    if ckpt_dir:
+        state, step = restore_checkpoint(os.path.abspath(ckpt_dir),
+                                         trainer.abstract_state(),
+                                         device="cpu")
+        print(f"restored checkpoint step {step} (host)", flush=True)
+        host = tree_map(lambda t: t.detach(), state["params"])
+        del state
+    else:
+        gen = torch.Generator(device=trainer.device).manual_seed(init_seed)
+        host = family_for(trainer.config).init_params(
+            trainer.config, gen, place=lambda t: t.cpu())
+    return quantize_params_streaming(host, mode, device=trainer.device)
 
 
 def _n_params(params: dict) -> int:
@@ -1255,30 +1287,24 @@ def _handler_for(srv: _Server, model_name: str, admit_queue: int = 0):
 
 def _refuse_unported(args, env=None) -> None:
     """SystemExit for what the port cannot serve yet: multi-host grants,
-    the MoE family, --host-load, and with --batch-slots a co-tenancy env
-    (TDAPI_TPU_SHARES or TDAPI_PRIORITY, where the JAX server registers a
-    regulator tenant). Where the JAX server itself refuses a combination,
-    its message. --tp is read on the multi-host path only; single-host
-    serving ignores it, as the JAX server does."""
+    and with --batch-slots a co-tenancy env (TDAPI_TPU_SHARES or
+    TDAPI_PRIORITY, where the JAX server registers a regulator tenant).
+    Where the JAX server itself refuses a combination, its message. --tp
+    is read on the multi-host path only; single-host serving ignores it,
+    as the JAX server does."""
     e = os.environ if env is None else env
     hosts = [h for h in e.get("TPU_WORKER_HOSTNAMES", "").split(",") if h]
     if len(hosts) > 1:
         raise SystemExit(f"a {len(hosts)}-worker grant: multi-host serving "
                          f"is not yet ported to PyTorch")
-    if args.family == "moe":
-        raise SystemExit("--family moe: the MoE family is not yet ported to "
-                         "PyTorch")
     if args.shard_kv:
         raise SystemExit(
             "--shard-kv is multihost serving (the single-host cache "
             "has no mesh to shard over)")
-    if args.host_load:
-        if not args.quantize:
-            raise SystemExit("--host-load exists to serve models whose "
-                             "bf16 weights exceed HBM; it requires "
-                             "--quantize w8|w8a8")
-        raise SystemExit("--host-load (streamed int8 quantization) is not "
-                         "yet ported to PyTorch")
+    if args.host_load and not args.quantize:
+        raise SystemExit("--host-load exists to serve models whose "
+                         "bf16 weights exceed HBM; it requires "
+                         "--quantize w8|w8a8")
     if not args.batch_slots:
         if args.prefix_cache:
             raise SystemExit("--prefix-cache lives in the batching "
@@ -1309,8 +1335,9 @@ def main(argv=None) -> int:
                         "(ops/quant.py): w8 = weight-only, w8a8 = +dynamic "
                         "activation int8")
     p.add_argument("--host-load", action="store_true",
-                   help="load on the host and stream int8 to the card (not "
-                        "yet ported; requires --quantize)")
+                   help="build the weights on the host and stream them to "
+                        "the card as int8, leaf by leaf, for models whose "
+                        "dense weights do not fit it (requires --quantize)")
     p.add_argument("--kv-quant", action="store_true",
                    help="int8 KV cache: half the cache bytes a decode step "
                         "reads (per-token-per-head scales, dequantized in "
@@ -1387,13 +1414,20 @@ def main(argv=None) -> int:
     except KeyError as e:
         p.error(str(e))
 
-    params = _load_params(Trainer.create(config, device=device),
-                          args.checkpoint)
-    if args.quantize:
-        from ..ops.quant import quantize_params
-        params = quantize_params(params, args.quantize)
-        print(f"quantized matmul weights to int8 ({args.quantize})",
+    trainer = Trainer.create(config, device=device)
+    if args.host_load:
+        # the dense tree never touches the card: built on the host, then
+        # streamed leaf by leaf as int8
+        params = _host_load(trainer, args.checkpoint, args.quantize)
+        print(f"host-loaded + streamed int8 ({args.quantize}) to {device}",
               flush=True)
+    else:
+        params = _load_params(trainer, args.checkpoint)
+        if args.quantize:
+            from ..ops.quant import quantize_params
+            params = quantize_params(params, args.quantize)
+            print(f"quantized matmul weights to int8 ({args.quantize})",
+                  flush=True)
     draft = None
     if args.draft_config:
         try:

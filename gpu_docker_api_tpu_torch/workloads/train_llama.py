@@ -1,12 +1,13 @@
-"""The flagship scheduled workload, PyTorch port: resumable Llama training.
+"""The flagship scheduled workload, PyTorch port: resumable Llama (or,
+with --family moe, MoE) training.
 
 What runs inside a replicaSet container, with the JAX workload's contract
 (gpu_docker_api_tpu/workloads/train_llama.py): the same flags, all durable
 state (checkpoints, metrics.jsonl) under --workdir, resume-first from the
 newest checkpoint, the same metrics.jsonl schema and the quiesce park on
 SIGUSR1. It trains on the CUDA card the container was given; --device cpu
-runs on the CPU instead (tests). Multi-device plans and multi-worker
-contracts are not yet ported and are refused.
+runs on the CPU instead (tests). Multi-device plans (--tp/--sp/--pp/--ep
+above 1) and multi-worker contracts are not yet ported and are refused.
 
 Run: python -m gpu_docker_api_tpu_torch.workloads.train_llama \
         --config tiny --steps 100 --workdir /path/to/run1

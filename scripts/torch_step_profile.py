@@ -2,15 +2,17 @@
 """Where one training step of the PyTorch port spends its device time.
 
 Runs the port's Trainer on one CUDA card (llama 1b, B=4, S=2048: the
-main path of chip_smoke.py), warms up, then times a few steps and traces a
-few more with torch.profiler, summing the device time by kernel family:
-the three flash kernels, the matrix products (library GEMMs), and
-everything else. Reports step time (host clock around synchronised
+main path of chip_smoke.py; or with --family moe, moe_1b at B=8, S=2048:
+phase 7a's cell), warms up, then times a few steps and traces a few more
+with torch.profiler, summing the device time by kernel family: the three
+flash kernels, the matrix products (library GEMMs), sorts, index kernels
+(gathers, scatters, index_select and its backward) and everything else. Reports step time (host clock around synchronised
 steps), tokens/s, device-busy share of the traced window, peak device
 memory, and the model FLOP rate against the card's dense bf16 peak.
 Writes the whole result as JSON to --out.
 
     python3 scripts/torch_step_profile.py --out chiprun_out/step_profile.json
+    python3 scripts/torch_step_profile.py --family moe --out moe_profile.json
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
-CONFIG, BATCH, SEQ = "1b", 4, 2048
+CONFIG, SEQ = "1b", 2048
+BATCH = {"llama": 4, "moe": 8}
 WARMUP, STEPS = 2, 3
 # a device function whose name holds one of these belongs to that kernel's
 # family: flash_fwd_kernel_wgmma (bf16) and flash_fwd_kernel (f32) to the
@@ -35,6 +38,8 @@ WARMUP, STEPS = 2, 3
 # flash_bwd_dkv_kernel_wgmma to dK/dV. Matched before GEMM_MARKS.
 FLASH = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 GEMM_MARKS = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_")
+SORT_MARKS = ("sort", "radix")
+INDEX_MARKS = ("index", "scatter", "gather")
 
 
 def family(name: str) -> str:
@@ -44,6 +49,10 @@ def family(name: str) -> str:
     low = name.lower()
     if any(m in low for m in GEMM_MARKS):
         return "gemm"
+    if any(m in low for m in SORT_MARKS):
+        return "sort"
+    if any(m in low for m in INDEX_MARKS):
+        return "index"
     return "other"
 
 
@@ -65,6 +74,7 @@ def model_flops(cfg, b: int, s: int, recompute_fwd_attention: bool) -> float:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--family", default="llama", choices=["llama", "moe"])
     p.add_argument("--remat-policy", default="dots",
                    choices=["none", "full", "dots"])
     p.add_argument("--out", default="")
@@ -84,12 +94,13 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    cfg = named_config("llama", CONFIG)
+    cfg = named_config(args.family, CONFIG)
+    batch = BATCH[args.family]
     tc = TrainConfig(remat=args.remat_policy != "none",
                      remat_policy=args.remat_policy)
     trainer = Trainer.create(cfg, tc=tc)
     state = trainer.init(seed=0)
-    data = SyntheticDataset(cfg.vocab_size, BATCH, SEQ, seed=1)
+    data = SyntheticDataset(cfg.vocab_size, batch, SEQ, seed=1)
 
     def run(step):
         tokens = trainer.shard_batch(data.batch_at(step))
@@ -143,14 +154,19 @@ def main(argv=None) -> int:
     window_us = intervals[-1][1] - intervals[0][0]
     total_ms = sum(by_family.values())
     step_med = float(np.median(step_s))
-    flops = model_flops(cfg, BATCH, SEQ,
-                        recompute_fwd_attention=args.remat_policy != "none")
+    if args.family == "moe":
+        # the JAX bench's active-expert count, as chip_smoke.py phase 7a
+        from chip_smoke import moe_train_flops
+        flops = moe_train_flops(cfg, batch, SEQ)
+    else:
+        flops = model_flops(cfg, batch, SEQ, recompute_fwd_attention=(
+            args.remat_policy != "none"))
     result = {
         "card": smi,
-        "config": CONFIG, "batch": BATCH, "seq": SEQ,
+        "family": args.family, "config": CONFIG, "batch": batch, "seq": SEQ,
         "remat_policy": args.remat_policy,
         "step_s": step_s, "step_s_median": step_med,
-        "tokens_s": BATCH * SEQ / step_med,
+        "tokens_s": batch * SEQ / step_med,
         "model_tflops_per_step": flops / 1e12,
         "model_flops_share_of_bf16_peak": flops / step_med / PEAK_BF16_FLOPS,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,

@@ -85,6 +85,15 @@ def test_paging_and_kvaffinity_are_walked_and_kvaffinity_is_its_own():
         assert getattr(kvaffinity, name).__module__ == kvaffinity.__name__
 
 
+def test_the_moe_family_is_walked_and_scanned():
+    """models/moe.py is a module of the port, imported with jax blocked
+    (test_port_imports_with_jax_blocked) and inside the source scan."""
+    assert "gpu_docker_api_tpu_torch.models.moe" in set(_modules())
+    path = os.path.join(PORT_DIR, "models", "moe.py")
+    assert {n.split(".")[0] for n in _imports(path)} <= {
+        "__future__", "dataclasses", "torch"}
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     names = set(_imports(os.path.join(REPO, "chip_smoke.py")))
     assert not {n for n in names

@@ -155,11 +155,6 @@ def test_cache_write_matches_jax(pos):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_moe_layers_are_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ti._layer_step(None, {"we1": None}, None, None, 0, None, None, None)
-
-
 def test_prefill_and_decode_steps_match_jax(tiny):
     jcfg, tcfg, jp, tp, _, prompt = tiny
     jcache = ji.init_cache(jcfg, 2, 16)

@@ -174,8 +174,8 @@ def test_init_params_layout_and_scale():
 def test_family_registry():
     cfg = named_config("llama", "1b")
     assert family_for(cfg).name == "llama"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        named_config("moe", "tiny")
+    moe = named_config("moe", "tiny")
+    assert family_for(moe).name == "moe" and moe.n_experts == 4
     with pytest.raises(KeyError, match="choices"):
         named_config("llama", "nosuch")
 

@@ -200,8 +200,6 @@ BASE = ["--device", "cpu", "--config", "tiny", "--port", "1"]
      "co-tenancy regulator is not yet ported"),
     (["--batch-slots", "2"], {"TDAPI_PRIORITY": "latency"},
      "co-tenancy regulator is not yet ported"),
-    (["--host-load", "--quantize", "w8"], {}, "not yet ported"),
-    (["--family", "moe"], {}, "not yet ported"),
     ([], {"TPU_WORKER_HOSTNAMES": "w0,w1"}, "not yet ported"),
     # refused by the JAX server too: its messages
     (["--prefix-cache", "8"], {}, "needs --batch-slots N"),

@@ -186,6 +186,12 @@ def test_trunk_check_passes_its_controls_and_rejects_planted_faults():
      "flash_bwd_dq_kernel"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "gemm"),
     ("void at::native::vectorized_elementwise_kernel<4>(...)", "other"),
+    ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<...>(...)",
+     "sort"),
+    ("void at::native::(anonymous namespace)::indexSelectLargeIndex<float, "
+     "long, unsigned int, 2, 2, -2, true>(...)", "index"),
+    ("void at::native::_scatter_gather_elementwise_kernel<128, 4>(...)",
+     "index"),
 ])
 def test_step_profile_puts_each_kernel_in_its_family(name, fam):
     sys.path.insert(0, os.path.join(REPO, "scripts"))
@@ -508,3 +514,225 @@ def test_handoff_http_between_two_serve_processes(tmp_path):
     assert out["handoffs_in"] == 2 and out["requests"] == 2
     assert out["orphan_blocks"] == -(-out["prompt_lens"][0] // 16)
     assert out["recompute_first_mismatch"] == [None, None]
+
+
+# ---- phase 7: the MoE family ----------------------------------------------------
+
+def _routes(idx, keep, top):
+    """One RoutingRecorder entry from nested lists."""
+    return (torch.tensor(idx), torch.tensor(keep), torch.tensor(top))
+
+
+# three tokens, top-2 of 4: the reference's ranks 0..2 probabilities
+TOP = [[0.5, 0.3, 0.1], [0.40004, 0.4, 0.1], [0.6, 0.2, 0.19995]]
+IDX = [[0, 1], [2, 3], [1, 0]]
+KEEP = [[True, True]] * 3
+
+
+def test_routing_flips_takes_equal_routing_and_one_near_tie():
+    ref = [_routes(IDX, KEEP, TOP), _routes(IDX, KEEP, TOP)]
+    assert cs.routing_flips(ref, ref, "same") == ([], 3)
+    # layer 1, token 1 swaps its two picks, 4e-5 apart: a near tie; the
+    # positions before token 1 compare
+    got = [ref[0], _routes([[0, 1], [3, 2], [1, 0]], KEEP, TOP)]
+    flips, upto = cs.routing_flips(ref, got, "tie")
+    assert [(f[0], f[1]) for f in flips] == [(1, 1)] and upto == 1
+    assert flips[0][2] == pytest.approx(4e-5, rel=1e-3)
+    # token 2 picks expert 2 where 1 was second-and-third apart by 5e-5
+    got = [_routes([[0, 1], [2, 3], [1, 2]], KEEP, TOP), ref[1]]
+    flips, upto = cs.routing_flips(ref, got, "tie")
+    assert [(f[0], f[1]) for f in flips] == [(0, 2)] and upto == 2
+
+
+def test_routing_flips_rejects_a_wide_gap_and_a_second_flip():
+    ref = [_routes(IDX, KEEP, TOP)]
+    wide = [_routes([[1, 0], [2, 3], [1, 0]], KEEP, TOP)]   # gap 0.2
+    with pytest.raises(cs.SmokeFailure, match="gap"):
+        cs.routing_flips(ref, wide, "wide")
+    two = [_routes([[0, 1], [3, 2], [1, 2]], KEEP, TOP)]
+    with pytest.raises(cs.SmokeFailure, match="at most 1"):
+        cs.routing_flips(ref, two, "two")
+
+
+def test_routing_flips_counts_a_changed_drop_as_the_first_moved_token():
+    """A flip at token 2 that frees a capacity slot token 0 then keeps: the
+    positions from token 0 on are no longer comparable."""
+    ref = [_routes(IDX, [[True, False], [True, True], [True, True]], TOP)]
+    got = [_routes([[0, 1], [2, 3], [1, 2]], KEEP, TOP)]
+    flips, upto = cs.routing_flips(ref, got, "drop")
+    assert len(flips) == 1 and upto == 0
+
+
+def test_moe_serve_bounds_count_every_expert_slot():
+    from gpu_docker_api_tpu_torch.models import moe
+    cfg = moe.MoEConfig.moe_1b()
+    d, f, e, l_ = 1024, 2560, 8, 16
+    attn = 2 * d * 128 * (8 + 4)
+    w = l_ * (attn + 3 * e * d * f + d * e) * 2 + d * 32000 * 2
+    # decode at B=8, context 144: capacity(8) = max(int(2.5), 2) = 2 slots
+    # an expert, 16 slots in all, each through the whole SwiGLU
+    ms, by = cs.serve_bounds(cfg, w, 8, 1, 144, False)
+    keys = 145
+    flops = (2 * (l_ * (attn + d * e) + d * 32000) * 8
+             + 2 * l_ * 3 * d * f * e * 2 + 4 * 128 * 8 * l_ * 8 * keys)
+    nbytes = w + 8 * 145 * cs.cache_bytes_per_token(cfg, False)
+    assert cfg.capacity(8) == 2
+    assert ms == pytest.approx(max(flops / cs.PEAK_BF16_FLOPS,
+                                   nbytes / cs.PEAK_BYTES) * 1e3)
+    assert by == ("operations" if flops / cs.PEAK_BF16_FLOPS
+                  > nbytes / cs.PEAK_BYTES else "bytes")
+    # prefill of 8 x 128 tokens: 320 slots an expert
+    ms, by = cs.serve_bounds(cfg, w, 8, 128, 0, False)
+    flops = (2 * (l_ * (attn + d * e) + d * 32000) * 8 * 128
+             + 2 * l_ * 3 * d * f * e * 320
+             + 4 * 128 * 8 * l_ * 8 * (128 * 129 // 2))
+    assert cfg.capacity(1024) == 320 and by == "operations"
+    assert ms == pytest.approx(flops / cs.PEAK_BF16_FLOPS * 1e3)
+
+
+def test_moe_train_flops_are_the_jax_benchs_active_count():
+    import bench
+    from gpu_docker_api_tpu.models.moe import MoEConfig as JMoEConfig
+    from gpu_docker_api_tpu_torch.models import moe
+    got = cs.moe_train_flops(moe.MoEConfig.moe_1b(), 8, 2048)
+    want = bench._train_step_flops(JMoEConfig.moe_1b(), 8, 2048)
+    assert got == pytest.approx(want, rel=1e-12)
+    assert 35e12 < got < 37e12
+
+
+def test_moe_first_loss_is_the_init_loss():
+    """The 7a formula against a real forward at init (moe_mini, f32, a
+    batch of random tokens): within 0.1, 7a's limit."""
+    import dataclasses
+    from gpu_docker_api_tpu_torch.models import moe
+    from gpu_docker_api_tpu_torch.train import loss_fn
+    cfg = dataclasses.replace(moe.MoEConfig.moe_mini(), dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    params = moe.init_params(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+    with torch.no_grad():
+        loss = float(loss_fn(params, tokens, cfg, remat=False))
+    assert loss == pytest.approx(cs.moe_first_loss(cfg), abs=0.1)
+
+
+def test_host_load_limit_is_the_int8_tree_plus_the_largest_leaf():
+    from gpu_docker_api_tpu_torch.models import moe
+    from gpu_docker_api_tpu_torch.train import Trainer
+    from gpu_docker_api_tpu_torch.workloads.serve import _host_load
+    cfg = moe.MoEConfig.tiny()
+    served = _host_load(Trainer.create(cfg, device="cpu"), "", "w8")
+    tree, largest = cs.host_load_limit(cfg, served)
+    lay = served["layers"]
+    want = (sum(v.numel() * 4 for k, v in served.items() if k != "layers"
+                and k != "lm_head")
+            + served["lm_head"].q.numel() + served["lm_head"].s.numel() * 4)
+    for k, v in lay.items():
+        want += (v.q.numel() + 4 * v.s.numel() if hasattr(v, "q")
+                 else v.numel() * 4)
+    assert tree == want
+    # the largest dense leaf of tiny: the f32 embedding, 256 x 64
+    assert largest == max(256 * 64 * 4, 2 * 4 * 64 * 96 * 4)
+
+
+def test_moe_trunk_check_at_tiny_width_on_the_cpu():
+    """7a's trunk on the CPU: the kernels' plain versions against the
+    reference attention; no routing flip at this size, logits, router
+    loss and grads within F32_TOL."""
+    from gpu_docker_api_tpu_torch.models import moe
+    out = cs.moe_trunk_check(torch, moe.MoEConfig.tiny(), s=48, device="cpu")
+    assert out["flips"] == [] and out["compared_positions"] == 48
+    assert out["grads_worst_leaf"] <= cs.F32_TOL
+
+
+def test_moe_batchers_at_tiny_width_on_the_cpu():
+    """7b's dense and paged batchers under one schedule on the CPU: every
+    paged stream equals its dense one, nothing launched."""
+    from gpu_docker_api_tpu_torch.models import moe
+    cfg = moe.MoEConfig.tiny()
+    params = moe.init_params(cfg, torch.Generator().manual_seed(0))
+    sizes = dict(
+        cs.MOE_BATCH, max_len=64, lens=(5, 9, 13, 7, 20, 11), new=6,
+        kv_block=4)
+    out = cs.moe_batchers(torch, att, cfg, params, sizes, device="cpu")
+    assert out["requests"] == 6 and out["near_ties"] == 0
+    assert not any(out["launches"].values())
+
+
+def test_scheduled_streams_log_the_steps_and_their_routing():
+    from gpu_docker_api_tpu_torch.models import moe
+    from gpu_docker_api_tpu_torch.workloads.serve import _Batcher
+    cfg = moe.MoEConfig.tiny()
+    params = moe.init_params(cfg, torch.Generator().manual_seed(1))
+    prompts = [torch.tensor([3, 1, 4, 1, 5]), torch.tensor([9, 2, 6])]
+    b = _Batcher(cfg, params, slots=2, max_len=32)
+    log = {"events": []}
+
+    def tick():
+        with torch.no_grad():
+            b._tick()
+    try:
+        with cs.RoutingRecorder(moe, log["events"]):
+            streams = cs.scheduled_streams(b, tick, prompts, (0, 2), 4, log)
+    finally:
+        b.close()
+    keys = [tuple(p.tolist()) for p in prompts]
+    assert [len(s) for s in streams] == [4, 4]
+    assert [len(log["gaps"][k]) for k in keys] == [4, 4]
+    marks = [e for e in log["events"] if isinstance(e[0], str)]
+    # request 0 prefills, decodes alone twice, request 1 joins
+    assert marks[:4] == [("prefill", keys[0]), ("decode", [keys[0], None]),
+                         ("decode", [keys[0], None]), ("prefill", keys[1])]
+    # every step routes each layer once
+    assert len(log["events"]) == len(marks) * (1 + cfg.n_layers)
+    assert "_fn" not in vars(b) and "_arm_or_finish" not in vars(b)
+    assert cs.schedule_moves(log["events"], log["events"], "same") == ({}, [])
+
+
+def _route_event(idx, keep, top):
+    return (torch.tensor(idx), torch.tensor(keep), torch.tensor(top))
+
+
+A, B = (1, 2), (3, 4)
+STEP = [("prefill", A), _route_event([[0, 1], [1, 0]], [[True, True]] * 2,
+                                     [[0.5, 0.3, 0.1], [0.6, 0.2, 0.1]]),
+        ("decode", [A, None]), _route_event(
+            [[0, 1], [2, 3]], [[True, True], [True, False]],
+            [[0.40004, 0.4, 0.1], [0.5, 0.3, 0.1]]),
+        ("prefill", B), _route_event([[2, 3], [3, 2]], [[True, True]] * 2,
+                                     [[0.5, 0.3, 0.1], [0.6, 0.2, 0.1]]),
+        ("decode", [A, B]), _route_event(
+            [[0, 1], [2, 3]], [[True, True], [True, True]],
+            [[0.5, 0.3, 0.1], [0.5, 0.3, 0.1]])]
+
+
+def _with(events, n, idx=None, keep=None):
+    out = list(events)
+    i0, k0, t0 = out[n]
+    out[n] = (torch.tensor(idx) if idx is not None else i0,
+              torch.tensor(keep) if keep is not None else k0, t0)
+    return out
+
+
+def test_schedule_moves_allows_an_inactive_rows_competition():
+    """Step 1: the inactive row picks other experts and request A loses a
+    capacity slot: A moves from its token 1 (token 0 came off the
+    prefill)."""
+    got = _with(STEP, 3, idx=[[0, 1], [0, 1]],
+                keep=[[True, False], [True, True]])
+    assert cs.schedule_moves(STEP, got, "junk") == ({A: 1}, [])
+
+
+def test_schedule_moves_takes_one_near_tie_and_rejects_a_wide_gap():
+    # A swaps its picks at step 1, 4e-5 apart
+    moved, flips = cs.schedule_moves(STEP, _with(STEP, 3, idx=[[1, 0],
+                                                               [2, 3]]), "t")
+    assert moved == {A: 1} and len(flips) == 1
+    # B flips at the last step where its gap is 0.2
+    with pytest.raises(cs.SmokeFailure, match="gap"):
+        cs.schedule_moves(STEP, _with(STEP, 7, idx=[[0, 1], [3, 2]]), "w")
+    # A's prefill flips a token's picks at a wide gap
+    with pytest.raises(cs.SmokeFailure, match="gap"):
+        cs.schedule_moves(STEP, _with(STEP, 1, idx=[[1, 0], [1, 0]]), "p")
+    with pytest.raises(cs.SmokeFailure, match="schedules differ"):
+        cs.schedule_moves(STEP, STEP[:2] + [("decode", [A, A])] + STEP[3:],
+                          "s")

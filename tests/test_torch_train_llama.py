@@ -121,7 +121,6 @@ def test_main_without_device_cpu_raises_when_no_card(tmp_path):
     (["--ep", "2"], {}),
     ([], {"TDAPI_MESH_PLAN": '{"dp": 2}'}),
     ([], {"TPU_WORKER_HOSTNAMES": "w0,w1"}),
-    (["--family", "moe"], {}),
 ])
 def test_not_yet_ported_is_refused(tmp_path, monkeypatch, extra, env):
     for k, v in env.items():
