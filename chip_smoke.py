@@ -90,10 +90,30 @@ Phases (any failure exits non-zero and prints no result):
      --host-load --quantize w8` beside `serve --quantize w8`, equal greedy
      tokens.
 
+  8. long context and sequence parallelism at llama 1b's attention width
+     (16/8 heads of 128). 8a, in-process: blockwise_attention (chunk 2048)
+     at S=16384, causal and with a 4096 window, bf16, forward and backward
+     through the kernels (4 and 15 launches of each) against the f32
+     whole-S kernels, at most TRUNK_MARGIN times the bf16 whole-S kernel's
+     error, and in f32 at S=8192 within F32_TOL; fwd+bwd timed against the
+     whole-S kernel. 8b: four processes on this one card in a gloo group
+     (asked for by name: NCCL refuses two ranks on one GPU), S=8192 (2048 a
+     rank) in bf16 and S=4096 in f32: the causal flash ring (rank + 1
+     launches), the windowed ring, the einsum ring and Ulysses, each
+     rank's output and q/k/v gradient shards against the same shards of
+     the whole-S kernels run here, by 8a's rules. 8c, on the same ranks:
+     the llama 1b trunk in f32 (B=1, S=1024) against one rank (logits
+     shards, loss, gradients within F32_TOL), then Trainer at sp=4 in
+     bf16 (B=1, S=8192, remat "dots", 3 steps, ring then Ulysses) against
+     the one-rank Trainer run here (losses and grad norms within
+     SP_LOSS_TOL / SP_NORM_TOL), step time and tokens/s labelled "gloo,
+     4 ranks on one card".
+
 Prints one `{"kernels": [...]}` line (with each kernel's launches in 7a
-too), the readings, one `{"serve": ...}` line, one `{"batching": ...}`
-line, one `{"paged": ...}` line, one `{"moe": ...}` line, the nvidia-smi
-line, and last `{"ok": true, "device": {...}}`.
+and phase 8 too), the readings, one `{"serve": ...}` line, one
+`{"batching": ...}` line, one `{"paged": ...}` line, one `{"moe": ...}`
+line, one `{"sp": ...}` line, the nvidia-smi line, and last `{"ok": true,
+"device": {...}}`.
 """
 
 from __future__ import annotations
@@ -2518,6 +2538,457 @@ def phase_moe(torch, att):
             "host_load_http": host_http, "wall": wall}
 
 
+# ---- phase 8: long context and sequence parallelism ----------------------
+
+LONG_HEADS = dict(h=16, hkv=8, d=128)   # llama 1b's attention width
+LONG_CHUNK = 2048                        # ops/attention.FLASH_CHUNK_SEQ
+LONG_S = 16384                           # 8a: 8 chunks
+LONG_F32_S = 8192                        # 8a: the f32 case
+LONG_WINDOW = 4096                       # mistral_7b's sliding window
+LONG_TIME_ITERS = 10
+SP_RANKS = 4
+SP_S = 8192                              # 8b: 2048 tokens a rank
+SP_F32_S = 4096                          # 8b's f32 cases: the first 4096
+SP_CONFIG = "1b"                         # 8c: llama 1b, full depth
+SP_TRUNK_S = 1024                        # 8c: the f32 trunk, B=1
+SP_TRAIN = dict(b=1, s=8192, steps=3)    # 8c: bf16, remat "dots"
+SP_DEADLINE_S = 480                      # the ranks' whole run
+# 8c: the sp=4 trainer's losses and grad norms against sp=1's, relative.
+# scripts/torch_sp_margin.py on the H100 over four seeds (24 readings each,
+# ring and Ulysses, PERF.md): losses at most 5.3e-5 apart, grad norms
+# 1.6e-3; the limits sit at about 4x and 3x those (bf16 summation order:
+# the shards' GEMMs, the f32 all-reduce, the ring's merges).
+SP_LOSS_TOL = 2e-4
+SP_NORM_TOL = 5e-3
+GRAD_NAMES = ("out", "dq", "dk", "dv")
+
+
+def blockwise_launches(s, chunk, window=0, stack=32) -> int:
+    """Launches of each kernel in one causal blockwise_attention forward
+    (the same in the backward, for dq and dk/dv): without a window one
+    stacked diagonal launch plus the n(n-1)/2 past pairs in groups of the
+    largest power of two up to `stack` that fits; with one, n windowed
+    diagonals plus the past pairs wholly inside the window."""
+    n = s // chunk
+    if not window:
+        pairs, groups = n * (n - 1) // 2, 0
+        while pairs:
+            pairs -= 1 << min(pairs.bit_length(), stack.bit_length()) - 1
+            groups += 1
+        return 1 + groups
+    return n + sum(1 for i in range(n) for j in range(i)
+                   if (i - j) * chunk <= window - chunk)
+
+
+def sp_launches(case, rank) -> int:
+    """Launches of each kernel on `rank` for one forward and backward of
+    an 8b case: the causal flash ring runs the pairs at or behind the
+    diagonal (rank + 1), the windowed ring its diagonal only (the shards
+    behind are banded einsums), Ulysses one whole-sequence call, the
+    einsum ring none."""
+    return {"ring": rank + 1, "ring-window": 1, "ring-einsum": 0,
+            "ulysses": 1}[case]
+
+
+def long_readings(torch, got, ref):
+    """(||err|| / ||ref||, max |err| / max |ref|) of one tensor against its
+    f32 reference."""
+    got, ref = got.float(), ref.float()
+    err = got - ref
+    return (float(err.norm() / ref.norm().clamp_min(1e-30)),
+            float(err.abs().max() / ref.abs().max().clamp_min(1e-30)))
+
+
+def long_check(torch, got, ref, kernel, label):
+    """Each of out, dq, dk, dv: f32 (`kernel` None) within F32_TOL of
+    `ref` element by element; bf16 within phase 1's element-by-element
+    check of `ref` (bf16_ok), and its Frobenius error at most TRUNK_MARGIN
+    times the bf16 whole-S kernel's (`kernel`), both against the f32
+    `ref`. The largest element's error is read, not held: every value is
+    rounded to bf16 once more for each partial a pair or a hop adds, and
+    where two roundings fall the same way one element's error doubles.
+    Returns {name: readings}; raises SmokeFailure."""
+    out = {}
+    for name, g, r, k in zip(GRAD_NAMES, got, ref,
+                             kernel or [None] * len(got)):
+        check(bool(torch.isfinite(g).all()), f"{label} {name}: not finite")
+        if k is None:
+            err = (g.float() - r.float()).abs()
+            ok = bool((err <= F32_TOL + F32_TOL * r.float().abs()).all())
+            out[name] = float(err.max())
+            check(ok, f"{label} {name}: max |err| {out[name]} past "
+                      f"{F32_TOL} (1 + |ref|)")
+            continue
+        mine, base = long_readings(torch, g, r), long_readings(torch, k, r)
+        band = bf16_readings(torch, g, r)
+        out[name] = {"frob": mine[0], "max": mine[1], "kernel_frob": base[0],
+                     "kernel_max": base[1],
+                     "excess": mine[0] / max(base[0], 1e-30),
+                     "band_ratio": band[0]}
+        check(bf16_ok(band), f"{label} {name}: bf16 (ratio, frob) {band} "
+                             f"past ({BF16_TOL}, {BF16_FROB})")
+        check(out[name]["excess"] <= TRUNK_MARGIN,
+              f"{label} {name}: Frobenius error {mine[0]} over "
+              f"{TRUNK_MARGIN} x the whole-S bf16 kernel's {base[0]}")
+    return out
+
+
+def long_inputs(torch, s, seed, dtype=None, device="cuda"):
+    """q, k, v, do [1, s, H, D] at llama 1b's attention width, bf16-valued
+    (from `seed`), in `dtype` (bf16 by default)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h, hkv, d = (LONG_HEADS[x] for x in ("h", "hkv", "d"))
+    return [torch.randn(1, s, n, d, generator=gen, device=device)
+            .to(torch.bfloat16).to(dtype or torch.bfloat16)
+            for n in (h, hkv, hkv, h)]
+
+
+def fwd_bwd(torch, fn, q, k, v, do):
+    """[out, dq, dk, dv] of fn(q, k, v) with the cotangent do."""
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = fn(*leaves)
+    return [out.detach(), *torch.autograd.grad(out, leaves, do)]
+
+
+def long_blockwise(torch, att, device="cuda"):
+    """8a: blockwise_attention at llama 1b's attention width in one
+    process, against the whole-S kernels."""
+    out = {}
+    for window in (0, LONG_WINDOW):
+        label = f"blockwise bf16 S={LONG_S} window={window}"
+        q, k, v, do = long_inputs(torch, LONG_S, 80 + window, device=device)
+
+        def whole(q, k, v, window=window):
+            return att.flash_attention(q, k, v, window=window)
+
+        def blocks(q, k, v, window=window):
+            return att.blockwise_attention(q, k, v, window=window,
+                                           chunk=LONG_CHUNK)
+
+        ref = fwd_bwd(torch, whole, *(x.float() for x in (q, k, v, do)))
+        kernel = fwd_bwd(torch, whole, q, k, v, do)
+        att.reset_launches()
+        got = fwd_bwd(torch, blocks, q, k, v, do)
+        torch.cuda.synchronize()
+        launches = dict(att.LAUNCHES)
+        want = blockwise_launches(LONG_S, LONG_CHUNK, window)
+        check(launches == dict.fromkeys(launches, want),
+              f"{label}: launches {launches}, want {want} of each")
+        readings = long_check(torch, got, ref, kernel, label)
+        del ref, kernel, got
+        times = {"blockwise_ms": time_ms(torch, lambda: fwd_bwd(
+                     torch, blocks, q, k, v, do), LONG_TIME_ITERS),
+                 "whole_ms": time_ms(torch, lambda: fwd_bwd(
+                     torch, whole, q, k, v, do), LONG_TIME_ITERS)}
+        out[f"bf16_window{window}"] = {"launches": launches,
+                                       "readings": readings, **times}
+        print(f"  8a {label}: launches {launches}, fwd+bwd {times}, "
+              f"readings {readings}", flush=True)
+        q32, k32, v32, do32 = long_inputs(torch, LONG_F32_S, 90 + window,
+                                          torch.float32, device)
+        label = f"blockwise f32 S={LONG_F32_S} window={window}"
+        got = fwd_bwd(torch, lambda q, k, v: att.blockwise_attention(
+            q, k, v, window=window, chunk=LONG_CHUNK), q32, k32, v32, do32)
+        ref = fwd_bwd(torch, lambda q, k, v: att.flash_attention(
+            q, k, v, window=window), q32, k32, v32, do32)
+        out[f"f32_window{window}"] = long_check(torch, got, ref, None, label)
+        print(f"  8a {label}: max |err| {out[f'f32_window{window}']}",
+              flush=True)
+        del q, k, v, do, q32, k32, v32, do32, got, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+SP_CASES = {  # name: (function, impl, window)
+    "ring": ("ring", "auto", 0),
+    "ring-window": ("ring", "auto", LONG_WINDOW),
+    "ring-einsum": ("ring", "xla", 0),
+    "ulysses": ("ulysses", "auto", 0),
+}
+
+
+def sp_rank(rank, world, tmp, spec):
+    """One of phase 8's ranks (distributed.launch, gloo, every rank on
+    spec["device"], cuda:0): 8b's cases on its shard of tmp/inputs.pt, then
+    8c's f32 trunk and bf16 training of llama spec["config"]; its results
+    to tmp/rank<r>.pt."""
+    import torch
+
+    from gpu_docker_api_tpu_torch.device import resolve_device
+    from gpu_docker_api_tpu_torch.models import named_config
+    from gpu_docker_api_tpu_torch.parallel import comm
+
+    device = resolve_device(spec["device"])
+    cfg = named_config("llama", spec["config"])
+    sp = comm.SPGroup.of()
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"))
+    res = {"cases": sp_cases(torch, sp, device, inputs,
+                             (torch.bfloat16, torch.float32), spec["f32_s"])}
+    del inputs
+    torch.cuda.empty_cache()
+    res["trunk"] = sp_trunk(torch, sp, device, cfg, spec["trunk_s"])
+    torch.cuda.empty_cache()
+    for attn in ("ring", "ulysses"):
+        res[f"train_{attn}"] = sp_train(torch, device, cfg, spec["train"],
+                                        attn, sp)
+        torch.cuda.empty_cache()
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def sp_cases(torch, sp, device, inputs, dtypes, f32_s=None):
+    """8b on this rank: each of SP_CASES in each dtype on the rank's shard
+    of the global `inputs` (q, k, v, do; f32 on their first f32_s
+    positions). -> {(name, dtype): {launches, shards: [out, dq, dk, dv] on
+    the host}}."""
+    from gpu_docker_api_tpu_torch.ops import attention as att
+    from gpu_docker_api_tpu_torch.parallel import comm, ring, ulysses
+
+    out = {}
+    for dtype in dtypes:
+        s = f32_s if dtype == torch.float32 else None
+        q, k, v, do = (comm.local_shard(x[:, :s], sp).to(device, dtype)
+                       for x in inputs)
+        for name, (fn, impl, window) in SP_CASES.items():
+            f = (ring.ring_attention if fn == "ring"
+                 else ulysses.ulysses_attention)
+            att.reset_launches()
+            got = [t.cpu() for t in fwd_bwd(torch, lambda q, k, v: f(
+                q, k, v, sp, impl=impl, window=window), q, k, v, do)]
+            out[(name, str(dtype))] = {"launches": dict(att.LAUNCHES),
+                                       "shards": got}
+    return out
+
+
+def sp_refs(torch, att, q, k, v, do):
+    """{window: {"f32": the f32 whole-S kernels' [out, dq, dk, dv],
+    "bf16": the bf16 whole-S kernels', "f32_short": the f32 whole-S
+    kernels' on the first SP_F32_S positions}} on the host, for each window
+    of SP_CASES."""
+    refs = {}
+    for window in sorted({w for _, _, w in SP_CASES.values()}):
+        def whole(q, k, v, window=window):
+            return att.flash_attention(q, k, v, window=window)
+        refs[window] = {
+            "f32": [t.cpu() for t in fwd_bwd(torch, whole, *(
+                x.float() for x in (q, k, v, do)))],
+            "bf16": [t.cpu() for t in fwd_bwd(torch, whole, q, k, v, do)],
+            "f32_short": [t.cpu() for t in fwd_bwd(torch, whole, *(
+                x[:, :SP_F32_S].float() for x in (q, k, v, do)))]}
+    return refs
+
+
+def sp_trunk(torch, sp, device, cfg, s, seed=7):
+    """8c, on each rank: the trunk of cfg in f32 (B=1, S=s) from
+    rank 0's init, its logits shard, its global loss and its gradients
+    summed over the group, against the one-rank forward and loss on the
+    same init and batch (the gradients on rank 0). Readings: max |err|
+    over max |ref|."""
+    from gpu_docker_api_tpu_torch.models import llama
+    from gpu_docker_api_tpu_torch.parallel import comm
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan
+    from gpu_docker_api_tpu_torch.train import Trainer, loss_fn, tree_leaves
+
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    trainer = Trainer.create(cfg, MeshPlan(sp=sp.size), device=device, sp=sp)
+    params = trainer.init(seed=seed)["params"]
+    leaves = tree_leaves(params)
+    tokens = torch.randint(0, cfg.vocab_size, (1, s),
+                           generator=torch.Generator().manual_seed(seed)
+                           ).to(device)
+    s_loc = s // sp.size
+
+    def max_rel(got, ref):
+        return float((got - ref).abs().max() / ref.abs().max().clamp_min(
+            1e-30))
+
+    with torch.no_grad():
+        logits = llama.llama_forward(
+            params, comm.local_shard(tokens, sp), cfg, sp=sp)
+        ref = llama.llama_forward(params, tokens, cfg)
+        out = {"logits": max_rel(logits, comm.local_shard(ref, sp))}
+        check(logits.shape == (1, s_loc, cfg.vocab_size),
+              f"logits shard {tuple(logits.shape)}")
+    del logits, ref
+    loss = loss_fn(params, tokens, cfg, sp=sp)
+    grads = torch.autograd.grad(loss, leaves)
+    loss = loss.detach()
+    comm.all_reduce_sum([*grads, loss], sp)
+    out["loss"] = float(loss)
+    if sp.rank == 0:
+        ref_loss = loss_fn(params, tokens, cfg)
+        ref_grads = torch.autograd.grad(ref_loss, leaves)
+        out["loss_ref"] = float(ref_loss)
+        out["grads_worst_leaf"] = max(max_rel(g, r) for g, r in
+                                      zip(grads, ref_grads))
+        del ref_grads
+    del grads, params, leaves, trainer
+    return out
+
+
+def sp_train(torch, device, cfg, train, attn, sp=None, seed=0):
+    """8c: Trainer of cfg (remat "dots"), B=train["b"], S=train["s"], for
+    train["steps"] steps from init `seed` on batches drawn from (seed,
+    step); under `sp` its rank. -> losses, grad norms, step times (host
+    clock, each ending in the loss read)."""
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan
+    from gpu_docker_api_tpu_torch.train import Trainer
+
+    cfg = dataclasses.replace(cfg, sp_attn=attn)
+    b, s = train["b"], train["s"]
+    trainer = Trainer.create(cfg, MeshPlan(sp=sp.size if sp else 1),
+                             device=device, sp=sp)
+    state = trainer.init(seed=seed)
+    losses, norms, times = [], [], []
+    for step in range(train["steps"]):
+        tokens = torch.randint(
+            0, cfg.vocab_size, (b, s),
+            generator=torch.Generator().manual_seed(1000 * seed + step))
+        tokens = trainer.shard_batch(tokens)
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, tokens)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+    del state, trainer
+    return {"losses": losses, "grad_norms": norms, "step_times_s": times}
+
+
+def sp_train_check(one, ranks, label):
+    """8c's bf16 runs: every rank reports the same global numbers; the
+    first loss near its value at init; each step's loss and grad norm
+    within SP_LOSS_TOL / SP_NORM_TOL (relative) of the one-rank run's."""
+    for r in ranks:
+        check(r["losses"] == ranks[0]["losses"]
+              and r["grad_norms"] == ranks[0]["grad_norms"],
+              f"{label}: ranks report different numbers")
+    got = ranks[0]
+    rel = {"loss": [abs(a / b - 1) for a, b in zip(got["losses"],
+                                                    one["losses"])],
+           "grad_norm": [abs(a / b - 1) for a, b in zip(got["grad_norms"],
+                                                         one["grad_norms"])]}
+    check(all(math.isfinite(x) for x in got["losses"] + got["grad_norms"]),
+          f"{label}: non-finite {got}")
+    check(max(rel["loss"]) <= SP_LOSS_TOL and
+          max(rel["grad_norm"]) <= SP_NORM_TOL,
+          f"{label}: against sp=1 {rel}, limits {SP_LOSS_TOL} / "
+          f"{SP_NORM_TOL}")
+    return rel
+
+
+def long_launches(sp, name):
+    """{path: launches of kernel `name`} of phase 8's paths: blockwise
+    causal and windowed (8a), the causal flash ring and Ulysses over the
+    ranks (8b, bf16, summed over ranks)."""
+    out = {f"blockwise_window{w}": sp["blockwise"][f"bf16_window{w}"]
+           ["launches"][name] for w in (0, LONG_WINDOW)}
+    for case in ("ring", "ulysses"):
+        out[f"{case}_{SP_RANKS}_ranks"] = sum(
+            r[name] for r in sp["cases"][f"{case} torch.bfloat16"]["launches"])
+    return out
+
+
+def phase_sp(torch, att, device="cuda"):
+    """Phase 8: long context and sequence parallelism at llama 1b's
+    attention width. 8a blockwise_attention in this process; 8b ring and
+    Ulysses attention over SP_RANKS processes on this one card (a gloo
+    group, named: NCCL refuses two ranks on one GPU); 8c the trainer over
+    them, against one rank."""
+    from gpu_docker_api_tpu_torch import distributed
+    from gpu_docker_api_tpu_torch.models import named_config
+
+    cfg = named_config("llama", SP_CONFIG)
+    print(f"phase 8: long context and sp (8a blockwise S={LONG_S}, chunk "
+          f"{LONG_CHUNK}; 8b ring/ulysses over {SP_RANKS} gloo ranks on one "
+          f"card, S={SP_S}, f32 at {SP_F32_S}; 8c llama 1b trainer over "
+          f"them, {SP_TRAIN})",
+          flush=True)
+    wall = {}
+    t0 = time.perf_counter()
+    blockwise = long_blockwise(torch, att, device)
+    wall["8a_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    q, k, v, do = long_inputs(torch, SP_S, 88, device=device)
+    refs = sp_refs(torch, att, q, k, v, do)
+    one = sp_train(torch, device, cfg, SP_TRAIN, "ring")
+    torch.cuda.empty_cache()
+    wall["8bc_parent_s"] = time.perf_counter() - t0
+    print(f"  8c one rank: {one}", flush=True)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save([x.cpu() for x in (q, k, v, do)],
+                   os.path.join(tmp, "inputs.pt"))
+        del q, k, v, do
+        spec = {"device": f"{device}:0" if device == "cuda" else device,
+                "config": SP_CONFIG, "trunk_s": SP_TRUNK_S,
+                "f32_s": SP_F32_S,
+                "train": SP_TRAIN}
+        distributed.launch(sp_rank, (tmp, spec), SP_RANKS, "gloo",
+                           timeout=SP_DEADLINE_S)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(SP_RANKS)]
+    wall["8bc_ranks_s"] = time.perf_counter() - t0
+
+    cases = {}
+    for (name, dtype), _ in ranks[0]["cases"].items():
+        window = SP_CASES[name][2]
+        bf16 = dtype == str(torch.bfloat16)
+        label = f"8b {name} {dtype} over {SP_RANKS} ranks"
+        per_rank = []
+        for r, res in enumerate(ranks):
+            got = res["cases"][(name, dtype)]
+            want = sp_launches(name, r)
+            check(got["launches"] == dict.fromkeys(got["launches"], want),
+                  f"{label}: rank {r} launches {got['launches']}, want "
+                  f"{want} of each")
+
+            def shard(ts):
+                return [t.chunk(SP_RANKS, dim=1)[r] for t in ts]
+            per_rank.append(long_check(
+                torch, got["shards"],
+                shard(refs[window]["f32" if bf16 else "f32_short"]),
+                shard(refs[window]["bf16"]) if bf16 else None,
+                f"{label}, rank {r}"))
+        cases[f"{name} {dtype}"] = {
+            "launches": [res["cases"][(name, dtype)]["launches"]
+                         for res in ranks], "readings": per_rank}
+        print(f"  {label}: launches "
+              f"{cases[f'{name} {dtype}']['launches']}, readings {per_rank}",
+              flush=True)
+
+    trunk = [r["trunk"] for r in ranks]
+    print(f"  8c f32 trunk (B=1, S={SP_TRUNK_S}) over {SP_RANKS} ranks "
+          f"against one: {trunk}", flush=True)
+    check(all(t["logits"] <= F32_TOL for t in trunk),
+          f"8c f32 logits shards past {F32_TOL}: {trunk}")
+    check(abs(trunk[0]["loss"] / trunk[0]["loss_ref"] - 1) <= F32_TOL
+          and all(t["loss"] == trunk[0]["loss"] for t in trunk),
+          f"8c f32 loss {trunk}")
+    check(trunk[0]["grads_worst_leaf"] <= F32_TOL,
+          f"8c f32 grads past {F32_TOL}: {trunk[0]['grads_worst_leaf']}")
+
+    want0 = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+    check(abs(one["losses"][0] - want0) < 0.1,
+          f"8c first loss {one['losses'][0]} not near {want0:.3f}")
+    train = {"one_rank": one}
+    tokens = SP_TRAIN["b"] * SP_TRAIN["s"]
+    for attn in ("ring", "ulysses"):
+        runs = [r[f"train_{attn}"] for r in ranks]
+        rel = sp_train_check(one, runs, f"8c bf16 {attn}")
+        step_s = statistics.median(runs[0]["step_times_s"][1:])
+        train[attn] = {**runs[0], "rel_to_one_rank": rel,
+                       "step_s_gloo_4_ranks_one_card": step_s,
+                       "tokens_s_gloo_4_ranks_one_card": tokens / step_s}
+        print(f"  8c bf16 {attn} (gloo, 4 ranks on one card): "
+              f"{train[attn]}", flush=True)
+    train["one_rank"]["step_s"] = statistics.median(one["step_times_s"][1:])
+    train["one_rank"]["tokens_s"] = tokens / train["one_rank"]["step_s"]
+    print(f"  phase 8 wall time {wall}", flush=True)
+    return {"blockwise": blockwise, "cases": cases, "trunk": trunk,
+            "train": train, "wall": wall}
+
+
 def build_kernels(torch):
     """Phase 0: the card's name and power limit, then the kernels' build.
     Returns (nvidia-smi line, the attention module)."""
@@ -2624,6 +3095,7 @@ def main() -> int:
         batching = phase_batching(torch, att)
         paged = phase_paged(torch, att, batching)
         moe = phase_moe(torch, att)
+        sp = phase_sp(torch, att)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -2636,6 +3108,7 @@ def main() -> int:
             "source": f"gpu_docker_api_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": m["launches"][name],
             "launches_moe": moe["train"]["launches"][name],
+            "launches_long": long_launches(sp, name),
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": bnd[name][0],
             "bound_by": bnd[name][1], "library_ms": k["library_ms"]})
@@ -2651,6 +3124,7 @@ def main() -> int:
     print(json.dumps({"batching": batching}), flush=True)
     print(json.dumps({"paged": paged}), flush=True)
     print(json.dumps({"moe": moe}), flush=True)
+    print(json.dumps({"sp": sp}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

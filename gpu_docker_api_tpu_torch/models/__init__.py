@@ -1,7 +1,7 @@
 """Model families of the workload runtime (PyTorch port).
 
 Each family exposes the surface of gpu_docker_api_tpu/models: init_params,
-forward(params, tokens, config, *, impl, mesh, remat) -> logits (or
+forward(params, tokens, config, *, impl, sp, remat) -> logits (or
 (logits, extra_loss) for MoE, whose router loss the trainer adds to CE),
 its config class, and param_shapes, the tree a checkpoint or a converted
 tree is checked against.
@@ -19,7 +19,7 @@ from .llama import LlamaConfig, init_params, llama_forward  # noqa: F401
 class ModelFamily:
     name: str
     init_params: Callable
-    forward: Callable          # (params, tokens, config, *, impl, mesh, remat)
+    forward: Callable          # (params, tokens, config, *, impl, sp, remat)
     config_cls: Any
     param_shapes: Callable     # config -> {name: (shape, dtype)}
     layer_keys: tuple          # the per-layer leaves, in the forward's order

@@ -5,7 +5,9 @@ Parameters keep the JAX package's layout, so weights convert one to one
 decoder layers stacked on a leading [L] axis. Numerics follow the
 reference: matmuls in the config dtype, RMSNorm statistics and the logits
 in f32, split-half RoPE in f32. Attention goes through ops/attention.py
-(the flash kernels on the card). Single device only: a mesh raises.
+(the flash kernels on the card). Under an `sp` group (parallel/comm.SPGroup)
+each rank runs its S/sp shard of the tokens, with RoPE at global positions
+and attention as ring or Ulysses attention (LlamaConfig.sp_attn).
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # long-context strategy when the sequence is sharded; only the
-    # single-device path is ported, so it is carried but unused
+    # long-context strategy when the sequence is sharded over sp:
+    # "ring" (parallel/ring.py) or "ulysses" (parallel/ulysses.py)
     sp_attn: str = "ring"
     # > 0 = sliding-window attention: each position attends its last
     # `sliding_window` keys only
@@ -170,16 +172,21 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
 
 
-def _require_single_device(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device attention (mesh, ring, ulysses) is not yet ported")
+def sharded(sp) -> bool:
+    """True when `sp` (a parallel.comm.SPGroup or None) spans ranks."""
+    return sp is not None and sp.size > 1
+
+
+def shard_positions(s_loc: int, sp, device) -> torch.Tensor:
+    """Global positions of this rank's s_loc tokens: rank * s_loc + iota."""
+    lo = sp.rank * s_loc if sharded(sp) else 0
+    return torch.arange(lo, lo + s_loc, device=device)
 
 
 def _attention_block(x, layer, config: LlamaConfig, cos, sin, impl: str,
-                     mesh=None):
-    """Norm + QKV + RoPE + attention + output projection + residual."""
-    _require_single_device(mesh)
+                     sp=None):
+    """Norm + QKV + RoPE + attention + output projection + residual. x is
+    this rank's shard of the sequence under an `sp` group."""
     c = config
     b, s, _ = x.shape
     h = rms_norm(x, layer["attn_norm"], c.norm_eps)
@@ -188,8 +195,19 @@ def _attention_block(x, layer, config: LlamaConfig, cos, sin, impl: str,
     v = (h @ layer["wv"]).reshape(b, s, c.n_kv_heads, c.head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    out = attention(q, k, v, causal=True, impl=impl,
-                    window=c.sliding_window)                 # [B, S, H, Dh]
+    if sharded(sp) and c.sp_attn == "ulysses":
+        # all-to-all head scatter: the whole-sequence kernel on H/sp heads
+        from ..parallel.ulysses import ulysses_attention
+        out = ulysses_attention(q, k, v, sp, causal=True, impl=impl,
+                                window=c.sliding_window)
+    elif sharded(sp):
+        # K/V shards rotate round the ring; with a window it stops early
+        from ..parallel.ring import ring_attention
+        out = ring_attention(q, k, v, sp, causal=True, impl=impl,
+                             window=c.sliding_window)
+    else:
+        out = attention(q, k, v, causal=True, impl=impl,
+                        window=c.sliding_window)             # [B, S, H, Dh]
     return x + out.reshape(b, s, c.n_heads * c.head_dim) @ layer["wo"]
 
 
@@ -206,19 +224,20 @@ _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w1", "w3",
 
 
 def llama_forward(params: dict, tokens: torch.Tensor, config: LlamaConfig,
-                  impl: str = "auto", mesh=None,
+                  impl: str = "auto", sp=None,
                   remat: str = "none") -> torch.Tensor:
     """tokens [B, S] int -> logits [B, S, V] f32. remat: "none" | "full" |
-    "dots" — per-layer checkpointing of the decoder body (models/remat.py)."""
-    _require_single_device(mesh)
+    "dots" — per-layer checkpointing of the decoder body (models/remat.py).
+    Under an `sp` group (parallel.comm.SPGroup) tokens are this rank's
+    [B, S/sp] shard and so are the logits; every rank calls together."""
     c = config
     s = tokens.shape[1]
     x = F.embedding(tokens, params["embed"])
-    cos, sin = rope_frequencies(c, torch.arange(s, device=tokens.device))
+    cos, sin = rope_frequencies(c, shard_positions(s, sp, tokens.device))
 
     def body(x, *weights):
         layer = dict(zip(_LAYER_KEYS, weights))
-        x = _attention_block(x, layer, c, cos, sin, impl)
+        x = _attention_block(x, layer, c, cos, sin, impl, sp)
         return _mlp_block(x, layer, c)
 
     step = remat_wrap(body, remat)

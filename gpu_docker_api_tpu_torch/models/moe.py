@@ -35,8 +35,8 @@ import torch.nn.functional as F
 
 from ..ops.quant import qeinsum
 from .llama import (
-    LlamaConfig, _attention_block, _require_single_device, init_from_shapes,
-    rms_norm, rope_frequencies,
+    LlamaConfig, _attention_block, init_from_shapes, rms_norm,
+    rope_frequencies, sharded,
 )
 from . import llama as _llama
 from .remat import remat_wrap
@@ -248,14 +248,13 @@ def _moe_experts_gather(ht, layer, c: MoEConfig, gate_idx, gate_vals, keep,
     return (back.reshape(t, -1, d).float() * w).sum(dim=1)    # [T, D] f32
 
 
-def moe_block(x: torch.Tensor, layer: dict, config: MoEConfig, mesh=None
+def moe_block(x: torch.Tensor, layer: dict, config: MoEConfig
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (x + moe_out, aux_loss, z_loss).
 
     Top-k routing with a static per-expert capacity over the B*S tokens of
     the call; tokens over capacity are dropped (combine weight zero, the
     residual carries them). One device: the gather dispatch."""
-    _require_single_device(mesh)
     c = config
     b, s, d = x.shape
     h = rms_norm(x, layer["mlp_norm"], c.norm_eps)
@@ -276,15 +275,20 @@ def moe_block(x: torch.Tensor, layer: dict, config: MoEConfig, mesh=None
 # ---- forward ----------------------------------------------------------------
 
 def moe_forward(params: dict, tokens: torch.Tensor, config: MoEConfig,
-                impl: str = "auto", mesh=None, remat: str = "none"
+                impl: str = "auto", sp=None, remat: str = "none"
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] int -> (logits [B, S, V] f32, router_loss f32 scalar).
 
     router_loss = aux_weight * load_balance + z_weight * z_loss, summed over
     layers: the trainer adds it to the CE loss. Attention goes through
     ops/attention.py (the flash kernels on the card); remat as
-    llama_forward."""
-    _require_single_device(mesh)
+    llama_forward. Not under an `sp` group: JAX routes the global token
+    array (the capacity scan runs over every token), which a rank-local
+    route would not."""
+    if sharded(sp):
+        raise NotImplementedError(
+            "MoE under sequence parallelism (sp > 1) is not yet ported to "
+            "PyTorch: routing runs over the global token array")
     c = config
     lc = c.as_llama()
     s = tokens.shape[1]

@@ -1,9 +1,10 @@
 """Attention ops: hand-written Hopper flash kernels + the plain PyTorch math.
 
-The hot op of the training workload (models/llama.py). Counterpart of
-gpu_docker_api_tpu/ops/attention.py, with its public layouts: q [B,S,H,D],
-k/v [B,S,Hkv,D] (GQA: q head h reads kv head h // (H // Hkv)), lse [B,H,S]
-f32 of the scaled scores.
+The hot op of the training workload (models/llama.py) and of the
+sequence-parallel bodies (parallel/ring.py, parallel/ulysses.py).
+Counterpart of gpu_docker_api_tpu/ops/attention.py, with its public
+layouts: q [B,S,H,D], k/v [B,S,Hkv,D] (GQA: q head h reads kv head
+h // (H // Hkv)), lse [B,H,S] f32 of the scaled scores.
 
 - reference_attention: einsum + softmax over repeated kv heads, f32.
 - flash_fwd / flash_bwd_dq / flash_bwd_dkv: one wrapper per CUDA kernel
@@ -13,10 +14,16 @@ f32 of the scaled scores.
   each kernel against on the card.
 - flash_attention / flash_attention_lse: torch.autograd.Functions over
   those wrappers (forward kernel, then the dq and dk/dv kernels).
+- the lse consumers: merge_attention_partials (the exact online-softmax
+  merge of partials over disjoint key sets), _pair_lse_banded (one
+  offset-windowed chunk pair, einsum) and blockwise_attention (the
+  sequence cut into chunk pairs through flash_attention_lse, merged), the
+  pieces the ring is built from.
 - attention(): the flash|xla|auto|auto_grad dispatcher. "auto" and
-  "auto_grad" always take the flash path: the JAX package's crossovers
-  (FLASH_MIN_SEQ*, _auto_block, FLASH_SINGLE_MAX_*) were measured on a TPU
-  and are not carried over.
+  "auto_grad" always take the whole-S flash path: the JAX package's
+  crossovers (FLASH_MIN_SEQ*, _auto_block) and its VMEM ceilings
+  (FLASH_SINGLE_MAX_*, past which it routes to blockwise_attention) were
+  measured on a TPU and are not carried over.
 
 Unlike the TPU kernels, which assert S % block == 0, the CUDA kernels mask a
 ragged tail themselves, so every sequence length takes the kernel.
@@ -331,6 +338,176 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _FlashLse.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal, window)
 
+
+# ---- the lse consumers ------------------------------------------------------
+
+def merge_attention_partials(outs, lses):
+    """Combine attention outputs over DISJOINT key sets: outs [N][B,S,H,D]
+    (each softmax-normalized within its set), lses [N][B,H,S]. Returns the
+    attention over the union, exactly (online softmax across partials), in
+    outs[0]'s dtype; differentiable through both operands. A row whose
+    lse is -inf in a partial takes nothing from it (weight 0, no NaN)."""
+    m = lses[0]
+    for lse in lses[1:]:
+        m = torch.maximum(m, lse)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    num = den = None
+    for o, lse in zip(outs, lses):
+        w = torch.where(torch.isfinite(lse), torch.exp(lse - m_safe),
+                        torch.zeros_like(lse))                  # [B,H,S]
+        term = o.float() * w.transpose(1, 2)[..., None]         # [B,S,H,D]
+        num = term if num is None else num + term
+        den = w if den is None else den + w
+    den_q = den.transpose(1, 2)[..., None].clamp_min(1e-30)
+    return (num / den_q).to(outs[0].dtype)
+
+
+def _pair_lse_banded(q, k_cur, v_cur, offset: int, window: int):
+    """(out, lse) of q against ONE K/V chunk sitting `offset` positions
+    behind it in global order (0 = the diagonal chunk), causal and
+    sliding-window masked at global positions; out is softmax-normalized
+    within the pair, lse [B,H,S] merges it with other chunks' partials.
+    A plain f32 einsum, as in JAX: the kernels have no offset-window mode.
+    Rows that see no key get out 0 and lse -inf (zero gradients)."""
+    b, s_loc, h, d = q.shape
+    group = h // k_cur.shape[2]
+    qf = q.float() / math.sqrt(d)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, _repeat_kv(k_cur, group))
+    rows = torch.arange(s_loc, device=q.device)[:, None]
+    cols = torch.arange(s_loc, device=q.device)[None, :]
+    delta = rows - cols + offset             # row_global - col_global
+    keep = (delta >= 0) & (delta < window)
+    s = s.masked_fill(~keep, float("-inf"))
+    m = s.amax(dim=-1)                                          # [B,H,S]
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = _probs(s, m_safe)
+    l = p.sum(dim=-1)                                           # [B,H,S]
+    out = torch.einsum("bhqk,bkhd->bqhd", p, _repeat_kv(v_cur, group)) / (
+        l.clamp_min(1e-30).transpose(1, 2)[..., None])
+    lse = torch.where(l > 0, m_safe + torch.log(l.clamp_min(1e-30)),
+                      torch.full_like(l, float("-inf")))
+    return out.to(q.dtype), lse
+
+
+# blockwise_attention's chunk length, and the most chunk pairs one launch
+# stacks along the batch axis. Stacking changes no result; it bounds the
+# launches (and, on the TPU, the compiled programs) at any S.
+FLASH_CHUNK_SEQ = 2048
+FLASH_PAIR_STACK = 32
+
+
+def _stack_groups(n_pairs: int) -> list[int]:
+    """Sizes of the consecutive groups the past pairs launch in: the
+    largest power-of-two share of FLASH_PAIR_STACK that fits what is
+    left (28 pairs -> 16, 8, 4)."""
+    cap = max(FLASH_PAIR_STACK, 1)
+    sizes = [g for g in (cap, cap // 2, cap // 4, cap // 8, 4, 2, 1)
+             if g >= 1]
+    out, left = [], n_pairs
+    while left:
+        g = next(g for g in sizes if g <= left)
+        out.append(g)
+        left -= g
+    return out
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0,
+                        chunk: int = 0) -> torch.Tensor:
+    """Attention with the sequence cut into chunks: each (q-chunk,
+    kv-chunk) pair runs through flash_attention_lse (diagonal pairs causal
+    or windowed, past pairs full), and each q-chunk's partials merge with
+    merge_attention_partials: ring attention's decomposition within one
+    device. Differentiable end to end through the kernels. s <= chunk is
+    one flash_attention call.
+
+    Causal without a window: the n diagonal pairs run as ONE causal launch
+    stacked along the batch axis, and the n(n-1)/2 past pairs in
+    power-of-two groups of at most FLASH_PAIR_STACK (_stack_groups).
+    Otherwise a loop over the pairs: with a window, a past chunk wholly
+    inside the window is a full kernel pair, the partially masked boundary
+    chunk a _pair_lse_banded einsum, and chunks wholly outside are
+    skipped.
+
+    The chunks are cut from f32 copies of q, k and v and cast back to
+    their dtype for each pair (exact: the values are the dtype's), so a
+    chunk's gradient sums its pairs' in f32 and rounds once; the JAX
+    function sums bf16 cotangents in bf16."""
+    _check_window(causal, window)
+    b, s, h, d = q.shape
+    chunk = chunk or FLASH_CHUNK_SEQ
+    if s <= chunk:
+        return flash_attention(q, k, v, causal=causal, window=window)
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    n = s // chunk
+
+    dtype = q.dtype
+    q32, k32, v32 = q.float(), k.float(), v.float()
+
+    def piece(x, i):
+        return x[:, i * chunk:(i + 1) * chunk].to(dtype)
+
+    if causal and not window:
+        qs = q32.reshape(b, n, chunk, h, d)
+        ks = k32.reshape(b, n, chunk, k.shape[2], d)
+        vs = v32.reshape(b, n, chunk, v.shape[2], d)
+
+        def stack(x, idx):     # [b, n, c, H, D] -> [len(idx) * b, c, H, D]
+            g = x[:, idx]                                   # [b, P, c, H, D]
+            return g.transpose(0, 1).reshape(len(idx) * b, chunk,
+                                             x.shape[3], d).to(dtype)
+
+        every = list(range(n))
+        diag_o, diag_l = flash_attention_lse(
+            stack(qs, every), stack(ks, every), stack(vs, every), causal=True)
+        pairs = [(i, j) for i in range(n) for j in range(i)]
+        past_o, past_l = {}, {}
+        pos = 0
+        for g in _stack_groups(len(pairs)):
+            grp = pairs[pos:pos + g]
+            pos += g
+            po, pl = flash_attention_lse(
+                stack(qs, [i for i, _ in grp]), stack(ks, [j for _, j in grp]),
+                stack(vs, [j for _, j in grp]), causal=False)
+            for t, pair in enumerate(grp):
+                past_o[pair] = po[t * b:(t + 1) * b]
+                past_l[pair] = pl[t * b:(t + 1) * b]
+        out_chunks = []
+        for i in range(n):
+            outs = [past_o[(i, j)] for j in range(i)]
+            lses = [past_l[(i, j)] for j in range(i)]
+            outs.append(diag_o[i * b:(i + 1) * b])
+            lses.append(diag_l[i * b:(i + 1) * b])
+            out_chunks.append(merge_attention_partials(outs, lses))
+        return torch.cat(out_chunks, dim=1)
+
+    out_chunks = []
+    for i in range(n):
+        qi = piece(q32, i)
+        outs, lses = [], []
+        for j in range(i + 1 if causal else n):
+            offset = (i - j) * chunk
+            if window and offset >= window + chunk - 1:
+                continue                      # wholly outside the window
+            kj, vj = piece(k32, j), piece(v32, j)
+            if causal and j == i:
+                o, lse = flash_attention_lse(qi, kj, vj, causal=True,
+                                             window=window)
+            elif window and offset > window - chunk:
+                # the partially masked boundary chunk: offset band, einsum
+                o, lse = _pair_lse_banded(qi, kj, vj, offset, window)
+            else:
+                # a past chunk wholly inside the window (or non-causal):
+                # a full pair through the kernels
+                o, lse = flash_attention_lse(qi, kj, vj, causal=False)
+            outs.append(o)
+            lses.append(lse)
+        out_chunks.append(merge_attention_partials(outs, lses))
+    return torch.cat(out_chunks, dim=1)
+
+
+# ---- dispatcher -------------------------------------------------------------
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, impl: str = "auto",

@@ -1,0 +1,289 @@
+"""The collectives of sequence parallelism, over a torch.distributed group.
+
+The JAX package gets these from XLA inside shard_map (lax.ppermute,
+lax.all_to_all, the psum of replicated gradients). torch.distributed's
+point-to-point and all-to-all calls carry no gradient, so the two that sit
+inside the model are torch.autograd.Functions whose backward is their
+transpose:
+
+- ring_shift_start(tensors, sp, wire): send to rank + 1 and receive from
+  rank - 1 in one batch_isend_irecv, returned in flight (RingHop) so the
+  caller computes while it moves; backward sends the cotangents the other
+  way.
+- tie_hops: keeps the last hop's backward on every rank's graph.
+- all_to_all(tensors, split_dim, concat_dim, sp): the tiled lax.all_to_all
+  (split along one dim, the pieces gathered in rank order along another);
+  backward is the inverse all-to-all.
+- all_reduce_sum, all_reduce_max and broadcast: in place, no gradient, for
+  the trainer (bucketed through a flat buffer).
+
+Transport: on an NCCL group the tensors go as they are. On a gloo group a
+CUDA tensor goes through a host buffer and comes back to its device,
+because gloo has no CUDA send/recv or all-to-all; that is how one card
+holds several ranks (chip_smoke.py asks for gloo by name). A CPU tensor on
+gloo goes as it is.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+# elements of one flat f32 bucket of all_reduce_sum / broadcast (256 MB)
+BUCKET = 1 << 26
+
+
+@dataclass(frozen=True)
+class SPGroup:
+    """The sequence-parallel group: the torch.distributed group, this
+    process's rank in it and its size. Takes the `sp` mesh axis's place:
+    each rank holds the rank-th S/size shard of the sequence."""
+    group: Any
+    rank: int
+    size: int
+
+    @classmethod
+    def of(cls, group=None) -> "SPGroup":
+        """The group (default: the whole world) as seen from this rank."""
+        return cls(group=group, rank=dist.get_rank(group),
+                   size=dist.get_world_size(group))
+
+    @property
+    def staged(self) -> bool:
+        """True on a gloo group: CUDA tensors travel through the host."""
+        return dist.get_backend(self.group) == "gloo"
+
+
+def _wire(t: torch.Tensor, sp: SPGroup) -> torch.Tensor:
+    """What goes on the wire: a contiguous tensor, on the host when a gloo
+    group carries a CUDA tensor."""
+    t = t.contiguous()
+    return t.cpu() if sp.staged and t.is_cuda else t
+
+
+
+
+
+# ---- ring shift ------------------------------------------------------------
+
+def _global(sp: SPGroup, rank: int) -> int:
+    """The global rank of group rank `rank` (what P2POp takes)."""
+    return rank if sp.group is None else dist.get_global_rank(sp.group, rank)
+
+
+def _post_shift(tensors: Sequence[torch.Tensor], sp: SPGroup, step: int,
+                wire: Optional[torch.dtype] = None):
+    """Send each tensor (as `wire` dtype, if given) to rank + step and
+    receive its peer's from rank - step, in one batch. -> (works, send
+    buffers, receive buffers); the send buffers must outlive the works."""
+    dst = _global(sp, (sp.rank + step) % sp.size)
+    src = _global(sp, (sp.rank - step) % sp.size)
+    sends = [_wire(t if wire is None else t.to(wire), sp) for t in tensors]
+    recvs = [torch.empty_like(t) for t in sends]
+    ops = ([dist.P2POp(dist.isend, t, dst, sp.group) for t in sends]
+           + [dist.P2POp(dist.irecv, t, src, sp.group) for t in recvs])
+    return dist.batch_isend_irecv(ops), sends, recvs
+
+
+class RingHop:
+    """One hop in flight: wait() returns the tensors received from
+    rank - 1, on the devices the sent ones were on."""
+
+    def __init__(self, works, sends, recvs, staged_outs):
+        self._works, self._sends = works, sends
+        self._fill = [(o, r) for o, r in zip(staged_outs, recvs)
+                      if o is not None]
+        self.outs = None          # the autograd outputs (ring_shift_start)
+
+    def wait(self) -> tuple[torch.Tensor, ...]:
+        for w in self._works:
+            w.wait()
+        with torch.no_grad():
+            for out, buf in self._fill:       # host -> device (gloo)
+                out.copy_(buf)
+        self._works = self._sends = self._fill = None
+        return self.outs
+
+
+class _RingShift(torch.autograd.Function):
+    """Forward posts the hop and returns the tensors it will fill (through
+    RingHop.wait, which must come before any read of them); backward sends
+    each cotangent back to rank - 1, in its own dtype, and returns what
+    rank + 1 sent."""
+
+    @staticmethod
+    def forward(ctx, sp, box, wire, *tensors):
+        ctx.sp = sp
+        works, sends, recvs = _post_shift(tensors, sp, +1, wire)
+        # a buffer on another device or in another dtype is copied in
+        staged = [None if (r.device, r.dtype) == (t.device, t.dtype)
+                  else torch.empty_like(t) for r, t in zip(recvs, tensors)]
+        box.append(RingHop(works, sends, recvs, staged))
+        return tuple(r if o is None else o for r, o in zip(recvs, staged))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        works, _, recvs = _post_shift(grads, ctx.sp, -1)
+        for w in works:
+            w.wait()
+        return (None, None, None,
+                *(r.to(g.device) for r, g in zip(recvs, grads)))
+
+
+def ring_shift_start(tensors: Sequence[torch.Tensor], sp: SPGroup,
+                     wire: torch.dtype) -> RingHop:
+    """Post one ring hop of `tensors` (rank -> rank + 1) and return it in
+    flight; its wait() gives the tensors rank - 1 sent, in their dtype.
+    They travel as `wire` (the ring sends f32 copies of bf16 values as
+    bf16). Every rank of the group must post the same hop.
+    Differentiable: the backward runs the hop's transpose (rank -> rank -
+    1), the cotangents in their own dtype."""
+    box: list = []
+    outs = _RingShift.apply(sp, box, wire, *tensors)
+    box[0].outs = outs
+    return box[0]
+
+
+class _Tie(torch.autograd.Function):
+    """out unchanged; the tied tensors get zero cotangents."""
+
+    @staticmethod
+    def forward(ctx, out, *tied):
+        ctx.tied = [(t.shape, t.dtype, t.device) for t in tied]
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad, *(torch.zeros(shape, dtype=dtype, device=device)
+                        for shape, dtype, device in ctx.tied))
+
+
+def tie_hops(out: torch.Tensor, *received: torch.Tensor) -> torch.Tensor:
+    """`out`, with the tensors the last ring hop received tied into its
+    graph. A hop's backward is a collective, so every rank must run it;
+    where a rank leaves what it received unused (a skipped causal pair)
+    autograd would not, and the ring would hang. Tied, they get zero
+    cotangents (the JAX ppermute transpose of an unused value), and the
+    hops chain, so every hop's backward runs on every rank."""
+    return _Tie.apply(out, *received)
+
+
+# ---- all-to-all ------------------------------------------------------------
+
+def _all_to_all_one(x: torch.Tensor, split_dim: int, concat_dim: int,
+                    sp: SPGroup) -> torch.Tensor:
+    n = sp.size
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
+                         f"split over {n} ranks")
+    # piece j (along split_dim) goes to rank j: stack the pieces on dim 0
+    send = _wire(torch.stack(x.chunk(n, dim=split_dim)), sp)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=sp.group)
+    # recv[j] came from rank j: gather in rank order along concat_dim
+    return torch.cat(recv.to(x.device).unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sp, split_dim, concat_dim, *tensors):
+        ctx.sp, ctx.dims = sp, (split_dim, concat_dim)
+        return tuple(_all_to_all_one(t, split_dim, concat_dim, sp)
+                     for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        split_dim, concat_dim = ctx.dims
+        # grads are materialized (an unused output's is zeros), so every
+        # rank runs the same collectives in the same order
+        return (None, None, None, *(
+            _all_to_all_one(g, concat_dim, split_dim, ctx.sp)
+            for g in grads))
+
+
+def all_to_all(tensors: Sequence[torch.Tensor], split_dim: int,
+               concat_dim: int, sp: SPGroup) -> tuple[torch.Tensor, ...]:
+    """lax.all_to_all(x, split_axis=split_dim, concat_axis=concat_dim,
+    tiled=True) of each tensor, in order: x splits into sp.size pieces along
+    split_dim, piece j goes to rank j, and the pieces received are
+    concatenated in rank order along concat_dim. Differentiable."""
+    return _AllToAll.apply(sp, split_dim, concat_dim, *tensors)
+
+
+# ---- trainer collectives (no gradient) ---------------------------------------
+
+def _buckets(tensors):
+    """Consecutive groups of tensors of at most BUCKET elements (a larger
+    tensor is a group of its own)."""
+    group, size = [], 0
+    for t in tensors:
+        if group and size + t.numel() > BUCKET:
+            yield group
+            group, size = [], 0
+        group.append(t)
+        size += t.numel()
+    if group:
+        yield group
+
+
+def _flat(group, dtype, device):
+    return torch.cat([t.reshape(-1).to(dtype) for t in group]).to(device)
+
+
+def _unflat(flat, group) -> None:
+    pos = 0
+    for t in group:
+        t.copy_(flat[pos:pos + t.numel()].view(t.shape))
+        pos += t.numel()
+
+
+def _wire_device(t: torch.Tensor, sp: SPGroup):
+    return torch.device("cpu") if sp.staged else t.device
+
+
+@torch.no_grad()
+def all_reduce_sum(tensors: Sequence[torch.Tensor], sp: SPGroup) -> None:
+    """Sum each tensor over the group, in place: the sum is taken in f32
+    and cast back to each tensor's dtype."""
+    for group in _buckets(tensors):
+        flat = _flat(group, torch.float32, _wire_device(group[0], sp))
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=sp.group)
+        _unflat(flat, group)
+
+
+@torch.no_grad()
+def all_reduce_max(tensors: Sequence[torch.Tensor], sp: SPGroup) -> None:
+    """Elementwise max of each tensor over the group, in place."""
+    for t in tensors:
+        buf = _wire(t, sp)
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=sp.group)
+        if buf is not t:
+            t.copy_(buf)
+
+
+@torch.no_grad()
+def broadcast(tensors: Sequence[torch.Tensor], sp: SPGroup) -> None:
+    """Every tensor takes group rank 0's values, in place, bit for bit
+    (the bytes travel, whatever the dtype)."""
+    root = _global(sp, 0)
+    for group in _buckets(tensors):
+        flat = torch.cat([t.view(-1).view(torch.uint8) for t in group])
+        buf = flat.to(_wire_device(flat, sp))
+        dist.broadcast(buf, src=root, group=sp.group)
+        flat.copy_(buf)
+        pos = 0
+        for t in group:
+            n = t.numel() * t.element_size()
+            t.view(-1).view(torch.uint8).copy_(flat[pos:pos + n])
+            pos += n
+
+
+def local_shard(x: torch.Tensor, sp: Optional[SPGroup]) -> torch.Tensor:
+    """This rank's contiguous 1/size of x along the sequence (dim 1); x
+    itself without a group."""
+    if sp is None or sp.size == 1:
+        return x
+    return x.chunk(sp.size, dim=1)[sp.rank]

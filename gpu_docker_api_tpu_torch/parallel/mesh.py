@@ -1,9 +1,10 @@
 """Parallelism plans (PyTorch port of gpu_docker_api_tpu/parallel/mesh.py).
 
-Only the plan and the control plane's env contract are here so far:
-MeshPlan and plan_from_env, kept identical to the JAX package's so both
-runtimes read TDAPI_MESH_PLAN the same way. The port runs on one device;
-a plan over more raises (require_single_device) until multi-device lands.
+The plan and the control plane's env contract: MeshPlan and plan_from_env,
+kept identical to the JAX package's so both runtimes read TDAPI_MESH_PLAN
+the same way. Torch has no mesh: the one axis ported so far, `sp`, is a
+torch.distributed group of ranks (parallel/comm.SPGroup, ring.py,
+ulysses.py). require_ported refuses a plan with any other axis above 1.
 """
 
 from __future__ import annotations
@@ -74,9 +75,11 @@ def plan_from_env(env: Optional[dict] = None) -> Optional[MeshPlan]:
     return MeshPlan(**vals)
 
 
-def require_single_device(plan: MeshPlan) -> None:
-    """The port trains on one device so far; refuse a larger plan."""
-    if plan.size > 1:
+def require_ported(plan: MeshPlan) -> None:
+    """Sequence parallelism (`sp`) is the one axis ported; refuse a plan
+    with any other axis above 1."""
+    others = [a for a in AXES if a != "sp" and getattr(plan, a) > 1]
+    if others:
         raise NotImplementedError(
-            f"{plan} spans {plan.size} devices: multi-device training is "
-            f"not yet ported to PyTorch")
+            f"{plan}: the {', '.join(others)} axis is not yet ported to "
+            f"PyTorch (only sp is)")

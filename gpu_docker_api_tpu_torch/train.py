@@ -1,10 +1,16 @@
 """Training loop of the flagship workload, PyTorch port of gpu_docker_api_tpu/train.py.
 
-Single device so far: next-token cross-entropy in f32, AdamW written out to
-match the JAX package's optax chain (clip_by_global_norm, then adamw with
-decay on every leaf), gradient accumulation with f32 sums, atomic
-torch.save checkpoints (one directory per step) and the byte-compatible
-quiesce protocol the control plane's Backend.quiesce drives.
+Next-token cross-entropy in f32, AdamW written out to match the JAX
+package's optax chain (clip_by_global_norm, then adamw with decay on every
+leaf), gradient accumulation with f32 sums, atomic torch.save checkpoints
+(one directory per step) and the byte-compatible quiesce protocol the
+control plane's Backend.quiesce drives.
+
+On one device, or over an `sp` group of ranks (sequence parallelism): every
+rank takes the whole global batch, runs its S/sp shard of it, and holds the
+parameters whole. The loss is the global mean (each rank's log-likelihood
+sum over the global count), its gradients are summed over the group in f32
+before the clip, so every rank takes the same AdamW update.
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ import torch.nn.functional as F
 from .data import to_device
 from .device import resolve_device
 from .models import family_for, param_shapes
-from .parallel.mesh import MeshPlan, require_single_device
+from .parallel import comm
+from .parallel.mesh import MeshPlan, require_ported
 
 
 @dataclass
@@ -147,29 +154,50 @@ class AdamW:
 
 # ---- loss -------------------------------------------------------------------
 
-def loss_fn(params, tokens, config, impl: str = "auto_grad", mesh=None,
+def loss_fn(params, tokens, config, impl: str = "auto_grad", sp=None,
             n_microbatches: int = 0, remat: bool = True,
             remat_policy: str = "dots"):
     """Next-token CE in f32 (+ the family's extra loss). tokens [B, S];
-    predicts tokens[:, 1:]."""
+    predicts tokens[:, 1:].
+
+    Under an `sp` group (parallel.comm.SPGroup) tokens are the GLOBAL batch
+    on every rank, and the value is this rank's share of the global mean:
+    the log-likelihood sum of its S/sp positions over B * (S - 1). A
+    shard's last position predicts the next shard's first token; the
+    global last position predicts nothing. The shares sum to the loss."""
     if n_microbatches:
         raise NotImplementedError(
             "the pipelined trunk is not yet ported to PyTorch")
     fam = family_for(config)
-    out = fam.forward(params, tokens, config, impl=impl, mesh=mesh,
-                      remat=remat_policy if remat else "none")   # f32
-    logits, extra = out if fam.returns_extra_loss else (out, 0.0)
-    targets = tokens[:, 1:]
-    logp = F.log_softmax(logits[:, :-1], dim=-1)
-    ll = logp.gather(-1, targets[..., None].long())[..., 0]
-    return -ll.mean() + extra
+    remat_policy = remat_policy if remat else "none"
+    if sp is None or sp.size == 1:
+        out = fam.forward(params, tokens, config, impl=impl, sp=sp,
+                          remat=remat_policy)                      # f32
+        logits, extra = out if fam.returns_extra_loss else (out, 0.0)
+        return -_log_likelihood(logits[:, :-1], tokens[:, 1:]).mean() + extra
+    b, s = tokens.shape
+    if s % sp.size:
+        raise ValueError(f"seq {s} does not shard over sp {sp.size}")
+    s_loc = s // sp.size
+    lo = sp.rank * s_loc
+    logits = fam.forward(params, tokens[:, lo:lo + s_loc], config, impl=impl,
+                         sp=sp, remat=remat_policy)                # f32
+    targets = tokens[:, lo + 1:lo + s_loc + 1]      # one short on the last
+    ll = _log_likelihood(logits[:, :targets.shape[1]], targets)
+    return -ll.sum() / (b * (s - 1))
+
+
+def _log_likelihood(logits, targets):
+    """[B, T, V] f32 logits, [B, T] targets -> [B, T] log-probabilities."""
+    logp = F.log_softmax(logits, dim=-1)
+    return logp.gather(-1, targets[..., None].long())[..., 0]
 
 
 # ---- trainer ----------------------------------------------------------------
 
 @dataclass
 class Trainer:
-    """Owns the train step on one device.
+    """Owns the train step on one device, or on this rank of an `sp` group.
 
     Usage:
         trainer = Trainer.create(config)            # on the card
@@ -181,22 +209,32 @@ class Trainer:
     device: torch.device
     plan: MeshPlan
     optimizer: AdamW
+    sp: Optional[comm.SPGroup] = None
 
     @classmethod
     def create(cls, config, plan: Optional[MeshPlan] = None,
                tc: Optional[TrainConfig] = None,
-               device=None) -> "Trainer":
+               device=None, sp: Optional[comm.SPGroup] = None) -> "Trainer":
         """device: None or "cuda" = the card (raises without one); "cpu"
-        only when asked for."""
-        plan = plan or MeshPlan()
-        require_single_device(plan)
+        only when asked for. sp: this rank's sequence-parallel group,
+        which a plan with sp > 1 needs (of that size)."""
+        plan = plan or MeshPlan(sp=sp.size if sp else 1)
+        require_ported(plan)
+        if plan.sp > 1 and (sp is None or sp.size != plan.sp):
+            raise ValueError(f"{plan} needs an sp group of {plan.sp} ranks, "
+                             f"got {sp}")
         tc = tc or TrainConfig()
         return cls(config=config, tc=tc, device=resolve_device(device),
-                   plan=plan, optimizer=AdamW(tc))
+                   plan=plan, optimizer=AdamW(tc),
+                   sp=sp if plan.sp > 1 else None)
 
     def init(self, seed: int = 0) -> dict:
+        """Fresh parameters from `seed`; under an sp group, rank 0's, so
+        the replicas start equal whatever their generators do."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params = family_for(self.config).init_params(self.config, gen)
+        if self.sp is not None:
+            comm.broadcast(tree_leaves(params), self.sp)
         return self.state_from_params(params)
 
     def state_from_params(self, params: dict) -> dict:
@@ -213,12 +251,15 @@ class Trainer:
         return {"params": param_shapes(self.config)}
 
     def _loss(self, params, tokens):
-        return loss_fn(params, tokens, self.config, remat=self.tc.remat,
+        return loss_fn(params, tokens, self.config, sp=self.sp,
+                       remat=self.tc.remat,
                        remat_policy=self.tc.remat_policy)
 
     def step(self, state: dict, tokens: torch.Tensor):
         """One optimizer step, in place on `state`. Returns (state,
-        {"loss", "grad_norm"}), grad_norm taken before the clip."""
+        {"loss", "grad_norm"}), grad_norm taken before the clip. Under an
+        sp group every rank calls it with the same global batch and gets
+        the global loss and grad_norm."""
         params = state["params"]
         leaves = tree_leaves(params)
         accum = max(self.tc.accum_steps, 1)
@@ -242,6 +283,9 @@ class Trainer:
                 loss += part.detach()
             loss = loss / accum
             grads = [(g / accum).to(p.dtype) for g, p in zip(grad_sum, leaves)]
+        if self.sp is not None:
+            # each rank's gradients are a partial sum: add them up in f32
+            comm.all_reduce_sum([*grads, loss], self.sp)
         gnorm = global_norm(grads)
         self.optimizer.update(grads, state["opt_state"], leaves)
         state["step"] += 1

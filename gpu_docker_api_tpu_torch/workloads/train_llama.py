@@ -6,7 +6,13 @@ What runs inside a replicaSet container, with the JAX workload's contract
 state (checkpoints, metrics.jsonl) under --workdir, resume-first from the
 newest checkpoint, the same metrics.jsonl schema and the quiesce park on
 SIGUSR1. It trains on the CUDA card the container was given; --device cpu
-runs on the CPU instead (tests). Multi-device plans (--tp/--sp/--pp/--ep
+runs on the CPU instead (tests).
+
+--sp N (or a TDAPI_MESH_PLAN whose only axis above 1 is sp) trains over N
+sequence-parallel ranks on this host (distributed.launch): N processes, on
+cuda:0..N-1 over NCCL, or with --device cpu on the CPU over gloo. Rank 0
+alone writes metrics, checkpoints and the quiesce marker and ack; every
+rank resumes from the same checkpoint. The other axes (--tp/--pp/--ep
 above 1) and multi-worker contracts are not yet ported and are refused.
 
 Run: python -m gpu_docker_api_tpu_torch.workloads.train_llama \
@@ -18,6 +24,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 
@@ -32,7 +39,7 @@ def _refuse_multi_worker(env=None) -> None:
             f"ported to PyTorch")
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--family", default="llama", choices=["llama", "moe"])
     p.add_argument("--config", default="tiny",
@@ -70,43 +77,87 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to train: the CUDA card (default; raises "
                         "without one) or, when asked, the CPU")
+    return p
+
+
+def main(argv=None) -> int:
+    p = _parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
 
-    from ..device import resolve_device
-    device = resolve_device(args.device)   # no card and no --device cpu: raise
     _refuse_multi_worker()
-    for flag in ("tp", "sp", "pp", "ep", "virtual_stages"):
+    for flag in ("tp", "pp", "ep", "virtual_stages"):
         if getattr(args, flag) > 1:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} {getattr(args, flag)}: "
-                f"multi-device training is not yet ported to PyTorch")
+                f"this axis is not yet ported to PyTorch (only --sp is)")
 
-    from ..data import Prefetcher, make_dataset
     from ..models import named_config
-    from ..parallel.mesh import MeshPlan, plan_from_env, require_single_device
+    from ..parallel.mesh import MeshPlan, plan_from_env, require_ported
+
+    # gang contract: a plan the control plane stamped is honoured exactly
+    # (the CLI's axis flags apply to un-planned launches only)
+    plan = plan_from_env() or MeshPlan(sp=args.sp)
+    require_ported(plan)
+    try:
+        config = named_config(args.family, args.config)
+    except KeyError as e:
+        p.error(str(e))
+    if plan.sp > 1:
+        return _launch_sp(args, argv, plan)
+
+    from ..device import resolve_device
+    device = resolve_device(args.device)   # no card and no --device cpu: raise
+    return _run(args, config, plan, device)
+
+
+def _launch_sp(args, argv, plan) -> int:
+    """--sp N: N rank processes on this host, each running _rank_main."""
+    import torch
+
+    from .. import distributed
+    if args.family == "moe":
+        raise NotImplementedError(
+            f"--family moe under --sp {plan.sp}: MoE routing over a "
+            f"sequence-parallel group is not yet ported to PyTorch")
+    if args.device == "cuda" and torch.cuda.device_count() < plan.sp:
+        raise RuntimeError(f"--sp {plan.sp} needs {plan.sp} CUDA devices, "
+                           f"sees {torch.cuda.device_count()}")
+    distributed.launch(_rank_main, (argv, plan), plan.sp,
+                       distributed.backend_for(args.device))
+    return 0
+
+
+def _rank_main(rank: int, world: int, argv: list, plan) -> None:
+    """One rank of an --sp run (distributed.launch formed its group)."""
+    from ..device import resolve_device
+    from ..models import named_config
+    from ..parallel.comm import SPGroup
+
+    args = _parser().parse_args(argv)
+    sp = SPGroup.of()
+    device = resolve_device(f"cuda:{rank}" if args.device == "cuda"
+                            else "cpu")
+    _run(args, named_config(args.family, args.config), plan, device, sp)
+
+
+def _run(args, config, plan, device, sp=None) -> int:
+    """Train on `device` (this rank's, under an sp group) to --steps."""
+    from ..data import Prefetcher, make_dataset
     from ..train import (
         QuiesceSignal, Trainer, TrainConfig, clear_quiesce_marker,
         read_quiesce_marker, restore_checkpoint,
     )
 
-    # gang contract: a plan the control plane stamped must be honoured
-    # exactly, and the port runs only the one-device plan
-    plan = plan_from_env() or MeshPlan()
-    require_single_device(plan)
-
     # checkpoint-on-drain: install the SIGUSR1 handler before the loop, so
     # a drain arriving any time after startup is honoured at the next step
     # boundary (train.py QuiesceSignal)
     quiesce = QuiesceSignal()
+    writer = sp is None or sp.rank == 0
 
     os.makedirs(args.workdir, exist_ok=True)
     ckpt_dir = os.path.abspath(os.path.join(args.workdir, "checkpoints"))
     metrics_path = os.path.join(args.workdir, "metrics.jsonl")
-
-    try:
-        config = named_config(args.family, args.config)
-    except KeyError as e:
-        p.error(str(e))
 
     trainer = Trainer.create(
         config, plan, tc=TrainConfig(learning_rate=args.lr,
@@ -114,20 +165,22 @@ def main(argv=None) -> int:
                                      decay_steps=args.decay_steps,
                                      min_lr_ratio=args.min_lr_ratio,
                                      accum_steps=args.accum_steps),
-        device=device)
+        device=device, sp=sp)
 
-    # resume-first: a fresh init only when there is no checkpoint at all
+    # resume-first: a fresh init only when there is no checkpoint at all;
+    # every rank restores the same one (rank 0 wrote it)
     start_step = 0
     try:
         state, start_step = restore_checkpoint(
             ckpt_dir, trainer.abstract_state(), device=trainer.device)
-        q_step = read_quiesce_marker(ckpt_dir)
+        q_step = read_quiesce_marker(ckpt_dir) if writer else None
         if q_step is not None:
             # a prior generation parked here via quiesce; consume the marker
             print(f"resuming quiesced run: marker step {q_step}, "
                   f"checkpoint step {start_step}", flush=True)
             clear_quiesce_marker(ckpt_dir)
-        print(f"resumed from checkpoint step {start_step}", flush=True)
+        if writer:
+            print(f"resumed from checkpoint step {start_step}", flush=True)
     except FileNotFoundError:
         # no checkpoint yet. Anything else (a shape mismatch from a changed
         # --config, a corrupt payload) fails loudly: silently starting over
@@ -135,20 +188,23 @@ def main(argv=None) -> int:
         state = trainer.init(seed=0)
 
     # deterministic (seed, step) batches — resume replays the exact stream —
-    # staged onto the device while the step runs
+    # staged onto the device while the step runs. Every rank of an sp group
+    # draws the same global batch (process_id 0) and trains on its shard.
     dataset = make_dataset(
         args.data, config.vocab_size, args.batch, args.seq, seed=args.seed)
     prefetch = Prefetcher(dataset.iter_from(start_step),
                           place=trainer.shard_batch)
 
-    metrics_f = open(metrics_path, "a", encoding="utf-8")
+    metrics_f = open(metrics_path, "a", encoding="utf-8") if writer else None
     try:
         _train_loop(args, trainer, state, start_step, prefetch, metrics_f,
                     ckpt_dir, plan, quiesce)
     finally:
-        metrics_f.close()
+        if metrics_f is not None:
+            metrics_f.close()
         prefetch.close()
-    print(f"done: {args.steps} steps", flush=True)
+    if writer:
+        print(f"done: {args.steps} steps", flush=True)
     return 0
 
 
@@ -160,11 +216,27 @@ def _ckpt_record(metrics_f, rec: dict) -> None:
     os.fsync(metrics_f.fileno())
 
 
+def _quiesce_agreed(quiesce, trainer) -> bool:
+    """Whether any rank got the drain signal: under an sp group the ranks
+    agree (MAX) at every step boundary, so all stop after the same step."""
+    if trainer.sp is None:
+        return quiesce.requested
+    import torch
+
+    from ..parallel.comm import all_reduce_max
+    flag = torch.tensor([int(quiesce.requested)], device=trainer.device)
+    all_reduce_max([flag], trainer.sp)
+    return bool(flag.item())
+
+
 def _train_loop(args, trainer, state, start_step, prefetch, metrics_f,
                 ckpt_dir, plan, quiesce):
+    """The steps; metrics_f is None on every rank but an sp group's 0th,
+    which alone writes metrics, checkpoints and the quiesce files."""
     from ..train import (
         save_checkpoint, write_quiesce_ack, write_quiesce_marker,
     )
+    writer = metrics_f is not None
     for step in range(start_step, args.steps):
         tokens = next(prefetch)
         t0 = time.perf_counter()
@@ -173,9 +245,12 @@ def _train_loop(args, trainer, state, start_step, prefetch, metrics_f,
         rec = {"step": step + 1, "loss": round(loss, 5),
                "step_time_s": round(time.perf_counter() - t0, 4),
                "devices": plan.size, "plan": str(plan), "time": time.time()}
-        metrics_f.write(json.dumps(rec) + "\n")
-        metrics_f.flush()
-        if quiesce.requested:
+        if writer:
+            metrics_f.write(json.dumps(rec) + "\n")
+            metrics_f.flush()
+        if _quiesce_agreed(quiesce, trainer):
+            if not writer:
+                quiesce.park()
             # park at exactly step+1: checkpoint, durable marker, then the
             # ack, strictly in that order so ack implies durable checkpoint
             save_checkpoint(ckpt_dir, state, step + 1)
@@ -185,7 +260,8 @@ def _train_loop(args, trainer, state, start_step, prefetch, metrics_f,
             write_quiesce_ack(step + 1)
             print(f"quiesced at step {step + 1}; parking", flush=True)
             quiesce.park()      # until the control plane's stop (SIGTERM)
-        if (step + 1) % args.checkpoint_every == 0 or step + 1 == args.steps:
+        if writer and ((step + 1) % args.checkpoint_every == 0
+                       or step + 1 == args.steps):
             save_checkpoint(ckpt_dir, state, step + 1)
             _ckpt_record(metrics_f, {"checkpoint": step + 1,
                                      "time": time.time()})

@@ -73,6 +73,9 @@ def test_mesh_plan_auto_and_single_device():
         8, tp=2))
     with pytest.raises(ValueError):
         tmesh.MeshPlan.auto(6, tp=4)
-    tmesh.require_single_device(tmesh.MeshPlan())
+    tmesh.require_ported(tmesh.MeshPlan())
+    tmesh.require_ported(tmesh.MeshPlan(sp=4))        # sp is ported
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmesh.require_single_device(tmesh.MeshPlan(fsdp=2))
+        tmesh.require_ported(tmesh.MeshPlan(fsdp=2))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tmesh.require_ported(tmesh.MeshPlan(sp=2, tp=2))

@@ -1,0 +1,138 @@
+"""PyTorch port, distributed.py and the refusals of what is not yet ported:
+cluster_spec_from_env against the JAX function on the same env dicts; two
+gloo ranks formed from the control plane's contract on 127.0.0.1; the
+single-host launcher failing fast when a rank dies; and the workload's
+refusals (--sp N without N cards, every axis but sp, MoE under sp, a
+multi-worker grant)."""
+
+import multiprocessing as mp
+import os
+import time
+
+import pytest
+import torch
+
+import torch_sp_workers as workers
+from gpu_docker_api_tpu import distributed as jdist
+from gpu_docker_api_tpu_torch import distributed as tdist
+from gpu_docker_api_tpu_torch.workloads import train_llama as ttl
+
+torch.set_num_threads(1)
+
+TINY = ["--device", "cpu", "--config", "tiny", "--batch", "2", "--seq", "16",
+        "--steps", "1"]
+
+
+@pytest.mark.parametrize("env", [
+    {},
+    {"TPU_WORKER_HOSTNAMES": "w0"},
+    {"TPU_WORKER_HOSTNAMES": "w0,w1", "TPU_WORKER_ID": "1"},
+    {"TPU_WORKER_HOSTNAMES": "w0,,w1,w2", "TPU_PROCESS_PORT": "9000"},
+    {"TPU_WORKER_HOSTNAMES": "w0,w1", "TPU_PROCESS_PORT": "bad"},
+    {"TPU_WORKER_HOSTNAMES": "w0,w1",
+     "JAX_COORDINATOR_ADDRESS": "10.0.0.1:1234"},
+    {"TPU_WORKER_HOSTNAMES": "w0,w1", "TPU_WORKER_ID": "x"},
+])
+def test_cluster_spec_equals_the_jax_parse(env):
+    def parse(mod):
+        try:
+            return "spec", mod.cluster_spec_from_env(env)
+        except ValueError as e:
+            return "error", str(e)
+    assert parse(tdist) == parse(jdist)
+    assert tdist.PORT_OFFSET == jdist.PORT_OFFSET
+
+
+def test_two_gloo_ranks_form_from_the_contract(tmp_path):
+    """Each worker knows only the env the control plane stamps; the
+    coordinator is TPU_PROCESS_PORT + PORT_OFFSET on the first host."""
+    port = tdist.free_port()
+    envs = [{"TPU_WORKER_HOSTNAMES": "127.0.0.1,127.0.0.1",
+             "TPU_WORKER_ID": str(r),
+             "TPU_PROCESS_PORT": str(port - tdist.PORT_OFFSET)}
+            for r in range(2)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=workers.contract_rank,
+                         args=(r, envs[r], str(tmp_path))) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(120)
+        assert [p.exitcode for p in procs] == [0, 0]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt")
+        assert got["spec"] == {"coordinator": f"127.0.0.1:{port}",
+                               "num_processes": 2, "process_id": r}
+        assert got["again"] == got["spec"]          # idempotent
+        assert got["sum"] == 3.0 and got["backend"] == "gloo"
+    assert tdist.backend_for("cuda") == "nccl"
+    assert tdist.backend_for(torch.device("cuda", 1)) == "nccl"
+    assert tdist.backend_for("cpu") == "gloo"
+
+
+def test_launcher_fails_fast_when_a_rank_dies(tmp_path):
+    """Rank 1 exits 3 while rank 0 sleeps for 10 min: the launch raises
+    within seconds and leaves no rank running."""
+    before = set(mp.active_children())
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 1 of 2 exited with code 3"):
+        tdist.launch(workers.die_on_rank_1, ("", str(tmp_path)), 2, "gloo",
+                     init_method=f"file://{tmp_path}/rdzv", timeout=120)
+    assert time.monotonic() - t0 < 60
+    assert set(mp.active_children()) <= before
+
+
+def test_launcher_times_out_and_stops_its_ranks(tmp_path):
+    before = set(mp.active_children())
+    with pytest.raises(TimeoutError, match="still running"):
+        tdist.launch(workers.die_on_rank_1, ("", str(tmp_path)), 1, "gloo",
+                     init_method=f"file://{tmp_path}/rdzv", timeout=0.01)
+    assert set(mp.active_children()) <= before
+
+
+def test_sp_without_the_cards_raises(tmp_path):
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("this machine has two cards")
+    n = torch.cuda.device_count()
+    with pytest.raises(RuntimeError,
+                       match=f"--sp 2 needs 2 CUDA devices, sees {n}"):
+        ttl.main(["--config", "tiny", "--sp", "2", "--workdir",
+                  str(tmp_path)])
+    assert not os.path.exists(tmp_path / "metrics.jsonl")
+
+
+@pytest.mark.parametrize("extra, env", [
+    (["--tp", "2"], {}),
+    (["--pp", "2"], {}),
+    (["--ep", "2"], {}),
+    (["--virtual-stages", "2"], {}),
+    (["--family", "moe", "--sp", "2"], {}),
+    ([], {"TDAPI_MESH_PLAN": '{"sp": 2, "fsdp": 2}'}),
+    ([], {"TDAPI_MESH_PLAN": '{"tp": 4}'}),
+    (["--sp", "2"], {"TPU_WORKER_HOSTNAMES": "w0,w1"}),
+])
+def test_every_axis_but_sp_is_refused(tmp_path, monkeypatch, extra, env):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ttl.main(TINY + ["--workdir", str(tmp_path)] + extra)
+    assert not os.path.exists(tmp_path / "metrics.jsonl")
+
+
+def test_trainer_refuses_a_plan_without_its_group():
+    from gpu_docker_api_tpu_torch.models import named_config
+    from gpu_docker_api_tpu_torch.parallel.comm import SPGroup
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan
+    from gpu_docker_api_tpu_torch.train import Trainer
+
+    with pytest.raises(ValueError, match="needs an sp group of 2"):
+        Trainer.create(named_config("llama", "tiny"), MeshPlan(sp=2),
+                       device="cpu")
+    with pytest.raises(ValueError, match="needs an sp group of 4"):
+        Trainer.create(named_config("llama", "tiny"), MeshPlan(sp=4),
+                       device="cpu", sp=SPGroup(None, 0, 2))

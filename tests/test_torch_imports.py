@@ -94,6 +94,26 @@ def test_the_moe_family_is_walked_and_scanned():
         "__future__", "dataclasses", "torch"}
 
 
+def test_the_sp_modules_are_walked_and_scanned():
+    """The sequence-parallel modules are modules of the port, imported with
+    jax blocked (test_port_imports_with_jax_blocked) and inside the source
+    scan; distributed.py is the port's own, not the JAX module's."""
+    names = {"gpu_docker_api_tpu_torch.distributed",
+             "gpu_docker_api_tpu_torch.parallel.comm",
+             "gpu_docker_api_tpu_torch.parallel.ring",
+             "gpu_docker_api_tpu_torch.parallel.ulysses"}
+    assert names <= set(_modules())
+    allowed = {"__future__", "dataclasses", "typing", "math", "torch",
+               "datetime", "multiprocessing", "os", "signal", "socket",
+               "threading", "time"}
+    for rel in ("distributed.py", "parallel/comm.py", "parallel/ring.py",
+                "parallel/ulysses.py"):
+        path = os.path.join(PORT_DIR, rel)
+        assert {n.split(".")[0] for n in _imports(path)} <= allowed, rel
+    from gpu_docker_api_tpu_torch import distributed
+    assert distributed.cluster_spec_from_env.__module__ == distributed.__name__
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     names = set(_imports(os.path.join(REPO, "chip_smoke.py")))
     assert not {n for n in names

@@ -181,8 +181,13 @@ def test_family_registry():
 
 
 def test_mesh_raises_not_yet_ported():
-    cfg = tllama.LlamaConfig.tiny()
-    params = tllama.init_params(cfg, torch.Generator().manual_seed(0))
+    """The one axis ported is sp, for the llama family; MoE under an sp
+    group of more than one rank is refused (JAX routes the global token
+    array)."""
+    from gpu_docker_api_tpu_torch.models import moe as tmoe
+    from gpu_docker_api_tpu_torch.parallel.comm import SPGroup
+    cfg = tmoe.MoEConfig.tiny()
+    params = tmoe.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tllama.llama_forward(params, torch.zeros(1, 4, dtype=torch.long),
-                             cfg, mesh=object())
+        tmoe.moe_forward(params, torch.zeros(1, 4, dtype=torch.long), cfg,
+                         sp=SPGroup(group=None, rank=0, size=2))

@@ -736,3 +736,103 @@ def test_schedule_moves_takes_one_near_tie_and_rejects_a_wide_gap():
     with pytest.raises(cs.SmokeFailure, match="schedules differ"):
         cs.schedule_moves(STEP, STEP[:2] + [("decode", [A, A])] + STEP[3:],
                           "s")
+
+
+# ---- phase 8: long context and sequence parallelism -----------------------------
+
+@pytest.mark.parametrize("window", [0, 5, 16, 32, 40, 128])
+def test_blockwise_launches_count_the_ports_plan(monkeypatch, window):
+    """One launch of each kernel per flash_attention_lse call: count the
+    calls blockwise_attention makes (CPU tensors, the plain versions) and
+    hold them to the expected count phase 8a checks on the card."""
+    calls = []
+    real = att.flash_attention_lse
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(att, "flash_attention_lse", counted)
+    q = torch.zeros(1, 128, 2, 16)
+    att.blockwise_attention(q, q, q, window=window, chunk=16)
+    assert len(calls) == cs.blockwise_launches(128, 16, window)
+
+
+def test_blockwise_launches_at_phase_8s_shapes():
+    assert cs.blockwise_launches(cs.LONG_S, cs.LONG_CHUNK) == 4
+    assert cs.blockwise_launches(cs.LONG_S, cs.LONG_CHUNK,
+                                 cs.LONG_WINDOW) == 15
+    assert cs.blockwise_launches(65536, 2048) == 1 + 15 + 1   # 496 pairs
+    assert [cs.sp_launches("ring", r) for r in range(4)] == [1, 2, 3, 4]
+    assert {cs.sp_launches(c, r) for c in ("ulysses", "ring-window")
+            for r in range(4)} == {1}
+    assert cs.sp_launches("ring-einsum", 3) == 0
+
+
+def _grads(seed, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(1, 128, 2, 16, generator=g).to(dtype)
+            for _ in cs.GRAD_NAMES]
+
+
+def test_long_check_holds_bf16_to_the_whole_s_kernel():
+    ref = _grads(0)
+    kernel = [r.to(torch.bfloat16) for r in ref]
+    got = cs.long_check(torch, kernel, ref, kernel, "same")
+    assert all(r["excess"] == 1.0 for r in got.values())
+    # one more bf16 rounding of each value: passes
+    once = [(r + 1e-3 * torch.randn_like(r)).to(torch.bfloat16) for r in ref]
+    cs.long_check(torch, once, ref, kernel, "one more rounding")
+    # a 0.4% error on one tensor: within phase 1's check, but over 1.5 x
+    # the kernel's Frobenius error
+    bad = [k.clone() for k in kernel]
+    bad[2] = (ref[2] * 1.004).to(torch.bfloat16)
+    with pytest.raises(cs.SmokeFailure, match="dk: Frobenius"):
+        cs.long_check(torch, bad, ref, kernel, "scaled dk")
+    # a wrong band of rows: past phase 1's element-by-element check
+    bad = [k.clone() for k in kernel]
+    bad[0][:, :8] = 0
+    with pytest.raises(cs.SmokeFailure, match="out: bf16"):
+        cs.long_check(torch, bad, ref, kernel, "zeroed rows")
+    nan = [k.clone() for k in kernel]
+    nan[1][0, 0, 0, 0] = float("nan")
+    with pytest.raises(cs.SmokeFailure, match="not finite"):
+        cs.long_check(torch, nan, ref, kernel, "nan")
+
+
+def test_long_check_holds_f32_to_f32_tol():
+    ref = _grads(1)
+    near = [r + cs.F32_TOL * 0.5 for r in ref]
+    got = cs.long_check(torch, near, ref, None, "f32")
+    assert max(got.values()) == pytest.approx(cs.F32_TOL * 0.5, rel=1e-3)
+    far = [r.clone() for r in ref]
+    far[3] = far[3] + 3 * cs.F32_TOL * (1 + far[3].abs())
+    with pytest.raises(cs.SmokeFailure, match="dv: max"):
+        cs.long_check(torch, far, ref, None, "f32")
+
+
+def test_sp_train_check_wants_equal_ranks_within_the_limits():
+    one = {"losses": [10.0, 9.0, 8.0], "grad_norms": [1.0, 2.0, 3.0]}
+    same = dict(one)
+    rel = cs.sp_train_check(one, [same] * 4, "same")
+    assert rel == {"loss": [0.0] * 3, "grad_norm": [0.0] * 3}
+    close = {"losses": [10.0 * (1 + cs.SP_LOSS_TOL / 2), 9.0, 8.0],
+             "grad_norms": [1.0, 2.0 * (1 - cs.SP_NORM_TOL / 2), 3.0]}
+    cs.sp_train_check(one, [close] * 4, "close")
+    with pytest.raises(cs.SmokeFailure, match="ranks report"):
+        cs.sp_train_check(one, [close, same], "differ")
+    far = dict(close, losses=[10.0 * (1 + 2 * cs.SP_LOSS_TOL), 9.0, 8.0])
+    with pytest.raises(cs.SmokeFailure, match="against sp=1"):
+        cs.sp_train_check(one, [far] * 4, "far")
+
+
+def test_long_launches_read_phase_8s_paths():
+    runs = {f"bf16_window{w}": {"launches": {"flash_fwd": n}}
+            for w, n in ((0, 4), (cs.LONG_WINDOW, 15))}
+    cases = {f"{c} torch.bfloat16": {"launches": [
+        {"flash_fwd": n} for n in counts]}
+        for c, counts in (("ring", (1, 2, 3, 4)), ("ulysses", (1,) * 4))}
+    got = cs.long_launches({"blockwise": runs, "cases": cases}, "flash_fwd")
+    assert got == {"blockwise_window0": 4,
+                   f"blockwise_window{cs.LONG_WINDOW}": 15,
+                   "ring_4_ranks": 10, "ulysses_4_ranks": 4}

@@ -1,7 +1,8 @@
 """PyTorch port, workloads/train_llama.py: the workload contract the control
 plane relies on — resume with a gapless step sequence, the metrics.jsonl
 schema of the JAX workload, the SIGUSR1 quiesce park, and refusals of what
-is not yet ported — run on the CPU with --device cpu."""
+is not yet ported — run on the CPU with --device cpu. The sp twins (--sp 2
+over gloo ranks) are in tests/test_torch_sp_train.py."""
 
 import argparse
 import json
@@ -117,7 +118,7 @@ def test_main_without_device_cpu_raises_when_no_card(tmp_path):
 @pytest.mark.parametrize("extra, env", [
     (["--tp", "2"], {}),
     (["--pp", "2"], {}),
-    (["--sp", "2"], {}),
+    (["--family", "moe", "--sp", "2"], {}),
     (["--ep", "2"], {}),
     ([], {"TDAPI_MESH_PLAN": '{"dp": 2}'}),
     ([], {"TPU_WORKER_HOSTNAMES": "w0,w1"}),

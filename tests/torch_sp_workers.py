@@ -1,0 +1,124 @@
+"""Rank bodies of the port's sequence-parallel tests (test_torch_ring.py,
+test_torch_ulysses.py, test_torch_sp_train.py, test_torch_distributed.py).
+
+gpu_docker_api_tpu_torch.distributed.launch spawns each rank afresh and
+imports its target by module path, so the targets live here, in a module
+that imports neither jax nor the JAX package: a rank pays for torch alone.
+Inputs come in, and results go out, as torch.save files.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from gpu_docker_api_tpu_torch.parallel import comm, ring, ulysses
+
+
+def _shard(x, sp):
+    return comm.local_shard(torch.as_tensor(x), sp).contiguous()
+
+
+def attention_cases(rank: int, world: int, case_path: str, out_dir: str):
+    """Each case {name, fn: "ring"|"ulysses", q, k, v, do (global numpy),
+    causal, window, impl}: this rank's output and q/k/v gradient shards,
+    and the ring hops it made, saved to out_dir/rank<r>.pt."""
+    sp = comm.SPGroup.of()
+    hops = [0]
+    start = ring.ring_shift_start
+
+    def counted(*args):
+        hops[0] += 1
+        return start(*args)
+
+    ring.ring_shift_start = counted
+    results = {}
+    for case in torch.load(case_path, weights_only=False):
+        q, k, v = (_shard(case[x], sp).requires_grad_(True)
+                   for x in ("q", "k", "v"))
+        fn = (ring.ring_attention if case["fn"] == "ring"
+              else ulysses.ulysses_attention)
+        hops[0] = 0
+        out = fn(q, k, v, sp, causal=case["causal"], impl=case["impl"],
+                 window=case["window"])
+        grads = torch.autograd.grad(out, (q, k, v), _shard(case["do"], sp))
+        results[case["name"]] = {"out": out.detach(), "grads": grads,
+                                 "hops": hops[0]}
+    torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def train_steps(rank: int, world: int, spec_path: str, out_dir: str):
+    """spec {config (a port LlamaConfig), params (numpy tree), batches
+    [[B, S] numpy], runs: [{name, remat_policy, sp_attn}]}: for each run, a
+    fresh
+    Trainer over the sp group from the same params steps through the
+    batches; its losses and grad norms (and, on rank 0, its final params)
+    saved to out_dir/rank<r>.pt."""
+    import dataclasses
+
+    from gpu_docker_api_tpu_torch import convert
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan
+    from gpu_docker_api_tpu_torch.train import Trainer, TrainConfig
+
+    spec = torch.load(spec_path, weights_only=False)
+    sp = comm.SPGroup.of()
+    results = {}
+    for run in spec["runs"]:
+        config = dataclasses.replace(spec["config"], sp_attn=run["sp_attn"])
+        trainer = Trainer.create(
+            config, MeshPlan(sp=world),
+            tc=TrainConfig(remat_policy=run["remat_policy"]), device="cpu",
+            sp=sp)
+        state = trainer.state_from_params(
+            convert.params_from_numpy(spec["params"], config))
+        losses, norms = [], []
+        for toks in spec["batches"]:
+            state, m = trainer.step(state, trainer.shard_batch(toks))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        results[run["name"]] = {
+            "losses": losses, "grad_norms": norms,
+            "params": (convert.params_to_numpy(state["params"])
+                       if rank == 0 else None)}
+    torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def run(target, payload, world: int, tmp_dir: str, timeout: float = 120.0):
+    """Test-side: save `payload`, run target(rank, world, payload path,
+    tmp_dir) over `world` gloo ranks (a file rendezvous in tmp_dir; a hang
+    fails within `timeout`), and return each rank's saved results."""
+    from gpu_docker_api_tpu_torch import distributed
+    path = os.path.join(tmp_dir, "payload.pt")
+    torch.save(payload, path)
+    distributed.launch(target, (path, tmp_dir), world, "gloo",
+                       init_method=f"file://{os.path.join(tmp_dir, 'rdzv')}",
+                       timeout=timeout)
+    return [torch.load(os.path.join(tmp_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def contract_rank(rank: int, env: dict, out_dir: str):
+    """A worker of the multi-worker contract: form the group from `env`
+    alone (maybe_initialize_from_env, gloo), sum the ranks, save."""
+    import torch.distributed as dist
+
+    from gpu_docker_api_tpu_torch import distributed
+    torch.set_num_threads(1)
+    spec = distributed.maybe_initialize_from_env(env, device="cpu")
+    again = distributed.maybe_initialize_from_env(env, device="cpu")
+    x = torch.tensor([float(rank + 1)])
+    dist.all_reduce(x)
+    torch.save({"spec": spec, "again": again, "sum": float(x),
+                "backend": dist.get_backend()},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def die_on_rank_1(rank: int, world: int, path: str, out_dir: str):
+    """Rank 1 fails at once; the others sleep (only the launcher can stop
+    them)."""
+    import time
+    if rank == 1:
+        raise SystemExit(3)
+    time.sleep(600)
