@@ -108,12 +108,25 @@ Phases (any failure exits non-zero and prints no result):
      the one-rank Trainer run here (losses and grad norms within
      SP_LOSS_TOL / SP_NORM_TOL), step time and tokens/s labelled "gloo,
      4 ranks on one card".
+  9. data parallelism and fully-sharded parameters at llama 1b (bf16,
+     B=4, S=2048, remat "dots"): the one-rank Trainer here, then four
+     processes on this one card in a gloo group (as in phase 8) through
+     9a fsdp=4 (3 steps), 9b dp=2 x fsdp=2 and 9c fsdp=2 x sp=2 (the
+     ring; 2 steps each): every rank's loss and grad norm equal, each
+     within SP_LOSS_TOL / SP_NORM_TOL of the one-rank run's; the bytes of
+     each rank's parameters, mu and nu after init exactly the whole
+     state's over fsdp, the norms whole (no rank keeps a replica); the
+     kernels' launches a rank and step those of one rank (40/20/20 at 20
+     layers; under the ring rank + 1 times as many); 9a's gathered
+     checkpoint restored under the one-rank template, each leaf equal bit
+     for bit to the ranks' shards. Step time and tokens/s labelled "gloo,
+     4 ranks on one card", each rank's peak allocation.
 
 Prints one `{"kernels": [...]}` line (with each kernel's launches in 7a
-and phase 8 too), the readings, one `{"serve": ...}` line, one
+and phases 8 and 9 too), the readings, one `{"serve": ...}` line, one
 `{"batching": ...}` line, one `{"paged": ...}` line, one `{"moe": ...}`
-line, one `{"sp": ...}` line, the nvidia-smi line, and last `{"ok": true,
-"device": {...}}`.
+line, one `{"sp": ...}` line, one `{"fsdp": ...}` line, the nvidia-smi
+line, and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -2716,21 +2729,21 @@ def sp_rank(rank, world, tmp, spec):
 
     from gpu_docker_api_tpu_torch.device import resolve_device
     from gpu_docker_api_tpu_torch.models import named_config
-    from gpu_docker_api_tpu_torch.parallel import comm
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshGroups, MeshPlan
 
     device = resolve_device(spec["device"])
     cfg = named_config("llama", spec["config"])
-    sp = comm.SPGroup.of()
+    groups = MeshGroups.build(MeshPlan(sp=world))
     inputs = torch.load(os.path.join(tmp, "inputs.pt"))
-    res = {"cases": sp_cases(torch, sp, device, inputs,
+    res = {"cases": sp_cases(torch, groups.sp, device, inputs,
                              (torch.bfloat16, torch.float32), spec["f32_s"])}
     del inputs
     torch.cuda.empty_cache()
-    res["trunk"] = sp_trunk(torch, sp, device, cfg, spec["trunk_s"])
+    res["trunk"] = sp_trunk(torch, groups, device, cfg, spec["trunk_s"])
     torch.cuda.empty_cache()
     for attn in ("ring", "ulysses"):
         res[f"train_{attn}"] = sp_train(torch, device, cfg, spec["train"],
-                                        attn, sp)
+                                        attn, groups)
         torch.cuda.empty_cache()
     torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
 
@@ -2777,19 +2790,19 @@ def sp_refs(torch, att, q, k, v, do):
     return refs
 
 
-def sp_trunk(torch, sp, device, cfg, s, seed=7):
-    """8c, on each rank: the trunk of cfg in f32 (B=1, S=s) from
-    rank 0's init, its logits shard, its global loss and its gradients
-    summed over the group, against the one-rank forward and loss on the
-    same init and batch (the gradients on rank 0). Readings: max |err|
-    over max |ref|."""
+def sp_trunk(torch, groups, device, cfg, s, seed=7):
+    """8c, on each rank of an sp plan (parallel.mesh.MeshGroups): the trunk
+    of cfg in f32 (B=1, S=s) from rank 0's init, its logits shard, its
+    global loss and its gradients summed over the group, against the
+    one-rank forward and loss on the same init and batch (the gradients on
+    rank 0). Readings: max |err| over max |ref|."""
     from gpu_docker_api_tpu_torch.models import llama
     from gpu_docker_api_tpu_torch.parallel import comm
-    from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan
     from gpu_docker_api_tpu_torch.train import Trainer, loss_fn, tree_leaves
 
     cfg = dataclasses.replace(cfg, dtype=torch.float32)
-    trainer = Trainer.create(cfg, MeshPlan(sp=sp.size), device=device, sp=sp)
+    sp = groups.sp
+    trainer = Trainer.create(cfg, groups.plan, device=device, groups=groups)
     params = trainer.init(seed=seed)["params"]
     leaves = tree_leaves(params)
     tokens = torch.randint(0, cfg.vocab_size, (1, s),
@@ -2825,25 +2838,23 @@ def sp_trunk(torch, sp, device, cfg, s, seed=7):
     return out
 
 
-def sp_train(torch, device, cfg, train, attn, sp=None, seed=0):
-    """8c: Trainer of cfg (remat "dots"), B=train["b"], S=train["s"], for
-    train["steps"] steps from init `seed` on batches drawn from (seed,
-    step); under `sp` its rank. -> losses, grad norms, step times (host
-    clock, each ending in the loss read)."""
-    from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan
+def sp_train(torch, device, cfg, train, attn, groups=None, seed=0):
+    """8c and phase 9's one-rank run: Trainer of cfg (remat "dots"),
+    B=train["b"], S=train["s"], for train["steps"] steps from init `seed`
+    on batches drawn from (seed, step); over `groups`
+    (parallel.mesh.MeshGroups) this rank's part. -> losses, grad norms,
+    step times (host clock, each ending in the loss read)."""
     from gpu_docker_api_tpu_torch.train import Trainer
 
     cfg = dataclasses.replace(cfg, sp_attn=attn)
     b, s = train["b"], train["s"]
-    trainer = Trainer.create(cfg, MeshPlan(sp=sp.size if sp else 1),
-                             device=device, sp=sp)
+    trainer = Trainer.create(cfg, groups.plan if groups else None,
+                             device=device, groups=groups)
     state = trainer.init(seed=seed)
     losses, norms, times = [], [], []
     for step in range(train["steps"]):
-        tokens = torch.randint(
-            0, cfg.vocab_size, (b, s),
-            generator=torch.Generator().manual_seed(1000 * seed + step))
-        tokens = trainer.shard_batch(tokens)
+        tokens = trainer.shard_batch(train_batch(torch, cfg, b, s, seed,
+                                                 step))
         t0 = time.perf_counter()
         state, m = trainer.step(state, tokens)
         losses.append(float(m["loss"]))
@@ -2851,6 +2862,14 @@ def sp_train(torch, device, cfg, train, attn, sp=None, seed=0):
         times.append(time.perf_counter() - t0)
     del state, trainer
     return {"losses": losses, "grad_norms": norms, "step_times_s": times}
+
+
+def train_batch(torch, cfg, b, s, seed, step):
+    """The global batch of (seed, step) on the host, as every rank and the
+    one-rank run draw it."""
+    return torch.randint(0, cfg.vocab_size, (b, s),
+                         generator=torch.Generator().manual_seed(
+                             1000 * seed + step))
 
 
 def sp_train_check(one, ranks, label):
@@ -2989,6 +3008,251 @@ def phase_sp(torch, att, device="cuda"):
             "train": train, "wall": wall}
 
 
+# ---- phase 9: data parallelism and fully-sharded parameters ------------------
+
+FSDP_RANKS = 4
+FSDP_CONFIG = "1b"                       # llama 1b, full width and depth
+FSDP_TRAIN = dict(b=4, s=2048, steps=3)  # phase 2's shape; bf16, "dots"
+FSDP_LAYOUTS = {                         # name: (plan, steps)
+    "9a": ({"fsdp": 4}, 3),
+    "9b": ({"dp": 2, "fsdp": 2}, 2),
+    "9c": ({"fsdp": 2, "sp": 2}, 2),     # the ring
+}
+FSDP_DEADLINE_S = 600                    # the ranks' whole run
+
+
+def fsdp_state_bytes(cfg, fsdp) -> int:
+    """What one rank of an fsdp group must hold of the parameters, mu and
+    nu: every leaf's bytes over fsdp, the norms (replicated) whole."""
+    from gpu_docker_api_tpu_torch.models import family_for, param_shapes
+    from gpu_docker_api_tpu_torch.train import tree_leaves, tree_map_named
+
+    def one(_, shape_dtype, kind):
+        shape, dtype = shape_dtype
+        n = math.prod(shape) * dtype.itemsize
+        return n if kind == "norm" else n // fsdp
+    return 3 * sum(tree_leaves(tree_map_named(
+        one, param_shapes(cfg), family_for(cfg).param_kinds(cfg))))
+
+
+def fsdp_launches(plan, sp_rank, n_layers) -> dict:
+    """Launches of each kernel a rank makes in one step under remat
+    "dots" (the forward reruns in the backward): one flash call a layer,
+    or under sp the causal ring's sp_rank + 1 pairs."""
+    pairs = sp_rank + 1 if plan.get("sp", 1) > 1 else 1
+    return {"flash_fwd": 2 * pairs * n_layers,
+            "flash_bwd_dq": pairs * n_layers,
+            "flash_bwd_dkv": pairs * n_layers}
+
+
+def leaf_digest(t) -> str:
+    """sha256 of a tensor's bytes."""
+    import hashlib
+
+    import torch
+    return hashlib.sha256(t.detach().cpu().contiguous().view(-1).view(
+        torch.uint8).numpy()).hexdigest()
+
+
+def flat_leaves(tree) -> list:
+    """[(path, leaf)] of a nested dict, paths as "layers.wq"."""
+    from gpu_docker_api_tpu_torch.train import tree_leaves, tree_map_named
+    return tree_leaves(tree_map_named(lambda path, t: (path, t), tree))
+
+
+def state_digests(state) -> dict:
+    """{"params" | "mu" | "nu": {path: leaf_digest}} of a train state."""
+    opt = state["opt_state"]
+    return {part: {path: leaf_digest(t) for path, t in flat_leaves(tree)}
+            for part, tree in (("params", state["params"]), ("mu", opt["mu"]),
+                               ("nu", opt["nu"]))}
+
+
+def fsdp_rank(rank, world, tmp, spec):
+    """One of phase 9's ranks (distributed.launch, gloo, every rank on
+    spec["device"]): each layout of FSDP_LAYOUTS in turn, a Trainer of
+    llama spec["config"] over its groups from init 0, its state bytes after
+    init, its launches, losses, grad norms and step times a step, its peak
+    allocation; after 9a's last step the gathered checkpoint (rank 0
+    writes it to tmp/ckpt) and this rank's shard digests. Results to
+    tmp/rank<r>.pt."""
+    import torch
+
+    from gpu_docker_api_tpu_torch.device import resolve_device
+    from gpu_docker_api_tpu_torch.models import named_config
+    from gpu_docker_api_tpu_torch.ops import attention as att
+    from gpu_docker_api_tpu_torch.parallel.mesh import (
+        MeshGroups, MeshPlan, coords,
+    )
+    from gpu_docker_api_tpu_torch.train import (
+        Trainer, save_checkpoint, tree_leaves,
+    )
+
+    device = resolve_device(spec["device"])
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.init()   # the allocator, before its peak is reset
+    res = {}
+    for name, (plan_d, steps) in FSDP_LAYOUTS.items():
+        plan = MeshPlan(**plan_d)
+        cfg = dataclasses.replace(named_config("llama", spec["config"]),
+                                  sp_attn="ring")
+        groups = MeshGroups.build(plan)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        trainer = Trainer.create(cfg, plan, device=device, groups=groups)
+        state = trainer.init(seed=0)
+        opt = state["opt_state"]
+        held = sum(leaf_bytes(t) for tree in (state["params"], opt["mu"],
+                                              opt["nu"])
+                   for t in tree_leaves(tree))
+        out = {"state_bytes": held, "launches": [], "losses": [],
+               "grad_norms": [], "step_times_s": [],
+               "sp_rank": coords(plan, rank)["sp"]}
+        for step in range(steps):
+            tokens = trainer.shard_batch(train_batch(
+                torch, cfg, spec["train"]["b"], spec["train"]["s"], 0, step))
+            att.reset_launches()
+            t0 = time.perf_counter()
+            state, m = trainer.step(state, tokens)
+            out["losses"].append(float(m["loss"]))
+            out["step_times_s"].append(time.perf_counter() - t0)
+            out["grad_norms"].append(float(m["grad_norm"]))
+            out["launches"].append(dict(att.LAUNCHES))
+        out["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
+                             if on_card else None)
+        if name == "9a":
+            t0 = time.perf_counter()
+            full = trainer.full_state(state)
+            if full is not None:
+                save_checkpoint(os.path.join(tmp, "ckpt"), full, steps)
+            del full
+            out["digests"] = state_digests(state)
+            out["checkpoint_s"] = time.perf_counter() - t0
+        res[name] = out
+        del state, opt, trainer, m
+        if on_card:
+            torch.cuda.empty_cache()
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def check_resharded_checkpoint(path, cfg, ranks, fsdp, steps) -> int:
+    """9a's gathered checkpoint restored under the one-rank template: its
+    step and count, and each leaf of params, mu and nu equal, bit for bit,
+    to the concatenation of the ranks' shards (by their digests; the norms
+    whole on every rank). -> the shards compared."""
+    from gpu_docker_api_tpu_torch.parallel.mesh import shard, spec_dim
+    from gpu_docker_api_tpu_torch.train import (
+        Trainer, param_specs, restore_checkpoint,
+    )
+
+    state, step = restore_checkpoint(
+        path, Trainer.create(cfg, device="cpu").abstract_state())
+    opt = state["opt_state"]
+    check(step == steps and state["step"] == steps
+          and opt["count"] == steps,
+          f"9a checkpoint at step {step}, state {state['step']}, count "
+          f"{opt['count']}; want {steps}")
+    dims = {path: spec_dim(spec, "fsdp")
+            for path, spec in flat_leaves(param_specs(cfg))}
+    n = 0
+    for part, tree in (("params", state["params"]), ("mu", opt["mu"]),
+                       ("nu", opt["nu"])):
+        for path, t in flat_leaves(tree):
+            for r, res in enumerate(ranks):
+                piece = shard(t, dims[path], r, fsdp, path)
+                check(leaf_digest(piece) == res["9a"]["digests"][part][path],
+                      f"9a checkpoint {part} {path}: rank {r}'s shard "
+                      f"differs")
+                n += 1
+    return n
+
+
+def fsdp_kernel_launches(fsdp, name) -> dict:
+    """{layout: [launches of kernel `name` a step, a rank]} of phase 9."""
+    return {k: [launches[name] for launches in v["launches_a_step"]]
+            for k, v in fsdp["layouts"].items()}
+
+
+def phase_fsdp(torch, att, device="cuda", config=FSDP_CONFIG,
+               train=FSDP_TRAIN):
+    """Phase 9: dp and fsdp at llama `config`. The one-rank Trainer here,
+    then FSDP_RANKS processes on this one card (a gloo group, named: NCCL
+    refuses two ranks on one GPU) through each layout of FSDP_LAYOUTS,
+    against it; the state each rank holds; its launches (none on the CPU,
+    where the wrappers take the plain versions); 9a's gathered checkpoint
+    restored under the one-rank template."""
+    from gpu_docker_api_tpu_torch import distributed
+    from gpu_docker_api_tpu_torch.models import named_config
+
+    cfg = named_config("llama", config)
+    print(f"phase 9: dp and fsdp, llama {config} ({train}, {cfg.dtype}, "
+          f"dots) over {FSDP_RANKS} gloo ranks on one card: {FSDP_LAYOUTS}",
+          flush=True)
+    wall = {}
+    t0 = time.perf_counter()
+    one = sp_train(torch, device, cfg, train, "ring")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    wall["one_rank_s"] = time.perf_counter() - t0
+    print(f"  9 one rank: {one}", flush=True)
+    want0 = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+    check(abs(one["losses"][0] - want0) < 0.1,
+          f"9 first loss {one['losses'][0]} not near {want0:.3f}")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = {"device": f"{device}:0" if device == "cuda" else device,
+                "config": config, "train": train}
+        distributed.launch(fsdp_rank, (tmp, spec), FSDP_RANKS, "gloo",
+                           timeout=FSDP_DEADLINE_S)
+        wall["ranks_s"] = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(FSDP_RANKS)]
+        t0 = time.perf_counter()
+        fsdp_a = FSDP_LAYOUTS["9a"][0]["fsdp"]
+        n = check_resharded_checkpoint(os.path.join(tmp, "ckpt"), cfg,
+                                       ranks, fsdp_a, FSDP_LAYOUTS["9a"][1])
+        wall["restore_s"] = time.perf_counter() - t0
+    print(f"  9a checkpoint: {n} shards equal to the restored leaves, "
+          f"gathered and saved in "
+          f"{[r['9a']['checkpoint_s'] for r in ranks]} s", flush=True)
+
+    tokens = train["b"] * train["s"]
+    layouts = {}
+    for name, (plan, steps) in FSDP_LAYOUTS.items():
+        runs = [r[name] for r in ranks]
+        label = f"{name} {plan}"
+        want_bytes = fsdp_state_bytes(cfg, plan.get("fsdp", 1))
+        held = [r["state_bytes"] for r in runs]
+        check(all(h == want_bytes for h in held),
+              f"{label}: state bytes a rank {held}, want {want_bytes}")
+        for r, run in enumerate(runs):
+            want = (fsdp_launches(plan, run["sp_rank"], cfg.n_layers)
+                    if device == "cuda" else dict.fromkeys(att.LAUNCHES, 0))
+            check(all(got == want for got in run["launches"]),
+                  f"{label}: rank {r} launches {run['launches']}, want "
+                  f"{want} a step")
+        rel = sp_train_check(one, runs, label)
+        step_s = statistics.median(runs[0]["step_times_s"][1:])
+        layouts[name] = {
+            "plan": plan, "steps": steps, "losses": runs[0]["losses"],
+            "grad_norms": runs[0]["grad_norms"], "rel_to_one_rank": rel,
+            "state_bytes_a_rank": held, "launches_a_step":
+                [run["launches"][0] for run in runs],
+            "peak_bytes_a_rank": [run["peak_bytes"] for run in runs],
+            "step_times_s": [run["step_times_s"] for run in runs],
+            "step_s_gloo_4_ranks_one_card": step_s,
+            "tokens_s_gloo_4_ranks_one_card": tokens / step_s}
+        print(f"  {label} (gloo, 4 ranks on one card): {layouts[name]}",
+              flush=True)
+    one["step_s"] = statistics.median(one["step_times_s"][1:])
+    one["tokens_s"] = tokens / one["step_s"]
+    one["state_bytes"] = fsdp_state_bytes(cfg, 1)
+    print(f"  phase 9 wall time {wall}", flush=True)
+    return {"one_rank": one, "layouts": layouts, "wall": wall}
+
+
 def build_kernels(torch):
     """Phase 0: the card's name and power limit, then the kernels' build.
     Returns (nvidia-smi line, the attention module)."""
@@ -3096,6 +3360,7 @@ def main() -> int:
         paged = phase_paged(torch, att, batching)
         moe = phase_moe(torch, att)
         sp = phase_sp(torch, att)
+        fsdp = phase_fsdp(torch, att)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -3109,6 +3374,7 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": m["launches"][name],
             "launches_moe": moe["train"]["launches"][name],
             "launches_long": long_launches(sp, name),
+            "launches_fsdp": fsdp_kernel_launches(fsdp, name),
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": bnd[name][0],
             "bound_by": bnd[name][1], "library_ms": k["library_ms"]})
@@ -3125,6 +3391,7 @@ def main() -> int:
     print(json.dumps({"paged": paged}), flush=True)
     print(json.dumps({"moe": moe}), flush=True)
     print(json.dumps({"sp": sp}), flush=True)
+    print(json.dumps({"fsdp": fsdp}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,10 @@
 """Model families of the workload runtime (PyTorch port).
 
 Each family exposes the surface of gpu_docker_api_tpu/models: init_params,
-forward(params, tokens, config, *, impl, sp, remat) -> logits (or
+forward(params, tokens, config, *, impl, sp, remat, fsdp) -> logits (or
 (logits, extra_loss) for MoE, whose router loss the trainer adds to CE),
-its config class, and param_shapes, the tree a checkpoint or a converted
-tree is checked against.
+its config class, param_shapes, the tree a checkpoint or a converted tree
+is checked against, and param_kinds, each leaf's sharding kind.
 """
 
 from dataclasses import dataclass
@@ -19,9 +19,11 @@ from .llama import LlamaConfig, init_params, llama_forward  # noqa: F401
 class ModelFamily:
     name: str
     init_params: Callable
-    forward: Callable          # (params, tokens, config, *, impl, sp, remat)
+    forward: Callable          # (params, tokens, config, *, impl, sp, remat,
+                               #  fsdp)
     config_cls: Any
     param_shapes: Callable     # config -> {name: (shape, dtype)}
+    param_kinds: Callable      # config -> {name: sharding kind}
     layer_keys: tuple          # the per-layer leaves, in the forward's order
     returns_extra_loss: bool = False
 
@@ -32,6 +34,7 @@ LLAMA = ModelFamily(
     forward=_llama.llama_forward,
     config_cls=_llama.LlamaConfig,
     param_shapes=_llama.param_shapes,
+    param_kinds=_llama.param_kinds,
     layer_keys=_llama._LAYER_KEYS,
 )
 
@@ -41,6 +44,7 @@ MOE = ModelFamily(
     forward=_moe.moe_forward,
     config_cls=_moe.MoEConfig,
     param_shapes=_moe.param_shapes,
+    param_kinds=_moe.param_kinds,
     layer_keys=_moe._LAYER_KEYS,
     returns_extra_loss=True,
 )

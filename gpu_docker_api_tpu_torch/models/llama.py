@@ -7,7 +7,11 @@ reference: matmuls in the config dtype, RMSNorm statistics and the logits
 in f32, split-half RoPE in f32. Attention goes through ops/attention.py
 (the flash kernels on the card). Under an `sp` group (parallel/comm.SPGroup)
 each rank runs its S/sp shard of the tokens, with RoPE at global positions
-and attention as ring or Ulysses attention (LlamaConfig.sp_attn).
+and attention as ring or Ulysses attention (LlamaConfig.sp_attn). Under an
+`fsdp` group each rank holds a shard of every matrix (param_kinds,
+parallel/mesh.param_sharding_rules) and gathers it whole at its use, a
+decoder layer's inside the layer's body: under remat the recompute gathers
+again, so no layer's whole weights outlive their use (ZeRO-3).
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import attention
+from ..parallel import comm
+from ..parallel.mesh import param_sharding_rules, spec_dim
 from .remat import remat_wrap
 
 
@@ -110,6 +116,48 @@ def param_shapes(config: LlamaConfig) -> dict:
     }
 
 
+ATTN_PARAM_KINDS = {
+    "attn_norm": "norm", "mlp_norm": "norm",
+    "wq": "attn_in", "wk": "attn_in", "wv": "attn_in",
+    "wo": "attn_out",
+}
+
+
+def param_kinds(config: LlamaConfig) -> dict:
+    """Sharding-kind tree matching init_params' structure (keys into
+    parallel.mesh.param_sharding_rules)."""
+    return {
+        "embed": "embed",
+        "layers": {
+            **ATTN_PARAM_KINDS,
+            "w1": "mlp_in", "w3": "mlp_in", "w2": "mlp_out",
+        },
+        "final_norm": "norm",
+        "lm_head": "lm_head",
+    }
+
+
+def fsdp_dim(kind: str):
+    """The dim of one (unstacked) leaf of `kind` that fsdp shards, or
+    None."""
+    return spec_dim(param_sharding_rules()[kind], "fsdp")
+
+
+def gather(tensors, kinds, fsdp) -> list:
+    """The leaves whole: those of a kind fsdp shards gathered over the
+    `fsdp` group in one collective (comm.all_gather), the others as they
+    are; all as they are without a group."""
+    tensors = list(tensors)
+    if not sharded(fsdp):
+        return tensors
+    idx = [i for i, k in enumerate(kinds) if fsdp_dim(k) is not None]
+    full = comm.all_gather([tensors[i] for i in idx],
+                           [fsdp_dim(kinds[i]) for i in idx], fsdp)
+    for i, t in zip(idx, full):
+        tensors[i] = t
+    return tensors
+
+
 def init_from_shapes(shapes: dict, generator: torch.Generator,
                      place=None) -> dict:
     """A parameter tree of `shapes` ({name: (shape, dtype)}, nested) drawn
@@ -172,9 +220,10 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
 
 
-def sharded(sp) -> bool:
-    """True when `sp` (a parallel.comm.SPGroup or None) spans ranks."""
-    return sp is not None and sp.size > 1
+def sharded(group) -> bool:
+    """True when `group` (a parallel.comm.AxisGroup or None) spans
+    ranks."""
+    return group is not None and group.size > 1
 
 
 def shard_positions(s_loc: int, sp, device) -> torch.Tensor:
@@ -224,18 +273,24 @@ _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w1", "w3",
 
 
 def llama_forward(params: dict, tokens: torch.Tensor, config: LlamaConfig,
-                  impl: str = "auto", sp=None,
-                  remat: str = "none") -> torch.Tensor:
+                  impl: str = "auto", sp=None, remat: str = "none",
+                  fsdp=None) -> torch.Tensor:
     """tokens [B, S] int -> logits [B, S, V] f32. remat: "none" | "full" |
     "dots" — per-layer checkpointing of the decoder body (models/remat.py).
     Under an `sp` group (parallel.comm.SPGroup) tokens are this rank's
-    [B, S/sp] shard and so are the logits; every rank calls together."""
+    [B, S/sp] shard and so are the logits; under an `fsdp` group params
+    are this rank's shards (param_kinds). Every rank calls together."""
     c = config
     s = tokens.shape[1]
-    x = F.embedding(tokens, params["embed"])
+    kinds = param_kinds(c)
+    layer_kinds = [kinds["layers"][name] for name in _LAYER_KEYS]
+    embed, = gather([params["embed"]], ["embed"], fsdp)
+    x = F.embedding(tokens, embed)
+    del embed
     cos, sin = rope_frequencies(c, shard_positions(s, sp, tokens.device))
 
     def body(x, *weights):
+        weights = gather(weights, layer_kinds, fsdp)
         layer = dict(zip(_LAYER_KEYS, weights))
         x = _attention_block(x, layer, c, cos, sin, impl, sp)
         return _mlp_block(x, layer, c)
@@ -246,6 +301,7 @@ def llama_forward(params: dict, tokens: torch.Tensor, config: LlamaConfig,
     for weights in zip(*stacks):
         x = step(x, *weights)
     x = rms_norm(x, params["final_norm"], c.norm_eps)
+    lm_head, = gather([params["lm_head"]], ["lm_head"], fsdp)
     # logits in f32: the loss softmax needs the headroom
-    return (x @ params["lm_head"]).float()
+    return (x @ lm_head).float()
 

@@ -130,6 +130,22 @@ def param_shapes(config: MoEConfig) -> dict:
     return {**dense, "layers": layers}
 
 
+def param_kinds(config: MoEConfig) -> dict:
+    """Sharding-kind tree (keys into parallel.mesh.param_sharding_rules).
+    Shape bookkeeping only: MoE training under dp/fsdp is not yet
+    ported."""
+    return {
+        "embed": "embed",
+        "layers": {
+            **_llama.ATTN_PARAM_KINDS,
+            "router": "router",
+            "we1": "expert_in", "we3": "expert_in", "we2": "expert_out",
+        },
+        "final_norm": "norm",
+        "lm_head": "lm_head",
+    }
+
+
 def init_params(config: MoEConfig, generator: torch.Generator,
                 place=None) -> dict:
     """Random parameters on the generator's device (llama.init_from_shapes:
@@ -275,8 +291,8 @@ def moe_block(x: torch.Tensor, layer: dict, config: MoEConfig
 # ---- forward ----------------------------------------------------------------
 
 def moe_forward(params: dict, tokens: torch.Tensor, config: MoEConfig,
-                impl: str = "auto", sp=None, remat: str = "none"
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+                impl: str = "auto", sp=None, remat: str = "none",
+                fsdp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] int -> (logits [B, S, V] f32, router_loss f32 scalar).
 
     router_loss = aux_weight * load_balance + z_weight * z_loss, summed over
@@ -284,11 +300,11 @@ def moe_forward(params: dict, tokens: torch.Tensor, config: MoEConfig,
     ops/attention.py (the flash kernels on the card); remat as
     llama_forward. Not under an `sp` group: JAX routes the global token
     array (the capacity scan runs over every token), which a rank-local
-    route would not."""
-    if sharded(sp):
+    route would not; nor, for the same reason, under `fsdp`."""
+    if sharded(sp) or sharded(fsdp):
         raise NotImplementedError(
-            "MoE under sequence parallelism (sp > 1) is not yet ported to "
-            "PyTorch: routing runs over the global token array")
+            "MoE over a group of ranks (sp or fsdp > 1) is not yet ported "
+            "to PyTorch: routing runs over the global token array")
     c = config
     lc = c.as_llama()
     s = tokens.shape[1]

@@ -1,10 +1,11 @@
-"""The collectives of sequence parallelism, over a torch.distributed group.
+"""The collectives of the parallel axes, over torch.distributed groups.
 
-The JAX package gets these from XLA inside shard_map (lax.ppermute,
-lax.all_to_all, the psum of replicated gradients). torch.distributed's
-point-to-point and all-to-all calls carry no gradient, so the two that sit
-inside the model are torch.autograd.Functions whose backward is their
-transpose:
+The JAX package gets these from XLA (inside shard_map: lax.ppermute,
+lax.all_to_all, the psum of replicated gradients; from sharding
+annotations: the fsdp all-gather of a parameter and the reduce-scatter of
+its gradient). torch.distributed's calls carry no gradient, so the ones
+that sit inside the model are torch.autograd.Functions whose backward is
+their transpose:
 
 - ring_shift_start(tensors, sp, wire): send to rank + 1 and receive from
   rank - 1 in one batch_isend_irecv, returned in flight (RingHop) so the
@@ -14,8 +15,12 @@ transpose:
 - all_to_all(tensors, split_dim, concat_dim, sp): the tiled lax.all_to_all
   (split along one dim, the pieces gathered in rank order along another);
   backward is the inverse all-to-all.
-- all_reduce_sum, all_reduce_max and broadcast: in place, no gradient, for
-  the trainer (bucketed through a flat buffer).
+- all_gather(tensors, dims, group): each parameter shard gathered whole
+  along its dim (fsdp, in one collective); backward is the reduce-scatter
+  (reduce_scatter_sum): the cotangents summed over the group in f32, this
+  rank's slice kept.
+- all_reduce_sum and all_reduce_max: in place, no gradient, for the
+  trainer (the sum bucketed through a flat buffer).
 
 Transport: on an NCCL group the tensors go as they are. On a gloo group a
 CUDA tensor goes through a host buffer and comes back to its device,
@@ -32,21 +37,22 @@ from typing import Any, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-# elements of one flat f32 bucket of all_reduce_sum / broadcast (256 MB)
+# elements of one flat f32 bucket of all_reduce_sum (256 MB)
 BUCKET = 1 << 26
 
 
 @dataclass(frozen=True)
-class SPGroup:
-    """The sequence-parallel group: the torch.distributed group, this
-    process's rank in it and its size. Takes the `sp` mesh axis's place:
-    each rank holds the rank-th S/size shard of the sequence."""
+class AxisGroup:
+    """The ranks of one parallel axis: the torch.distributed group (None =
+    the default group), this process's rank in it and its size. Under sp
+    each rank holds the rank-th S/size shard of the sequence, under fsdp
+    the rank-th 1/size of each sharded parameter."""
     group: Any
     rank: int
     size: int
 
     @classmethod
-    def of(cls, group=None) -> "SPGroup":
+    def of(cls, group=None) -> "AxisGroup":
         """The group (default: the whole world) as seen from this rank."""
         return cls(group=group, rank=dist.get_rank(group),
                    size=dist.get_world_size(group))
@@ -57,14 +63,15 @@ class SPGroup:
         return dist.get_backend(self.group) == "gloo"
 
 
-def _wire(t: torch.Tensor, sp: SPGroup) -> torch.Tensor:
+# the name the sequence-parallel code (ring.py, ulysses.py) uses
+SPGroup = AxisGroup
+
+
+def _wire(t: torch.Tensor, sp: AxisGroup) -> torch.Tensor:
     """What goes on the wire: a contiguous tensor, on the host when a gloo
     group carries a CUDA tensor."""
     t = t.contiguous()
     return t.cpu() if sp.staged and t.is_cuda else t
-
-
-
 
 
 # ---- ring shift ------------------------------------------------------------
@@ -213,6 +220,80 @@ def all_to_all(tensors: Sequence[torch.Tensor], split_dim: int,
     return _AllToAll.apply(sp, split_dim, concat_dim, *tensors)
 
 
+# ---- fsdp: all-gather and reduce-scatter -------------------------------------
+
+def _gather(tensors: Sequence[torch.Tensor], dims: Sequence[int],
+            g: AxisGroup) -> list:
+    """Each shard gathered whole along its dim, in one all-gather of their
+    bytes (any dtypes, bit for bit)."""
+    flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors])
+    send = _wire(flat, g)
+    recv = send.new_empty(g.size * send.numel())
+    dist.all_gather_into_tensor(recv, send, group=g.group)
+    recv = recv.to(flat.device).view(g.size, -1)      # [rank, bytes]
+    out, pos = [], 0
+    for t, dim in zip(tensors, dims):
+        n = t.numel() * t.element_size()
+        pieces = recv[:, pos:pos + n].contiguous().view(t.dtype)
+        out.append(torch.cat(pieces.view(g.size, *t.shape).unbind(0),
+                             dim=dim))
+        pos += n
+    return out
+
+
+def reduce_scatter_sum(tensors: Sequence[torch.Tensor], dims: Sequence[int],
+                       g: AxisGroup) -> list:
+    """Each tensor summed over the group in f32 and cut along its dim into
+    group-size slices, this rank's slice kept (cast back to its dtype): one
+    reduce-scatter for all of them. No gradient."""
+    with torch.no_grad():
+        rows = [torch.stack(t.float().chunk(g.size, dim=dim)).reshape(
+            g.size, -1) for t, dim in zip(tensors, dims)]
+        flat = torch.cat(rows, dim=1)                  # [rank, elements]
+        send = _wire(flat, g)
+        recv = send.new_empty(flat.shape[1])
+        dist.reduce_scatter_tensor(recv, send.view(-1), op=dist.ReduceOp.SUM,
+                                   group=g.group)
+        recv = recv.to(flat.device)
+        out, pos = [], 0
+        for t, dim in zip(tensors, dims):
+            shape = list(t.shape)
+            shape[dim] //= g.size
+            n = t.numel() // g.size
+            out.append(recv[pos:pos + n].view(shape).to(t.dtype))
+            pos += n
+        return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, dims, *shards):
+        ctx.g, ctx.dims = g, dims
+        return tuple(_gather(shards, dims, g))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # grads are materialised (an unused output's is zeros), so every
+        # rank runs the same reduce-scatter
+        return (None, None, *reduce_scatter_sum(grads, ctx.dims, ctx.g))
+
+
+def all_gather(tensors: Sequence[torch.Tensor], dims: Sequence[int],
+               g: AxisGroup) -> tuple[torch.Tensor, ...]:
+    """Each rank's shard of each tensor gathered whole along its dim (the
+    shards concatenated in rank order), in one collective: what XLA does
+    for an fsdp-sharded parameter at its use. Differentiable: the backward
+    is the reduce-scatter (each cotangent summed over the group in f32,
+    this rank's slice kept). Every rank of the group must call it."""
+    return _AllGather.apply(g, tuple(dims), *tensors)
+
+
+@torch.no_grad()
+def gather_leaf(t: torch.Tensor, dim: int, g: AxisGroup) -> torch.Tensor:
+    """One shard gathered whole, no gradient (checkpoints, tests)."""
+    return _gather([t.detach()], [dim], g)[0]
+
+
 # ---- trainer collectives (no gradient) ---------------------------------------
 
 def _buckets(tensors):
@@ -240,48 +321,31 @@ def _unflat(flat, group) -> None:
         pos += t.numel()
 
 
-def _wire_device(t: torch.Tensor, sp: SPGroup):
-    return torch.device("cpu") if sp.staged else t.device
+def _wire_device(t: torch.Tensor, g: AxisGroup):
+    return torch.device("cpu") if g.staged else t.device
 
 
 @torch.no_grad()
-def all_reduce_sum(tensors: Sequence[torch.Tensor], sp: SPGroup) -> None:
+def all_reduce_sum(tensors: Sequence[torch.Tensor], g: AxisGroup) -> None:
     """Sum each tensor over the group, in place: the sum is taken in f32
     and cast back to each tensor's dtype."""
     for group in _buckets(tensors):
-        flat = _flat(group, torch.float32, _wire_device(group[0], sp))
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=sp.group)
+        flat = _flat(group, torch.float32, _wire_device(group[0], g))
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=g.group)
         _unflat(flat, group)
 
 
 @torch.no_grad()
-def all_reduce_max(tensors: Sequence[torch.Tensor], sp: SPGroup) -> None:
+def all_reduce_max(tensors: Sequence[torch.Tensor], g: AxisGroup) -> None:
     """Elementwise max of each tensor over the group, in place."""
     for t in tensors:
-        buf = _wire(t, sp)
-        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=sp.group)
+        buf = _wire(t, g)
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=g.group)
         if buf is not t:
             t.copy_(buf)
 
 
-@torch.no_grad()
-def broadcast(tensors: Sequence[torch.Tensor], sp: SPGroup) -> None:
-    """Every tensor takes group rank 0's values, in place, bit for bit
-    (the bytes travel, whatever the dtype)."""
-    root = _global(sp, 0)
-    for group in _buckets(tensors):
-        flat = torch.cat([t.view(-1).view(torch.uint8) for t in group])
-        buf = flat.to(_wire_device(flat, sp))
-        dist.broadcast(buf, src=root, group=sp.group)
-        flat.copy_(buf)
-        pos = 0
-        for t in group:
-            n = t.numel() * t.element_size()
-            t.view(-1).view(torch.uint8).copy_(flat[pos:pos + n])
-            pos += n
-
-
-def local_shard(x: torch.Tensor, sp: Optional[SPGroup]) -> torch.Tensor:
+def local_shard(x: torch.Tensor, sp: Optional[AxisGroup]) -> torch.Tensor:
     """This rank's contiguous 1/size of x along the sequence (dim 1); x
     itself without a group."""
     if sp is None or sp.size == 1:

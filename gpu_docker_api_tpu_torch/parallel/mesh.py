@@ -2,9 +2,14 @@
 
 The plan and the control plane's env contract: MeshPlan and plan_from_env,
 kept identical to the JAX package's so both runtimes read TDAPI_MESH_PLAN
-the same way. Torch has no mesh: the one axis ported so far, `sp`, is a
-torch.distributed group of ranks (parallel/comm.SPGroup, ring.py,
-ulysses.py). require_ported refuses a plan with any other axis above 1.
+the same way. Torch has no mesh: make_mesh lays the plan's ranks out
+row-major over AXES, as the JAX mesh lays out its devices, and
+MeshGroups forms one torch.distributed group per axis above 1
+(parallel/comm.AxisGroup). The sharding rules are the JAX package's
+PartitionSpecs, written as tuples of axis names per dim: fsdp shards each
+parameter along the dim its kind's rule names (ZeRO-3), the batch rows go
+over dp x fsdp and the sequence over sp. require_ported admits dp, fsdp
+and sp and refuses the other axes above 1.
 """
 
 from __future__ import annotations
@@ -13,6 +18,12 @@ import json
 import os
 from dataclasses import dataclass
 from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from .comm import AxisGroup
 
 AXES = ("dp", "fsdp", "pp", "ep", "tp", "sp")
 
@@ -75,11 +86,157 @@ def plan_from_env(env: Optional[dict] = None) -> Optional[MeshPlan]:
     return MeshPlan(**vals)
 
 
+PORTED = ("dp", "fsdp", "sp")
+
+
 def require_ported(plan: MeshPlan) -> None:
-    """Sequence parallelism (`sp`) is the one axis ported; refuse a plan
-    with any other axis above 1."""
-    others = [a for a in AXES if a != "sp" and getattr(plan, a) > 1]
+    """dp, fsdp and sp are the axes ported; refuse a plan with any other
+    axis above 1."""
+    others = [a for a in AXES if a not in PORTED and getattr(plan, a) > 1]
     if others:
         raise NotImplementedError(
             f"{plan}: the {', '.join(others)} axis is not yet ported to "
-            f"PyTorch (only sp is)")
+            f"PyTorch (only {', '.join(PORTED)} are)")
+
+
+def make_mesh(plan: MeshPlan) -> np.ndarray:
+    """The ranks of the plan laid out over AXES: an int array of shape
+    (dp, fsdp, pp, ep, tp, sp), row-major, as the JAX make_mesh reshapes
+    its device list. Rank r sits at the coordinates where it appears."""
+    return np.arange(plan.size).reshape(
+        [getattr(plan, a) for a in AXES])
+
+
+def coords(plan: MeshPlan, rank: int) -> dict:
+    """{axis: this rank's index along it} (make_mesh's layout)."""
+    at = np.unravel_index(rank, [getattr(plan, a) for a in AXES])
+    return {a: int(i) for a, i in zip(AXES, at)}
+
+
+def axis_lines(plan: MeshPlan, axes: tuple) -> list:
+    """The groups of ranks that differ only along `axes`: one list of
+    ranks per setting of the other axes, each in row-major order, the
+    groups in row-major order of the other axes."""
+    mesh = make_mesh(plan)
+    inner = [AXES.index(a) for a in AXES if a in axes]
+    outer = [i for i in range(len(AXES)) if i not in inner]
+    lines = mesh.transpose(outer + inner).reshape(
+        -1, int(np.prod([mesh.shape[i] for i in inner], dtype=int)))
+    return [[int(r) for r in line] for line in lines]
+
+
+# ---- logical sharding rules -------------------------------------------------
+
+def param_sharding_rules() -> dict:
+    """The JAX PartitionSpec of each parameter kind as a tuple with one
+    entry per dim: None (not sharded), an axis name, or a tuple of axis
+    names (major first). fsdp shards the other axis of every matrix from
+    the one tp splits (Megatron column-parallel in, row-parallel out)."""
+    return {
+        "embed": (("tp", "fsdp"), None),        # [V, D] vocab-parallel
+        "attn_in": ("fsdp", "tp"),              # [D, heads*head_dim]
+        "attn_out": ("tp", "fsdp"),             # [heads*head_dim, D]
+        "mlp_in": ("fsdp", "tp"),               # [D, F] (w1, w3)
+        "mlp_out": ("tp", "fsdp"),              # [F, D] (w2)
+        "norm": (None,),                        # [D]
+        "lm_head": ("fsdp", "tp"),              # [D, V]
+        "router": (None, None),                 # [D, E]
+        "expert_in": ("ep", "fsdp", "tp"),      # [E, D, F]
+        "expert_out": ("ep", "tp", "fsdp"),     # [E, F, D]
+    }
+
+
+BATCH_AXES = ("dp", "fsdp", "ep")
+
+
+def batch_spec() -> tuple:
+    """Integer token batches [batch, seq]: rows over the data axes, the
+    sequence over sp."""
+    return (BATCH_AXES, "sp")
+
+
+def spec_dim(spec: tuple, axis: str) -> Optional[int]:
+    """The dim of `spec` that `axis` shards, or None."""
+    for dim, entry in enumerate(spec):
+        if entry == axis or (isinstance(entry, tuple) and axis in entry):
+            return dim
+    return None
+
+
+def shard(x: torch.Tensor, dim: Optional[int], rank: int, size: int,
+          name: str = "leaf") -> torch.Tensor:
+    """This rank's contiguous 1/size of x along `dim` (a view), or x when
+    it is not sharded. A dim that does not divide raises ValueError, as
+    the JAX device_put of an uneven sharding does."""
+    if dim is None or size == 1:
+        return x
+    if x.shape[dim] % size:
+        raise ValueError(f"{name}: dim {dim} of {tuple(x.shape)} does not "
+                         f"divide over fsdp {size}")
+    return x.chunk(size, dim=dim)[rank]
+
+
+def unshard(shards, dim: Optional[int]) -> torch.Tensor:
+    """The leaf the ranks' shards (in rank order) were cut from."""
+    return shards[0] if dim is None else torch.cat(list(shards), dim=dim)
+
+
+def shard_params(params: dict, specs: dict, rank: int, size: int,
+                 prefix: str = "") -> dict:
+    """Each leaf's shard along the dim its spec (param_specs) gives fsdp."""
+    return {k: shard_params(v, specs[k], rank, size, f"{prefix}{k}.")
+            if isinstance(v, dict) else
+            shard(v, spec_dim(specs[k], "fsdp"), rank, size, prefix + k)
+            for k, v in params.items()}
+
+
+@dataclass(frozen=True)
+class MeshGroups:
+    """This rank's place in the plan's process groups: one AxisGroup per
+    ported axis above 1 (None at size 1), `replica` over the ranks that
+    hold the same parameter shards (dp x sp: the gradient sum of a sharded
+    leaf) and `world` over every rank (None alone)."""
+    plan: MeshPlan
+    rank: int
+    dp: Optional[AxisGroup] = None
+    fsdp: Optional[AxisGroup] = None
+    sp: Optional[AxisGroup] = None
+    replica: Optional[AxisGroup] = None
+    world: Optional[AxisGroup] = None
+
+    @property
+    def rows(self) -> tuple[int, int]:
+        """(this rank's row shard, how many): the batch rows go over dp x
+        fsdp, dp major."""
+        c = coords(self.plan, self.rank)
+        n = self.plan.dp * self.plan.fsdp
+        return c["dp"] * self.plan.fsdp + c["fsdp"], n
+
+    @classmethod
+    def build(cls, plan: MeshPlan) -> "MeshGroups":
+        """Form the groups over the default torch.distributed group, whose
+        ranks are the plan's. Collective: every rank calls it and forms
+        every group in the same order; an axis that spans the world takes
+        the default group, and axes over the same ranks share one."""
+        require_ported(plan)
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if world != plan.size:
+            raise ValueError(f"{plan} needs {plan.size} ranks, the group "
+                             f"has {world}")
+        formed: dict = {}
+
+        def group(*axes):
+            lines = axis_lines(plan, axes)
+            if len(lines[0]) == 1:
+                return None
+            key = tuple(map(tuple, lines))
+            if key not in formed:
+                mine = None
+                if len(lines[0]) < world:
+                    mine, _ = dist.new_subgroups_by_enumeration(lines)
+                formed[key] = AxisGroup.of(mine)
+            return formed[key]
+
+        return cls(plan=plan, rank=rank, dp=group("dp"), fsdp=group("fsdp"),
+                   sp=group("sp"), replica=group("dp", "sp"),
+                   world=group(*AXES))

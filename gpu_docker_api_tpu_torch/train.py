@@ -6,11 +6,16 @@ leaf), gradient accumulation with f32 sums, atomic torch.save checkpoints
 (one directory per step) and the byte-compatible quiesce protocol the
 control plane's Backend.quiesce drives.
 
-On one device, or over an `sp` group of ranks (sequence parallelism): every
-rank takes the whole global batch, runs its S/sp shard of it, and holds the
-parameters whole. The loss is the global mean (each rank's log-likelihood
-sum over the global count), its gradients are summed over the group in f32
-before the clip, so every rank takes the same AdamW update.
+On one device, or on this rank of a plan over dp, fsdp and sp
+(parallel/mesh.MeshGroups): each rank takes its B/(dp*fsdp) rows of the
+global batch and its S/sp positions, and holds 1/fsdp of every parameter
+and AdamW moment along the dim its kind's rule names (param_specs; the
+norms whole). The loss is the global mean (each rank's log-likelihood sum
+over the global count). A sharded leaf's gradient is reduce-scattered over
+fsdp in the backward (comm.all_gather) and summed over dp x sp, a whole
+leaf's over every rank, in f32; the clip takes the global norm, so each
+step is the one-rank step on the global batch. Checkpoints hold the
+gathered state, so one written under any plan restores under any other.
 """
 
 from __future__ import annotations
@@ -28,8 +33,12 @@ import torch.nn.functional as F
 from .data import to_device
 from .device import resolve_device
 from .models import family_for, param_shapes
+from .models.llama import init_from_shapes, sharded
 from .parallel import comm
-from .parallel.mesh import MeshPlan, require_ported
+from .parallel.mesh import (
+    MeshGroups, MeshPlan, param_sharding_rules, require_ported, shard,
+    shard_params, spec_dim,
+)
 
 
 @dataclass
@@ -101,9 +110,24 @@ def tree_map(fn, tree: dict) -> dict:
             for k, v in tree.items()}
 
 
+def tree_map_named(fn, tree: dict, *rest: dict, prefix: str = "") -> dict:
+    """fn(path, leaf, *the leaves of `rest` at the same place) over nested
+    dicts of one structure; a path is "layers.wq"."""
+    return {k: tree_map_named(fn, v, *(r[k] for r in rest),
+                              prefix=f"{prefix}{k}.")
+            if isinstance(v, dict) else fn(prefix + k, v,
+                                           *(r[k] for r in rest))
+            for k, v in tree.items()}
+
+
+def sum_squares(tensors) -> torch.Tensor:
+    """The sum of squares over every leaf, in f32."""
+    return sum((t.float() * t.float()).sum() for t in tensors)
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, in f32."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+    return torch.sqrt(sum_squares(tensors))
 
 
 class AdamW:
@@ -128,9 +152,12 @@ class AdamW:
                 "nu": tree_map(torch.zeros_like, params)}
 
     @torch.no_grad()
-    def update(self, grads: list, state: dict, params: list) -> None:
+    def update(self, grads: list, state: dict, params: list,
+               norm: Optional[torch.Tensor] = None) -> None:
+        """norm: the global norm of the gradients the clip takes (default:
+        theirs; a sharded trainer passes the norm over every shard)."""
         tc = self.tc
-        norm = global_norm(grads)
+        norm = global_norm(grads) if norm is None else norm
         clip = not bool(norm < tc.grad_clip)
         count = state["count"]
         lr = self.lr(count) if callable(self.lr) else self.lr
@@ -156,35 +183,41 @@ class AdamW:
 
 def loss_fn(params, tokens, config, impl: str = "auto_grad", sp=None,
             n_microbatches: int = 0, remat: bool = True,
-            remat_policy: str = "dots"):
+            remat_policy: str = "dots", fsdp=None, row_shards: int = 1):
     """Next-token CE in f32 (+ the family's extra loss). tokens [B, S];
     predicts tokens[:, 1:].
 
-    Under an `sp` group (parallel.comm.SPGroup) tokens are the GLOBAL batch
-    on every rank, and the value is this rank's share of the global mean:
-    the log-likelihood sum of its S/sp positions over B * (S - 1). A
-    shard's last position predicts the next shard's first token; the
-    global last position predicts nothing. The shares sum to the loss."""
+    Over ranks, the value is this rank's share of the global mean: the
+    log-likelihood sum of its tokens over the global count, B * row_shards
+    * (S - 1), where tokens are this rank's rows of the global batch (one
+    of `row_shards`, dp x fsdp) and, under an `sp` group
+    (parallel.comm.AxisGroup), all their positions, of which the rank runs
+    its S/sp. A shard's last position predicts the next shard's first
+    token; the global last position predicts nothing. The shares sum to
+    the loss. `fsdp`: the group params are sharded over."""
     if n_microbatches:
         raise NotImplementedError(
             "the pipelined trunk is not yet ported to PyTorch")
     fam = family_for(config)
     remat_policy = remat_policy if remat else "none"
-    if sp is None or sp.size == 1:
-        out = fam.forward(params, tokens, config, impl=impl, sp=sp,
-                          remat=remat_policy)                      # f32
+    kw = dict(impl=impl, sp=sp, fsdp=fsdp, remat=remat_policy)
+    if not sharded(sp) and row_shards == 1:
+        out = fam.forward(params, tokens, config, **kw)            # f32
         logits, extra = out if fam.returns_extra_loss else (out, 0.0)
         return -_log_likelihood(logits[:, :-1], tokens[:, 1:]).mean() + extra
     b, s = tokens.shape
-    if s % sp.size:
-        raise ValueError(f"seq {s} does not shard over sp {sp.size}")
-    s_loc = s // sp.size
-    lo = sp.rank * s_loc
-    logits = fam.forward(params, tokens[:, lo:lo + s_loc], config, impl=impl,
-                         sp=sp, remat=remat_policy)                # f32
+    n_sp, sp_rank = (sp.size, sp.rank) if sharded(sp) else (1, 0)
+    if s % n_sp:
+        raise ValueError(f"seq {s} does not shard over sp {n_sp}")
+    if fam.returns_extra_loss:
+        raise NotImplementedError(
+            f"{fam.name} over ranks is not yet ported to PyTorch")
+    s_loc = s // n_sp
+    lo = sp_rank * s_loc
+    logits = fam.forward(params, tokens[:, lo:lo + s_loc], config, **kw)
     targets = tokens[:, lo + 1:lo + s_loc + 1]      # one short on the last
     ll = _log_likelihood(logits[:, :targets.shape[1]], targets)
-    return -ll.sum() / (b * (s - 1))
+    return -ll.sum() / (b * row_shards * (s - 1))
 
 
 def _log_likelihood(logits, targets):
@@ -195,71 +228,181 @@ def _log_likelihood(logits, targets):
 
 # ---- trainer ----------------------------------------------------------------
 
+def param_specs(config) -> dict:
+    """The sharding spec tree of the train state's parameters
+    (param_sharding_rules by param_kinds): the stacked layers get an
+    unsharded leading [L] dim."""
+    rules = param_sharding_rules()
+    kinds = family_for(config).param_kinds(config)
+    return {
+        "embed": rules[kinds["embed"]],
+        "layers": {k: (None, *rules[v]) for k, v in kinds["layers"].items()},
+        "final_norm": rules[kinds["final_norm"]],
+        "lm_head": rules[kinds["lm_head"]],
+    }
+
+
 @dataclass
 class Trainer:
-    """Owns the train step on one device, or on this rank of an `sp` group.
+    """Owns the train step on one device, or on this rank of a plan over
+    dp, fsdp and sp.
 
     Usage:
         trainer = Trainer.create(config)            # on the card
         state = trainer.init(seed=0)
         state, metrics = trainer.step(state, trainer.shard_batch(tokens))
-    """
+
+    Over ranks: Trainer.create(config, plan, groups=MeshGroups.build(plan))
+    on every rank, each with the same global batch to shard_batch."""
     config: Any
     tc: TrainConfig
     device: torch.device
     plan: MeshPlan
     optimizer: AdamW
-    sp: Optional[comm.SPGroup] = None
+    groups: Optional[MeshGroups] = None
 
     @classmethod
     def create(cls, config, plan: Optional[MeshPlan] = None,
-               tc: Optional[TrainConfig] = None,
-               device=None, sp: Optional[comm.SPGroup] = None) -> "Trainer":
+               tc: Optional[TrainConfig] = None, device=None,
+               groups: Optional[MeshGroups] = None) -> "Trainer":
         """device: None or "cuda" = the card (raises without one); "cpu"
-        only when asked for. sp: this rank's sequence-parallel group,
-        which a plan with sp > 1 needs (of that size)."""
-        plan = plan or MeshPlan(sp=sp.size if sp else 1)
+        only when asked for. groups: this rank's groups of the plan, which
+        a plan over more than one rank needs."""
+        plan = plan or (groups.plan if groups else MeshPlan())
         require_ported(plan)
-        if plan.sp > 1 and (sp is None or sp.size != plan.sp):
-            raise ValueError(f"{plan} needs an sp group of {plan.sp} ranks, "
-                             f"got {sp}")
+        if plan.size > 1 and (groups is None or groups.plan != plan):
+            raise ValueError(f"{plan} needs the groups of its {plan.size} "
+                             f"ranks (MeshGroups.build), got {groups}")
+        if plan.size > 1 and family_for(config).returns_extra_loss:
+            raise NotImplementedError(
+                f"{family_for(config).name} under {plan}: routing over a "
+                f"group of ranks is not yet ported to PyTorch")
         tc = tc or TrainConfig()
-        return cls(config=config, tc=tc, device=resolve_device(device),
-                   plan=plan, optimizer=AdamW(tc),
-                   sp=sp if plan.sp > 1 else None)
+        trainer = cls(config=config, tc=tc, device=resolve_device(device),
+                      plan=plan, optimizer=AdamW(tc),
+                      groups=groups if plan.size > 1 else None)
+        # an uneven shard fails here, before any state exists
+        shard_params(tree_map(lambda sd: torch.empty(
+            sd[0], dtype=sd[1], device="meta"), param_shapes(config)),
+            param_specs(config), 0, plan.fsdp)
+        return trainer
+
+    # ---- the layout ----
+
+    @property
+    def sp(self) -> Optional[comm.AxisGroup]:
+        return self.groups.sp if self.groups else None
+
+    @property
+    def fsdp(self) -> Optional[comm.AxisGroup]:
+        return self.groups.fsdp if self.groups else None
+
+    @property
+    def dims(self) -> dict:
+        """The dim fsdp shards of each leaf of the state's parameter tree
+        (None: whole on every rank)."""
+        n = self.plan.fsdp
+        return tree_map(lambda spec: spec_dim(spec, "fsdp") if n > 1
+                        else None, param_specs(self.config))
+
+    def _own(self, t: torch.Tensor) -> torch.Tensor:
+        """An owned, contiguous copy on the trainer's device."""
+        return t.to(self.device, memory_format=torch.contiguous_format,
+                    copy=True)
+
+    def _shard_tree(self, tree: dict) -> dict:
+        """This rank's shards of a whole parameter-shaped tree
+        (shard_params), owned copies on the trainer's device."""
+        rank = self.fsdp.rank if self.fsdp else 0
+        return tree_map(self._own, shard_params(
+            tree, param_specs(self.config), rank, self.plan.fsdp))
+
+    # ---- state ----
 
     def init(self, seed: int = 0) -> dict:
-        """Fresh parameters from `seed`; under an sp group, rank 0's, so
-        the replicas start equal whatever their generators do."""
+        """Fresh parameters from `seed`, drawn leaf by leaf as the
+        one-rank init draws them (so every rank draws rank 0's values);
+        each rank keeps its shard of a leaf as soon as it is drawn, so no
+        rank holds more than one whole leaf at a time."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params = family_for(self.config).init_params(self.config, gen)
-        if self.sp is not None:
-            comm.broadcast(tree_leaves(params), self.sp)
-        return self.state_from_params(params)
+
+        rank = self.fsdp.rank if self.fsdp else 0
+
+        def leaf(path, shape_dtype, dim):
+            name = path.rsplit(".", 1)[-1]
+            whole = init_from_shapes({name: shape_dtype}, gen)[name]
+            return self._own(shard(whole, dim, rank, self.plan.fsdp, path))
+        params = tree_map_named(leaf, param_shapes(self.config), self.dims)
+        return self._fresh(params)
 
     def state_from_params(self, params: dict) -> dict:
-        """A fresh train state around given parameters (e.g. converted from
-        the JAX package, convert.py)."""
+        """A fresh train state around whole parameters (e.g. converted
+        from the JAX package, convert.py): this rank's shards of them."""
+        return self._fresh(self._shard_tree(params))
+
+    def _fresh(self, params: dict) -> dict:
         for p in tree_leaves(params):
             p.requires_grad_(True)
         return {"params": params, "opt_state": self.optimizer.init(params),
                 "step": 0}
 
+    def shard_state(self, state: dict) -> dict:
+        """This rank's shards of a whole train state (a checkpoint's): the
+        parameters and AdamW's mu and nu sharded alike, count and step as
+        they are."""
+        opt = state["opt_state"]
+        params = self._shard_tree(state["params"])
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        return {"params": params,
+                "opt_state": {"count": opt["count"],
+                              "mu": self._shard_tree(opt["mu"]),
+                              "nu": self._shard_tree(opt["nu"])},
+                "step": state["step"]}
+
+    def full_state(self, state: dict) -> Optional[dict]:
+        """The whole train state, what a checkpoint holds: on the world's
+        rank 0 the parameters, mu and nu gathered leaf by leaf to the host
+        (the state itself on one rank and without fsdp); None on the other
+        ranks. Collective: every rank calls it."""
+        writer = self.groups is None or self.groups.rank == 0
+        if self.plan.fsdp == 1:
+            return state if writer else None
+
+        def whole(t, dim):
+            if dim is None:
+                return t.detach().cpu() if writer else None
+            full = comm.gather_leaf(t, dim, self.fsdp)
+            return full.cpu() if writer else None
+
+        def tree(t):
+            return tree_map_named(lambda _, x, dim: whole(x, dim), t,
+                                  self.dims)
+        opt = state["opt_state"]
+        out = {"params": tree(state["params"]),
+               "opt_state": {"count": opt["count"], "mu": tree(opt["mu"]),
+                             "nu": tree(opt["nu"])},
+               "step": state["step"]}
+        return out if writer else None
+
     def abstract_state(self) -> dict:
-        """Shapes and dtypes of the parameters, without allocating: the
-        template a restored checkpoint is checked against."""
+        """Shapes and dtypes of the whole parameters, without allocating:
+        the template a restored checkpoint is checked against."""
         return {"params": param_shapes(self.config)}
+
+    # ---- the step ----
 
     def _loss(self, params, tokens):
         return loss_fn(params, tokens, self.config, sp=self.sp,
-                       remat=self.tc.remat,
+                       fsdp=self.fsdp, row_shards=self.plan.dp *
+                       self.plan.fsdp, remat=self.tc.remat,
                        remat_policy=self.tc.remat_policy)
 
     def step(self, state: dict, tokens: torch.Tensor):
         """One optimizer step, in place on `state`. Returns (state,
-        {"loss", "grad_norm"}), grad_norm taken before the clip. Under an
-        sp group every rank calls it with the same global batch and gets
-        the global loss and grad_norm."""
+        {"loss", "grad_norm"}), grad_norm taken before the clip. Over ranks
+        every rank calls it with its shard_batch of the same global batch
+        and gets the global loss and grad_norm."""
         params = state["params"]
         leaves = tree_leaves(params)
         accum = max(self.tc.accum_steps, 1)
@@ -283,16 +426,47 @@ class Trainer:
                 loss += part.detach()
             loss = loss / accum
             grads = [(g / accum).to(p.dtype) for g, p in zip(grad_sum, leaves)]
-        if self.sp is not None:
-            # each rank's gradients are a partial sum: add them up in f32
-            comm.all_reduce_sum([*grads, loss], self.sp)
-        gnorm = global_norm(grads)
-        self.optimizer.update(grads, state["opt_state"], leaves)
+        # each leaf's fsdp dim, in the order of `leaves`
+        dims = tree_leaves(tree_map_named(lambda _, p, dim: dim, params,
+                                          self.dims))
+        gnorm = self._sum_over_ranks(grads, dims, loss)
+        self.optimizer.update(grads, state["opt_state"], leaves, gnorm)
         state["step"] += 1
         return state, {"loss": loss, "grad_norm": gnorm}
 
+    def _sum_over_ranks(self, grads: list, dims: list, loss: torch.Tensor
+                        ) -> torch.Tensor:
+        """Each rank's gradients and loss are partial sums: add them up in
+        place, in f32 (a sharded leaf's over the ranks that hold its
+        shard, dp x sp, the reduce-scatter over fsdp being done; every
+        other leaf's and the loss over every rank). Returns the global
+        norm of the gradients: the shards' squares summed over fsdp, each
+        whole leaf counted once."""
+        g = self.groups
+        if g is None:
+            return global_norm(grads)
+        split = [x for x, d in zip(grads, dims) if d is not None]
+        whole = [x for x, d in zip(grads, dims) if d is None]
+        if split and g.replica is not None:
+            comm.all_reduce_sum(split, g.replica)
+        comm.all_reduce_sum([*whole, loss], g.world)
+        if not split:
+            return global_norm(whole)
+        squares = sum_squares(split)
+        comm.all_reduce_sum([squares], g.fsdp)
+        return torch.sqrt(squares + sum_squares(whole))
+
     def shard_batch(self, tokens) -> torch.Tensor:
-        """A host batch onto this trainer's device."""
+        """This rank's rows of a host batch [B, S], onto the trainer's
+        device: the rows shard over dp x fsdp (all of them on one rank).
+        B must divide, as the JAX batch sharding requires."""
+        if self.groups is not None:
+            i, n = self.groups.rows
+            b = tokens.shape[0]
+            if b % n:
+                raise ValueError(f"batch {b} does not divide over "
+                                 f"dp x fsdp = {n} row shards")
+            tokens = tokens[i * b // n:(i + 1) * b // n]
         return to_device(tokens, self.device)
 
 
@@ -372,8 +546,10 @@ def restore_checkpoint(path: str, abstract_state: Optional[dict] = None,
     step = latest_step(path)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {path}")
+    # mmap: a rank that keeps shards of a large state reads only their
+    # pages, not the whole file
     state = torch.load(os.path.join(path, str(step), STATE_FILE),
-                       map_location=device, weights_only=True)
+                       map_location=device, weights_only=True, mmap=True)
     if abstract_state is not None:
         _check_template(state["params"], abstract_state["params"])
     for p in tree_leaves(state["params"]):

@@ -8,12 +8,16 @@ newest checkpoint, the same metrics.jsonl schema and the quiesce park on
 SIGUSR1. It trains on the CUDA card the container was given; --device cpu
 runs on the CPU instead (tests).
 
---sp N (or a TDAPI_MESH_PLAN whose only axis above 1 is sp) trains over N
-sequence-parallel ranks on this host (distributed.launch): N processes, on
-cuda:0..N-1 over NCCL, or with --device cpu on the CPU over gloo. Rank 0
-alone writes metrics, checkpoints and the quiesce marker and ack; every
-rank resumes from the same checkpoint. The other axes (--tp/--pp/--ep
-above 1) and multi-worker contracts are not yet ported and are refused.
+--sp N, or a TDAPI_MESH_PLAN whose axes above 1 are among dp, fsdp and sp
+(the control plane's gang contract; dp and fsdp come only from it, as in
+the JAX workload), trains over plan.size ranks on this host
+(distributed.launch): processes on cuda:0..N-1 over NCCL, or with --device
+cpu on the CPU over gloo. Rank 0 alone writes metrics, the checkpoints
+(the gathered state: a run resumes under another plan, as a tpuCount
+patch asks) and the quiesce marker and ack; every rank resumes from the
+same checkpoint and keeps its shards. The other axes (--tp/--pp/--ep above
+1), MoE over ranks and multi-worker contracts are not yet ported and are
+refused.
 
 Run: python -m gpu_docker_api_tpu_torch.workloads.train_llama \
         --config tiny --steps 100 --workdir /path/to/run1
@@ -90,7 +94,8 @@ def main(argv=None) -> int:
         if getattr(args, flag) > 1:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} {getattr(args, flag)}: "
-                f"this axis is not yet ported to PyTorch (only --sp is)")
+                f"this axis is not yet ported to PyTorch (only dp, fsdp "
+                f"and sp are)")
 
     from ..models import named_config
     from ..parallel.mesh import MeshPlan, plan_from_env, require_ported
@@ -103,46 +108,50 @@ def main(argv=None) -> int:
         config = named_config(args.family, args.config)
     except KeyError as e:
         p.error(str(e))
-    if plan.sp > 1:
-        return _launch_sp(args, argv, plan)
+    if plan.size > 1:
+        return _launch(args, argv, plan)
 
     from ..device import resolve_device
     device = resolve_device(args.device)   # no card and no --device cpu: raise
     return _run(args, config, plan, device)
 
 
-def _launch_sp(args, argv, plan) -> int:
-    """--sp N: N rank processes on this host, each running _rank_main."""
+def _launch(args, argv, plan) -> int:
+    """plan.size rank processes on this host, each running _rank_main."""
     import torch
 
     from .. import distributed
     if args.family == "moe":
         raise NotImplementedError(
-            f"--family moe under --sp {plan.sp}: MoE routing over a "
-            f"sequence-parallel group is not yet ported to PyTorch")
-    if args.device == "cuda" and torch.cuda.device_count() < plan.sp:
-        raise RuntimeError(f"--sp {plan.sp} needs {plan.sp} CUDA devices, "
+            f"--family moe under {plan}: MoE routing over a group of ranks "
+            f"is not yet ported to PyTorch")
+    asked = (f"TDAPI_MESH_PLAN {plan}" if os.environ.get("TDAPI_MESH_PLAN")
+             else f"--sp {plan.sp}")
+    if args.device == "cuda" and torch.cuda.device_count() < plan.size:
+        raise RuntimeError(f"{asked} needs {plan.size} CUDA devices, "
                            f"sees {torch.cuda.device_count()}")
-    distributed.launch(_rank_main, (argv, plan), plan.sp,
+    distributed.launch(_rank_main, (argv, plan), plan.size,
                        distributed.backend_for(args.device))
     return 0
 
 
 def _rank_main(rank: int, world: int, argv: list, plan) -> None:
-    """One rank of an --sp run (distributed.launch formed its group)."""
+    """One rank of a run over ranks (distributed.launch formed the world's
+    group; this forms the plan's)."""
     from ..device import resolve_device
     from ..models import named_config
-    from ..parallel.comm import SPGroup
+    from ..parallel.mesh import MeshGroups
 
     args = _parser().parse_args(argv)
-    sp = SPGroup.of()
+    groups = MeshGroups.build(plan)
     device = resolve_device(f"cuda:{rank}" if args.device == "cuda"
                             else "cpu")
-    _run(args, named_config(args.family, args.config), plan, device, sp)
+    _run(args, named_config(args.family, args.config), plan, device, groups)
 
 
-def _run(args, config, plan, device, sp=None) -> int:
-    """Train on `device` (this rank's, under an sp group) to --steps."""
+def _run(args, config, plan, device, groups=None) -> int:
+    """Train on `device` (this rank's, over the plan's groups) to
+    --steps."""
     from ..data import Prefetcher, make_dataset
     from ..train import (
         QuiesceSignal, Trainer, TrainConfig, clear_quiesce_marker,
@@ -153,7 +162,7 @@ def _run(args, config, plan, device, sp=None) -> int:
     # a drain arriving any time after startup is honoured at the next step
     # boundary (train.py QuiesceSignal)
     quiesce = QuiesceSignal()
-    writer = sp is None or sp.rank == 0
+    writer = groups is None or groups.rank == 0
 
     os.makedirs(args.workdir, exist_ok=True)
     ckpt_dir = os.path.abspath(os.path.join(args.workdir, "checkpoints"))
@@ -165,14 +174,16 @@ def _run(args, config, plan, device, sp=None) -> int:
                                      decay_steps=args.decay_steps,
                                      min_lr_ratio=args.min_lr_ratio,
                                      accum_steps=args.accum_steps),
-        device=device, sp=sp)
+        device=device, groups=groups)
 
     # resume-first: a fresh init only when there is no checkpoint at all;
-    # every rank restores the same one (rank 0 wrote it)
+    # every rank restores the same one (rank 0 wrote it, whole, under
+    # whatever plan) and keeps its shards
     start_step = 0
     try:
         state, start_step = restore_checkpoint(
-            ckpt_dir, trainer.abstract_state(), device=trainer.device)
+            ckpt_dir, trainer.abstract_state())
+        state = trainer.shard_state(state)
         q_step = read_quiesce_marker(ckpt_dir) if writer else None
         if q_step is not None:
             # a prior generation parked here via quiesce; consume the marker
@@ -188,8 +199,8 @@ def _run(args, config, plan, device, sp=None) -> int:
         state = trainer.init(seed=0)
 
     # deterministic (seed, step) batches — resume replays the exact stream —
-    # staged onto the device while the step runs. Every rank of an sp group
-    # draws the same global batch (process_id 0) and trains on its shard.
+    # staged onto the device while the step runs. Every rank draws the same
+    # global batch (process_id 0) and trains on its shard.
     dataset = make_dataset(
         args.data, config.vocab_size, args.batch, args.seq, seed=args.seed)
     prefetch = Prefetcher(dataset.iter_from(start_step),
@@ -217,22 +228,23 @@ def _ckpt_record(metrics_f, rec: dict) -> None:
 
 
 def _quiesce_agreed(quiesce, trainer) -> bool:
-    """Whether any rank got the drain signal: under an sp group the ranks
-    agree (MAX) at every step boundary, so all stop after the same step."""
-    if trainer.sp is None:
+    """Whether any rank got the drain signal: over ranks they agree (MAX)
+    at every step boundary, so all stop after the same step."""
+    if trainer.groups is None:
         return quiesce.requested
     import torch
 
     from ..parallel.comm import all_reduce_max
     flag = torch.tensor([int(quiesce.requested)], device=trainer.device)
-    all_reduce_max([flag], trainer.sp)
+    all_reduce_max([flag], trainer.groups.world)
     return bool(flag.item())
 
 
 def _train_loop(args, trainer, state, start_step, prefetch, metrics_f,
                 ckpt_dir, plan, quiesce):
-    """The steps; metrics_f is None on every rank but an sp group's 0th,
-    which alone writes metrics, checkpoints and the quiesce files."""
+    """The steps; metrics_f is None on every rank but the world's 0th,
+    which alone writes metrics, checkpoints and the quiesce files. Every
+    rank gathers the state it saves (Trainer.full_state)."""
     from ..train import (
         save_checkpoint, write_quiesce_ack, write_quiesce_marker,
     )
@@ -249,22 +261,26 @@ def _train_loop(args, trainer, state, start_step, prefetch, metrics_f,
             metrics_f.write(json.dumps(rec) + "\n")
             metrics_f.flush()
         if _quiesce_agreed(quiesce, trainer):
+            full = trainer.full_state(state)
             if not writer:
                 quiesce.park()
             # park at exactly step+1: checkpoint, durable marker, then the
             # ack, strictly in that order so ack implies durable checkpoint
-            save_checkpoint(ckpt_dir, state, step + 1)
+            save_checkpoint(ckpt_dir, full, step + 1)
             write_quiesce_marker(ckpt_dir, step + 1)
             _ckpt_record(metrics_f, {"checkpoint": step + 1,
                                      "quiesced": True, "time": time.time()})
             write_quiesce_ack(step + 1)
             print(f"quiesced at step {step + 1}; parking", flush=True)
             quiesce.park()      # until the control plane's stop (SIGTERM)
-        if writer and ((step + 1) % args.checkpoint_every == 0
-                       or step + 1 == args.steps):
-            save_checkpoint(ckpt_dir, state, step + 1)
-            _ckpt_record(metrics_f, {"checkpoint": step + 1,
-                                     "time": time.time()})
+        if ((step + 1) % args.checkpoint_every == 0
+                or step + 1 == args.steps):
+            full = trainer.full_state(state)
+            if writer:
+                save_checkpoint(ckpt_dir, full, step + 1)
+                _ckpt_record(metrics_f, {"checkpoint": step + 1,
+                                         "time": time.time()})
+            del full
 
 
 if __name__ == "__main__":

@@ -36,20 +36,20 @@ def margin_rank(rank, world, tmp, seeds):
 
     from gpu_docker_api_tpu_torch.device import resolve_device
     from gpu_docker_api_tpu_torch.models import named_config
-    from gpu_docker_api_tpu_torch.parallel import comm
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshGroups, MeshPlan
 
     device = resolve_device("cuda:0")
     cfg = named_config("llama", cs.SP_CONFIG)
-    sp = comm.SPGroup.of()
+    groups = MeshGroups.build(MeshPlan(sp=world))
     res = {}
     for seed in seeds:
         inputs = torch.load(os.path.join(tmp, f"inputs{seed}.pt"))
-        res[seed] = {"cases": cs.sp_cases(torch, sp, device, inputs,
+        res[seed] = {"cases": cs.sp_cases(torch, groups.sp, device, inputs,
                                           (torch.bfloat16,))}
         del inputs
         for attn in ("ring", "ulysses"):
             res[seed][attn] = cs.sp_train(torch, device, cfg, cs.SP_TRAIN,
-                                          attn, sp, seed=seed)
+                                          attn, groups, seed=seed)
             torch.cuda.empty_cache()
     torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
 

@@ -75,7 +75,8 @@ def test_mesh_plan_auto_and_single_device():
         tmesh.MeshPlan.auto(6, tp=4)
     tmesh.require_ported(tmesh.MeshPlan())
     tmesh.require_ported(tmesh.MeshPlan(sp=4))        # sp is ported
+    tmesh.require_ported(tmesh.MeshPlan(dp=2, fsdp=2, sp=2))   # so are these
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmesh.require_ported(tmesh.MeshPlan(fsdp=2))
+        tmesh.require_ported(tmesh.MeshPlan(fsdp=2, pp=2))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tmesh.require_ported(tmesh.MeshPlan(sp=2, tp=2))

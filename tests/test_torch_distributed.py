@@ -2,8 +2,8 @@
 cluster_spec_from_env against the JAX function on the same env dicts; two
 gloo ranks formed from the control plane's contract on 127.0.0.1; the
 single-host launcher failing fast when a rank dies; and the workload's
-refusals (--sp N without N cards, every axis but sp, MoE under sp, a
-multi-worker grant)."""
+refusals (--sp N without N cards, the axes not yet ported, MoE over
+ranks, a multi-worker grant)."""
 
 import multiprocessing as mp
 import os
@@ -112,11 +112,13 @@ def test_sp_without_the_cards_raises(tmp_path):
     (["--ep", "2"], {}),
     (["--virtual-stages", "2"], {}),
     (["--family", "moe", "--sp", "2"], {}),
-    ([], {"TDAPI_MESH_PLAN": '{"sp": 2, "fsdp": 2}'}),
+    (["--family", "moe"], {"TDAPI_MESH_PLAN": '{"dp": 2}'}),
+    ([], {"TDAPI_MESH_PLAN": '{"fsdp": 2, "tp": 2}'}),
     ([], {"TDAPI_MESH_PLAN": '{"tp": 4}'}),
     (["--sp", "2"], {"TPU_WORKER_HOSTNAMES": "w0,w1"}),
 ])
-def test_every_axis_but_sp_is_refused(tmp_path, monkeypatch, extra, env):
+def test_unported_axes_and_moe_over_ranks_are_refused(tmp_path, monkeypatch,
+                                                      extra, env):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -126,13 +128,23 @@ def test_every_axis_but_sp_is_refused(tmp_path, monkeypatch, extra, env):
 
 def test_trainer_refuses_a_plan_without_its_group():
     from gpu_docker_api_tpu_torch.models import named_config
-    from gpu_docker_api_tpu_torch.parallel.comm import SPGroup
-    from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan
+    from gpu_docker_api_tpu_torch.parallel.comm import AxisGroup
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshGroups, MeshPlan
     from gpu_docker_api_tpu_torch.train import Trainer
 
-    with pytest.raises(ValueError, match="needs an sp group of 2"):
-        Trainer.create(named_config("llama", "tiny"), MeshPlan(sp=2),
-                       device="cpu")
-    with pytest.raises(ValueError, match="needs an sp group of 4"):
-        Trainer.create(named_config("llama", "tiny"), MeshPlan(sp=4),
-                       device="cpu", sp=SPGroup(None, 0, 2))
+    tiny = named_config("llama", "tiny")
+    for plan in (MeshPlan(sp=2), MeshPlan(dp=2), MeshPlan(fsdp=2),
+                 MeshPlan(dp=2, fsdp=2)):
+        with pytest.raises(ValueError, match=f"needs the groups of its "
+                                             f"{plan.size} ranks"):
+            Trainer.create(tiny, plan, device="cpu")
+    # groups formed for another plan
+    two = AxisGroup(None, 0, 2)
+    with pytest.raises(ValueError, match="needs the groups of its 4 ranks"):
+        Trainer.create(tiny, MeshPlan(sp=4), device="cpu",
+                       groups=MeshGroups(MeshPlan(sp=2), 0, sp=two,
+                                         replica=two, world=two))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        Trainer.create(named_config("moe", "tiny"), MeshPlan(dp=2),
+                       device="cpu", groups=MeshGroups(
+                           MeshPlan(dp=2), 0, dp=two, replica=two, world=two))

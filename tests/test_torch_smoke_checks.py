@@ -836,3 +836,95 @@ def test_long_launches_read_phase_8s_paths():
     assert got == {"blockwise_window0": 4,
                    f"blockwise_window{cs.LONG_WINDOW}": 15,
                    "ring_4_ranks": 10, "ulysses_4_ranks": 4}
+
+
+# ---- phase 9 ----------------------------------------------------------------
+
+@pytest.mark.parametrize("fsdp", [1, 2, 4])
+def test_fsdp_state_bytes_are_what_a_sharded_trainer_holds(fsdp):
+    """fsdp_state_bytes counts from the shapes and kinds alone what the
+    Trainer's init leaves on one rank: params, mu and nu over fsdp, the
+    norms whole."""
+    from gpu_docker_api_tpu_torch.parallel.comm import AxisGroup
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshGroups, MeshPlan
+    from gpu_docker_api_tpu_torch.train import Trainer, tree_leaves
+
+    cfg = cs_config("tiny")
+    plan = MeshPlan(fsdp=fsdp)
+    groups = (MeshGroups(plan, 1, fsdp=AxisGroup(None, 1, fsdp),
+                         world=AxisGroup(None, 1, fsdp)) if fsdp > 1
+              else None)
+    state = Trainer.create(cfg, plan, device="cpu", groups=groups).init()
+    held = sum(cs.leaf_bytes(t) for tree in (
+        state["params"], state["opt_state"]["mu"], state["opt_state"]["nu"])
+        for t in tree_leaves(tree))
+    assert held == cs.fsdp_state_bytes(cfg, fsdp)
+    whole = cs.fsdp_state_bytes(cfg, 1)
+    norms = 3 * 4 * cfg.d_model * (2 * cfg.n_layers + 1)
+    assert held == (whole - norms) // fsdp + norms
+
+
+def cs_config(name):
+    from gpu_docker_api_tpu_torch.models import named_config
+    return named_config("llama", name)
+
+
+def test_fsdp_launches_are_one_ranks_or_the_rings():
+    assert cs.fsdp_launches({"fsdp": 4}, 0, 20) == {
+        "flash_fwd": 40, "flash_bwd_dq": 20, "flash_bwd_dkv": 20}
+    assert cs.fsdp_launches({"dp": 2, "fsdp": 2}, 0, 20) == \
+        cs.fsdp_launches({"fsdp": 4}, 0, 20)
+    assert [cs.fsdp_launches({"fsdp": 2, "sp": 2}, r, 20)["flash_fwd"]
+            for r in (0, 1)] == [40, 80]
+    fsdp = {"layouts": {"9a": {"launches_a_step": [
+        {"flash_fwd": 40, "flash_bwd_dq": 20}] * 2}}}
+    assert cs.fsdp_kernel_launches(fsdp, "flash_bwd_dq") == {"9a": [20, 20]}
+
+
+def test_resharded_checkpoint_check_finds_a_changed_shard(tmp_path):
+    """A whole state saved, the ranks' digests cut from it: every shard
+    matches; a digest of another shard is caught."""
+    from gpu_docker_api_tpu_torch.parallel.mesh import shard, spec_dim
+    from gpu_docker_api_tpu_torch.train import (
+        Trainer, param_specs, save_checkpoint,
+    )
+
+    cfg = cs_config("tiny")
+    tr = Trainer.create(cfg, device="cpu")
+    state = tr.init(seed=2)
+    state, _ = tr.step(state, tr.shard_batch(np.zeros((2, 16), np.int64)))
+    save_checkpoint(str(tmp_path), state, 1)
+    dims = {p: spec_dim(s, "fsdp") for p, s in cs.flat_leaves(
+        param_specs(cfg))}
+
+    def rank_digests(r):
+        opt = state["opt_state"]
+        return {"9a": {"digests": {part: {
+            path: cs.leaf_digest(shard(t, dims[path], r, 2))
+            for path, t in cs.flat_leaves(tree)}
+            for part, tree in (("params", state["params"]),
+                               ("mu", opt["mu"]), ("nu", opt["nu"]))}}}
+    ranks = [rank_digests(r) for r in range(2)]
+    n = cs.check_resharded_checkpoint(str(tmp_path), cfg, ranks, 2, 1)
+    assert n == 3 * 12 * 2
+    with pytest.raises(cs.SmokeFailure, match="checkpoint at step 1"):
+        cs.check_resharded_checkpoint(str(tmp_path), cfg, ranks, 2, 2)
+    ranks[1]["9a"]["digests"]["mu"]["layers.w2"] = \
+        ranks[0]["9a"]["digests"]["mu"]["layers.w2"]
+    with pytest.raises(cs.SmokeFailure, match="mu layers.w2: rank 1"):
+        cs.check_resharded_checkpoint(str(tmp_path), cfg, ranks, 2, 1)
+
+
+def test_phase_fsdp_at_tiny_width_on_the_cpu():
+    """Phase 9 end to end on the CPU at `tiny` (f32): four gloo ranks
+    through 9a, 9b and 9c against one rank, the state bytes, no launch
+    (the plain versions), the checkpoint check."""
+    out = cs.phase_fsdp(torch, att, device="cpu", config="tiny",
+                        train=dict(b=4, s=32, steps=3))
+    assert set(out["layouts"]) == set(cs.FSDP_LAYOUTS)
+    for name, (plan, steps) in cs.FSDP_LAYOUTS.items():
+        got = out["layouts"][name]
+        assert len(got["losses"]) == steps
+        assert max(got["rel_to_one_rank"]["loss"]) <= 1e-5
+        assert got["state_bytes_a_rank"] == [cs.fsdp_state_bytes(
+            cs_config("tiny"), plan.get("fsdp", 1))] * cs.FSDP_RANKS

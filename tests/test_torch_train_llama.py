@@ -120,7 +120,7 @@ def test_main_without_device_cpu_raises_when_no_card(tmp_path):
     (["--pp", "2"], {}),
     (["--family", "moe", "--sp", "2"], {}),
     (["--ep", "2"], {}),
-    ([], {"TDAPI_MESH_PLAN": '{"dp": 2}'}),
+    ([], {"TDAPI_MESH_PLAN": '{"dp": 2, "pp": 2}'}),
     ([], {"TPU_WORKER_HOSTNAMES": "w0,w1"}),
 ])
 def test_not_yet_ported_is_refused(tmp_path, monkeypatch, extra, env):

@@ -1,5 +1,6 @@
-"""Rank bodies of the port's sequence-parallel tests (test_torch_ring.py,
-test_torch_ulysses.py, test_torch_sp_train.py, test_torch_distributed.py).
+"""Rank bodies of the port's multi-rank tests (test_torch_ring.py,
+test_torch_ulysses.py, test_torch_sp_train.py, test_torch_distributed.py,
+test_torch_mesh.py, test_torch_fsdp_train.py).
 
 gpu_docker_api_tpu_torch.distributed.launch spawns each rank afresh and
 imports its target by module path, so the targets live here, in a module
@@ -50,26 +51,27 @@ def attention_cases(rank: int, world: int, case_path: str, out_dir: str):
 
 def train_steps(rank: int, world: int, spec_path: str, out_dir: str):
     """spec {config (a port LlamaConfig), params (numpy tree), batches
-    [[B, S] numpy], runs: [{name, remat_policy, sp_attn}]}: for each run, a
-    fresh
-    Trainer over the sp group from the same params steps through the
-    batches; its losses and grad norms (and, on rank 0, its final params)
-    saved to out_dir/rank<r>.pt."""
+    [[B, S] numpy], runs: [{name, remat_policy, sp_attn, and optionally
+    plan (MeshPlan fields; default sp over the world) and accum_steps}]}:
+    for each run, a fresh Trainer over the plan's groups from the same
+    params steps through the batches; its losses and grad norms (and, on
+    rank 0, its gathered final params) saved to out_dir/rank<r>.pt."""
     import dataclasses
 
     from gpu_docker_api_tpu_torch import convert
-    from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshGroups, MeshPlan
     from gpu_docker_api_tpu_torch.train import Trainer, TrainConfig
 
     spec = torch.load(spec_path, weights_only=False)
-    sp = comm.SPGroup.of()
     results = {}
     for run in spec["runs"]:
         config = dataclasses.replace(spec["config"], sp_attn=run["sp_attn"])
+        plan = MeshPlan(**run.get("plan", {"sp": world}))
         trainer = Trainer.create(
-            config, MeshPlan(sp=world),
-            tc=TrainConfig(remat_policy=run["remat_policy"]), device="cpu",
-            sp=sp)
+            config, plan, tc=TrainConfig(
+                remat_policy=run["remat_policy"],
+                accum_steps=run.get("accum_steps", 1)),
+            device="cpu", groups=MeshGroups.build(plan))
         state = trainer.state_from_params(
             convert.params_from_numpy(spec["params"], config))
         losses, norms = [], []
@@ -77,10 +79,37 @@ def train_steps(rank: int, world: int, spec_path: str, out_dir: str):
             state, m = trainer.step(state, trainer.shard_batch(toks))
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
+        full = trainer.full_state(state)
         results[run["name"]] = {
             "losses": losses, "grad_norms": norms,
-            "params": (convert.params_to_numpy(state["params"])
+            "params": (convert.params_to_numpy(full["params"])
                        if rank == 0 else None)}
+    torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def gather_cases(rank: int, world: int, spec_path: str, out_dir: str):
+    """spec [{name, tensors: [whole numpy], dims, cotangents: [[whole
+    numpy] per rank]}]: each rank gathers its shards of the tensors whole
+    (comm.all_gather over the world) and takes the gradient of its own
+    cotangents; also gather_leaf and reduce_scatter_sum of the
+    cotangents. Saved to out_dir/rank<r>.pt."""
+    from gpu_docker_api_tpu_torch.parallel.mesh import shard
+
+    g = comm.AxisGroup.of()
+    results = {}
+    for case in torch.load(spec_path, weights_only=False):
+        dims = case["dims"]
+        shards = [shard(torch.as_tensor(x), d, rank, world).clone()
+                  .requires_grad_(True) for x, d in zip(case["tensors"],
+                                                        dims)]
+        cots = [torch.as_tensor(c) for c in case["cotangents"][rank]]
+        full = comm.all_gather(shards, dims, g)
+        grads = torch.autograd.grad(full, shards, cots)
+        results[case["name"]] = {
+            "full": [t.detach() for t in full], "grads": grads,
+            "leaf": [comm.gather_leaf(t, d, g) for t, d in zip(shards,
+                                                               dims)],
+            "scattered": comm.reduce_scatter_sum(cots, dims, g)}
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
