@@ -121,12 +121,27 @@ Phases (any failure exits non-zero and prints no result):
      checkpoint restored under the one-rank template, each leaf equal bit
      for bit to the ranks' shards. Step time and tokens/s labelled "gloo,
      4 ranks on one card", each rank's peak allocation.
+ 10. tensor parallelism (bf16, B=4, S=2048, remat "dots", phase 9's
+     batches): four processes on this one card in a gloo group through
+     10a tp=4, 10b fsdp=2 x tp=2 and 10c tp=2 x sp=2 (the ring) at llama
+     1b, and 10d tp=4 at llama_mini (4 q / 2 kv heads: the head-gather
+     fallback); 2 steps each, against phase 9's one-rank run (10d against
+     its own): every rank's loss and grad norm equal, each within
+     SP_LOSS_TOL / SP_NORM_TOL of one rank's, the first near its value at
+     init; each rank's params, mu and nu exactly 1/(fsdp * tp) of every
+     matrix's bytes, the norms whole; launches a rank and step (40/20/20
+     at 20 layers, the ring's in 10c, 8/4/4 in 10d), the q heads the
+     forward kernel saw (H/tp, all H in the fallback) and the tp
+     activation sums a step (5 a layer + 4 under "dots"); 10b's gathered
+     checkpoint restored under the one-rank template, shard for shard
+     over both axes. Step time and tokens/s labelled "gloo, 4 ranks on
+     one card", each rank's peak allocation.
 
 Prints one `{"kernels": [...]}` line (with each kernel's launches in 7a
-and phases 8 and 9 too), the readings, one `{"serve": ...}` line, one
+and phases 8-10 too), the readings, one `{"serve": ...}` line, one
 `{"batching": ...}` line, one `{"paged": ...}` line, one `{"moe": ...}`
-line, one `{"sp": ...}` line, one `{"fsdp": ...}` line, the nvidia-smi
-line, and last `{"ok": true, "device": {...}}`.
+line, one `{"sp": ...}` line, one `{"fsdp": ...}` line, one `{"tp": ...}`
+line, the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -810,7 +825,7 @@ def phase_resume():
     check(all(math.isfinite(r["loss"]) for r in step_recs), "non-finite loss")
 
 
-# ---- phase 4: serving ----------------------------------------------------------
+# ---- phase 4: serving -------------------------------------------------------
 
 SERVE_B = 2            # the f32 oracle and the HTTP requests: two rows
 SERVE_PROMPT = 256     # the f32 oracle's prompt length
@@ -1236,7 +1251,7 @@ def phase_serve(torch, att):
     return {"oracle": oracle, "http": http, "times": times, "wall": wall}
 
 
-# ---- phase 5: the dense continuous batcher -------------------------------------
+# ---- phase 5: the dense continuous batcher ----------------------------------
 
 # 5a, in-process, f32: the batcher's greedy streams against each prompt's
 # solo stream (B=1). A stream may leave its solo stream only at a near tie,
@@ -1812,7 +1827,7 @@ def phase_batching(torch, att):
             "wall": wall}
 
 
-# ---- phase 6: the paged cache and the KV handoff ------------------------------
+# ---- phase 6: the paged cache and the KV handoff ----------------------------
 
 # 6a, in-process, f32: 5a's runs over the paged cache (blocks of 16 tokens;
 # the staggered run's pool holds 60% of the blocks its six requests hold at
@@ -1991,7 +2006,7 @@ def phase_paged(torch, att, dense):
             "wall": wall}
 
 
-# ---- phase 7: the MoE family ----------------------------------------------------
+# ---- phase 7: the MoE family ------------------------------------------------
 
 # 7a: JAX's MoE training cell (bench.py:346-347): moe_1b, batch 8, seq 2048,
 # accum_steps 1, at full width and depth. Then the trunk on a small input.
@@ -3008,7 +3023,7 @@ def phase_sp(torch, att, device="cuda"):
             "train": train, "wall": wall}
 
 
-# ---- phase 9: data parallelism and fully-sharded parameters ------------------
+# ---- phase 9: data parallelism and fully-sharded parameters -----------------
 
 FSDP_RANKS = 4
 FSDP_CONFIG = "1b"                       # llama 1b, full width and depth
@@ -3018,21 +3033,30 @@ FSDP_LAYOUTS = {                         # name: (plan, steps)
     "9b": ({"dp": 2, "fsdp": 2}, 2),
     "9c": ({"fsdp": 2, "sp": 2}, 2),     # the ring
 }
-FSDP_DEADLINE_S = 600                    # the ranks' whole run
+LAYOUTS_DEADLINE_S = 600                 # a phase's ranks' whole run
 
 
-def fsdp_state_bytes(cfg, fsdp) -> int:
-    """What one rank of an fsdp group must hold of the parameters, mu and
-    nu: every leaf's bytes over fsdp, the norms (replicated) whole."""
+def shard_bytes(cfg, plan) -> dict:
+    """{path: the bytes of one rank's shard of each parameter leaf} under
+    `plan` (MeshPlan fields): every matrix 1/(fsdp * tp) of the whole
+    leaf's bytes, the norms (replicated) whole."""
     from gpu_docker_api_tpu_torch.models import family_for, param_shapes
-    from gpu_docker_api_tpu_torch.train import tree_leaves, tree_map_named
+    from gpu_docker_api_tpu_torch.train import tree_map_named
+
+    cut = plan.get("fsdp", 1) * plan.get("tp", 1)
 
     def one(_, shape_dtype, kind):
         shape, dtype = shape_dtype
         n = math.prod(shape) * dtype.itemsize
-        return n if kind == "norm" else n // fsdp
-    return 3 * sum(tree_leaves(tree_map_named(
+        return n if kind == "norm" else n // cut
+    return dict(flat_leaves(tree_map_named(
         one, param_shapes(cfg), family_for(cfg).param_kinds(cfg))))
+
+
+def fsdp_state_bytes(cfg, fsdp, tp=1) -> int:
+    """What one rank of an fsdp x tp group must hold of the parameters, mu
+    and nu (shard_bytes, three times over)."""
+    return 3 * sum(shard_bytes(cfg, {"fsdp": fsdp, "tp": tp}).values())
 
 
 def fsdp_launches(plan, sp_rank, n_layers) -> dict:
@@ -3068,60 +3092,69 @@ def state_digests(state) -> dict:
                                ("nu", opt["nu"]))}
 
 
-def fsdp_rank(rank, world, tmp, spec):
-    """One of phase 9's ranks (distributed.launch, gloo, every rank on
-    spec["device"]): each layout of FSDP_LAYOUTS in turn, a Trainer of
-    llama spec["config"] over its groups from init 0, its state bytes after
-    init, its launches, losses, grad norms and step times a step, its peak
-    allocation; after 9a's last step the gathered checkpoint (rank 0
-    writes it to tmp/ckpt) and this rank's shard digests. Results to
-    tmp/rank<r>.pt."""
+def layout_rank(rank, world, tmp, spec):
+    """One rank of phases 9 and 10 (distributed.launch, gloo, every rank
+    on spec["device"]): each layout of spec["layouts"] ({name: (llama
+    config, plan, sp_attn, steps)}) in turn, a Trainer over its groups
+    from init 0; the bytes of each leaf of its params, mu and nu after
+    init; a step at a time (spec["train"]'s batches) its launches, tp
+    sums, the q heads the forward kernel saw, losses, grad norms and step
+    times; its peak allocation; after spec["checkpoint"]'s last step the
+    gathered checkpoint (rank 0 writes it to tmp/ckpt) and this rank's
+    shard digests. Results to tmp/rank<r>.pt."""
     import torch
 
     from gpu_docker_api_tpu_torch.device import resolve_device
     from gpu_docker_api_tpu_torch.models import named_config
     from gpu_docker_api_tpu_torch.ops import attention as att
+    from gpu_docker_api_tpu_torch.parallel import comm
     from gpu_docker_api_tpu_torch.parallel.mesh import (
         MeshGroups, MeshPlan, coords,
     )
-    from gpu_docker_api_tpu_torch.train import (
-        Trainer, save_checkpoint, tree_leaves,
-    )
+    from gpu_docker_api_tpu_torch.train import Trainer, save_checkpoint
 
     device = resolve_device(spec["device"])
     on_card = device.type == "cuda"
     if on_card:
         torch.cuda.init()   # the allocator, before its peak is reset
+    sums, heads = TpSums(comm), record_heads(att)
+    b, s = spec["train"]["b"], spec["train"]["s"]
     res = {}
-    for name, (plan_d, steps) in FSDP_LAYOUTS.items():
+    for name, (config, plan_d, attn, steps) in spec["layouts"].items():
         plan = MeshPlan(**plan_d)
-        cfg = dataclasses.replace(named_config("llama", spec["config"]),
-                                  sp_attn="ring")
+        cfg = dataclasses.replace(named_config("llama", config),
+                                  sp_attn=attn)
         groups = MeshGroups.build(plan)
         if on_card:
             torch.cuda.reset_peak_memory_stats(device)
         trainer = Trainer.create(cfg, plan, device=device, groups=groups)
         state = trainer.init(seed=0)
         opt = state["opt_state"]
-        held = sum(leaf_bytes(t) for tree in (state["params"], opt["mu"],
-                                              opt["nu"])
-                   for t in tree_leaves(tree))
-        out = {"state_bytes": held, "launches": [], "losses": [],
+        out = {"leaf_bytes": {part: {path: leaf_bytes(t)
+                                     for path, t in flat_leaves(tree)}
+                              for part, tree in (("params", state["params"]),
+                                                 ("mu", opt["mu"]),
+                                                 ("nu", opt["nu"]))},
+               "launches": [], "tp_sums": [], "heads": [], "losses": [],
                "grad_norms": [], "step_times_s": [],
                "sp_rank": coords(plan, rank)["sp"]}
         for step in range(steps):
-            tokens = trainer.shard_batch(train_batch(
-                torch, cfg, spec["train"]["b"], spec["train"]["s"], 0, step))
+            tokens = trainer.shard_batch(train_batch(torch, cfg, b, s, 0,
+                                                     step))
             att.reset_launches()
+            sums.take()
+            heads.clear()
             t0 = time.perf_counter()
             state, m = trainer.step(state, tokens)
             out["losses"].append(float(m["loss"]))
             out["step_times_s"].append(time.perf_counter() - t0)
             out["grad_norms"].append(float(m["grad_norm"]))
             out["launches"].append(dict(att.LAUNCHES))
+            out["tp_sums"].append(sums.take())
+            out["heads"].append(sorted(heads))
         out["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
                              if on_card else None)
-        if name == "9a":
+        if name == spec["checkpoint"]:
             t0 = time.perf_counter()
             full = trainer.full_state(state)
             if full is not None:
@@ -3136,12 +3169,15 @@ def fsdp_rank(rank, world, tmp, spec):
     torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
 
 
-def check_resharded_checkpoint(path, cfg, ranks, fsdp, steps) -> int:
-    """9a's gathered checkpoint restored under the one-rank template: its
-    step and count, and each leaf of params, mu and nu equal, bit for bit,
-    to the concatenation of the ranks' shards (by their digests; the norms
-    whole on every rank). -> the shards compared."""
-    from gpu_docker_api_tpu_torch.parallel.mesh import shard, spec_dim
+def check_resharded_checkpoint(path, cfg, ranks, plan, steps,
+                               layout="9a") -> int:
+    """A layout's gathered checkpoint restored under the one-rank
+    template: its step and count, and each leaf of params, mu and nu equal,
+    bit for bit, to the ranks' shards reassembled over the plan's axes (by
+    their digests: each rank's digest is that of its slice of the restored
+    leaf, mesh.shard; the norms whole on every rank). -> the shards
+    compared."""
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan, shard
     from gpu_docker_api_tpu_torch.train import (
         Trainer, param_specs, restore_checkpoint,
     )
@@ -3151,106 +3187,265 @@ def check_resharded_checkpoint(path, cfg, ranks, fsdp, steps) -> int:
     opt = state["opt_state"]
     check(step == steps and state["step"] == steps
           and opt["count"] == steps,
-          f"9a checkpoint at step {step}, state {state['step']}, count "
-          f"{opt['count']}; want {steps}")
-    dims = {path: spec_dim(spec, "fsdp")
-            for path, spec in flat_leaves(param_specs(cfg))}
+          f"{layout} checkpoint at step {step}, state {state['step']}, "
+          f"count {opt['count']}; want {steps}")
+    specs = dict(flat_leaves(param_specs(cfg)))
+    plan = MeshPlan(**plan)
     n = 0
     for part, tree in (("params", state["params"]), ("mu", opt["mu"]),
                        ("nu", opt["nu"])):
         for path, t in flat_leaves(tree):
             for r, res in enumerate(ranks):
-                piece = shard(t, dims[path], r, fsdp, path)
-                check(leaf_digest(piece) == res["9a"]["digests"][part][path],
-                      f"9a checkpoint {part} {path}: rank {r}'s shard "
+                piece = shard(t, specs[path], plan, r, path)
+                check(leaf_digest(piece) ==
+                      res[layout]["digests"][part][path],
+                      f"{layout} checkpoint {part} {path}: rank {r}'s shard "
                       f"differs")
                 n += 1
     return n
 
 
-def fsdp_kernel_launches(fsdp, name) -> dict:
-    """{layout: [launches of kernel `name` a step, a rank]} of phase 9."""
+def fsdp_kernel_launches(readings, name) -> dict:
+    """{layout: [launches of kernel `name` a step, a rank]} of phase 9's
+    or phase 10's readings."""
     return {k: [launches[name] for launches in v["launches_a_step"]]
-            for k, v in fsdp["layouts"].items()}
+            for k, v in readings["layouts"].items()}
+
+
+def run_layouts(torch, device, layouts, train, checkpoint, ranks_n):
+    """ranks_n processes on this one card (a gloo group, named: NCCL
+    refuses two ranks on one GPU) through `layouts` (layout_rank), then
+    the `checkpoint` layout's gathered checkpoint restored under the
+    one-rank template, shard for shard. -> (each rank's results, the
+    shards compared, wall times)."""
+    from gpu_docker_api_tpu_torch import distributed
+    from gpu_docker_api_tpu_torch.models import named_config
+
+    wall = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = {"device": f"{device}:0" if device == "cuda" else device,
+                "layouts": layouts, "train": train, "checkpoint": checkpoint}
+        distributed.launch(layout_rank, (tmp, spec), ranks_n, "gloo",
+                           timeout=LAYOUTS_DEADLINE_S)
+        wall["ranks_s"] = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(ranks_n)]
+        t0 = time.perf_counter()
+        config, plan, _, steps = layouts[checkpoint]
+        n = check_resharded_checkpoint(
+            os.path.join(tmp, "ckpt"), named_config("llama", config), ranks,
+            plan, steps, checkpoint)
+        wall["restore_s"] = time.perf_counter() - t0
+    print(f"  {checkpoint} checkpoint: {n} shards equal to the restored "
+          f"leaves, gathered and saved in "
+          f"{[r[checkpoint]['checkpoint_s'] for r in ranks]} s", flush=True)
+    return ranks, n, wall
+
+
+def check_layouts(att, ranks, layouts, ones, device, tokens) -> dict:
+    """Phases 9 and 10's checks of each layout's runs over the ranks
+    against its config's one-rank run (ones[config]): every rank the same
+    loss and grad norm, within SP_LOSS_TOL / SP_NORM_TOL of one rank's, the
+    first near its value at init; each leaf of params, mu and nu exactly
+    shard_bytes (no rank keeps a whole matrix); launches a rank and step
+    fsdp_launches (none on the CPU, where the wrappers take the plain
+    versions); the q heads tp_heads; the tp sums tp_sums_a_step. ->
+    readings by layout, step times labelled gloo_4_ranks_one_card."""
+    from gpu_docker_api_tpu_torch.models import named_config
+
+    readings = {}
+    for name, (config, plan, attn, steps) in layouts.items():
+        cfg = named_config("llama", config)
+        runs = [r[name] for r in ranks]
+        label = f"{name} {config} {plan}"
+        rel = sp_train_check(ones[config], runs, label)
+        want0 = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+        check(abs(runs[0]["losses"][0] - want0) < 0.1,
+              f"{label}: first loss {runs[0]['losses'][0]} not near "
+              f"{want0:.3f}")
+        want_bytes = shard_bytes(cfg, plan)
+        heads = tp_heads(cfg, plan)
+        sums = tp_sums_a_step(cfg.n_layers, plan)
+        for r, run in enumerate(runs):
+            for part, held in run["leaf_bytes"].items():
+                check(held == want_bytes,
+                      f"{label}: rank {r} {part} bytes {held}, want "
+                      f"{want_bytes}")
+            want = (fsdp_launches(plan, run["sp_rank"], cfg.n_layers)
+                    if device == "cuda" else dict.fromkeys(att.LAUNCHES, 0))
+            check(all(got == want for got in run["launches"]),
+                  f"{label}: rank {r} launches {run['launches']}, want "
+                  f"{want} a step")
+            check(all(h == [heads] for h in run["heads"]),
+                  f"{label}: rank {r}'s forward kernel saw q heads "
+                  f"{run['heads']}, want {heads}")
+            check(all(s["calls"] == sums for s in run["tp_sums"]),
+                  f"{label}: rank {r} tp sums {run['tp_sums']}, want "
+                  f"{sums} a step")
+        step_s = statistics.median(runs[0]["step_times_s"][1:])
+        readings[name] = {
+            "config": config, "plan": plan, "sp_attn": attn, "steps": steps,
+            "losses": runs[0]["losses"], "grad_norms": runs[0]["grad_norms"],
+            "rel_to_one_rank": rel, "q_heads_a_rank": heads,
+            "state_bytes_a_rank": [sum(sum(part.values()) for part in
+                                       run["leaf_bytes"].values())
+                                   for run in runs],
+            "launches_a_step": [run["launches"][0] for run in runs],
+            "tp_sums_a_step": runs[0]["tp_sums"][0],
+            "peak_bytes_a_rank": [run["peak_bytes"] for run in runs],
+            "step_times_s": [run["step_times_s"] for run in runs],
+            "step_s_gloo_4_ranks_one_card": step_s,
+            "tokens_s_gloo_4_ranks_one_card": tokens / step_s}
+        print(f"  {label} (gloo, 4 ranks on one card): {readings[name]}",
+              flush=True)
+    return readings
 
 
 def phase_fsdp(torch, att, device="cuda", config=FSDP_CONFIG,
                train=FSDP_TRAIN):
     """Phase 9: dp and fsdp at llama `config`. The one-rank Trainer here,
-    then FSDP_RANKS processes on this one card (a gloo group, named: NCCL
-    refuses two ranks on one GPU) through each layout of FSDP_LAYOUTS,
-    against it; the state each rank holds; its launches (none on the CPU,
-    where the wrappers take the plain versions); 9a's gathered checkpoint
-    restored under the one-rank template."""
-    from gpu_docker_api_tpu_torch import distributed
+    then FSDP_RANKS processes on this one card through each layout of
+    FSDP_LAYOUTS (run_layouts), held to it (check_layouts); 9a's gathered
+    checkpoint restored under the one-rank template."""
     from gpu_docker_api_tpu_torch.models import named_config
 
     cfg = named_config("llama", config)
     print(f"phase 9: dp and fsdp, llama {config} ({train}, {cfg.dtype}, "
           f"dots) over {FSDP_RANKS} gloo ranks on one card: {FSDP_LAYOUTS}",
           flush=True)
-    wall = {}
     t0 = time.perf_counter()
     one = sp_train(torch, device, cfg, train, "ring")
     if device == "cuda":
         torch.cuda.empty_cache()
-    wall["one_rank_s"] = time.perf_counter() - t0
+    one_rank_s = time.perf_counter() - t0
     print(f"  9 one rank: {one}", flush=True)
     want0 = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
     check(abs(one["losses"][0] - want0) < 0.1,
           f"9 first loss {one['losses'][0]} not near {want0:.3f}")
-
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        spec = {"device": f"{device}:0" if device == "cuda" else device,
-                "config": config, "train": train}
-        distributed.launch(fsdp_rank, (tmp, spec), FSDP_RANKS, "gloo",
-                           timeout=FSDP_DEADLINE_S)
-        wall["ranks_s"] = time.perf_counter() - t0
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
-                 for r in range(FSDP_RANKS)]
-        t0 = time.perf_counter()
-        fsdp_a = FSDP_LAYOUTS["9a"][0]["fsdp"]
-        n = check_resharded_checkpoint(os.path.join(tmp, "ckpt"), cfg,
-                                       ranks, fsdp_a, FSDP_LAYOUTS["9a"][1])
-        wall["restore_s"] = time.perf_counter() - t0
-    print(f"  9a checkpoint: {n} shards equal to the restored leaves, "
-          f"gathered and saved in "
-          f"{[r['9a']['checkpoint_s'] for r in ranks]} s", flush=True)
-
+    layouts = {name: (config, plan, "ring", steps)
+               for name, (plan, steps) in FSDP_LAYOUTS.items()}
+    ranks, _, wall = run_layouts(torch, device, layouts, train, "9a",
+                                 FSDP_RANKS)
+    wall["one_rank_s"] = one_rank_s
     tokens = train["b"] * train["s"]
-    layouts = {}
-    for name, (plan, steps) in FSDP_LAYOUTS.items():
-        runs = [r[name] for r in ranks]
-        label = f"{name} {plan}"
-        want_bytes = fsdp_state_bytes(cfg, plan.get("fsdp", 1))
-        held = [r["state_bytes"] for r in runs]
-        check(all(h == want_bytes for h in held),
-              f"{label}: state bytes a rank {held}, want {want_bytes}")
-        for r, run in enumerate(runs):
-            want = (fsdp_launches(plan, run["sp_rank"], cfg.n_layers)
-                    if device == "cuda" else dict.fromkeys(att.LAUNCHES, 0))
-            check(all(got == want for got in run["launches"]),
-                  f"{label}: rank {r} launches {run['launches']}, want "
-                  f"{want} a step")
-        rel = sp_train_check(one, runs, label)
-        step_s = statistics.median(runs[0]["step_times_s"][1:])
-        layouts[name] = {
-            "plan": plan, "steps": steps, "losses": runs[0]["losses"],
-            "grad_norms": runs[0]["grad_norms"], "rel_to_one_rank": rel,
-            "state_bytes_a_rank": held, "launches_a_step":
-                [run["launches"][0] for run in runs],
-            "peak_bytes_a_rank": [run["peak_bytes"] for run in runs],
-            "step_times_s": [run["step_times_s"] for run in runs],
-            "step_s_gloo_4_ranks_one_card": step_s,
-            "tokens_s_gloo_4_ranks_one_card": tokens / step_s}
-        print(f"  {label} (gloo, 4 ranks on one card): {layouts[name]}",
-              flush=True)
+    readings = check_layouts(att, ranks, layouts, {config: one}, device,
+                             tokens)
     one["step_s"] = statistics.median(one["step_times_s"][1:])
     one["tokens_s"] = tokens / one["step_s"]
     one["state_bytes"] = fsdp_state_bytes(cfg, 1)
     print(f"  phase 9 wall time {wall}", flush=True)
-    return {"one_rank": one, "layouts": layouts, "wall": wall}
+    return {"one_rank": one, "layouts": readings, "wall": wall}
+
+
+# ---- phase 10: tensor parallelism -------------------------------------------
+
+TP_RANKS = 4
+TP_CONFIGS = {"main": "1b",      # 10a-10c: llama 1b, full width and depth
+              "fallback": "mini"}  # 10d: 4 q / 2 kv heads, tp=4 gathers them
+TP_TRAIN = dict(b=4, s=2048, steps=2)    # phase 9's batches; bf16, "dots"
+TP_LAYOUTS = {                           # name: (config, plan, sp_attn)
+    "10a": ("main", {"tp": 4}, "ring"),
+    "10b": ("main", {"fsdp": 2, "tp": 2}, "ring"),
+    "10c": ("main", {"tp": 2, "sp": 2}, "ring"),
+    "10d": ("fallback", {"tp": 4}, "ring"),
+}
+TP_CHECKPOINT = "10b"                    # saved after its last step
+
+
+class TpSums:
+    """Counts the tp activation sums a rank runs (comm._sum_f32, which
+    copy_to_group's backward and reduce_from_group's forward call) and the
+    f32 bytes each puts on the wire, while installed."""
+
+    def __init__(self, comm):
+        self.calls = self.bytes = 0
+        inner = comm._sum_f32
+
+        def counted(x, g):
+            self.calls += 1
+            self.bytes += 4 * x.numel()
+            return inner(x, g)
+        comm._sum_f32 = counted
+
+    def take(self) -> dict:
+        """The counts since the last take, and reset."""
+        out = {"calls": self.calls, "bytes": self.bytes}
+        self.calls = self.bytes = 0
+        return out
+
+
+def record_heads(att) -> set:
+    """The q head counts the forward kernel's wrapper is called with from
+    now on (att.flash_fwd wrapped), in a set the caller clears."""
+    seen = set()
+    inner = att.flash_fwd
+
+    def flash_fwd(q, *args, **kwargs):
+        seen.add(q.shape[2])
+        return inner(q, *args, **kwargs)
+    att.flash_fwd = flash_fwd
+    return seen
+
+
+def tp_sums_a_step(n_layers, plan) -> int:
+    """The tp activation sums of one step under remat "dots" (none
+    without tp): per layer two in the forward (wo, w2), two in the
+    backward (the cotangents of the inputs to wq/wk/wv and w1/w3) and one
+    in the recompute (wo's: the recompute stops once the last saved
+    tensor, w2's input, is made, before w2's sum); the embedding's sum and
+    the loss's two (the sum of exps, the target logit) in the forward;
+    lm_head's input cotangent in the backward."""
+    return 5 * n_layers + 4 if plan.get("tp", 1) > 1 else 0
+
+
+def tp_heads(cfg, plan) -> int:
+    """The q heads each rank's attention runs over: H/tp when both head
+    counts divide by tp (mesh.head_axis_for), all H in the fallback."""
+    from gpu_docker_api_tpu_torch.parallel.mesh import head_axis_for
+    tp = plan.get("tp", 1)
+    split = head_axis_for(tp, cfg.n_heads, cfg.n_kv_heads) == "tp"
+    return cfg.n_heads // tp if split else cfg.n_heads
+
+
+def phase_tp(torch, att, one=None, device="cuda", configs=None,
+             train=TP_TRAIN):
+    """Phase 10: tensor parallelism. The one-rank Trainer of each config
+    (`one`: phase 9's run of the main config on the same batches, if
+    given), then TP_RANKS processes on this one card through each layout
+    of TP_LAYOUTS (run_layouts), held to it (check_layouts: the same loss
+    and grad norm on every rank, within SP_LOSS_TOL / SP_NORM_TOL of one
+    rank; each leaf 1/(fsdp * tp) of the whole, the norms whole;
+    launches, tp sums and the heads the forward kernel ran over, a rank
+    and step); TP_CHECKPOINT's gathered checkpoint restored under the
+    one-rank template, shard for shard."""
+    from gpu_docker_api_tpu_torch.models import named_config
+
+    configs = configs or TP_CONFIGS
+    print(f"phase 10: tp, llama {configs} ({train}, dots) over {TP_RANKS} "
+          f"gloo ranks on one card: {TP_LAYOUTS}", flush=True)
+    t0 = time.perf_counter()
+    ones = {name: one if role == "main" and one is not None
+            else sp_train(torch, device, named_config("llama", name), train,
+                          "ring")
+            for role, name in configs.items()}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    one_rank_s = time.perf_counter() - t0
+    for name, run in ones.items():
+        print(f"  10 one rank, {name}: {run}", flush=True)
+    layouts = {name: (configs[role], plan, attn, train["steps"])
+               for name, (role, plan, attn) in TP_LAYOUTS.items()}
+    ranks, n, wall = run_layouts(torch, device, layouts, train,
+                                 TP_CHECKPOINT, TP_RANKS)
+    wall["one_rank_s"] = one_rank_s
+    readings = check_layouts(att, ranks, layouts, ones, device,
+                             train["b"] * train["s"])
+    print(f"  phase 10 wall time {wall}", flush=True)
+    return {"one_rank": {name: {k: run[k] for k in (
+                "losses", "grad_norms", "step_times_s")}
+                         for name, run in ones.items()},
+            "layouts": readings, "checkpoint_shards": n, "wall": wall}
 
 
 def build_kernels(torch):
@@ -3361,6 +3556,7 @@ def main() -> int:
         moe = phase_moe(torch, att)
         sp = phase_sp(torch, att)
         fsdp = phase_fsdp(torch, att)
+        tp = phase_tp(torch, att, one=fsdp["one_rank"])
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -3375,6 +3571,7 @@ def main() -> int:
             "launches_moe": moe["train"]["launches"][name],
             "launches_long": long_launches(sp, name),
             "launches_fsdp": fsdp_kernel_launches(fsdp, name),
+            "launches_tp": fsdp_kernel_launches(tp, name),
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": bnd[name][0],
             "bound_by": bnd[name][1], "library_ms": k["library_ms"]})
@@ -3392,6 +3589,7 @@ def main() -> int:
     print(json.dumps({"moe": moe}), flush=True)
     print(json.dumps({"sp": sp}), flush=True)
     print(json.dumps({"fsdp": fsdp}), flush=True)
+    print(json.dumps({"tp": tp}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """Model families of the workload runtime (PyTorch port).
 
 Each family exposes the surface of gpu_docker_api_tpu/models: init_params,
-forward(params, tokens, config, *, impl, sp, remat, fsdp) -> logits (or
+forward(params, tokens, config, *, impl, sp, remat, fsdp, tp) -> logits (or
 (logits, extra_loss) for MoE, whose router loss the trainer adds to CE),
 its config class, param_shapes, the tree a checkpoint or a converted tree
 is checked against, and param_kinds, each leaf's sharding kind.
@@ -20,7 +20,7 @@ class ModelFamily:
     name: str
     init_params: Callable
     forward: Callable          # (params, tokens, config, *, impl, sp, remat,
-                               #  fsdp)
+                               #  fsdp, tp)
     config_cls: Any
     param_shapes: Callable     # config -> {name: (shape, dtype)}
     param_kinds: Callable      # config -> {name: sharding kind}

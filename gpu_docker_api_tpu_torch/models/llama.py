@@ -11,7 +11,14 @@ and attention as ring or Ulysses attention (LlamaConfig.sp_attn). Under an
 `fsdp` group each rank holds a shard of every matrix (param_kinds,
 parallel/mesh.param_sharding_rules) and gathers it whole at its use, a
 decoder layer's inside the layer's body: under remat the recompute gathers
-again, so no layer's whole weights outlive their use (ZeRO-3).
+again, so no layer's whole weights outlive their use (ZeRO-3). Under a
+`tp` group each rank holds its Megatron slice of every matrix: the normed
+input enters wq/wk/wv and w1/w3 through comm.copy_to_group and each
+rank's product is its own columns (its heads when both head counts divide
+by tp, head_axis_for; else q, k and v are gathered whole, the fallback),
+and the outputs of wo and w2 meet in comm.reduce_from_group; the
+embedding looks up this rank's vocab chunk and the logits are this rank's
+vocab shard [B, S, V/tp] (mesh.logits_spec).
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import attention
 from ..parallel import comm
-from ..parallel.mesh import param_sharding_rules, spec_dim
+from ..parallel.mesh import head_axis_for, param_sharding_rules, spec_dim
 from .remat import remat_wrap
 
 
@@ -233,22 +240,34 @@ def shard_positions(s_loc: int, sp, device) -> torch.Tensor:
 
 
 def _attention_block(x, layer, config: LlamaConfig, cos, sin, impl: str,
-                     sp=None):
+                     sp=None, tp=None):
     """Norm + QKV + RoPE + attention + output projection + residual. x is
-    this rank's shard of the sequence under an `sp` group."""
+    this rank's shard of the sequence under an `sp` group; under a `tp`
+    group the weights are this rank's column (wq/wk/wv) and row (wo)
+    slices."""
     c = config
     b, s, _ = x.shape
     h = rms_norm(x, layer["attn_norm"], c.norm_eps)
-    q = (h @ layer["wq"]).reshape(b, s, c.n_heads, c.head_dim)
-    k = (h @ layer["wk"]).reshape(b, s, c.n_kv_heads, c.head_dim)
-    v = (h @ layer["wv"]).reshape(b, s, c.n_kv_heads, c.head_dim)
+    if sharded(tp):
+        h = comm.copy_to_group(h, tp)
+    q, k, v = h @ layer["wq"], h @ layer["wk"], h @ layer["wv"]
+    n_tp = tp.size if sharded(tp) else 1
+    split = head_axis_for(n_tp, c.n_heads, c.n_kv_heads) == "tp"
+    if sharded(tp) and not split:
+        # a column shard may cut a head, and split-half RoPE pairs column
+        # j with j + head_dim/2: every rank takes all heads
+        q, k, v = comm.all_gather((q, k, v), (2, 2, 2), tp)
+    heads = n_tp if split else 1
+    q = q.reshape(b, s, c.n_heads // heads, c.head_dim)
+    k = k.reshape(b, s, c.n_kv_heads // heads, c.head_dim)
+    v = v.reshape(b, s, c.n_kv_heads // heads, c.head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if sharded(sp) and c.sp_attn == "ulysses":
         # all-to-all head scatter: the whole-sequence kernel on H/sp heads
         from ..parallel.ulysses import ulysses_attention
         out = ulysses_attention(q, k, v, sp, causal=True, impl=impl,
-                                window=c.sliding_window)
+                                window=c.sliding_window, tp=heads)
     elif sharded(sp):
         # K/V shards rotate round the ring; with a window it stops early
         from ..parallel.ring import ring_attention
@@ -257,13 +276,37 @@ def _attention_block(x, layer, config: LlamaConfig, cos, sin, impl: str,
     else:
         out = attention(q, k, v, causal=True, impl=impl,
                         window=c.sliding_window)             # [B, S, H, Dh]
-    return x + out.reshape(b, s, c.n_heads * c.head_dim) @ layer["wo"]
+    out = out.reshape(b, s, -1)
+    if sharded(tp) and not split:
+        out = out.chunk(n_tp, dim=-1)[tp.rank]      # the rows of wo held
+    out = out @ layer["wo"]
+    if sharded(tp):
+        out = comm.reduce_from_group(out, tp)
+    return x + out
 
 
-def _mlp_block(x, layer, config: LlamaConfig):
+def _mlp_block(x, layer, config: LlamaConfig, tp=None):
+    """SwiGLU + residual; under a `tp` group w1/w3 are this rank's
+    columns and w2 its rows."""
     h = rms_norm(x, layer["mlp_norm"], config.norm_eps)
-    gated = F.silu(h @ layer["w1"]) * (h @ layer["w3"])    # SwiGLU
-    return x + gated @ layer["w2"]
+    if sharded(tp):
+        h = comm.copy_to_group(h, tp)
+    out = (F.silu(h @ layer["w1"]) * (h @ layer["w3"])) @ layer["w2"]
+    if sharded(tp):
+        out = comm.reduce_from_group(out, tp)
+    return x + out
+
+
+def vocab_embedding(tokens: torch.Tensor, embed: torch.Tensor, tp
+                    ) -> torch.Tensor:
+    """The rows of `tokens` from a vocab-parallel table: `embed` is this tp
+    rank's chunk [V/tp, D]; ids outside it look up zeros, and the sum over
+    the group (one nonzero term a row, so exact) is the lookup."""
+    n = embed.shape[0]
+    local = tokens - tp.rank * n
+    outside = (local < 0) | (local >= n)
+    x = F.embedding(local.clamp(0, n - 1), embed)
+    return comm.reduce_from_group(x.masked_fill(outside[..., None], 0), tp)
 
 
 # ---- forward ----------------------------------------------------------------
@@ -274,26 +317,28 @@ _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w1", "w3",
 
 def llama_forward(params: dict, tokens: torch.Tensor, config: LlamaConfig,
                   impl: str = "auto", sp=None, remat: str = "none",
-                  fsdp=None) -> torch.Tensor:
+                  fsdp=None, tp=None) -> torch.Tensor:
     """tokens [B, S] int -> logits [B, S, V] f32. remat: "none" | "full" |
     "dots" — per-layer checkpointing of the decoder body (models/remat.py).
     Under an `sp` group (parallel.comm.SPGroup) tokens are this rank's
-    [B, S/sp] shard and so are the logits; under an `fsdp` group params
-    are this rank's shards (param_kinds). Every rank calls together."""
+    [B, S/sp] shard and so are the logits; under an `fsdp` or `tp` group
+    params are this rank's shards (param_kinds), and under `tp` the logits
+    are this rank's vocab shard [..., V/tp]. Every rank calls together."""
     c = config
     s = tokens.shape[1]
     kinds = param_kinds(c)
     layer_kinds = [kinds["layers"][name] for name in _LAYER_KEYS]
     embed, = gather([params["embed"]], ["embed"], fsdp)
-    x = F.embedding(tokens, embed)
+    x = (vocab_embedding(tokens, embed, tp) if sharded(tp)
+         else F.embedding(tokens, embed))
     del embed
     cos, sin = rope_frequencies(c, shard_positions(s, sp, tokens.device))
 
     def body(x, *weights):
         weights = gather(weights, layer_kinds, fsdp)
         layer = dict(zip(_LAYER_KEYS, weights))
-        x = _attention_block(x, layer, c, cos, sin, impl, sp)
-        return _mlp_block(x, layer, c)
+        x = _attention_block(x, layer, c, cos, sin, impl, sp, tp)
+        return _mlp_block(x, layer, c, tp)
 
     step = remat_wrap(body, remat)
     # unbind once: the backward stacks the per-layer grads in one go
@@ -302,6 +347,7 @@ def llama_forward(params: dict, tokens: torch.Tensor, config: LlamaConfig,
         x = step(x, *weights)
     x = rms_norm(x, params["final_norm"], c.norm_eps)
     lm_head, = gather([params["lm_head"]], ["lm_head"], fsdp)
+    if sharded(tp):
+        x = comm.copy_to_group(x, tp)
     # logits in f32: the loss softmax needs the headroom
     return (x @ lm_head).float()
-

@@ -292,7 +292,7 @@ def moe_block(x: torch.Tensor, layer: dict, config: MoEConfig
 
 def moe_forward(params: dict, tokens: torch.Tensor, config: MoEConfig,
                 impl: str = "auto", sp=None, remat: str = "none",
-                fsdp=None) -> tuple[torch.Tensor, torch.Tensor]:
+                fsdp=None, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] int -> (logits [B, S, V] f32, router_loss f32 scalar).
 
     router_loss = aux_weight * load_balance + z_weight * z_loss, summed over
@@ -300,11 +300,11 @@ def moe_forward(params: dict, tokens: torch.Tensor, config: MoEConfig,
     ops/attention.py (the flash kernels on the card); remat as
     llama_forward. Not under an `sp` group: JAX routes the global token
     array (the capacity scan runs over every token), which a rank-local
-    route would not; nor, for the same reason, under `fsdp`."""
-    if sharded(sp) or sharded(fsdp):
+    route would not; nor, for the same reason, under `fsdp` or `tp`."""
+    if sharded(sp) or sharded(fsdp) or sharded(tp):
         raise NotImplementedError(
-            "MoE over a group of ranks (sp or fsdp > 1) is not yet ported "
-            "to PyTorch: routing runs over the global token array")
+            "MoE over a group of ranks (sp, fsdp or tp > 1) is not yet "
+            "ported to PyTorch: routing runs over the global token array")
     c = config
     lc = c.as_llama()
     s = tokens.shape[1]

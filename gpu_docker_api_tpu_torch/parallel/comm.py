@@ -19,6 +19,11 @@ their transpose:
   along its dim (fsdp, in one collective); backward is the reduce-scatter
   (reduce_scatter_sum): the cotangents summed over the group in f32, this
   rank's slice kept.
+- copy_to_group(x, g) and reduce_from_group(x, g): Megatron's f and g
+  around a tensor-parallel block (the psums XLA inserts for the tp
+  sharding rules): f is the identity whose backward sums the cotangent
+  over the group, g the sum over the group whose backward is the
+  identity; both sum in f32 and cast back.
 - all_reduce_sum and all_reduce_max: in place, no gradient, for the
   trainer (the sum bucketed through a flat buffer).
 
@@ -220,7 +225,7 @@ def all_to_all(tensors: Sequence[torch.Tensor], split_dim: int,
     return _AllToAll.apply(sp, split_dim, concat_dim, *tensors)
 
 
-# ---- fsdp: all-gather and reduce-scatter -------------------------------------
+# ---- fsdp: all-gather and reduce-scatter ------------------------------------
 
 def _gather(tensors: Sequence[torch.Tensor], dims: Sequence[int],
             g: AxisGroup) -> list:
@@ -294,7 +299,55 @@ def gather_leaf(t: torch.Tensor, dim: int, g: AxisGroup) -> torch.Tensor:
     return _gather([t.detach()], [dim], g)[0]
 
 
-# ---- trainer collectives (no gradient) ---------------------------------------
+# ---- tp: Megatron's f and g -------------------------------------------------
+
+def _sum_f32(x: torch.Tensor, g: AxisGroup) -> torch.Tensor:
+    """A new tensor: x summed over the group in f32, cast back to x's
+    dtype on x's device."""
+    buf = x.detach().to(device=_wire_device(x, g), dtype=torch.float32,
+                        copy=True, memory_format=torch.contiguous_format)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=g.group)
+    return buf.to(device=x.device, dtype=x.dtype)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, x):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, _sum_f32(grad, ctx.g)
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, x):
+        return _sum_f32(x, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad
+
+
+def copy_to_group(x: torch.Tensor, g: AxisGroup) -> torch.Tensor:
+    """x unchanged, where every rank of the group holds the same x and
+    uses it on its own shard of a weight (a column-parallel product): the
+    backward sums the ranks' partial cotangents over the group, in f32.
+    Every rank of the group must call it."""
+    return _CopyToGroup.apply(g, x)
+
+
+def reduce_from_group(x: torch.Tensor, g: AxisGroup) -> torch.Tensor:
+    """The sum over the group of each rank's partial x (a row-parallel
+    product, a vocab shard's lookup), taken in f32 and cast back to x's
+    dtype; the backward passes the cotangent through, as every rank holds
+    the sum. Every rank of the group must call it."""
+    return _ReduceFromGroup.apply(g, x)
+
+
+# ---- trainer collectives (no gradient) --------------------------------------
 
 def _buckets(tensors):
     """Consecutive groups of tensors of at most BUCKET elements (a larger

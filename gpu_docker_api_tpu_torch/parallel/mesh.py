@@ -6,10 +6,13 @@ the same way. Torch has no mesh: make_mesh lays the plan's ranks out
 row-major over AXES, as the JAX mesh lays out its devices, and
 MeshGroups forms one torch.distributed group per axis above 1
 (parallel/comm.AxisGroup). The sharding rules are the JAX package's
-PartitionSpecs, written as tuples of axis names per dim: fsdp shards each
-parameter along the dim its kind's rule names (ZeRO-3), the batch rows go
-over dp x fsdp and the sequence over sp. require_ported admits dp, fsdp
-and sp and refuses the other axes above 1.
+PartitionSpecs, written as tuples of axis names per dim: tp splits each
+matrix Megatron-style (column-parallel in, row-parallel out, the vocab of
+embed and lm_head) and fsdp the other dim (ZeRO-3); a dim named by both
+(embed's) is cut into tp x fsdp chunks, tp major, as JAX places it. The
+batch rows go over dp x fsdp, the sequence over sp and the logits' vocab
+over tp. require_ported admits dp, fsdp, tp and sp and refuses the other
+axes above 1.
 """
 
 from __future__ import annotations
@@ -86,12 +89,12 @@ def plan_from_env(env: Optional[dict] = None) -> Optional[MeshPlan]:
     return MeshPlan(**vals)
 
 
-PORTED = ("dp", "fsdp", "sp")
+PORTED = ("dp", "fsdp", "tp", "sp")
 
 
 def require_ported(plan: MeshPlan) -> None:
-    """dp, fsdp and sp are the axes ported; refuse a plan with any other
-    axis above 1."""
+    """dp, fsdp, tp and sp are the axes ported; refuse a plan with any
+    other axis above 1."""
     others = [a for a in AXES if a not in PORTED and getattr(plan, a) > 1]
     if others:
         raise NotImplementedError(
@@ -148,11 +151,39 @@ def param_sharding_rules() -> dict:
 
 BATCH_AXES = ("dp", "fsdp", "ep")
 
+# the axes that split parameters in the rules above (pp and ep are not
+# ported): fsdp first, the minor axis where both cut one dim (embed's)
+PARAM_AXES = ("fsdp", "tp")
+
 
 def batch_spec() -> tuple:
     """Integer token batches [batch, seq]: rows over the data axes, the
     sequence over sp."""
     return (BATCH_AXES, "sp")
+
+
+def logits_spec() -> tuple:
+    """[batch, seq, vocab]: the vocab over tp keeps the big tensor
+    sharded."""
+    return (BATCH_AXES, "sp", "tp")
+
+
+def head_axis_for(tp: int, n_heads: int, n_kv_heads: int) -> Optional[str]:
+    """The axis an attention-head dim is sharded over: tp when both head
+    counts divide by it (attention is independent per head), else None:
+    the heads are gathered whole on every tp rank (the correctness
+    fallback for odd GQA configs). JAX's takes the mesh; this, its tp."""
+    if tp > 1 and n_heads % tp == 0 and n_kv_heads % tp == 0:
+        return "tp"
+    return None
+
+
+def best_tp_for(n_devices: int, max_tp: int = 8) -> int:
+    """Largest power-of-two tp <= max_tp dividing n_devices."""
+    tp = 1
+    while tp * 2 <= max_tp and n_devices % (tp * 2) == 0:
+        tp *= 2
+    return tp
 
 
 def spec_dim(spec: tuple, axis: str) -> Optional[int]:
@@ -163,51 +194,93 @@ def spec_dim(spec: tuple, axis: str) -> Optional[int]:
     return None
 
 
-def shard(x: torch.Tensor, dim: Optional[int], rank: int, size: int,
+def split_dims(spec: tuple, plan: MeshPlan) -> tuple:
+    """((axis, the dim it cuts), ...) of a leaf of `spec` under `plan`,
+    for the PARAM_AXES above 1 that the spec names, in PARAM_AXES order;
+    () for a whole leaf."""
+    return tuple((a, spec_dim(spec, a)) for a in PARAM_AXES
+                 if getattr(plan, a) > 1 and spec_dim(spec, a) is not None)
+
+
+def shard_slices(shape, spec: tuple, plan: MeshPlan, rank: int,
+                 name: str = "leaf") -> tuple:
+    """The slices of a whole leaf of `shape` that rank `rank` of `plan`
+    holds: each dim its spec names cut into the product of its axes'
+    sizes, the chunk at this rank's coordinates (row-major over the axes,
+    major first: embed's ("tp", "fsdp") takes chunk tp * fsdp_size +
+    fsdp). A dim that does not divide raises ValueError, as the JAX
+    device_put of an uneven sharding does."""
+    at = coords(plan, rank)
+    out = []
+    for dim, entry in enumerate(spec):
+        axes = [a for a in (entry if isinstance(entry, tuple) else (entry,))
+                if a is not None and getattr(plan, a) > 1]
+        size, index = 1, 0
+        for a in axes:
+            size *= getattr(plan, a)
+            index = index * getattr(plan, a) + at[a]
+        if shape[dim] % size:
+            over = " x ".join(f"{a} {getattr(plan, a)}" for a in axes)
+            raise ValueError(f"{name}: dim {dim} of {tuple(shape)} does not "
+                             f"divide over {over}")
+        n = shape[dim] // size
+        out.append(slice(index * n, (index + 1) * n))
+    return tuple(out)
+
+
+def shard(x: torch.Tensor, spec: tuple, plan: MeshPlan, rank: int,
           name: str = "leaf") -> torch.Tensor:
-    """This rank's contiguous 1/size of x along `dim` (a view), or x when
-    it is not sharded. A dim that does not divide raises ValueError, as
-    the JAX device_put of an uneven sharding does."""
-    if dim is None or size == 1:
-        return x
-    if x.shape[dim] % size:
-        raise ValueError(f"{name}: dim {dim} of {tuple(x.shape)} does not "
-                         f"divide over fsdp {size}")
-    return x.chunk(size, dim=dim)[rank]
+    """Rank `rank`'s shard of the whole leaf x (a view; x itself when
+    nothing splits it): shard_slices."""
+    return x[shard_slices(x.shape, spec, plan, rank, name)]
 
 
-def unshard(shards, dim: Optional[int]) -> torch.Tensor:
-    """The leaf the ranks' shards (in rank order) were cut from."""
-    return shards[0] if dim is None else torch.cat(list(shards), dim=dim)
+def unshard(pieces, spec: tuple, plan: MeshPlan) -> torch.Tensor:
+    """The whole leaf that every rank's shard (pieces[r], in rank order)
+    was cut from."""
+    shape = list(pieces[0].shape)
+    for dim, entry in enumerate(spec):
+        for a in entry if isinstance(entry, tuple) else (entry,):
+            if a is not None:
+                shape[dim] *= getattr(plan, a)
+    out = pieces[0].new_empty(shape)
+    for rank, piece in enumerate(pieces):
+        out[shard_slices(shape, spec, plan, rank)] = piece
+    return out
 
 
-def shard_params(params: dict, specs: dict, rank: int, size: int,
+def shard_params(params: dict, specs: dict, plan: MeshPlan, rank: int,
                  prefix: str = "") -> dict:
-    """Each leaf's shard along the dim its spec (param_specs) gives fsdp."""
-    return {k: shard_params(v, specs[k], rank, size, f"{prefix}{k}.")
+    """Rank `rank`'s shard of each leaf (param_specs gives each leaf's
+    spec)."""
+    return {k: shard_params(v, specs[k], plan, rank, f"{prefix}{k}.")
             if isinstance(v, dict) else
-            shard(v, spec_dim(specs[k], "fsdp"), rank, size, prefix + k)
+            shard(v, specs[k], plan, rank, prefix + k)
             for k, v in params.items()}
 
 
 @dataclass(frozen=True)
 class MeshGroups:
     """This rank's place in the plan's process groups: one AxisGroup per
-    ported axis above 1 (None at size 1), `replica` over the ranks that
+    ported axis above 1 (None at size 1); `replica` over the ranks that
     hold the same parameter shards (dp x sp: the gradient sum of a sharded
-    leaf) and `world` over every rank (None alone)."""
+    leaf); `data` over every axis but tp (the ranks over which a
+    tp-replicated value, the loss or a norm's gradient, is a partial sum);
+    `world` over every rank (None alone)."""
     plan: MeshPlan
     rank: int
     dp: Optional[AxisGroup] = None
     fsdp: Optional[AxisGroup] = None
+    tp: Optional[AxisGroup] = None
     sp: Optional[AxisGroup] = None
     replica: Optional[AxisGroup] = None
+    data: Optional[AxisGroup] = None
     world: Optional[AxisGroup] = None
 
     @property
     def rows(self) -> tuple[int, int]:
         """(this rank's row shard, how many): the batch rows go over dp x
-        fsdp, dp major."""
+        fsdp, dp major; the tp ranks of a row shard take the same rows."""
         c = coords(self.plan, self.rank)
         n = self.plan.dp * self.plan.fsdp
         return c["dp"] * self.plan.fsdp + c["fsdp"], n
@@ -238,5 +311,6 @@ class MeshGroups:
             return formed[key]
 
         return cls(plan=plan, rank=rank, dp=group("dp"), fsdp=group("fsdp"),
-                   sp=group("sp"), replica=group("dp", "sp"),
+                   tp=group("tp"), sp=group("sp"), replica=group("dp", "sp"),
+                   data=group(*(a for a in AXES if a != "tp")),
                    world=group(*AXES))

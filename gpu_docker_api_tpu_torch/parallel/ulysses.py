@@ -22,17 +22,20 @@ from .comm import SPGroup, all_to_all
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       sp: Optional[SPGroup], causal: bool = True,
-                      impl: str = "auto", window: int = 0) -> torch.Tensor:
+                      impl: str = "auto", window: int = 0,
+                      tp: int = 1) -> torch.Tensor:
     """q [B, S/sp, H, D], k/v [B, S/sp, Hkv, D] -> [B, S/sp, H, D]. Needs
     H % sp == 0 (KV heads are replicated up to the group first when
-    Hkv % sp != 0). A window applies unchanged: after the head scatter each
-    rank holds the whole sequence of its heads."""
+    Hkv % sp != 0); `tp` is how many tp ranks the model's heads were
+    split over before (1 when they are whole here), named in the refusal
+    as JAX names it. A window applies unchanged: after the head scatter
+    each rank holds the whole sequence of its heads."""
     if sp is None or sp.size == 1:
         return _local_attention(q, k, v, causal=causal, impl=impl,
                                 window=window)
     if q.shape[2] % sp.size != 0:
-        raise ValueError(f"n_heads {q.shape[2]} must divide by sp {sp.size} "
-                         f"for Ulysses")
+        raise ValueError(f"n_heads {q.shape[2] * tp}/tp={tp} must divide by "
+                         f"sp {sp.size} for Ulysses")
     return _ulysses_local(q, k, v, sp=sp, causal=causal, impl=impl,
                           window=window)
 

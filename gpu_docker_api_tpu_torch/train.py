@@ -6,16 +6,19 @@ leaf), gradient accumulation with f32 sums, atomic torch.save checkpoints
 (one directory per step) and the byte-compatible quiesce protocol the
 control plane's Backend.quiesce drives.
 
-On one device, or on this rank of a plan over dp, fsdp and sp
+On one device, or on this rank of a plan over dp, fsdp, tp and sp
 (parallel/mesh.MeshGroups): each rank takes its B/(dp*fsdp) rows of the
-global batch and its S/sp positions, and holds 1/fsdp of every parameter
-and AdamW moment along the dim its kind's rule names (param_specs; the
-norms whole). The loss is the global mean (each rank's log-likelihood sum
-over the global count). A sharded leaf's gradient is reduce-scattered over
-fsdp in the backward (comm.all_gather) and summed over dp x sp, a whole
-leaf's over every rank, in f32; the clip takes the global norm, so each
-step is the one-rank step on the global batch. Checkpoints hold the
-gathered state, so one written under any plan restores under any other.
+global batch (the tp ranks of a row shard the same rows) and its S/sp
+positions, and holds 1/(fsdp*tp) of every matrix and its AdamW moments,
+cut along the dims its kind's rule names (param_specs; the norms whole).
+The loss is the global mean (each rank's log-likelihood sum over the
+global count; under tp the cross-entropy runs over the vocab shards). A
+sharded leaf's gradient is reduce-scattered over fsdp in the backward
+(comm.all_gather) and summed over dp x sp; a whole leaf's, which every tp
+rank holds complete, and the loss over every axis but tp; all in f32.
+The clip takes the global norm, so each step is the one-rank step on the
+global batch. Checkpoints hold the gathered state, so one written under
+any plan restores under any other.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from .models.llama import init_from_shapes, sharded
 from .parallel import comm
 from .parallel.mesh import (
     MeshGroups, MeshPlan, param_sharding_rules, require_ported, shard,
-    shard_params, spec_dim,
+    shard_params, split_dims,
 )
 
 
@@ -183,7 +186,8 @@ class AdamW:
 
 def loss_fn(params, tokens, config, impl: str = "auto_grad", sp=None,
             n_microbatches: int = 0, remat: bool = True,
-            remat_policy: str = "dots", fsdp=None, row_shards: int = 1):
+            remat_policy: str = "dots", fsdp=None, row_shards: int = 1,
+            tp=None):
     """Next-token CE in f32 (+ the family's extra loss). tokens [B, S];
     predicts tokens[:, 1:].
 
@@ -194,17 +198,20 @@ def loss_fn(params, tokens, config, impl: str = "auto_grad", sp=None,
     (parallel.comm.AxisGroup), all their positions, of which the rank runs
     its S/sp. A shard's last position predicts the next shard's first
     token; the global last position predicts nothing. The shares sum to
-    the loss. `fsdp`: the group params are sharded over."""
+    the loss. `fsdp`, `tp`: the groups params are sharded over; under
+    `tp` the logits are vocab shards and the cross-entropy is taken over
+    the group, so every tp rank holds the same share."""
     if n_microbatches:
         raise NotImplementedError(
             "the pipelined trunk is not yet ported to PyTorch")
     fam = family_for(config)
     remat_policy = remat_policy if remat else "none"
-    kw = dict(impl=impl, sp=sp, fsdp=fsdp, remat=remat_policy)
+    kw = dict(impl=impl, sp=sp, fsdp=fsdp, remat=remat_policy, tp=tp)
     if not sharded(sp) and row_shards == 1:
         out = fam.forward(params, tokens, config, **kw)            # f32
         logits, extra = out if fam.returns_extra_loss else (out, 0.0)
-        return -_log_likelihood(logits[:, :-1], tokens[:, 1:]).mean() + extra
+        return (-_log_likelihood(logits[:, :-1], tokens[:, 1:], tp).mean()
+                + extra)
     b, s = tokens.shape
     n_sp, sp_rank = (sp.size, sp.rank) if sharded(sp) else (1, 0)
     if s % n_sp:
@@ -216,14 +223,31 @@ def loss_fn(params, tokens, config, impl: str = "auto_grad", sp=None,
     lo = sp_rank * s_loc
     logits = fam.forward(params, tokens[:, lo:lo + s_loc], config, **kw)
     targets = tokens[:, lo + 1:lo + s_loc + 1]      # one short on the last
-    ll = _log_likelihood(logits[:, :targets.shape[1]], targets)
+    ll = _log_likelihood(logits[:, :targets.shape[1]], targets, tp)
     return -ll.sum() / (b * row_shards * (s - 1))
 
 
-def _log_likelihood(logits, targets):
-    """[B, T, V] f32 logits, [B, T] targets -> [B, T] log-probabilities."""
-    logp = F.log_softmax(logits, dim=-1)
-    return logp.gather(-1, targets[..., None].long())[..., 0]
+def _log_likelihood(logits, targets, tp=None):
+    """[B, T, V] f32 logits, [B, T] targets -> [B, T] log-probabilities.
+    Under a `tp` group the logits are this rank's vocab chunk [B, T, V/tp]
+    (vocab-parallel cross-entropy): the row max over the group (no
+    gradient), the sum of exps over the group, and the target's logit
+    from the rank whose chunk holds it, summed over the group; every rank
+    gets the same values, the one-rank log_softmax's."""
+    if not sharded(tp):
+        logp = F.log_softmax(logits, dim=-1)
+        return logp.gather(-1, targets[..., None].long())[..., 0]
+    n = logits.shape[-1]
+    with torch.no_grad():
+        top = logits.max(dim=-1, keepdim=True).values
+        comm.all_reduce_max([top], tp)
+    shifted = logits - top
+    sum_exp = comm.reduce_from_group(shifted.exp().sum(dim=-1), tp)
+    local = targets.long() - tp.rank * n
+    outside = (local < 0) | (local >= n)
+    picked = shifted.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    picked = comm.reduce_from_group(picked.masked_fill(outside, 0), tp)
+    return picked - torch.log(sum_exp)
 
 
 # ---- trainer ----------------------------------------------------------------
@@ -245,7 +269,7 @@ def param_specs(config) -> dict:
 @dataclass
 class Trainer:
     """Owns the train step on one device, or on this rank of a plan over
-    dp, fsdp and sp.
+    dp, fsdp, tp and sp.
 
     Usage:
         trainer = Trainer.create(config)            # on the card
@@ -284,7 +308,7 @@ class Trainer:
         # an uneven shard fails here, before any state exists
         shard_params(tree_map(lambda sd: torch.empty(
             sd[0], dtype=sd[1], device="meta"), param_shapes(config)),
-            param_specs(config), 0, plan.fsdp)
+            param_specs(config), plan, 0)
         return trainer
 
     # ---- the layout ----
@@ -298,12 +322,20 @@ class Trainer:
         return self.groups.fsdp if self.groups else None
 
     @property
+    def tp(self) -> Optional[comm.AxisGroup]:
+        return self.groups.tp if self.groups else None
+
+    @property
+    def rank(self) -> int:
+        return self.groups.rank if self.groups else 0
+
+    @property
     def dims(self) -> dict:
-        """The dim fsdp shards of each leaf of the state's parameter tree
-        (None: whole on every rank)."""
-        n = self.plan.fsdp
-        return tree_map(lambda spec: spec_dim(spec, "fsdp") if n > 1
-                        else None, param_specs(self.config))
+        """((axis, the dim it cuts), ...) of each leaf of the state's
+        parameter tree, fsdp before tp (split_dims; (): whole on every
+        rank)."""
+        return tree_map(lambda spec: split_dims(spec, self.plan),
+                        param_specs(self.config))
 
     def _own(self, t: torch.Tensor) -> torch.Tensor:
         """An owned, contiguous copy on the trainer's device."""
@@ -313,9 +345,8 @@ class Trainer:
     def _shard_tree(self, tree: dict) -> dict:
         """This rank's shards of a whole parameter-shaped tree
         (shard_params), owned copies on the trainer's device."""
-        rank = self.fsdp.rank if self.fsdp else 0
         return tree_map(self._own, shard_params(
-            tree, param_specs(self.config), rank, self.plan.fsdp))
+            tree, param_specs(self.config), self.plan, self.rank))
 
     # ---- state ----
 
@@ -326,13 +357,12 @@ class Trainer:
         rank holds more than one whole leaf at a time."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
 
-        rank = self.fsdp.rank if self.fsdp else 0
-
-        def leaf(path, shape_dtype, dim):
+        def leaf(path, shape_dtype, spec):
             name = path.rsplit(".", 1)[-1]
             whole = init_from_shapes({name: shape_dtype}, gen)[name]
-            return self._own(shard(whole, dim, rank, self.plan.fsdp, path))
-        params = tree_map_named(leaf, param_shapes(self.config), self.dims)
+            return self._own(shard(whole, spec, self.plan, self.rank, path))
+        params = tree_map_named(leaf, param_shapes(self.config),
+                                param_specs(self.config))
         return self._fresh(params)
 
     def state_from_params(self, params: dict) -> dict:
@@ -363,20 +393,19 @@ class Trainer:
     def full_state(self, state: dict) -> Optional[dict]:
         """The whole train state, what a checkpoint holds: on the world's
         rank 0 the parameters, mu and nu gathered leaf by leaf to the host
-        (the state itself on one rank and without fsdp); None on the other
-        ranks. Collective: every rank calls it."""
-        writer = self.groups is None or self.groups.rank == 0
-        if self.plan.fsdp == 1:
+        (the state itself on one rank and without fsdp or tp); None on the
+        other ranks. Collective: every rank calls it."""
+        writer = self.rank == 0
+        if self.plan.fsdp == 1 and self.plan.tp == 1:
             return state if writer else None
 
-        def whole(t, dim):
-            if dim is None:
-                return t.detach().cpu() if writer else None
-            full = comm.gather_leaf(t, dim, self.fsdp)
-            return full.cpu() if writer else None
+        def whole(t, dims):
+            for axis, dim in dims:      # fsdp, the minor axis, first
+                t = comm.gather_leaf(t, dim, getattr(self.groups, axis))
+            return t.detach().cpu() if writer else None
 
         def tree(t):
-            return tree_map_named(lambda _, x, dim: whole(x, dim), t,
+            return tree_map_named(lambda _, x, dims: whole(x, dims), t,
                                   self.dims)
         opt = state["opt_state"]
         out = {"params": tree(state["params"]),
@@ -394,7 +423,7 @@ class Trainer:
 
     def _loss(self, params, tokens):
         return loss_fn(params, tokens, self.config, sp=self.sp,
-                       fsdp=self.fsdp, row_shards=self.plan.dp *
+                       fsdp=self.fsdp, tp=self.tp, row_shards=self.plan.dp *
                        self.plan.fsdp, remat=self.tc.remat,
                        remat_policy=self.tc.remat_policy)
 
@@ -426,8 +455,8 @@ class Trainer:
                 loss += part.detach()
             loss = loss / accum
             grads = [(g / accum).to(p.dtype) for g, p in zip(grad_sum, leaves)]
-        # each leaf's fsdp dim, in the order of `leaves`
-        dims = tree_leaves(tree_map_named(lambda _, p, dim: dim, params,
+        # each leaf's split dims, in the order of `leaves`
+        dims = tree_leaves(tree_map_named(lambda _, p, d: d, params,
                                           self.dims))
         gnorm = self._sum_over_ranks(grads, dims, loss)
         self.optimizer.update(grads, state["opt_state"], leaves, gnorm)
@@ -438,22 +467,25 @@ class Trainer:
                         ) -> torch.Tensor:
         """Each rank's gradients and loss are partial sums: add them up in
         place, in f32 (a sharded leaf's over the ranks that hold its
-        shard, dp x sp, the reduce-scatter over fsdp being done; every
-        other leaf's and the loss over every rank). Returns the global
-        norm of the gradients: the shards' squares summed over fsdp, each
-        whole leaf counted once."""
+        shard, dp x sp, the reduce-scatter over fsdp being done; a whole
+        leaf's, complete on every tp rank, and the loss over every axis
+        but tp). Returns the global norm of the gradients: the shards'
+        squares summed over fsdp and tp, each whole leaf counted once."""
         g = self.groups
         if g is None:
             return global_norm(grads)
-        split = [x for x, d in zip(grads, dims) if d is not None]
-        whole = [x for x, d in zip(grads, dims) if d is None]
+        split = [x for x, d in zip(grads, dims) if d]
+        whole = [x for x, d in zip(grads, dims) if not d]
         if split and g.replica is not None:
             comm.all_reduce_sum(split, g.replica)
-        comm.all_reduce_sum([*whole, loss], g.world)
+        if g.data is not None:
+            comm.all_reduce_sum([*whole, loss], g.data)
         if not split:
             return global_norm(whole)
         squares = sum_squares(split)
-        comm.all_reduce_sum([squares], g.fsdp)
+        for axis in (g.fsdp, g.tp):
+            if axis is not None:
+                comm.all_reduce_sum([squares], axis)
         return torch.sqrt(squares + sum_squares(whole))
 
     def shard_batch(self, tokens) -> torch.Tensor:

@@ -8,15 +8,17 @@ newest checkpoint, the same metrics.jsonl schema and the quiesce park on
 SIGUSR1. It trains on the CUDA card the container was given; --device cpu
 runs on the CPU instead (tests).
 
---sp N, or a TDAPI_MESH_PLAN whose axes above 1 are among dp, fsdp and sp
-(the control plane's gang contract; dp and fsdp come only from it, as in
-the JAX workload), trains over plan.size ranks on this host
+A TDAPI_MESH_PLAN whose axes above 1 are among dp, fsdp, tp and sp (the
+control plane's gang contract) is honoured exactly. Without one the plan
+is the JAX workload's: --tp (or best_tp_for over the devices left by
+--sp), --sp, and the rest of the visible devices on fsdp (unplanned_plan).
+A plan over more than one rank trains over plan.size ranks on this host
 (distributed.launch): processes on cuda:0..N-1 over NCCL, or with --device
 cpu on the CPU over gloo. Rank 0 alone writes metrics, the checkpoints
 (the gathered state: a run resumes under another plan, as a tpuCount
 patch asks) and the quiesce marker and ack; every rank resumes from the
-same checkpoint and keeps its shards. The other axes (--tp/--pp/--ep above
-1), MoE over ranks and multi-worker contracts are not yet ported and are
+same checkpoint and keeps its shards. The other axes (--pp/--ep above 1),
+MoE over ranks and multi-worker contracts are not yet ported and are
 refused.
 
 Run: python -m gpu_docker_api_tpu_torch.workloads.train_llama \
@@ -90,19 +92,19 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     _refuse_multi_worker()
-    for flag in ("tp", "pp", "ep", "virtual_stages"):
+    for flag in ("pp", "ep", "virtual_stages"):
         if getattr(args, flag) > 1:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} {getattr(args, flag)}: "
-                f"this axis is not yet ported to PyTorch (only dp, fsdp "
-                f"and sp are)")
+                f"this axis is not yet ported to PyTorch (only dp, fsdp, "
+                f"tp and sp are)")
 
     from ..models import named_config
-    from ..parallel.mesh import MeshPlan, plan_from_env, require_ported
+    from ..parallel.mesh import plan_from_env, require_ported
 
     # gang contract: a plan the control plane stamped is honoured exactly
     # (the CLI's axis flags apply to un-planned launches only)
-    plan = plan_from_env() or MeshPlan(sp=args.sp)
+    plan = plan_from_env() or _unplanned(args)
     require_ported(plan)
     try:
         config = named_config(args.family, args.config)
@@ -116,6 +118,38 @@ def main(argv=None) -> int:
     return _run(args, config, plan, device)
 
 
+def unplanned_plan(n_dev: int, tp: int, sp: int, pp: int = 1, ep: int = 1):
+    """The JAX workload's plan without TDAPI_MESH_PLAN, over n_dev
+    devices: tp as asked (0: best_tp_for over the devices the other fixed
+    axes leave), sp, pp and ep as asked, the rest on fsdp
+    (MeshPlan.auto; raises ValueError when they do not divide n_dev)."""
+    from ..parallel.mesh import MeshPlan, best_tp_for
+    fixed = sp * pp * ep
+    tp = tp or best_tp_for(n_dev // fixed if n_dev % fixed == 0 else 1)
+    return MeshPlan.auto(n_dev, tp=tp, sp=sp, pp=pp, ep=ep)
+
+
+def _unplanned(args):
+    """unplanned_plan over the visible devices: on cuda every card
+    (torch.cuda.device_count(), after refusing flags that ask for more
+    cards than there are, and a machine with none); on --device cpu, which
+    has no device count to fill, what the flags ask, (--tp or 1) * --sp."""
+    asked = (args.tp or 1) * args.sp
+    if args.device == "cpu":
+        return unplanned_plan(asked, args.tp, args.sp, args.pp, args.ep)
+    import torch
+
+    from ..device import resolve_device
+    n_dev = torch.cuda.device_count()
+    if asked > 1 and asked > n_dev:
+        flags = " ".join(f"--{a} {getattr(args, a)}" for a in ("tp", "sp")
+                         if getattr(args, a) > 1)
+        raise RuntimeError(f"{flags} needs {asked} CUDA devices, sees "
+                           f"{n_dev}")
+    resolve_device(args.device)            # no card: raise
+    return unplanned_plan(n_dev, args.tp, args.sp, args.pp, args.ep)
+
+
 def _launch(args, argv, plan) -> int:
     """plan.size rank processes on this host, each running _rank_main."""
     import torch
@@ -125,11 +159,9 @@ def _launch(args, argv, plan) -> int:
         raise NotImplementedError(
             f"--family moe under {plan}: MoE routing over a group of ranks "
             f"is not yet ported to PyTorch")
-    asked = (f"TDAPI_MESH_PLAN {plan}" if os.environ.get("TDAPI_MESH_PLAN")
-             else f"--sp {plan.sp}")
     if args.device == "cuda" and torch.cuda.device_count() < plan.size:
-        raise RuntimeError(f"{asked} needs {plan.size} CUDA devices, "
-                           f"sees {torch.cuda.device_count()}")
+        raise RuntimeError(f"TDAPI_MESH_PLAN {plan} needs {plan.size} CUDA "
+                           f"devices, sees {torch.cuda.device_count()}")
     distributed.launch(_rank_main, (argv, plan), plan.size,
                        distributed.backend_for(args.device))
     return 0

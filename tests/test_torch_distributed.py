@@ -107,14 +107,14 @@ def test_sp_without_the_cards_raises(tmp_path):
 
 
 @pytest.mark.parametrize("extra, env", [
-    (["--tp", "2"], {}),
+    ([], {"TDAPI_MESH_PLAN": '{"tp": 2, "pp": 2}'}),
     (["--pp", "2"], {}),
     (["--ep", "2"], {}),
     (["--virtual-stages", "2"], {}),
     (["--family", "moe", "--sp", "2"], {}),
     (["--family", "moe"], {"TDAPI_MESH_PLAN": '{"dp": 2}'}),
-    ([], {"TDAPI_MESH_PLAN": '{"fsdp": 2, "tp": 2}'}),
-    ([], {"TDAPI_MESH_PLAN": '{"tp": 4}'}),
+    ([], {"TDAPI_MESH_PLAN": '{"ep": 2, "tp": 2}'}),
+    (["--family", "moe", "--tp", "2"], {}),
     (["--sp", "2"], {"TPU_WORKER_HOSTNAMES": "w0,w1"}),
 ])
 def test_unported_axes_and_moe_over_ranks_are_refused(tmp_path, monkeypatch,
@@ -134,7 +134,8 @@ def test_trainer_refuses_a_plan_without_its_group():
 
     tiny = named_config("llama", "tiny")
     for plan in (MeshPlan(sp=2), MeshPlan(dp=2), MeshPlan(fsdp=2),
-                 MeshPlan(dp=2, fsdp=2)):
+                 MeshPlan(dp=2, fsdp=2), MeshPlan(tp=2),
+                 MeshPlan(fsdp=2, tp=2)):
         with pytest.raises(ValueError, match=f"needs the groups of its "
                                              f"{plan.size} ranks"):
             Trainer.create(tiny, plan, device="cpu")

@@ -31,6 +31,7 @@ from gpu_docker_api_tpu.parallel.mesh import MeshPlan as JMeshPlan
 from gpu_docker_api_tpu_torch import convert
 from gpu_docker_api_tpu_torch import train as ttrain
 from gpu_docker_api_tpu_torch.models import llama as tllama
+from gpu_docker_api_tpu_torch.parallel import mesh as tmesh
 from test_torch_sp_train import MAIN_SCRIPT, REPO, TINY, _records, _run_main
 
 torch.set_num_threads(1)
@@ -139,13 +140,14 @@ def test_sharded_trainer_matches_jax_and_one_rank(runs, name, remat):
 
 # ---- train_llama under TDAPI_MESH_PLAN -----------------------------------------
 
-def test_fsdp2_quiesce_parks_every_rank_and_resumes_gapless(tmp_path):
-    """Under {"fsdp": 2}: SIGUSR1 to the launcher reaches both ranks; they
-    agree on the step, both gather the state, rank 0 writes checkpoint,
-    marker and ack, both park; SIGTERM stops them; the next generation
-    resumes at the parked step with no gap."""
+def quiesce_and_resume(tmp_path, plan_json):
+    """Under TDAPI_MESH_PLAN `plan_json`: SIGUSR1 to the launcher reaches
+    every rank; they agree on the step, all gather the state, rank 0
+    writes checkpoint, marker and ack, all park; SIGTERM stops them; the
+    next generation resumes at the parked step with no gap."""
     wd = tmp_path / "run"
-    plan = {"TDAPI_MESH_PLAN": '{"fsdp": 2}'}
+    plan = {"TDAPI_MESH_PLAN": plan_json}
+    size = int(np.prod(list(json.loads(plan_json).values())))
     args = TINY + ["--steps", "100000", "--checkpoint-every", "100000",
                    "--workdir", str(wd)]
     env = dict(os.environ, CONTAINER_ROOT=str(tmp_path), OMP_NUM_THREADS="1",
@@ -179,7 +181,8 @@ def test_fsdp2_quiesce_parks_every_rank_and_resumes_gapless(tmp_path):
             proc.wait()
     steps, ckpts = _records(str(wd))
     assert steps[-1]["step"] == parked
-    assert all(r["devices"] == 2 and "fsdp=2" in r["plan"] for r in steps)
+    assert all(r["devices"] == size and r["plan"] == str(
+        tmesh.MeshPlan(**json.loads(plan_json))) for r in steps)
     assert ckpts == [ckpts[0]] and ckpts[0]["checkpoint"] == parked
     assert ckpts[0]["quiesced"] is True
     ckpt_dir = wd / "checkpoints"
@@ -191,22 +194,36 @@ def test_fsdp2_quiesce_parks_every_rank_and_resumes_gapless(tmp_path):
     assert not (ckpt_dir / "QUIESCED").exists()
 
 
-def test_checkpoint_resumes_across_plans(tmp_path):
-    """2 steps under {"fsdp": 2}, 2 more on one rank, 2 more under {"dp":
-    2}, from the gathered checkpoint each time (what a tpuCount patch
-    does): the losses of an uninterrupted one-rank run, no step missing or
-    repeated."""
+def resume_across(tmp_path, plans):
+    """Two steps under each TDAPI_MESH_PLAN of `plans` in turn ("" = one
+    rank), each run resuming from the gathered checkpoint the one before
+    wrote (what a tpuCount patch does): the losses of an uninterrupted
+    one-rank run, no step missing or repeated."""
     one, wd = str(tmp_path / "one"), str(tmp_path / "patched")
     base = ["--device", "cpu", "--config", "tiny", "--batch", "4", "--seq",
             "16", "--checkpoint-every", "1"]
-    _run_main(base + ["--workdir", one, "--steps", "6"])
-    for steps, plan in ((2, '{"fsdp": 2}'), (4, ""), (6, '{"dp": 2}')):
-        _run_main(base + ["--workdir", wd, "--steps", str(steps)],
+    _run_main(base + ["--workdir", one, "--steps", str(2 * len(plans))])
+    for i, plan in enumerate(plans):
+        _run_main(base + ["--workdir", wd, "--steps", str(2 * i + 2)],
                   env={"TDAPI_MESH_PLAN": plan})
     want, _ = _records(one)
     got, ckpts = _records(wd)
-    assert [r["step"] for r in got] == list(range(1, 7))
-    assert [r["devices"] for r in got] == [2, 2, 1, 1, 2, 2]
+    steps = list(range(1, 2 * len(plans) + 1))
+    assert [r["step"] for r in got] == steps
+    assert [r["devices"] for r in got] == [
+        int(np.prod(list(json.loads(plan or "{}").values())))
+        for plan in plans for _ in range(2)]
     assert [r["loss"] for r in got] == pytest.approx(
         [r["loss"] for r in want], rel=1e-5)
-    assert [r["checkpoint"] for r in ckpts] == list(range(1, 7))
+    assert [r["checkpoint"] for r in ckpts] == steps
+
+
+def test_fsdp2_quiesce_parks_every_rank_and_resumes_gapless(tmp_path):
+    """quiesce_and_resume under {"fsdp": 2}."""
+    quiesce_and_resume(tmp_path, '{"fsdp": 2}')
+
+
+def test_checkpoint_resumes_across_plans(tmp_path):
+    """2 steps under {"fsdp": 2}, 2 more on one rank, 2 more under {"dp":
+    2}: resume_across."""
+    resume_across(tmp_path, ['{"fsdp": 2}', "", '{"dp": 2}'])

@@ -1,10 +1,11 @@
-"""PyTorch port, the sharding layout of the dp and fsdp axes
+"""PyTorch port, the sharding layout of the dp, fsdp and tp axes
 (parallel/mesh.py, parallel/comm.py) against the JAX package: the rank
 layout against make_mesh's devices, param_kinds and the specs param_specs
 gives each leaf, each rank's shard against the shard JAX puts on the same
-device, the refusal of uneven parameter dims and batches, and the fsdp
-all-gather and its gradient, the reduce-scatter, over two gloo ranks
-against one process."""
+device (under fsdp, tp and both, embed's tp-major vocab chunks included),
+the refusal of uneven parameter dims and batches, and the fsdp all-gather
+and its gradient, the reduce-scatter, over two gloo ranks against one
+process."""
 
 import jax
 import numpy as np
@@ -56,7 +57,8 @@ def test_rank_layout_is_the_jax_mesh(plan):
         at = tuple(int(i) for i in np.argwhere(ids == rank)[0])
         assert tuple(tmesh.coords(tp, rank).values()) == at
     # the groups MeshGroups forms: every line along the axes, in order
-    for axes in (("fsdp",), ("dp", "sp"), ("sp",), tmesh.AXES):
+    for axes in (("fsdp",), ("tp",), ("dp", "sp"), ("sp",), tmesh.AXES,
+                 tuple(a for a in tmesh.AXES if a != "tp")):
         lines = tmesh.axis_lines(tp, axes)
         assert sorted(r for line in lines for r in line) == list(range(8))
         for line in lines:
@@ -89,20 +91,24 @@ def test_param_kinds_and_specs_equal_the_jax_ones(family, name):
     assert tmesh.batch_spec() == _jspec(jmesh.batch_spec())
 
 
-@pytest.mark.parametrize("fsdp", [2, 4])
-def test_each_ranks_shard_is_the_one_jax_puts_on_its_device(fsdp):
-    """shard_params on rank r gives, leaf by leaf, the shard JAX places on
-    the device at fsdp coordinate r; unshard of the ranks' shards gives
-    the leaf back."""
+@pytest.mark.parametrize("plan", [
+    pytest.param(dict(fsdp=2), id="2"), pytest.param(dict(fsdp=4), id="4"),
+    pytest.param(dict(tp=2), id="tp2"), pytest.param(dict(tp=4), id="tp4"),
+    pytest.param(dict(fsdp=2, tp=2), id="fsdp2xtp2")])
+def test_each_ranks_shard_is_the_one_jax_puts_on_its_device(plan):
+    """shard_params on rank r gives, leaf by leaf and bit for bit, the
+    shard JAX places on device r of the same plan's mesh; unshard of the
+    ranks' shards gives the leaf back."""
     jcfg, tcfg = jllama.LlamaConfig.tiny(), tllama.LlamaConfig.tiny()
     tree = jax.tree.map(np.asarray, jllama.init_params(jcfg,
                                                        jax.random.key(1)))
     params = convert.params_from_numpy(tree, tcfg)
     specs = ttrain.param_specs(tcfg)
-    jm = jmesh.make_mesh(jmesh.MeshPlan(fsdp=fsdp), jax.devices()[:fsdp])
+    tplan = tmesh.MeshPlan(**plan)
+    n = tplan.size
+    jm = jmesh.make_mesh(jmesh.MeshPlan(**plan), jax.devices()[:n])
     jspecs = jtrain.param_specs(jcfg)
-    shards = [tmesh.shard_params(params, specs, r, fsdp)
-              for r in range(fsdp)]
+    shards = [tmesh.shard_params(params, specs, tplan, r) for r in range(n)]
     for path, leaf in ttrain.tree_leaves(ttrain.tree_map_named(
             lambda path, t: (path, t), params)):
         keys = path.split(".")
@@ -113,15 +119,14 @@ def test_each_ranks_shard_is_the_one_jax_puts_on_its_device(fsdp):
         by_device = {s.device.id: np.asarray(s.data)
                      for s in placed.addressable_shards}
         mine = []
-        for r in range(fsdp):
+        for r in range(n):
             got = shards[r]
             for k in keys:
                 got = got[k]
             np.testing.assert_array_equal(got.numpy(), by_device[r])
             mine.append(got)
-        dim = tmesh.spec_dim(specs[keys[0]] if len(keys) == 1
-                             else specs[keys[0]][keys[1]], "fsdp")
-        assert torch.equal(tmesh.unshard(mine, dim), leaf)
+        spec = specs[keys[0]] if len(keys) == 1 else specs[keys[0]][keys[1]]
+        assert torch.equal(tmesh.unshard(mine, spec, tplan), leaf)
 
 
 def _groups(plan, rank=0):
@@ -145,7 +150,26 @@ def test_uneven_parameter_dims_raise_as_in_jax():
                               groups=_groups(plan))
     params = tllama.init_params(tcfg, torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="does not divide over fsdp 3"):
-        tmesh.shard_params(params, ttrain.param_specs(tcfg), 0, 3)
+        tmesh.shard_params(params, ttrain.param_specs(tcfg), plan, 0)
+
+
+@pytest.mark.parametrize("plan, leaf, over", [
+    (dict(tp=3), "embed: dim 0 of \\(256, 64\\)", "tp 3"),
+    (dict(fsdp=2, tp=3), "embed: dim 0 of \\(256, 64\\)", "tp 3 x fsdp 2")])
+def test_uneven_tp_dims_raise_as_in_jax(plan, leaf, over):
+    """tp=3 on tiny: the vocab of 256 does not divide; under fsdp=2 too
+    the message names both axes of embed's dim 0, tp major."""
+    jcfg, tcfg = jllama.LlamaConfig.tiny(), tllama.LlamaConfig.tiny()
+    size = jmesh.MeshPlan(**plan).size
+    jtr = jtrain.Trainer.create(jcfg, jmesh.MeshPlan(**plan),
+                                devices=jax.devices()[:size])
+    with pytest.raises(ValueError):
+        jtr.init(jax.random.key(0))
+    tplan = tmesh.MeshPlan(**plan)
+    with pytest.raises(ValueError, match=f"{leaf} does not divide over "
+                                         f"{over}$"):
+        ttrain.Trainer.create(tcfg, tplan, device="cpu",
+                              groups=_groups(tplan))
 
 
 def test_uneven_batches_raise_as_in_jax():

@@ -884,7 +884,26 @@ def test_fsdp_launches_are_one_ranks_or_the_rings():
 def test_resharded_checkpoint_check_finds_a_changed_shard(tmp_path):
     """A whole state saved, the ranks' digests cut from it: every shard
     matches; a digest of another shard is caught."""
-    from gpu_docker_api_tpu_torch.parallel.mesh import shard, spec_dim
+    ranks = _saved_and_digested(tmp_path, {"fsdp": 2}, "9a")
+    cfg = cs_config("tiny")
+    n = cs.check_resharded_checkpoint(str(tmp_path), cfg, ranks,
+                                      {"fsdp": 2}, 1)
+    assert n == 3 * 12 * 2
+    with pytest.raises(cs.SmokeFailure, match="checkpoint at step 1"):
+        cs.check_resharded_checkpoint(str(tmp_path), cfg, ranks,
+                                      {"fsdp": 2}, 2)
+    ranks[1]["9a"]["digests"]["mu"]["layers.w2"] = \
+        ranks[0]["9a"]["digests"]["mu"]["layers.w2"]
+    with pytest.raises(cs.SmokeFailure, match="mu layers.w2: rank 1"):
+        cs.check_resharded_checkpoint(str(tmp_path), cfg, ranks,
+                                      {"fsdp": 2}, 1)
+
+
+def _saved_and_digested(tmp_path, plan, layout):
+    """A one-rank state of tiny after a step, saved as a checkpoint under
+    tmp_path, and each rank's digests of its shards under `plan`, as
+    layout_rank reports them for `layout`."""
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan, shard
     from gpu_docker_api_tpu_torch.train import (
         Trainer, param_specs, save_checkpoint,
     )
@@ -894,25 +913,17 @@ def test_resharded_checkpoint_check_finds_a_changed_shard(tmp_path):
     state = tr.init(seed=2)
     state, _ = tr.step(state, tr.shard_batch(np.zeros((2, 16), np.int64)))
     save_checkpoint(str(tmp_path), state, 1)
-    dims = {p: spec_dim(s, "fsdp") for p, s in cs.flat_leaves(
-        param_specs(cfg))}
+    specs = dict(cs.flat_leaves(param_specs(cfg)))
+    plan = MeshPlan(**plan)
 
     def rank_digests(r):
         opt = state["opt_state"]
-        return {"9a": {"digests": {part: {
-            path: cs.leaf_digest(shard(t, dims[path], r, 2))
+        return {layout: {"digests": {part: {
+            path: cs.leaf_digest(shard(t, specs[path], plan, r))
             for path, t in cs.flat_leaves(tree)}
             for part, tree in (("params", state["params"]),
                                ("mu", opt["mu"]), ("nu", opt["nu"]))}}}
-    ranks = [rank_digests(r) for r in range(2)]
-    n = cs.check_resharded_checkpoint(str(tmp_path), cfg, ranks, 2, 1)
-    assert n == 3 * 12 * 2
-    with pytest.raises(cs.SmokeFailure, match="checkpoint at step 1"):
-        cs.check_resharded_checkpoint(str(tmp_path), cfg, ranks, 2, 2)
-    ranks[1]["9a"]["digests"]["mu"]["layers.w2"] = \
-        ranks[0]["9a"]["digests"]["mu"]["layers.w2"]
-    with pytest.raises(cs.SmokeFailure, match="mu layers.w2: rank 1"):
-        cs.check_resharded_checkpoint(str(tmp_path), cfg, ranks, 2, 1)
+    return [rank_digests(r) for r in range(plan.size)]
 
 
 def test_phase_fsdp_at_tiny_width_on_the_cpu():
@@ -928,3 +939,80 @@ def test_phase_fsdp_at_tiny_width_on_the_cpu():
         assert max(got["rel_to_one_rank"]["loss"]) <= 1e-5
         assert got["state_bytes_a_rank"] == [cs.fsdp_state_bytes(
             cs_config("tiny"), plan.get("fsdp", 1))] * cs.FSDP_RANKS
+
+
+# ---- phase 10 ---------------------------------------------------------------
+
+def test_resharded_checkpoint_check_reassembles_fsdp_and_tp(tmp_path):
+    """Under fsdp=2 x tp=2 each rank's digests are of its slices over both
+    axes (embed's vocab chunks tp major): every shard matches; two ranks'
+    embed shards swapped are caught."""
+    ranks = _saved_and_digested(tmp_path, {"fsdp": 2, "tp": 2}, "10b")
+    cfg = cs_config("tiny")
+    n = cs.check_resharded_checkpoint(str(tmp_path), cfg, ranks,
+                                      {"fsdp": 2, "tp": 2}, 1, "10b")
+    assert n == 3 * 12 * 4
+    embed = [r["10b"]["digests"]["params"]["embed"] for r in ranks]
+    assert len(set(embed)) == 4                   # four distinct chunks
+    ranks[1]["10b"]["digests"]["params"]["embed"] = embed[2]
+    with pytest.raises(cs.SmokeFailure, match="params embed: rank 1"):
+        cs.check_resharded_checkpoint(str(tmp_path), cfg, ranks,
+                                      {"fsdp": 2, "tp": 2}, 1, "10b")
+
+
+@pytest.mark.parametrize("plan", [{"tp": 2}, {"tp": 4}, {"fsdp": 2, "tp": 2},
+                                  {"tp": 2, "sp": 2}])
+def test_shard_bytes_are_what_a_tp_trainer_holds(plan):
+    """shard_bytes counts from the shapes and kinds alone each leaf a
+    rank's init leaves under a tp plan: every matrix 1/(fsdp * tp), the
+    norms whole; fsdp_state_bytes is three times their sum."""
+    from gpu_docker_api_tpu_torch.parallel.comm import AxisGroup
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshGroups, MeshPlan
+    from gpu_docker_api_tpu_torch.train import Trainer
+
+    cfg = cs_config("tiny")
+    mplan = MeshPlan(**plan)
+    rank = mplan.size - 1
+    groups = MeshGroups(mplan, rank, world=AxisGroup(None, rank, mplan.size))
+    state = Trainer.create(cfg, mplan, device="cpu", groups=groups).init()
+    want = cs.shard_bytes(cfg, plan)
+    for tree in (state["params"], state["opt_state"]["mu"],
+                 state["opt_state"]["nu"]):
+        assert {p: cs.leaf_bytes(t) for p, t in cs.flat_leaves(tree)} == want
+    cut = plan.get("fsdp", 1) * plan["tp"]
+    assert want["embed"] == 256 * 64 * 4 // cut
+    assert want["layers.attn_norm"] == 2 * 64 * 4
+    assert cs.fsdp_state_bytes(cfg, plan.get("fsdp", 1), plan["tp"]) == \
+        3 * sum(want.values())
+
+
+def test_tp_heads_and_sums_follow_the_plan():
+    """The q heads a rank's attention runs over: H/tp where both head
+    counts divide, all H in the head-gather fallback; the tp sums a step,
+    none without tp."""
+    assert cs.tp_heads(cs_config("1b"), {"tp": 4}) == 4
+    assert cs.tp_heads(cs_config("1b"), {"fsdp": 2, "tp": 2}) == 8
+    assert cs.tp_heads(cs_config("mini"), {"tp": 4}) == 4
+    assert cs.tp_heads(cs_config("mini"), {"tp": 2}) == 2
+    assert cs.tp_heads(cs_config("tiny"), {"tp": 1}) == 4
+    assert cs.tp_sums_a_step(20, {"tp": 4}) == 104
+    assert cs.tp_sums_a_step(20, {"fsdp": 4}) == 0
+
+
+def test_phase_tp_at_tiny_width_on_the_cpu():
+    """Phase 10 end to end on the CPU at `tiny` (f32): four gloo ranks
+    through 10a-10d against one rank, each leaf's bytes, no launch (the
+    plain versions), the heads and the tp sums a step, the checkpoint
+    check over fsdp and tp."""
+    out = cs.phase_tp(torch, att, device="cpu",
+                      configs={"main": "tiny", "fallback": "tiny"},
+                      train=dict(b=4, s=32, steps=2))
+    assert set(out["layouts"]) == set(cs.TP_LAYOUTS)
+    assert out["checkpoint_shards"] == 3 * 12 * 4
+    for name, (_, plan, _) in cs.TP_LAYOUTS.items():
+        got = out["layouts"][name]
+        assert len(got["losses"]) == cs.TP_TRAIN["steps"]
+        assert max(got["rel_to_one_rank"]["loss"]) <= 1e-5
+        assert got["tp_sums_a_step"]["calls"] == cs.tp_sums_a_step(2, plan)
+        assert got["state_bytes_a_rank"] == [cs.fsdp_state_bytes(
+            cs_config("tiny"), plan.get("fsdp", 1), plan["tp"])] * cs.TP_RANKS

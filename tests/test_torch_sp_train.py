@@ -123,7 +123,7 @@ def test_sp_loss_shares_sum_to_the_global_mean(monkeypatch):
         sp = workers.comm.SPGroup(group=None, rank=rank, size=SP)
         lo = rank * 16
 
-        def forward(p, t, c, impl, sp, remat, fsdp=None):
+        def forward(p, t, c, impl, sp, remat, fsdp=None, tp=None):
             return full[:, lo:lo + t.shape[1]]
 
         fam = dataclasses.replace(LLAMA, forward=forward)

@@ -230,6 +230,9 @@ def test_trainer_refuses_no_card_and_multi_device():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttrain.Trainer.create(tcfg)
     with pytest.raises(NotImplementedError, match="not yet ported"):
+        ttrain.Trainer.create(tcfg, MeshPlan(tp=2, pp=2), device="cpu")
+    # tp is ported: a tp plan without its group is refused for that
+    with pytest.raises(ValueError, match="needs the groups of its 2 ranks"):
         ttrain.Trainer.create(tcfg, MeshPlan(tp=2), device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ttrain.loss_fn({}, torch.zeros(1, 2), tcfg, n_microbatches=2)

@@ -116,7 +116,7 @@ def test_main_without_device_cpu_raises_when_no_card(tmp_path):
 
 
 @pytest.mark.parametrize("extra, env", [
-    (["--tp", "2"], {}),
+    (["--tp", "2", "--pp", "2"], {}),
     (["--pp", "2"], {}),
     (["--family", "moe", "--sp", "2"], {}),
     (["--ep", "2"], {}),

@@ -103,7 +103,28 @@ def test_ulysses_rejects_indivisible_heads():
     tq = torch.from_numpy(q[:, :16])            # rank 0's shard
     with pytest.raises(ValueError, match="divide") as terr:
         ulysses.ulysses_attention(tq, tq, tq, comm.SPGroup(None, 0, 4))
-    assert str(terr.value) == str(jerr.value).replace("/tp=1", "")
+    assert str(terr.value) == str(jerr.value)
+
+
+@pytest.mark.parametrize("hkv, tp_n", [(4, 2), (3, 1)])
+def test_ulysses_under_tp_rejects_indivisible_local_heads(hkv, tp_n):
+    """8 q heads over tp=2 x sp=3: with 4 kv heads the heads split over tp
+    and (8/2) % 3 is refused naming tp=2; with 3 kv heads they do not
+    (the head-gather fallback) and 8 % 3 is refused naming tp=1. Both
+    packages refuse alike."""
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((1, 48, 8, 16)).astype(np.float32)
+    kv = rng.standard_normal((1, 48, hkv, 16)).astype(np.float32)
+    mesh = make_mesh(MeshPlan(tp=2, sp=3), jax.devices()[:6])
+    with pytest.raises(ValueError, match="divide") as jerr:
+        julysses.ulysses_attention(*map(jnp.asarray, (q, kv, kv)), mesh)
+    heads = 8 // tp_n                        # the heads a tp rank holds
+    tq = torch.from_numpy(q[:, :16, :heads])
+    tkv = torch.from_numpy(kv[:, :16, :hkv // tp_n])
+    with pytest.raises(ValueError, match="divide") as terr:
+        ulysses.ulysses_attention(tq, tkv, tkv, comm.SPGroup(None, 0, 3),
+                                  tp=tp_n)
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_one_rank_is_the_local_attention():

@@ -1,6 +1,7 @@
 """Rank bodies of the port's multi-rank tests (test_torch_ring.py,
 test_torch_ulysses.py, test_torch_sp_train.py, test_torch_distributed.py,
-test_torch_mesh.py, test_torch_fsdp_train.py).
+test_torch_mesh.py, test_torch_fsdp_train.py, test_torch_tp.py,
+test_torch_tp_train.py).
 
 gpu_docker_api_tpu_torch.distributed.launch spawns each rank afresh and
 imports its target by module path, so the targets live here, in a module
@@ -93,13 +94,11 @@ def gather_cases(rank: int, world: int, spec_path: str, out_dir: str):
     (comm.all_gather over the world) and takes the gradient of its own
     cotangents; also gather_leaf and reduce_scatter_sum of the
     cotangents. Saved to out_dir/rank<r>.pt."""
-    from gpu_docker_api_tpu_torch.parallel.mesh import shard
-
     g = comm.AxisGroup.of()
     results = {}
     for case in torch.load(spec_path, weights_only=False):
         dims = case["dims"]
-        shards = [shard(torch.as_tensor(x), d, rank, world).clone()
+        shards = [torch.as_tensor(x).chunk(world, dim=d)[rank].clone()
                   .requires_grad_(True) for x, d in zip(case["tensors"],
                                                         dims)]
         cots = [torch.as_tensor(c) for c in case["cotangents"][rank]]
@@ -111,6 +110,47 @@ def gather_cases(rank: int, world: int, spec_path: str, out_dir: str):
                                                                dims)],
             "scattered": comm.reduce_scatter_sum(cots, dims, g)}
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def tp_cases(rank: int, world: int, spec_path: str, out_dir: str):
+    """spec {x, w: [per rank], parts: [[per rank] per dtype], cots,
+    logits, targets, ll_cot, embed, tokens, embed_cot} (numpy): over the
+    world as a tp group, copy_to_group of x and the gradient of this
+    rank's sum(y * w[rank]); reduce_from_group of this rank's parts and
+    their gradients of `cots`; the vocab-parallel log-likelihood of this
+    rank's vocab chunk of `logits` and its gradient of `ll_cot`; the
+    vocab-parallel lookup of `tokens` in this rank's chunk of `embed` and
+    its gradient of `embed_cot`. Saved to out_dir/rank<r>.pt."""
+    from gpu_docker_api_tpu_torch.models.llama import vocab_embedding
+    from gpu_docker_api_tpu_torch.train import _log_likelihood
+
+    g = comm.AxisGroup.of()
+    spec = torch.load(spec_path, weights_only=False)
+    x = torch.as_tensor(spec["x"]).requires_grad_(True)
+    y = comm.copy_to_group(x, g)
+    copy_grad, = torch.autograd.grad(
+        (y * torch.as_tensor(spec["w"][rank])).sum(), x)
+    parts = [torch.as_tensor(p[rank]).requires_grad_(True)
+             for p in spec["parts"]]
+    sums = [comm.reduce_from_group(p, g) for p in parts]
+    reduce_grads = torch.autograd.grad(
+        sums, parts, [torch.as_tensor(c) for c in spec["cots"]])
+    logits = torch.as_tensor(spec["logits"]).chunk(world, dim=-1)[rank]
+    logits = logits.clone().requires_grad_(True)
+    ll = _log_likelihood(logits, torch.as_tensor(spec["targets"]), g)
+    ll_grad, = torch.autograd.grad(ll, logits,
+                                   torch.as_tensor(spec["ll_cot"]))
+    embed = torch.as_tensor(spec["embed"]).chunk(world, dim=0)[rank]
+    embed = embed.clone().requires_grad_(True)
+    rows = vocab_embedding(torch.as_tensor(spec["tokens"]), embed, g)
+    embed_grad, = torch.autograd.grad(rows, embed,
+                                      torch.as_tensor(spec["embed_cot"]))
+    torch.save({"copy": y.detach(), "copy_grad": copy_grad,
+                "sums": [t.detach() for t in sums],
+                "reduce_grads": reduce_grads, "ll": ll.detach(),
+                "ll_grad": ll_grad, "rows": rows.detach(),
+                "embed_grad": embed_grad},
+               os.path.join(out_dir, f"rank{rank}.pt"))
 
 
 def run(target, payload, world: int, tmp_dir: str, timeout: float = 120.0):
