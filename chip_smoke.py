@@ -104,44 +104,67 @@ Phases (any failure exits non-zero and prints no result):
      the whole-S kernels run here, by 8a's rules. 8c, on the same ranks:
      the llama 1b trunk in f32 (B=1, S=1024) against one rank (logits
      shards, loss, gradients within F32_TOL), then Trainer at sp=4 in
-     bf16 (B=1, S=8192, remat "dots", 3 steps, ring then Ulysses) against
+     bf16 (B=1, S=8192, remat "dots", 2 steps, ring then Ulysses) against
      the one-rank Trainer run here (losses and grad norms within
      SP_LOSS_TOL / SP_NORM_TOL), step time and tokens/s labelled "gloo,
      4 ranks on one card".
-  9. data parallelism and fully-sharded parameters at llama 1b (bf16,
-     B=4, S=2048, remat "dots"): the one-rank Trainer here, then four
-     processes on this one card in a gloo group (as in phase 8) through
-     9a fsdp=4 (3 steps), 9b dp=2 x fsdp=2 and 9c fsdp=2 x sp=2 (the
-     ring; 2 steps each): every rank's loss and grad norm equal, each
+  9. data parallelism and fully-sharded parameters at llama 1b's width
+     and 10 of its 20 layers (bf16, B=4, S=2048, remat "dots"): the
+     one-rank Trainer here, then four processes on this one card in a
+     gloo group (as in phase 8) through 9a fsdp=4, 9b dp=2 x fsdp=2 and
+     9c fsdp=2 x sp=2 (the ring; 2 steps each): every rank's loss and
+     grad norm equal, each
      within SP_LOSS_TOL / SP_NORM_TOL of the one-rank run's; the bytes of
      each rank's parameters, mu and nu after init exactly the whole
      state's over fsdp, the norms whole (no rank keeps a replica); the
-     kernels' launches a rank and step those of one rank (40/20/20 at 20
+     kernels' launches a rank and step those of one rank (20/10/10 at 10
      layers; under the ring rank + 1 times as many); 9a's gathered
      checkpoint restored under the one-rank template, each leaf equal bit
      for bit to the ranks' shards. Step time and tokens/s labelled "gloo,
      4 ranks on one card", each rank's peak allocation.
  10. tensor parallelism (bf16, B=4, S=2048, remat "dots", phase 9's
      batches): four processes on this one card in a gloo group through
-     10a tp=4, 10b fsdp=2 x tp=2 and 10c tp=2 x sp=2 (the ring) at llama
-     1b, and 10d tp=4 at llama_mini (4 q / 2 kv heads: the head-gather
+     10a tp=4, 10b fsdp=2 x tp=2 and 10c tp=2 x sp=2 (the ring) at phase
+     9's llama 1b cut, and 10d tp=4 at llama_mini (4 q / 2 kv heads: the
+     head-gather
      fallback); 2 steps each, against phase 9's one-rank run (10d against
      its own): every rank's loss and grad norm equal, each within
      SP_LOSS_TOL / SP_NORM_TOL of one rank's, the first near its value at
      init; each rank's params, mu and nu exactly 1/(fsdp * tp) of every
-     matrix's bytes, the norms whole; launches a rank and step (40/20/20
-     at 20 layers, the ring's in 10c, 8/4/4 in 10d), the q heads the
+     matrix's bytes, the norms whole; launches a rank and step (20/10/10
+     at 10 layers, the ring's in 10c, 8/4/4 in 10d), the q heads the
      forward kernel saw (H/tp, all H in the fallback) and the tp
      activation sums a step (5 a layer + 4 under "dots"); 10b's gathered
      checkpoint restored under the one-rank template, shard for shard
      over both axes. Step time and tokens/s labelled "gloo, 4 ranks on
      one card", each rank's peak allocation.
+ 11. expert parallelism and MoE over ranks at moe_1b, full width and
+     depth (bf16, B=8, S=2048 as 7a, remat "dots"): the one-rank Trainer
+     here (2 steps), then four
+     processes on this one card in a gloo group through 11a ep=4, 11b
+     fsdp=2 x ep=2 (MeshPlan.auto's plan for --ep 2 on four cards), 11c
+     tp=4 (JAX's un-planned MoE launch on four cards) and 11d ep=2 x
+     sp=2 (the ring; the interleaved global prefix); 2 steps each: every
+     rank's loss and grad norm equal, each within EP_LOSS_TOL /
+     EP_NORM_TOL of one rank's (the difference printed), the first near
+     its value at init; each rank's params, mu and nu exactly each leaf's
+     bytes over the axes its spec cuts (banks over ep too, the f32 router
+     whole); launches a rank and step (32/16/16 at 16 layers, the ring's
+     in 11d), heads and tp sums; the routing of every layer in an f32
+     forward of the first batch at capacity factor EP_ROUTE_CAPACITY
+     (choices drop), assembled over the ranks, against one rank's: a
+     decision may differ only at a near tie (TIE_GAP), once at most, and
+     the drops only where a decision does; 11b's gathered checkpoint restored
+     under the one-rank template, shard for shard over fsdp and ep. Step
+     time and tokens/s labelled "gloo, 4 ranks on one card".
 
 Prints one `{"kernels": [...]}` line (with each kernel's launches in 7a
-and phases 8-10 too), the readings, one `{"serve": ...}` line, one
+and phases 8-11 too), the readings, one `{"serve": ...}` line, one
 `{"batching": ...}` line, one `{"paged": ...}` line, one `{"moe": ...}`
 line, one `{"sp": ...}` line, one `{"fsdp": ...}` line, one `{"tp": ...}`
-line, the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+line, one `{"ep": ...}` line, the wall times of the whole script and of
+phase 11, the nvidia-smi line, and last `{"ok": true, "device":
+{...}}`.
 """
 
 from __future__ import annotations
@@ -2068,8 +2091,8 @@ class RoutingRecorder:
     def __enter__(self):
         real = self.real = self.moe._route
 
-        def recording(ht, router, config):
-            out = real(ht, router, config)
+        def recording(ht, router, config, *over_ranks):
+            out = real(ht, router, config, *over_ranks)
             probs, gate_idx, keep = out[1], out[3], out[6]
             top = probs.sort(dim=-1, descending=True, stable=True).values
             self.calls.append((gate_idx.clone(), keep.clone(),
@@ -2088,9 +2111,11 @@ def routing_flips(ref, got, label, tie_gap=TIE_GAP):
     differ only at a near tie: where the reference's router probabilities
     of ranks 0..k are within tie_gap of each other, and at most once a
     run. Only the first layer that differs counts: later layers see
-    hidden states the flip moved. Returns (flips [(layer, token, gap)],
-    the first token whose decisions or drops differ in that layer: the
-    positions before it are comparable, S when none differs)."""
+    hidden states the flip moved. Drops (keep) may differ only in a layer
+    where a decision flipped: alike decisions give alike slots. Returns
+    (flips [(layer, token, gap)], the first token whose decisions or drops
+    differ in that layer: the positions before it are comparable, S when
+    none differs)."""
     s = ref[0][0].shape[0]
     for layer, ((ri, rk, rtop), (gi, gk, _)) in enumerate(zip(ref, got)):
         flipped = (ri != gi).any(dim=-1)
@@ -2099,6 +2124,10 @@ def routing_flips(ref, got, label, tie_gap=TIE_GAP):
         gaps = (rtop[:, :-1] - rtop[:, 1:]).min(dim=-1).values
         flips = [(layer, int(t), float(gaps[t]))
                  for t in flipped.nonzero().flatten().tolist()]
+        check(flips or bool((rk == gk).all()),
+              f"{label}: layer {layer} drops other choices with every "
+              f"routing decision alike: the capacity or the slot order "
+              f"differs")
         wide = [f for f in flips if f[2] >= tie_gap]
         check(not wide, f"{label}: routing differs at a router-probability "
                         f"gap of {tie_gap} or more: {wide}")
@@ -2579,7 +2608,7 @@ SP_S = 8192                              # 8b: 2048 tokens a rank
 SP_F32_S = 4096                          # 8b's f32 cases: the first 4096
 SP_CONFIG = "1b"                         # 8c: llama 1b, full depth
 SP_TRUNK_S = 1024                        # 8c: the f32 trunk, B=1
-SP_TRAIN = dict(b=1, s=8192, steps=3)    # 8c: bf16, remat "dots"
+SP_TRAIN = dict(b=1, s=8192, steps=2)    # 8c: bf16, remat "dots"
 SP_DEADLINE_S = 480                      # the ranks' whole run
 # 8c: the sp=4 trainer's losses and grad norms against sp=1's, relative.
 # scripts/torch_sp_margin.py on the H100 over four seeds (24 readings each,
@@ -2887,10 +2916,12 @@ def train_batch(torch, cfg, b, s, seed, step):
                              1000 * seed + step))
 
 
-def sp_train_check(one, ranks, label):
+def sp_train_check(one, ranks, label, tols=None):
     """8c's bf16 runs: every rank reports the same global numbers; the
     first loss near its value at init; each step's loss and grad norm
-    within SP_LOSS_TOL / SP_NORM_TOL (relative) of the one-rank run's."""
+    within tols (relative; SP_LOSS_TOL / SP_NORM_TOL by default) of the
+    one-rank run's."""
+    loss_tol, norm_tol = tols or (SP_LOSS_TOL, SP_NORM_TOL)
     for r in ranks:
         check(r["losses"] == ranks[0]["losses"]
               and r["grad_norms"] == ranks[0]["grad_norms"],
@@ -2902,10 +2933,9 @@ def sp_train_check(one, ranks, label):
                                                          one["grad_norms"])]}
     check(all(math.isfinite(x) for x in got["losses"] + got["grad_norms"]),
           f"{label}: non-finite {got}")
-    check(max(rel["loss"]) <= SP_LOSS_TOL and
-          max(rel["grad_norm"]) <= SP_NORM_TOL,
-          f"{label}: against sp=1 {rel}, limits {SP_LOSS_TOL} / "
-          f"{SP_NORM_TOL}")
+    check(max(rel["loss"]) <= loss_tol and max(rel["grad_norm"]) <= norm_tol,
+          f"{label}: against sp=1 {rel}, limits {loss_tol} / "
+          f"{norm_tol}")
     return rel
 
 
@@ -3026,37 +3056,68 @@ def phase_sp(torch, att, device="cuda"):
 # ---- phase 9: data parallelism and fully-sharded parameters -----------------
 
 FSDP_RANKS = 4
-FSDP_CONFIG = "1b"                       # llama 1b, full width and depth
-FSDP_TRAIN = dict(b=4, s=2048, steps=3)  # phase 2's shape; bf16, "dots"
+# llama 1b at full width, 10 of its 20 layers: the depth cut that makes
+# room for phase 11 (PERF.md §4); phase 10 takes the same
+FSDP_CONFIG = ("llama", "1b", 10)
+FSDP_TRAIN = dict(b=4, s=2048, steps=2)  # phase 2's shape; bf16, "dots"
 FSDP_LAYOUTS = {                         # name: (plan, steps)
-    "9a": ({"fsdp": 4}, 3),
+    "9a": ({"fsdp": 4}, 2),
     "9b": ({"dp": 2, "fsdp": 2}, 2),
     "9c": ({"fsdp": 2, "sp": 2}, 2),     # the ring
 }
 LAYOUTS_DEADLINE_S = 600                 # a phase's ranks' whole run
 
 
+def smoke_config(spec):
+    """The config of a multi-rank phase: a llama config name at full
+    depth, or (family, name, n_layers), n_layers None for the full
+    depth."""
+    from gpu_docker_api_tpu_torch.models import named_config
+    family, name, depth = (("llama", spec, None) if isinstance(spec, str)
+                           else spec)
+    cfg = named_config(family, name)
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+
+
+def first_loss(cfg) -> float:
+    """The loss at init of cfg's family: ln V + sigma^2 / 2 (llama), plus
+    the router term for MoE (moe_first_loss)."""
+    from gpu_docker_api_tpu_torch.models import family_for
+    if family_for(cfg).returns_extra_loss:
+        return moe_first_loss(cfg)
+    return math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+
+
 def shard_bytes(cfg, plan) -> dict:
     """{path: the bytes of one rank's shard of each parameter leaf} under
-    `plan` (MeshPlan fields): every matrix 1/(fsdp * tp) of the whole
-    leaf's bytes, the norms (replicated) whole."""
-    from gpu_docker_api_tpu_torch.models import family_for, param_shapes
-    from gpu_docker_api_tpu_torch.train import tree_map_named
+    `plan` (MeshPlan fields): each leaf's whole bytes over the sizes of
+    the axes its spec cuts it by (mesh.split_dims of train.param_specs: a
+    matrix 1/(fsdp * tp), an expert bank also 1/ep, the norms and the f32
+    router whole)."""
+    from gpu_docker_api_tpu_torch.models import param_shapes
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan, split_dims
+    from gpu_docker_api_tpu_torch.train import param_specs, tree_map_named
 
-    cut = plan.get("fsdp", 1) * plan.get("tp", 1)
+    mplan = MeshPlan(**plan)
 
-    def one(_, shape_dtype, kind):
+    def one(_, shape_dtype, spec):
         shape, dtype = shape_dtype
-        n = math.prod(shape) * dtype.itemsize
-        return n if kind == "norm" else n // cut
+        cut = math.prod(getattr(mplan, a) for a, _ in split_dims(spec, mplan))
+        return math.prod(shape) * dtype.itemsize // cut
     return dict(flat_leaves(tree_map_named(
-        one, param_shapes(cfg), family_for(cfg).param_kinds(cfg))))
+        one, param_shapes(cfg), param_specs(cfg))))
+
+
+def state_bytes(cfg, plan) -> int:
+    """What one rank of `plan` (MeshPlan fields) must hold of the
+    parameters, mu and nu (shard_bytes, three times over: the moments are
+    in the params' dtype)."""
+    return 3 * sum(shard_bytes(cfg, plan).values())
 
 
 def fsdp_state_bytes(cfg, fsdp, tp=1) -> int:
-    """What one rank of an fsdp x tp group must hold of the parameters, mu
-    and nu (shard_bytes, three times over)."""
-    return 3 * sum(shard_bytes(cfg, {"fsdp": fsdp, "tp": tp}).values())
+    """state_bytes of one rank of an fsdp x tp group."""
+    return state_bytes(cfg, {"fsdp": fsdp, "tp": tp})
 
 
 def fsdp_launches(plan, sp_rank, n_layers) -> dict:
@@ -3093,19 +3154,21 @@ def state_digests(state) -> dict:
 
 
 def layout_rank(rank, world, tmp, spec):
-    """One rank of phases 9 and 10 (distributed.launch, gloo, every rank
-    on spec["device"]): each layout of spec["layouts"] ({name: (llama
-    config, plan, sp_attn, steps)}) in turn, a Trainer over its groups
-    from init 0; the bytes of each leaf of its params, mu and nu after
-    init; a step at a time (spec["train"]'s batches) its launches, tp
-    sums, the q heads the forward kernel saw, losses, grad norms and step
-    times; its peak allocation; after spec["checkpoint"]'s last step the
-    gathered checkpoint (rank 0 writes it to tmp/ckpt) and this rank's
-    shard digests. Results to tmp/rank<r>.pt."""
+    """One rank of phases 9-11 (distributed.launch, gloo, every rank on
+    spec["device"]): each layout of spec["layouts"] ({name: (config spec,
+    plan, sp_attn, steps)}, smoke_config) in turn, a Trainer over its
+    groups from init 0; the bytes of each leaf of its params, mu and nu
+    after init; a step at a time (spec["train"]'s batches) its launches,
+    tp sums, the q heads the forward kernel saw, losses, grad norms and
+    step times; for MoE, first, each layer's routing of the first batch in
+    an f32 forward (f32_routes); its peak allocation; after
+    spec["checkpoint"]'s last step the gathered checkpoint (rank 0 writes
+    it to tmp/ckpt) and this rank's shard digests. Results to
+    tmp/rank<r>.pt."""
     import torch
 
     from gpu_docker_api_tpu_torch.device import resolve_device
-    from gpu_docker_api_tpu_torch.models import named_config
+    from gpu_docker_api_tpu_torch.models import family_for
     from gpu_docker_api_tpu_torch.ops import attention as att
     from gpu_docker_api_tpu_torch.parallel import comm
     from gpu_docker_api_tpu_torch.parallel.mesh import (
@@ -3122,10 +3185,13 @@ def layout_rank(rank, world, tmp, spec):
     res = {}
     for name, (config, plan_d, attn, steps) in spec["layouts"].items():
         plan = MeshPlan(**plan_d)
-        cfg = dataclasses.replace(named_config("llama", config),
-                                  sp_attn=attn)
+        cfg = dataclasses.replace(smoke_config(config), sp_attn=attn)
+        routed = family_for(cfg).returns_extra_loss
         groups = MeshGroups.build(plan)
+        routes = (f32_routes(torch, cfg, groups, device, train_batch(
+            torch, cfg, b, s, 0, 0)) if routed else None)
         if on_card:
+            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(device)
         trainer = Trainer.create(cfg, plan, device=device, groups=groups)
         state = trainer.init(seed=0)
@@ -3137,7 +3203,8 @@ def layout_rank(rank, world, tmp, spec):
                                                  ("nu", opt["nu"]))},
                "launches": [], "tp_sums": [], "heads": [], "losses": [],
                "grad_norms": [], "step_times_s": [],
-               "sp_rank": coords(plan, rank)["sp"]}
+               "sp_rank": coords(plan, rank)["sp"],
+               "coords": coords(plan, rank), "routes": routes}
         for step in range(steps):
             tokens = trainer.shard_batch(train_batch(torch, cfg, b, s, 0,
                                                      step))
@@ -3219,7 +3286,6 @@ def run_layouts(torch, device, layouts, train, checkpoint, ranks_n):
     one-rank template, shard for shard. -> (each rank's results, the
     shards compared, wall times)."""
     from gpu_docker_api_tpu_torch import distributed
-    from gpu_docker_api_tpu_torch.models import named_config
 
     wall = {}
     t0 = time.perf_counter()
@@ -3234,8 +3300,8 @@ def run_layouts(torch, device, layouts, train, checkpoint, ranks_n):
         t0 = time.perf_counter()
         config, plan, _, steps = layouts[checkpoint]
         n = check_resharded_checkpoint(
-            os.path.join(tmp, "ckpt"), named_config("llama", config), ranks,
-            plan, steps, checkpoint)
+            os.path.join(tmp, "ckpt"), smoke_config(config), ranks, plan,
+            steps, checkpoint)
         wall["restore_s"] = time.perf_counter() - t0
     print(f"  {checkpoint} checkpoint: {n} shards equal to the restored "
           f"leaves, gathered and saved in "
@@ -3244,29 +3310,34 @@ def run_layouts(torch, device, layouts, train, checkpoint, ranks_n):
 
 
 def check_layouts(att, ranks, layouts, ones, device, tokens) -> dict:
-    """Phases 9 and 10's checks of each layout's runs over the ranks
-    against its config's one-rank run (ones[config]): every rank the same
-    loss and grad norm, within SP_LOSS_TOL / SP_NORM_TOL of one rank's, the
-    first near its value at init; each leaf of params, mu and nu exactly
-    shard_bytes (no rank keeps a whole matrix); launches a rank and step
-    fsdp_launches (none on the CPU, where the wrappers take the plain
-    versions); the q heads tp_heads; the tp sums tp_sums_a_step. ->
-    readings by layout, step times labelled gloo_4_ranks_one_card."""
-    from gpu_docker_api_tpu_torch.models import named_config
+    """Phases 9-11's checks of each layout's runs over the ranks against
+    its config's one-rank run (ones[config]): every rank the same loss and
+    grad norm, within SP_LOSS_TOL / SP_NORM_TOL of one rank's (MoE:
+    EP_LOSS_TOL / EP_NORM_TOL), the first near its value at init; each
+    leaf of params, mu and nu exactly shard_bytes (no rank keeps a whole
+    matrix or bank); launches a rank
+    and step fsdp_launches (none on the CPU, where the wrappers take the
+    plain versions); the q heads tp_heads; the tp sums tp_sums_a_step;
+    for MoE the f32 routing of the first batch, assembled over the ranks,
+    against one rank's (routing_ranks). -> readings by layout, step times
+    labelled gloo_4_ranks_one_card."""
+    from gpu_docker_api_tpu_torch.models import family_for
 
     readings = {}
     for name, (config, plan, attn, steps) in layouts.items():
-        cfg = named_config("llama", config)
+        cfg = smoke_config(config)
+        moe = family_for(cfg).returns_extra_loss
         runs = [r[name] for r in ranks]
         label = f"{name} {config} {plan}"
-        rel = sp_train_check(ones[config], runs, label)
-        want0 = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+        rel = sp_train_check(ones[config], runs, label,
+                             (EP_LOSS_TOL, EP_NORM_TOL) if moe else None)
+        want0 = first_loss(cfg)
         check(abs(runs[0]["losses"][0] - want0) < 0.1,
               f"{label}: first loss {runs[0]['losses'][0]} not near "
               f"{want0:.3f}")
         want_bytes = shard_bytes(cfg, plan)
         heads = tp_heads(cfg, plan)
-        sums = tp_sums_a_step(cfg.n_layers, plan)
+        sums = tp_sums_a_step(cfg.n_layers, plan, moe)
         for r, run in enumerate(runs):
             for part, held in run["leaf_bytes"].items():
                 check(held == want_bytes,
@@ -3288,6 +3359,8 @@ def check_layouts(att, ranks, layouts, ones, device, tokens) -> dict:
             "config": config, "plan": plan, "sp_attn": attn, "steps": steps,
             "losses": runs[0]["losses"], "grad_norms": runs[0]["grad_norms"],
             "rel_to_one_rank": rel, "q_heads_a_rank": heads,
+            "loss_minus_one_rank": [a - b for a, b in zip(
+                runs[0]["losses"], ones[config]["losses"])],
             "state_bytes_a_rank": [sum(sum(part.values()) for part in
                                        run["leaf_bytes"].values())
                                    for run in runs],
@@ -3297,9 +3370,76 @@ def check_layouts(att, ranks, layouts, ones, device, tokens) -> dict:
             "step_times_s": [run["step_times_s"] for run in runs],
             "step_s_gloo_4_ranks_one_card": step_s,
             "tokens_s_gloo_4_ranks_one_card": tokens / step_s}
+        if moe:
+            readings[name]["routing_flips"] = routing_ranks(
+                ones[config]["routes"], runs, plan, label,
+                tokens // ones[config]["s"], ones[config]["s"])
         print(f"  {label} (gloo, 4 ranks on one card): {readings[name]}",
               flush=True)
     return readings
+
+
+def f32_routes(torch, cfg, groups, device, tokens, seed=0):
+    """Each layer's routing (RoutingRecorder.calls, on the host) in a
+    forward of the loss on `tokens` (a global batch; this rank's rows and
+    sequence shard under `groups`, MeshGroups or None for one rank) at
+    cfg's width and depth in f32, from init `seed`, at capacity factor
+    EP_ROUTE_CAPACITY, under which choices drop: bf16's roundings move
+    router probabilities by more than TIE_GAP where the GEMMs' shapes
+    differ (a rank's rows are fewer), f32's by about 1e-7, and a wrong
+    capacity or slot order moves the drops (routing_flips)."""
+    from gpu_docker_api_tpu_torch.models import moe
+    from gpu_docker_api_tpu_torch.train import Trainer
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                capacity_factor=EP_ROUTE_CAPACITY)
+    trainer = Trainer.create(cfg32, groups.plan if groups else None,
+                             device=device, groups=groups)
+    params = trainer.init(seed=seed)["params"]
+    with torch.no_grad(), RoutingRecorder(moe) as rec:
+        trainer._loss(params, trainer.shard_batch(tokens))
+    return [tuple(t.cpu() for t in call) for call in rec.calls]
+
+
+def route_drops(routes) -> list:
+    """The dropped choices of each layer of f32_routes."""
+    return [int((~keep).sum()) for _, keep, _ in routes]
+
+
+def routing_ranks(ref, runs, plan, label, b, s):
+    """The f32 routing of each layer (f32_routes) over the ranks of `plan`
+    (each rank reports its tokens': its rows of the [b, s] batch, a row
+    shard of dp x fsdp x ep, ep minor, and its sequence shard; the tp
+    ranks of a row shard must route alike) assembled in the global order
+    and held to one rank's (`ref`) by routing_flips: a decision may differ
+    only at a near tie (TIE_GAP), at most once. -> flips [(layer, token,
+    gap)]."""
+    n_rows = plan.get("dp", 1) * plan.get("fsdp", 1) * plan.get("ep", 1)
+    n_sp = plan.get("sp", 1)
+    rb, sl = b // n_rows, s // n_sp
+    got = []
+    for layer in range(len(ref)):
+        whole = [None] * 3      # gate_idx, keep, the top router probs
+        seen = {}
+        for run in runs:
+            c = run["coords"]
+            row = (c["dp"] * plan.get("fsdp", 1) + c["fsdp"]) * plan.get(
+                "ep", 1) + c["ep"]
+            call = run["routes"][layer]
+            if (row, c["sp"]) in seen:      # another tp rank, same tokens
+                check(all(bool((x == y).all()) for x, y in zip(
+                    call, seen[row, c["sp"]])),
+                      f"{label}: tp ranks route layer {layer} apart")
+                continue
+            seen[row, c["sp"]] = call
+            for i, x in enumerate(call):
+                if whole[i] is None:
+                    whole[i] = x.new_empty((b, s, *x.shape[1:]))
+                whole[i][row * rb:(row + 1) * rb, c["sp"] * sl:
+                         (c["sp"] + 1) * sl] = x.reshape(rb, sl, *x.shape[1:])
+        got.append(tuple(x.reshape(b * s, *x.shape[2:]) for x in whole))
+    flips, _ = routing_flips(ref, got, f"{label} f32 routing")
+    return flips
 
 
 def phase_fsdp(torch, att, device="cuda", config=FSDP_CONFIG,
@@ -3308,19 +3448,17 @@ def phase_fsdp(torch, att, device="cuda", config=FSDP_CONFIG,
     then FSDP_RANKS processes on this one card through each layout of
     FSDP_LAYOUTS (run_layouts), held to it (check_layouts); 9a's gathered
     checkpoint restored under the one-rank template."""
-    from gpu_docker_api_tpu_torch.models import named_config
-
-    cfg = named_config("llama", config)
-    print(f"phase 9: dp and fsdp, llama {config} ({train}, {cfg.dtype}, "
-          f"dots) over {FSDP_RANKS} gloo ranks on one card: {FSDP_LAYOUTS}",
-          flush=True)
+    cfg = smoke_config(config)
+    print(f"phase 9: dp and fsdp, {config} ({cfg.n_layers} layers, {train}, "
+          f"{cfg.dtype}, dots) over {FSDP_RANKS} gloo ranks on one card: "
+          f"{FSDP_LAYOUTS}", flush=True)
     t0 = time.perf_counter()
     one = sp_train(torch, device, cfg, train, "ring")
     if device == "cuda":
         torch.cuda.empty_cache()
     one_rank_s = time.perf_counter() - t0
     print(f"  9 one rank: {one}", flush=True)
-    want0 = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+    want0 = first_loss(cfg)
     check(abs(one["losses"][0] - want0) < 0.1,
           f"9 first loss {one['losses'][0]} not near {want0:.3f}")
     layouts = {name: (config, plan, "ring", steps)
@@ -3341,7 +3479,7 @@ def phase_fsdp(torch, att, device="cuda", config=FSDP_CONFIG,
 # ---- phase 10: tensor parallelism -------------------------------------------
 
 TP_RANKS = 4
-TP_CONFIGS = {"main": "1b",      # 10a-10c: llama 1b, full width and depth
+TP_CONFIGS = {"main": FSDP_CONFIG,  # 10a-10c: phase 9's llama 1b cut
               "fallback": "mini"}  # 10d: 4 q / 2 kv heads, tp=4 gathers them
 TP_TRAIN = dict(b=4, s=2048, steps=2)    # phase 9's batches; bf16, "dots"
 TP_LAYOUTS = {                           # name: (config, plan, sp_attn)
@@ -3388,15 +3526,20 @@ def record_heads(att) -> set:
     return seen
 
 
-def tp_sums_a_step(n_layers, plan) -> int:
+def tp_sums_a_step(n_layers, plan, moe=False) -> int:
     """The tp activation sums of one step under remat "dots" (none
     without tp): per layer two in the forward (wo, w2), two in the
     backward (the cotangents of the inputs to wq/wk/wv and w1/w3) and one
     in the recompute (wo's: the recompute stops once the last saved
     tensor, w2's input, is made, before w2's sum); the embedding's sum and
     the loss's two (the sum of exps, the target logit) in the forward;
-    lm_head's input cotangent in the backward."""
-    return 5 * n_layers + 4 if plan.get("tp", 1) > 1 else 0
+    lm_head's input cotangent in the backward. An MoE layer has six: wo's
+    and the experts' outputs' in the forward and again in the recompute
+    (the combine saves the outputs it weighs), the cotangents of the
+    inputs to wq/wk/wv and to the banks in the backward."""
+    if plan.get("tp", 1) == 1:
+        return 0
+    return (6 if moe else 5) * n_layers + 4
 
 
 def tp_heads(cfg, plan) -> int:
@@ -3419,15 +3562,12 @@ def phase_tp(torch, att, one=None, device="cuda", configs=None,
     launches, tp sums and the heads the forward kernel ran over, a rank
     and step); TP_CHECKPOINT's gathered checkpoint restored under the
     one-rank template, shard for shard."""
-    from gpu_docker_api_tpu_torch.models import named_config
-
     configs = configs or TP_CONFIGS
-    print(f"phase 10: tp, llama {configs} ({train}, dots) over {TP_RANKS} "
-          f"gloo ranks on one card: {TP_LAYOUTS}", flush=True)
+    print(f"phase 10: tp, {configs} ({train}, dots) over {TP_RANKS} gloo "
+          f"ranks on one card: {TP_LAYOUTS}", flush=True)
     t0 = time.perf_counter()
     ones = {name: one if role == "main" and one is not None
-            else sp_train(torch, device, named_config("llama", name), train,
-                          "ring")
+            else sp_train(torch, device, smoke_config(name), train, "ring")
             for role, name in configs.items()}
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -3442,10 +3582,86 @@ def phase_tp(torch, att, one=None, device="cuda", configs=None,
     readings = check_layouts(att, ranks, layouts, ones, device,
                              train["b"] * train["s"])
     print(f"  phase 10 wall time {wall}", flush=True)
-    return {"one_rank": {name: {k: run[k] for k in (
+    return {"one_rank": {str(name): {k: run[k] for k in (
                 "losses", "grad_norms", "step_times_s")}
                          for name, run in ones.items()},
             "layouts": readings, "checkpoint_shards": n, "wall": wall}
+
+
+# ---- phase 11: expert parallelism and MoE over ranks ------------------------
+
+EP_RANKS = 4
+EP_CONFIG = ("moe", "1b", None)          # moe_1b, full width and depth
+EP_TRAIN = dict(b=8, s=2048, steps=2)    # 7a's shape; bf16, "dots"
+EP_LAYOUTS = {                           # name: (plan, sp_attn)
+    "11a": ({"ep": 4}, "ring"),
+    "11b": ({"fsdp": 2, "ep": 2}, "ring"),   # MeshPlan.auto(4, ep=2)
+    "11c": ({"tp": 4}, "ring"),              # JAX's un-planned MoE launch
+    "11d": ({"ep": 2, "sp": 2}, "ring"),     # the interleaved prefix
+}
+EP_CHECKPOINT = "11b"                    # banks gathered over fsdp and ep
+# the f32 routing check's capacity factor (f32_routes): at 0.5 (the CPU
+# tests' factor) about half the choices drop from the first layer on, so a
+# wrong capacity or prefix shows in layer 0; at moe_1b's 1.25 the first
+# layer drops nothing at init, and a near-tie flip may end the comparison
+# before a layer that does (PERF.md)
+EP_ROUTE_CAPACITY = 0.5
+# phase 11's bf16 trainers against one rank, relative (moe_1b, 2 steps):
+# about 3x the largest of scripts/torch_moe_margin.py's readings over
+# seeds 0-3 (1.78e-4 and 4.19e-3: bf16 routing flips move MoE's numbers
+# more than llama's), under the planted rank-local route's 5.0e-2 grad
+# norm (PERF.md)
+EP_LOSS_TOL = 5e-4
+EP_NORM_TOL = 1.25e-2
+
+
+def phase_ep(torch, att, device="cuda", config=EP_CONFIG, train=EP_TRAIN):
+    """Phase 11: ep and MoE over ranks. The one-rank Trainer of `config`
+    here and the f32 routing of its first batch; then EP_RANKS processes on
+    this one card through each layout of EP_LAYOUTS (run_layouts), held
+    to it (check_layouts: the same loss and grad norm on every rank,
+    within EP_LOSS_TOL / EP_NORM_TOL of one rank, the difference printed;
+    each leaf's bytes over the axes its spec cuts, banks over ep too;
+    launches, tp sums and heads a rank and step; the f32 routing of the
+    first batch assembled over the ranks against one rank's, a flip only
+    at a near tie);
+    EP_CHECKPOINT's gathered checkpoint restored under the one-rank
+    template, shard for shard."""
+    cfg = smoke_config(config)
+    print(f"phase 11: ep and MoE over ranks, {config} ({cfg.n_layers} "
+          f"layers, {train}, {cfg.dtype}, dots) over {EP_RANKS} gloo ranks "
+          f"on one card: {EP_LAYOUTS}", flush=True)
+    t0 = time.perf_counter()
+    one = sp_train(torch, device, cfg, train, "ring")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    one["routes"] = f32_routes(torch, cfg, None, device, train_batch(
+        torch, cfg, train["b"], train["s"], 0, 0))
+    one["s"] = train["s"]
+    one["f32_drops"] = route_drops(one["routes"])
+    check(one["f32_drops"][0] > 0,
+          f"11: no choice drops in the f32 routing's first layer at "
+          f"capacity factor {EP_ROUTE_CAPACITY}: {one['f32_drops']}")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    one_rank_s = time.perf_counter() - t0
+    print(f"  11 one rank: "
+          f"{({k: v for k, v in one.items() if k != 'routes'})}", flush=True)
+    layouts = {name: (config, plan, attn, train["steps"])
+               for name, (plan, attn) in EP_LAYOUTS.items()}
+    ranks, n, wall = run_layouts(torch, device, layouts, train,
+                                 EP_CHECKPOINT, EP_RANKS)
+    wall["one_rank_s"] = one_rank_s
+    tokens = train["b"] * train["s"]
+    readings = check_layouts(att, ranks, layouts, {config: one}, device,
+                             tokens)
+    del one["routes"]
+    one["step_s"] = statistics.median(one["step_times_s"][1:])
+    one["tokens_s"] = tokens / one["step_s"]
+    one["state_bytes"] = fsdp_state_bytes(cfg, 1)
+    print(f"  phase 11 wall time {wall}", flush=True)
+    return {"one_rank": one, "layouts": readings, "checkpoint_shards": n,
+            "wall": wall}
 
 
 def build_kernels(torch):
@@ -3545,6 +3761,7 @@ def ptxas_wgmma_losses(log):
 def main() -> int:
     import torch
 
+    start = time.perf_counter()
     try:
         smi, att = build_kernels(torch)
         kernels, yardstick, bf16_check = phase_kernels(torch, att)
@@ -3557,6 +3774,8 @@ def main() -> int:
         sp = phase_sp(torch, att)
         fsdp = phase_fsdp(torch, att)
         tp = phase_tp(torch, att, one=fsdp["one_rank"])
+        before_ep = time.perf_counter() - start
+        ep = phase_ep(torch, att)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -3572,6 +3791,7 @@ def main() -> int:
             "launches_long": long_launches(sp, name),
             "launches_fsdp": fsdp_kernel_launches(fsdp, name),
             "launches_tp": fsdp_kernel_launches(tp, name),
+            "launches_ep": fsdp_kernel_launches(ep, name),
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": bnd[name][0],
             "bound_by": bnd[name][1], "library_ms": k["library_ms"]})
@@ -3590,6 +3810,10 @@ def main() -> int:
     print(json.dumps({"sp": sp}), flush=True)
     print(json.dumps({"fsdp": fsdp}), flush=True)
     print(json.dumps({"tp": tp}), flush=True)
+    print(json.dumps({"ep": ep}), flush=True)
+    wall = time.perf_counter() - start
+    print(f"wall time: the whole script {wall:.1f} s, phases 0-10 "
+          f"{before_ep:.1f} s, phase 11 {wall - before_ep:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

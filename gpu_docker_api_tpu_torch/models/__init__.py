@@ -2,9 +2,11 @@
 
 Each family exposes the surface of gpu_docker_api_tpu/models: init_params,
 forward(params, tokens, config, *, impl, sp, remat, fsdp, tp) -> logits (or
-(logits, extra_loss) for MoE, whose router loss the trainer adds to CE),
-its config class, param_shapes, the tree a checkpoint or a converted tree
-is checked against, and param_kinds, each leaf's sharding kind.
+(logits, extra_loss) for MoE, whose router loss the trainer adds to CE, and
+whose forward also takes ep and data: the expert-parallel group and the
+group it routes over), its config class, param_shapes, the tree a
+checkpoint or a converted tree is checked against, and param_kinds, each
+leaf's sharding kind, which the trainer shards by (parallel/mesh rules).
 """
 
 from dataclasses import dataclass
@@ -20,7 +22,7 @@ class ModelFamily:
     name: str
     init_params: Callable
     forward: Callable          # (params, tokens, config, *, impl, sp, remat,
-                               #  fsdp, tp)
+                               #  fsdp, tp[, ep, data])
     config_cls: Any
     param_shapes: Callable     # config -> {name: (shape, dtype)}
     param_kinds: Callable      # config -> {name: sharding kind}

@@ -21,9 +21,24 @@ Routing follows the reference exactly:
 - aux losses: the Switch load-balance term (top-1 share times mean router
   probability) and the router z-loss, both f32.
 
-Single device only: moe_block takes the gather dispatch, as the JAX
-package does for one expert shard. The one-hot einsum dispatch of the
-multi-shard path is here too, with the same semantics.
+On one device moe_block takes the gather dispatch, as the JAX package does
+for one expert shard (the one-hot einsum dispatch of its multi-shard path
+is here too, with the same semantics). Over ranks it routes the global
+token array, as JAX's jit-global moe_block does: `data` (every axis but
+tp) exchanges each rank's per-(k, row, expert) choice counts, so the
+capacity counts every token, each kept choice gets its global slot (the
+exclusive prefix in JAX's order: k, row, sequence shard, position) and the
+load-balance term takes global means (each rank returns its share of aux
+and z; the shares sum over `data` to the reference's). Experts act row by
+row, so a layer's output depends on the global keep, the gates, each
+choice's expert and the bank alone: under `ep` the kept choices travel to
+the owner of their expert's E/ep slice of the bank and back
+(comm.exchange_rows, a variable-split all-to-all), without ep each rank
+runs the gather path on its own kept choices at their global slots. Under
+`fsdp` a bank's D dim is gathered at its use inside the layer body, under
+`tp` its F dim is column-parallel in we1/we3 and row-parallel in we2 (the
+experts' partial outputs summed over the group before the gates weigh
+them), and the router is replicated, so tp ranks route alike.
 """
 
 from __future__ import annotations
@@ -34,9 +49,10 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.quant import qeinsum
+from ..parallel import comm
 from .llama import (
-    LlamaConfig, _attention_block, init_from_shapes, rms_norm,
-    rope_frequencies, sharded,
+    LlamaConfig, _attention_block, gather, init_from_shapes, rms_norm,
+    rope_frequencies, shard_positions, sharded, vocab_embedding,
 )
 from . import llama as _llama
 from .remat import remat_wrap
@@ -59,6 +75,8 @@ class MoEConfig:
     router_aux_weight: float = 0.01
     router_z_weight: float = 1e-3
     dtype: torch.dtype = torch.bfloat16
+    # attention under sp, as LlamaConfig.sp_attn ("ring" or "ulysses")
+    sp_attn: str = "ring"
 
     @property
     def head_dim(self) -> int:
@@ -71,7 +89,7 @@ class MoEConfig:
             n_layers=self.n_layers, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, d_ff=self.d_ff,
             max_seq_len=self.max_seq_len, rope_theta=self.rope_theta,
-            norm_eps=self.norm_eps, dtype=self.dtype)
+            norm_eps=self.norm_eps, dtype=self.dtype, sp_attn=self.sp_attn)
 
     def capacity(self, tokens_per_shard: int) -> int:
         """Static per-expert slot count for a given token count."""
@@ -131,9 +149,9 @@ def param_shapes(config: MoEConfig) -> dict:
 
 
 def param_kinds(config: MoEConfig) -> dict:
-    """Sharding-kind tree (keys into parallel.mesh.param_sharding_rules).
-    Shape bookkeeping only: MoE training under dp/fsdp is not yet
-    ported."""
+    """Sharding-kind tree (keys into parallel.mesh.param_sharding_rules):
+    the banks cut over ep (experts), fsdp and tp, the f32 router whole on
+    every rank."""
     return {
         "embed": "embed",
         "layers": {
@@ -156,37 +174,91 @@ def init_params(config: MoEConfig, generator: torch.Generator,
 
 # ---- the MoE block ----------------------------------------------------------
 
-def capacity_positions(onehot: torch.Tensor) -> torch.Tensor:
-    """onehot [T, K, E] -> each (token, k) choice's position within its
-    expert's capacity, [T, K] (int64). Ranked K-MAJOR (all k=0 rows first)
-    so every token's top-1 pick wins a slot before any token's k=1
-    spillover competes for one: the GShard priority policy.
-
-    The running count is taken along each expert's row of an [E, K*T]
-    copy: a scan along a tensor's last dimension runs in parallel on the
-    card, where a scan down the K*T rows of a [K*T, E] tensor runs one
-    thread an expert, serially."""
-    t, k, e = onehot.shape
-    flat = onehot.to(torch.int32).permute(2, 1, 0).reshape(e, k * t)
-    pos = torch.cumsum(flat, dim=1, dtype=torch.int32) * flat - 1  # [E, K*T]
-    pos = pos.reshape(e, k, t).permute(2, 1, 0)              # [T, K, E]
-    return (pos * onehot).sum(dim=-1)                        # [T, K]
-
-
 def weighted_router_loss(aux, z, config: MoEConfig):
     """The router objective added to CE: load-balance and z losses under
     their config weights (moe_forward applies it to the layer sums)."""
     return config.router_aux_weight * aux + config.router_z_weight * z
 
 
-def _route(ht: torch.Tensor, router: torch.Tensor, config: MoEConfig):
+def block_counts(onehot: torch.Tensor, rows: int):
+    """This rank's choices by block: onehot [T, K, E] of its T = rows *
+    S_loc tokens (its rows of the batch, each its sequence shard) ->
+    (oh [K, rows, E, S_loc] int32, each choice's exclusive count within
+    its (k, row) block, alike, and the counts [K, rows, E]). The running
+    count is taken along the last dim: a scan along a tensor's last dim
+    runs in parallel on the card, where one down the K*T rows of a
+    [K*T, E] tensor runs one thread an expert, serially."""
+    t, k, e = onehot.shape
+    oh = onehot.to(torch.int32).reshape(rows, t // rows, k, e).permute(
+        2, 0, 3, 1).contiguous()
+    within = torch.cumsum(oh, dim=-1, dtype=torch.int32) - oh
+    return oh, within, oh.sum(dim=-1)
+
+
+def place_blocks(oh, within, every, rank: int, n_sp: int):
+    """Global positions from every rank's block counts.
+
+    every [R, K, rows, E]: the counts of the R ranks of the routing group
+    (gather_counts), which run row shard major, sequence shard minor
+    (MeshGroups.data): rank j holds row shard j // n_sp and sequence
+    shard j % n_sp. JAX ranks the global array [B*S] K-major, tokens
+    row-major (t = row * S + position), so a choice's global position is
+    what precedes it in the order (k, row, sequence shard, position): the
+    exclusive prefix of the blocks before its own, plus its count within
+    its block. -> (positions [T, K] int64 of this rank's (`rank`)
+    choices, the top-1 count of each expert over every token [E])."""
+    k, rows, e, s_loc = oh.shape
+    n_rows = every.shape[0] // n_sp
+    order = every.reshape(n_rows, n_sp, k, rows, e).permute(2, 0, 3, 1, 4)
+    flat = order.reshape(-1, e).long()                        # (k, row, sp)
+    before = (torch.cumsum(flat, dim=0) - flat).reshape(k, n_rows, rows,
+                                                         n_sp, e)
+    row_shard, sp_rank = divmod(rank, n_sp)
+    start = before[:, row_shard, :, sp_rank, :]               # [K, rows, E]
+    pos = (within + start[..., None]) * oh                    # [K, rows, E, S]
+    pos = pos.sum(dim=2).permute(1, 2, 0).reshape(rows * s_loc, k)
+    return pos, flat.reshape(k, -1, e)[0].sum(dim=0)
+
+
+def global_positions(onehot: torch.Tensor, rows: int, data=None,
+                     n_sp: int = 1):
+    """Each of this rank's choices' position within its expert's capacity
+    in the GLOBAL token array, and the global top-1 counts: its
+    block_counts exchanged over the routing group `data` (one all-gather;
+    None: this call's tokens are the whole array) and placed
+    (place_blocks)."""
+    oh, within, counts = block_counts(onehot, rows)
+    every = comm.gather_counts(counts, data)                  # [R, K, rows, E]
+    return place_blocks(oh, within, every, data.rank if data else 0, n_sp)
+
+
+def router_losses(logits, probs, frac, t_all: int, config: MoEConfig):
+    """(aux, z) of the routing: the Switch load-balance term E * sum_e(top-1
+    share · mean router probability) and the z loss mean(lse^2), both f32.
+    `frac` is each expert's top-1 share of all t_all tokens; logits and
+    probs may be one rank's T of them, which then gives its share: its
+    probabilities' sum and its lse^2 sum over t_all, so the shares sum
+    over the ranks to the global values (a product of two global means is
+    not a mean of rank-local products)."""
+    aux = config.n_experts * (frac * probs.sum(dim=0)).sum() / t_all
+    z = torch.logsumexp(logits, dim=-1).square().sum() / t_all
+    return aux, z
+
+
+def _route(ht: torch.Tensor, router: torch.Tensor, config: MoEConfig,
+           data=None, rows: int = 1, n_sp: int = 1):
     """Routing of ht [T, D] (f32 router [D, E]): (logits [T, E] f32, probs
-    [T, E], gate_vals [T, K] renormalised, gate_idx [T, K] int64, onehot
-    [T, K, E], pos_in_expert [T, K], keep [T, K] bool, cap).
+    [T, E], gate_vals [T, K] renormalised, gate_idx [T, K] int64, frac [E]
+    f32 (each expert's share of the top-1 choices), pos_in_expert [T, K],
+    keep [T, K] bool, cap).
 
     The top k come from a stable descending sort: among equal
     probabilities the lower expert index comes first, as jax.lax.top_k
-    orders them, so capacity ranks and drops are the reference's."""
+    orders them, so capacity ranks and drops are the reference's. cap, the
+    positions and frac count every token of the routing group `data` (ht:
+    this rank's `rows` rows of its sequence shard, one of n_sp; None: ht
+    is every token) through global_positions, one code path for one rank
+    and many."""
     c = config
     logits = ht.float() @ router                              # [T, E]
     probs = torch.softmax(logits, dim=-1)
@@ -195,11 +267,13 @@ def _route(ht: torch.Tensor, router: torch.Tensor, config: MoEConfig):
     # Mixtral renormalizes the selected gates
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp_min(
         1e-9)
-    cap = c.capacity(ht.shape[0])
     onehot = F.one_hot(gate_idx, c.n_experts)                 # [T, K, E]
-    pos_in_expert = capacity_positions(onehot)
+    t_all = ht.shape[0] * (data.size if data else 1)
+    cap = c.capacity(t_all)
+    pos_in_expert, top1 = global_positions(onehot, rows, data, n_sp)
+    frac = top1.float() / t_all
     keep = pos_in_expert < cap
-    return (logits, probs, gate_vals, gate_idx, onehot, pos_in_expert, keep,
+    return (logits, probs, gate_vals, gate_idx, frac, pos_in_expert, keep,
             cap)
 
 
@@ -235,11 +309,13 @@ def _moe_experts_einsum(ht, layer, c: MoEConfig, gate_idx, gate_vals, keep,
 
 
 def _moe_experts_gather(ht, layer, c: MoEConfig, gate_idx, gate_vals, keep,
-                        pos_in_expert, cap: int) -> torch.Tensor:
+                        pos_in_expert, cap: int, tp=None) -> torch.Tensor:
     """Gather-dispatch expert path (one expert shard): build the slot ->
     token index [E*C] with one small scatter, GATHER token rows into the
     expert banks, and combine by gathering each token's K slot outputs
     back: O(K·T·D) memory traffic instead of the einsum path's products.
+    Under `tp` the bank is this rank's F slice: each token's K outputs are
+    partial sums, summed over the group before the gates weigh them.
     Returns [T, D] f32."""
     t, d = ht.shape
     n_slots = c.n_experts * cap
@@ -260,31 +336,91 @@ def _moe_experts_gather(ht, layer, c: MoEConfig, gate_idx, gate_vals, keep,
     # slot 0 with weight 0) and sums them under its gate weights
     back = ye.reshape(n_slots, d).index_select(
         0, torch.where(keep, flat_slot, 0).reshape(-1))
+    if sharded(tp):
+        back = comm.reduce_from_group(back, tp)
     w = (gate_vals * keep.float())[..., None]                 # [T, K, 1]
     return (back.reshape(t, -1, d).float() * w).sum(dim=1)    # [T, D] f32
 
 
-def moe_block(x: torch.Tensor, layer: dict, config: MoEConfig
+def _moe_experts_ep(ht, layer, c: MoEConfig, gate_idx, gate_vals, keep,
+                    pos_in_expert, cap: int, ep, tp=None) -> torch.Tensor:
+    """Expert-parallel dispatch: this rank's bank is experts [r*E/ep,
+    (r+1)*E/ep) of the `ep` group (rank r). Each kept choice (its row of
+    ht, its global slot) goes to its expert's owner, which lays the rows
+    it receives at their slots of its [E/ep, cap, D] buffer (global slots
+    are distinct, so any rank's choices fit), runs its bank and sends each
+    row's output back, where the combine sums them under the gates as the
+    gather path does. Counts first, then variable-split all-to-alls
+    (comm.exchange_rows), on every rank even when it sends or receives
+    nothing. Under `tp` the outputs that come back are partial sums, summed
+    over the group before the gates weigh them. Returns [T, D] f32."""
+    t, d = ht.shape
+    k = gate_idx.shape[1]
+    e_loc = c.n_experts // ep.size
+    choice = keep.reshape(-1).nonzero().flatten()             # (t, k) flat
+    expert = gate_idx.reshape(-1)[choice]
+    order = torch.argsort(expert // e_loc, stable=True)       # by owner
+    choice, expert = choice[order], expert[order]
+    sent = torch.bincount(expert // e_loc, minlength=ep.size)
+    send = sent.tolist()
+    # what each peer sends follows from global_positions' gathered counts
+    # too (a (k, row) block keeps clamp(cap - before, 0, count) of an
+    # expert), but only through the data group's rank layout and only for
+    # the route that made `keep`: the owners' own counts stay right for
+    # any keep mask, at one all-to-all of ep integers
+    recv = comm.exchange_counts(sent, ep).tolist()
+    slot = (expert % e_loc) * cap + pos_in_expert.reshape(-1)[choice]
+    slot = comm.exchange_rows(slot, send, recv, ep)           # owner's slots
+    rows = comm.exchange_rows(ht.index_select(0, choice // k), send, recv, ep)
+    n_slots = e_loc * cap
+    # empty slots read the zero pad row (index len(rows))
+    slot_row = torch.full((n_slots,), rows.shape[0], dtype=torch.long,
+                          device=ht.device).scatter_(
+        0, slot, torch.arange(rows.shape[0], device=ht.device))
+    xe = torch.cat([rows, rows.new_zeros(1, d)]).index_select(
+        0, slot_row).reshape(e_loc, cap, d)
+    ye = _expert_matmuls(xe, layer).reshape(n_slots, d)
+    back = comm.exchange_rows(ye.index_select(0, slot), recv, send, ep)
+    if sharded(tp):
+        back = comm.reduce_from_group(back, tp)
+    # each token's K outputs (a dropped choice's a zero row, weight zero)
+    full = back.new_zeros(t * k, d).index_copy(0, choice, back)
+    w = (gate_vals * keep.float())[..., None]                 # [T, K, 1]
+    return (full.reshape(t, k, d).float() * w).sum(dim=1)     # [T, D] f32
+
+
+def moe_block(x: torch.Tensor, layer: dict, config: MoEConfig, data=None,
+              sp=None, ep=None, tp=None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (x + moe_out, aux_loss, z_loss).
 
     Top-k routing with a static per-expert capacity over the B*S tokens of
     the call; tokens over capacity are dropped (combine weight zero, the
-    residual carries them). One device: the gather dispatch."""
+    residual carries them). One device: the gather dispatch.
+
+    Over ranks x is this rank's rows and sequence shard and routing runs
+    over the global batch through `data` (_route); aux and z are then
+    this rank's shares, which sum over `data` to the global values. The
+    experts run through the ep dispatch under `ep`, else the gather path
+    on this rank's kept choices; under `tp` each rank's bank slice gives
+    partial expert outputs, summed over the group."""
     c = config
     b, s, d = x.shape
     h = rms_norm(x, layer["mlp_norm"], c.norm_eps)
     ht = h.reshape(b * s, d)
-    (logits, probs, gate_vals, gate_idx, onehot, pos_in_expert, keep,
-     cap) = _route(ht, layer["router"], c)
-    out = _moe_experts_gather(ht, layer, c, gate_idx, gate_vals, keep,
-                              pos_in_expert, cap)
+    n_sp = sp.size if sharded(sp) else 1
+    (logits, probs, gate_vals, gate_idx, frac, pos_in_expert, keep,
+     cap) = _route(ht, layer["router"], c, data, b, n_sp)
+    # the router sees ht as it is (its cotangent is whole on every tp
+    # rank), the bank's F slice the copy whose cotangent sums over tp
+    hx = comm.copy_to_group(ht, tp) if sharded(tp) else ht
+    args = (hx, layer, c, gate_idx, gate_vals, keep, pos_in_expert, cap)
+    out = (_moe_experts_ep(*args, ep, tp) if sharded(ep)
+           else _moe_experts_gather(*args, tp))
 
     # -- aux losses (f32 scalars) --
-    # Switch load-balance: E * sum_e(top-1 fraction routed · mean prob)
-    frac = onehot[:, 0, :].float().mean(dim=0)
-    aux = c.n_experts * (frac * probs.mean(dim=0)).sum()
-    z = torch.logsumexp(logits, dim=-1).square().mean()
+    aux, z = router_losses(logits, probs, frac,
+                           b * s * (data.size if data else 1), c)
     return x + out.reshape(b, s, d).to(x.dtype), aux, z
 
 
@@ -292,29 +428,35 @@ def moe_block(x: torch.Tensor, layer: dict, config: MoEConfig
 
 def moe_forward(params: dict, tokens: torch.Tensor, config: MoEConfig,
                 impl: str = "auto", sp=None, remat: str = "none",
-                fsdp=None, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
+                fsdp=None, tp=None, ep=None, data=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] int -> (logits [B, S, V] f32, router_loss f32 scalar).
 
     router_loss = aux_weight * load_balance + z_weight * z_loss, summed over
     layers: the trainer adds it to the CE loss. Attention goes through
     ops/attention.py (the flash kernels on the card); remat as
-    llama_forward. Not under an `sp` group: JAX routes the global token
-    array (the capacity scan runs over every token), which a rank-local
-    route would not; nor, for the same reason, under `fsdp` or `tp`."""
-    if sharded(sp) or sharded(fsdp) or sharded(tp):
-        raise NotImplementedError(
-            "MoE over a group of ranks (sp, fsdp or tp > 1) is not yet "
-            "ported to PyTorch: routing runs over the global token array")
+    llama_forward. Over ranks, as llama_forward: tokens are this rank's
+    rows and, under `sp`, its [B, S/sp] shard; params its shards (banks
+    cut over `ep`, `fsdp`, `tp`), gathered over fsdp inside each layer's
+    body; under `tp` the logits are its vocab shard. Routing runs over
+    `data` (every axis but tp; moe_block) and router_loss is this rank's
+    share. Every rank calls together."""
     c = config
     lc = c.as_llama()
     s = tokens.shape[1]
-    x = F.embedding(tokens, params["embed"])
-    cos, sin = rope_frequencies(lc, torch.arange(s, device=tokens.device))
+    kinds = param_kinds(c)
+    layer_kinds = [kinds["layers"][name] for name in _LAYER_KEYS]
+    embed, = gather([params["embed"]], ["embed"], fsdp)
+    x = (vocab_embedding(tokens, embed, tp) if sharded(tp)
+         else F.embedding(tokens, embed))
+    del embed
+    cos, sin = rope_frequencies(lc, shard_positions(s, sp, tokens.device))
 
     def body(x, *weights):
+        weights = gather(weights, layer_kinds, fsdp)
         layer = dict(zip(_LAYER_KEYS, weights))
-        x = _attention_block(x, layer, lc, cos, sin, impl)
-        return moe_block(x, layer, c)
+        x = _attention_block(x, layer, lc, cos, sin, impl, sp, tp)
+        return moe_block(x, layer, c, data, sp, ep, tp)
 
     step = remat_wrap(body, remat)
     aux_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -325,6 +467,8 @@ def moe_forward(params: dict, tokens: torch.Tensor, config: MoEConfig,
         aux_sum = aux_sum + aux
         z_sum = z_sum + z
     x = rms_norm(x, params["final_norm"], c.norm_eps)
-    logits = (x @ params["lm_head"]).float()
+    lm_head, = gather([params["lm_head"]], ["lm_head"], fsdp)
+    if sharded(tp):
+        x = comm.copy_to_group(x, tp)
+    logits = (x @ lm_head).float()
     return logits, weighted_router_loss(aux_sum, z_sum, c)
-

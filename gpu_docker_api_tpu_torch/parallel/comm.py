@@ -24,6 +24,12 @@ their transpose:
   sharding rules): f is the identity whose backward sums the cotangent
   over the group, g the sum over the group whose backward is the
   identity; both sum in f32 and cast back.
+- exchange_rows(x, send, recv, g): the expert-parallel dispatch, a
+  variable-split all-to-all of rows (send[j] of x's rows to rank j, recv[j]
+  from rank j, an empty split a valid one); backward is the reverse
+  exchange, which every rank runs. exchange_counts(counts, g) trades the
+  split sizes first, and gather_counts(counts, g) gives every rank's
+  routing counts (no gradient; MoE's global routing).
 - all_reduce_sum and all_reduce_max: in place, no gradient, for the
   trainer (the sum bucketed through a flat buffer).
 
@@ -345,6 +351,65 @@ def reduce_from_group(x: torch.Tensor, g: AxisGroup) -> torch.Tensor:
     dtype; the backward passes the cotangent through, as every rank holds
     the sum. Every rank of the group must call it."""
     return _ReduceFromGroup.apply(g, x)
+
+
+# ---- ep: the expert dispatch and the routing counts -------------------------
+
+@torch.no_grad()
+def gather_counts(counts: torch.Tensor, g: Optional[AxisGroup]
+                  ) -> torch.Tensor:
+    """[g.size, *counts.shape]: every rank's `counts` (one shape and dtype
+    on every rank), in group rank order, on counts' device; counts[None]
+    without a group."""
+    if g is None:
+        return counts[None]
+    send = _wire(counts, g).reshape(-1)
+    recv = send.new_empty(g.size * send.numel())
+    dist.all_gather_into_tensor(recv, send, group=g.group)
+    return recv.to(counts.device).view(g.size, *counts.shape)
+
+
+@torch.no_grad()
+def exchange_counts(counts: torch.Tensor, g: AxisGroup) -> torch.Tensor:
+    """counts [g.size]: counts[j] goes to rank j; returns what each rank
+    sent this one, in rank order."""
+    send = _wire(counts, g)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=g.group)
+    return recv.to(counts.device)
+
+
+def _exchange(x: torch.Tensor, send: list, recv: list, g: AxisGroup
+              ) -> torch.Tensor:
+    out = _wire(x, g)
+    got = out.new_empty((sum(recv), *x.shape[1:]))
+    dist.all_to_all_single(got, out, recv, send, group=g.group)
+    return got.to(x.device)
+
+
+class _ExchangeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, send, recv, x):
+        ctx.g, ctx.splits = g, (send, recv)
+        return _exchange(x, send, recv, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        send, recv = ctx.splits
+        # the rows go back where they came from (grad is materialised: an
+        # unused output's is zeros, so every rank posts the exchange)
+        return None, None, None, _exchange(grad, recv, send, ctx.g)
+
+
+def exchange_rows(x: torch.Tensor, send: Sequence[int], recv: Sequence[int],
+                  g: AxisGroup) -> torch.Tensor:
+    """The rows of x [n, ...], grouped by destination: the first send[0]
+    to rank 0, the next send[1] to rank 1, ...; returns the rows received,
+    recv[j] from rank j, in rank order (recv as exchange_counts gives it).
+    Every rank of the group must call it, with nothing to send or receive
+    too. Differentiable: the backward sends each cotangent back to the row's
+    source."""
+    return _ExchangeRows.apply(g, list(send), list(recv), x)
 
 
 # ---- trainer collectives (no gradient) --------------------------------------

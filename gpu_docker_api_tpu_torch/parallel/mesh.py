@@ -9,10 +9,10 @@ MeshGroups forms one torch.distributed group per axis above 1
 PartitionSpecs, written as tuples of axis names per dim: tp splits each
 matrix Megatron-style (column-parallel in, row-parallel out, the vocab of
 embed and lm_head) and fsdp the other dim (ZeRO-3); a dim named by both
-(embed's) is cut into tp x fsdp chunks, tp major, as JAX places it. The
-batch rows go over dp x fsdp, the sequence over sp and the logits' vocab
-over tp. require_ported admits dp, fsdp, tp and sp and refuses the other
-axes above 1.
+(embed's) is cut into tp x fsdp chunks, tp major, as JAX places it; ep
+cuts the expert banks' expert dim. The batch rows go over dp x fsdp x ep,
+the sequence over sp and the logits' vocab over tp. require_ported admits
+dp, fsdp, ep, tp and sp and refuses pp above 1.
 """
 
 from __future__ import annotations
@@ -89,12 +89,12 @@ def plan_from_env(env: Optional[dict] = None) -> Optional[MeshPlan]:
     return MeshPlan(**vals)
 
 
-PORTED = ("dp", "fsdp", "tp", "sp")
+PORTED = ("dp", "fsdp", "ep", "tp", "sp")
 
 
 def require_ported(plan: MeshPlan) -> None:
-    """dp, fsdp, tp and sp are the axes ported; refuse a plan with any
-    other axis above 1."""
+    """dp, fsdp, ep, tp and sp are the axes ported; refuse a plan with
+    any other axis (pp) above 1."""
     others = [a for a in AXES if a not in PORTED and getattr(plan, a) > 1]
     if others:
         raise NotImplementedError(
@@ -151,9 +151,10 @@ def param_sharding_rules() -> dict:
 
 BATCH_AXES = ("dp", "fsdp", "ep")
 
-# the axes that split parameters in the rules above (pp and ep are not
-# ported): fsdp first, the minor axis where both cut one dim (embed's)
-PARAM_AXES = ("fsdp", "tp")
+# the axes that split parameters in the rules above (pp is not ported):
+# fsdp first, the minor axis where two cut one dim (embed's); ep cuts a dim
+# of its own (the banks' experts)
+PARAM_AXES = ("fsdp", "tp", "ep")
 
 
 def batch_spec() -> tuple:
@@ -262,28 +263,35 @@ def shard_params(params: dict, specs: dict, plan: MeshPlan, rank: int,
 @dataclass(frozen=True)
 class MeshGroups:
     """This rank's place in the plan's process groups: one AxisGroup per
-    ported axis above 1 (None at size 1); `replica` over the ranks that
-    hold the same parameter shards (dp x sp: the gradient sum of a sharded
-    leaf); `data` over every axis but tp (the ranks over which a
-    tp-replicated value, the loss or a norm's gradient, is a partial sum);
-    `world` over every rank (None alone)."""
+    ported axis above 1 (None at size 1); two replica groups, over the
+    ranks that hold the same shard of a sharded leaf, whose gradient sums
+    over them: `replica` (dp x ep x sp) for a leaf every ep rank holds
+    alike (attention, embed, lm_head), `expert_replica` (dp x sp) for a
+    leaf cut over ep (the expert banks); `data` over every axis but tp
+    (the ranks over which a tp-replicated value, the loss, a norm's or
+    the router's gradient, is a partial sum, and over which MoE routes:
+    its ranks run row shard major, sp minor); `world` over every rank
+    (None alone)."""
     plan: MeshPlan
     rank: int
     dp: Optional[AxisGroup] = None
     fsdp: Optional[AxisGroup] = None
+    ep: Optional[AxisGroup] = None
     tp: Optional[AxisGroup] = None
     sp: Optional[AxisGroup] = None
     replica: Optional[AxisGroup] = None
+    expert_replica: Optional[AxisGroup] = None
     data: Optional[AxisGroup] = None
     world: Optional[AxisGroup] = None
 
     @property
     def rows(self) -> tuple[int, int]:
         """(this rank's row shard, how many): the batch rows go over dp x
-        fsdp, dp major; the tp ranks of a row shard take the same rows."""
-        c = coords(self.plan, self.rank)
-        n = self.plan.dp * self.plan.fsdp
-        return c["dp"] * self.plan.fsdp + c["fsdp"], n
+        fsdp x ep, dp major, ep minor (BATCH_AXES); the tp and sp ranks of
+        a row shard take the same rows."""
+        c, p = coords(self.plan, self.rank), self.plan
+        return ((c["dp"] * p.fsdp + c["fsdp"]) * p.ep + c["ep"],
+                p.dp * p.fsdp * p.ep)
 
     @classmethod
     def build(cls, plan: MeshPlan) -> "MeshGroups":
@@ -311,6 +319,8 @@ class MeshGroups:
             return formed[key]
 
         return cls(plan=plan, rank=rank, dp=group("dp"), fsdp=group("fsdp"),
-                   tp=group("tp"), sp=group("sp"), replica=group("dp", "sp"),
+                   ep=group("ep"), tp=group("tp"), sp=group("sp"),
+                   replica=group("dp", "ep", "sp"),
+                   expert_replica=group("dp", "sp"),
                    data=group(*(a for a in AXES if a != "tp")),
                    world=group(*AXES))

@@ -6,19 +6,24 @@ leaf), gradient accumulation with f32 sums, atomic torch.save checkpoints
 (one directory per step) and the byte-compatible quiesce protocol the
 control plane's Backend.quiesce drives.
 
-On one device, or on this rank of a plan over dp, fsdp, tp and sp
-(parallel/mesh.MeshGroups): each rank takes its B/(dp*fsdp) rows of the
-global batch (the tp ranks of a row shard the same rows) and its S/sp
-positions, and holds 1/(fsdp*tp) of every matrix and its AdamW moments,
-cut along the dims its kind's rule names (param_specs; the norms whole).
-The loss is the global mean (each rank's log-likelihood sum over the
-global count; under tp the cross-entropy runs over the vocab shards). A
-sharded leaf's gradient is reduce-scattered over fsdp in the backward
-(comm.all_gather) and summed over dp x sp; a whole leaf's, which every tp
-rank holds complete, and the loss over every axis but tp; all in f32.
-The clip takes the global norm, so each step is the one-rank step on the
-global batch. Checkpoints hold the gathered state, so one written under
-any plan restores under any other.
+On one device, or on this rank of a plan over dp, fsdp, ep, tp and sp
+(parallel/mesh.MeshGroups): each rank takes its B/(dp*fsdp*ep) rows of
+the global batch (the tp ranks of a row shard the same rows) and its S/sp
+positions, and holds 1/(fsdp*tp) of every matrix and its AdamW moments
+(the MoE banks also 1/ep, by expert), cut along the dims its kind's rule
+names (param_specs; the norms and the router whole). The loss is the
+global mean (each rank's log-likelihood sum over the global count; under
+tp the cross-entropy runs over the vocab shards; MoE adds each rank's
+share of the router loss, routed over the global batch). A sharded leaf's
+gradient is reduce-scattered over fsdp in the backward (comm.all_gather)
+and summed over the ranks that hold its shard: dp x ep x sp, or dp x sp
+for a bank cut over ep; a whole leaf's, which every tp rank holds
+complete, and the loss over every axis but tp; all in f32. The clip takes
+the global norm, so each step is the one-rank step on the global batch;
+under accumulation a rank's micro-slice i is its rows of the global
+micro-slice i, so MoE routes each micro-slice as one rank does.
+Checkpoints hold the gathered state, so one written under any plan
+restores under any other.
 """
 
 from __future__ import annotations
@@ -59,7 +64,8 @@ class TrainConfig:
     min_lr_ratio: float = 0.1
     # accumulate gradients over this many equal micro-slices of the batch
     # before the optimizer update (f32 sums; for llama this equals the
-    # full-batch step: mean CE is linear in equal slices)
+    # full-batch step: mean CE is linear in equal slices; MoE routes and
+    # takes its router loss per micro-slice, as the JAX package does)
     accum_steps: int = 1
     remat: bool = True   # per-layer checkpointing of the decoder body
     # "dots" saves matmul outputs across the remat boundary; "full" saves
@@ -187,26 +193,30 @@ class AdamW:
 def loss_fn(params, tokens, config, impl: str = "auto_grad", sp=None,
             n_microbatches: int = 0, remat: bool = True,
             remat_policy: str = "dots", fsdp=None, row_shards: int = 1,
-            tp=None):
+            tp=None, ep=None, data=None):
     """Next-token CE in f32 (+ the family's extra loss). tokens [B, S];
     predicts tokens[:, 1:].
 
     Over ranks, the value is this rank's share of the global mean: the
     log-likelihood sum of its tokens over the global count, B * row_shards
     * (S - 1), where tokens are this rank's rows of the global batch (one
-    of `row_shards`, dp x fsdp) and, under an `sp` group
+    of `row_shards`, dp x fsdp x ep) and, under an `sp` group
     (parallel.comm.AxisGroup), all their positions, of which the rank runs
     its S/sp. A shard's last position predicts the next shard's first
     token; the global last position predicts nothing. The shares sum to
-    the loss. `fsdp`, `tp`: the groups params are sharded over; under
-    `tp` the logits are vocab shards and the cross-entropy is taken over
-    the group, so every tp rank holds the same share."""
+    the loss. `fsdp`, `tp`, `ep`: the groups params are sharded over;
+    under `tp` the logits are vocab shards and the cross-entropy is taken
+    over the group, so every tp rank holds the same share. MoE routes over
+    `data` (every axis but tp) and adds this rank's share of the router
+    loss."""
     if n_microbatches:
         raise NotImplementedError(
             "the pipelined trunk is not yet ported to PyTorch")
     fam = family_for(config)
     remat_policy = remat_policy if remat else "none"
     kw = dict(impl=impl, sp=sp, fsdp=fsdp, remat=remat_policy, tp=tp)
+    if fam.returns_extra_loss:
+        kw.update(ep=ep, data=data)
     if not sharded(sp) and row_shards == 1:
         out = fam.forward(params, tokens, config, **kw)            # f32
         logits, extra = out if fam.returns_extra_loss else (out, 0.0)
@@ -216,15 +226,13 @@ def loss_fn(params, tokens, config, impl: str = "auto_grad", sp=None,
     n_sp, sp_rank = (sp.size, sp.rank) if sharded(sp) else (1, 0)
     if s % n_sp:
         raise ValueError(f"seq {s} does not shard over sp {n_sp}")
-    if fam.returns_extra_loss:
-        raise NotImplementedError(
-            f"{fam.name} over ranks is not yet ported to PyTorch")
     s_loc = s // n_sp
     lo = sp_rank * s_loc
-    logits = fam.forward(params, tokens[:, lo:lo + s_loc], config, **kw)
+    out = fam.forward(params, tokens[:, lo:lo + s_loc], config, **kw)
+    logits, extra = out if fam.returns_extra_loss else (out, 0.0)
     targets = tokens[:, lo + 1:lo + s_loc + 1]      # one short on the last
     ll = _log_likelihood(logits[:, :targets.shape[1]], targets, tp)
-    return -ll.sum() / (b * row_shards * (s - 1))
+    return -ll.sum() / (b * row_shards * (s - 1)) + extra
 
 
 def _log_likelihood(logits, targets, tp=None):
@@ -269,7 +277,7 @@ def param_specs(config) -> dict:
 @dataclass
 class Trainer:
     """Owns the train step on one device, or on this rank of a plan over
-    dp, fsdp, tp and sp.
+    dp, fsdp, ep, tp and sp.
 
     Usage:
         trainer = Trainer.create(config)            # on the card
@@ -297,10 +305,6 @@ class Trainer:
         if plan.size > 1 and (groups is None or groups.plan != plan):
             raise ValueError(f"{plan} needs the groups of its {plan.size} "
                              f"ranks (MeshGroups.build), got {groups}")
-        if plan.size > 1 and family_for(config).returns_extra_loss:
-            raise NotImplementedError(
-                f"{family_for(config).name} under {plan}: routing over a "
-                f"group of ranks is not yet ported to PyTorch")
         tc = tc or TrainConfig()
         trainer = cls(config=config, tc=tc, device=resolve_device(device),
                       plan=plan, optimizer=AdamW(tc),
@@ -326,14 +330,22 @@ class Trainer:
         return self.groups.tp if self.groups else None
 
     @property
+    def ep(self) -> Optional[comm.AxisGroup]:
+        return self.groups.ep if self.groups else None
+
+    @property
+    def data(self) -> Optional[comm.AxisGroup]:
+        return self.groups.data if self.groups else None
+
+    @property
     def rank(self) -> int:
         return self.groups.rank if self.groups else 0
 
     @property
     def dims(self) -> dict:
         """((axis, the dim it cuts), ...) of each leaf of the state's
-        parameter tree, fsdp before tp (split_dims; (): whole on every
-        rank)."""
+        parameter tree, fsdp before tp before ep (split_dims; (): whole on
+        every rank)."""
         return tree_map(lambda spec: split_dims(spec, self.plan),
                         param_specs(self.config))
 
@@ -393,10 +405,10 @@ class Trainer:
     def full_state(self, state: dict) -> Optional[dict]:
         """The whole train state, what a checkpoint holds: on the world's
         rank 0 the parameters, mu and nu gathered leaf by leaf to the host
-        (the state itself on one rank and without fsdp or tp); None on the
-        other ranks. Collective: every rank calls it."""
+        (the state itself on one rank and without fsdp, tp or ep); None on
+        the other ranks. Collective: every rank calls it."""
         writer = self.rank == 0
-        if self.plan.fsdp == 1 and self.plan.tp == 1:
+        if self.plan.fsdp == 1 and self.plan.tp == 1 and self.plan.ep == 1:
             return state if writer else None
 
         def whole(t, dims):
@@ -423,15 +435,17 @@ class Trainer:
 
     def _loss(self, params, tokens):
         return loss_fn(params, tokens, self.config, sp=self.sp,
-                       fsdp=self.fsdp, tp=self.tp, row_shards=self.plan.dp *
-                       self.plan.fsdp, remat=self.tc.remat,
+                       fsdp=self.fsdp, tp=self.tp, ep=self.ep, data=self.data,
+                       row_shards=self.groups.rows[1] if self.groups else 1,
+                       remat=self.tc.remat,
                        remat_policy=self.tc.remat_policy)
 
     def step(self, state: dict, tokens: torch.Tensor):
         """One optimizer step, in place on `state`. Returns (state,
         {"loss", "grad_norm"}), grad_norm taken before the clip. Over ranks
         every rank calls it with its shard_batch of the same global batch
-        and gets the global loss and grad_norm."""
+        and gets the global loss and grad_norm. Under accumulation micro-
+        slice i is the i-th accum-th of `tokens` (shard_batch's order)."""
         params = state["params"]
         leaves = tree_leaves(params)
         accum = max(self.tc.accum_steps, 1)
@@ -466,23 +480,33 @@ class Trainer:
     def _sum_over_ranks(self, grads: list, dims: list, loss: torch.Tensor
                         ) -> torch.Tensor:
         """Each rank's gradients and loss are partial sums: add them up in
-        place, in f32 (a sharded leaf's over the ranks that hold its
-        shard, dp x sp, the reduce-scatter over fsdp being done; a whole
-        leaf's, complete on every tp rank, and the loss over every axis
-        but tp). Returns the global norm of the gradients: the shards'
-        squares summed over fsdp and tp, each whole leaf counted once."""
+        place, in f32, each over the ranks that hold the same shard, the
+        reduce-scatter over fsdp being done: a leaf every ep rank holds
+        alike over `replica` (dp x ep x sp), a bank cut over ep over
+        `expert_replica` (dp x sp); a whole leaf's, complete on every tp
+        rank, and the loss over every axis but tp (`data`). Returns the
+        global norm of the gradients: the shards' squares summed over fsdp
+        and tp (a bank's over ep too), each whole leaf counted once."""
         g = self.groups
         if g is None:
             return global_norm(grads)
-        split = [x for x, d in zip(grads, dims) if d]
+        banks = [x for x, d in zip(grads, dims) if "ep" in dict(d)]
+        split = [x for x, d in zip(grads, dims) if d and "ep" not in dict(d)]
         whole = [x for x, d in zip(grads, dims) if not d]
         if split and g.replica is not None:
             comm.all_reduce_sum(split, g.replica)
+        if banks and g.expert_replica is not None:
+            comm.all_reduce_sum(banks, g.expert_replica)
         if g.data is not None:
             comm.all_reduce_sum([*whole, loss], g.data)
-        if not split:
+        if not split and not banks:
             return global_norm(whole)
-        squares = sum_squares(split)
+        squares = sum_squares(split) if split else 0.0
+        if banks:
+            experts = sum_squares(banks)
+            if g.ep is not None:
+                comm.all_reduce_sum([experts], g.ep)
+            squares = squares + experts
         for axis in (g.fsdp, g.tp):
             if axis is not None:
                 comm.all_reduce_sum([squares], axis)
@@ -490,15 +514,22 @@ class Trainer:
 
     def shard_batch(self, tokens) -> torch.Tensor:
         """This rank's rows of a host batch [B, S], onto the trainer's
-        device: the rows shard over dp x fsdp (all of them on one rank).
-        B must divide, as the JAX batch sharding requires."""
+        device: the rows shard over dp x fsdp x ep (all of them on one
+        rank). B must divide, as the JAX batch sharding requires. Under
+        accum_steps a the rank takes its 1/n of each of the a global
+        micro-slices (rows [i*B/a, (i+1)*B/a)), in order, so its i-th
+        micro-slice is its rows of JAX's i-th."""
         if self.groups is not None:
             i, n = self.groups.rows
             b = tokens.shape[0]
-            if b % n:
-                raise ValueError(f"batch {b} does not divide over "
-                                 f"dp x fsdp = {n} row shards")
-            tokens = tokens[i * b // n:(i + 1) * b // n]
+            a = max(self.tc.accum_steps, 1)
+            if b % (n * a):
+                raise ValueError(
+                    f"batch {b} does not divide over dp x fsdp x ep = {n} "
+                    f"row shards" + (f" x accum_steps {a}" if a > 1 else ""))
+            m = b // a
+            lo = [j * m + i * m // n for j in range(a)]
+            tokens = tokens[[r for x in lo for r in range(x, x + m // n)]]
         return to_device(tokens, self.device)
 
 

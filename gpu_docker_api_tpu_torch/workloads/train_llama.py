@@ -8,18 +8,18 @@ newest checkpoint, the same metrics.jsonl schema and the quiesce park on
 SIGUSR1. It trains on the CUDA card the container was given; --device cpu
 runs on the CPU instead (tests).
 
-A TDAPI_MESH_PLAN whose axes above 1 are among dp, fsdp, tp and sp (the
-control plane's gang contract) is honoured exactly. Without one the plan
-is the JAX workload's: --tp (or best_tp_for over the devices left by
---sp), --sp, and the rest of the visible devices on fsdp (unplanned_plan).
+A TDAPI_MESH_PLAN whose axes above 1 are among dp, fsdp, ep, tp and sp
+(the control plane's gang contract) is honoured exactly. Without one the
+plan is the JAX workload's: --tp (or best_tp_for over the devices left by
+--sp and --ep), --sp, --ep, and the rest of the visible devices on fsdp
+(unplanned_plan), for either family.
 A plan over more than one rank trains over plan.size ranks on this host
 (distributed.launch): processes on cuda:0..N-1 over NCCL, or with --device
 cpu on the CPU over gloo. Rank 0 alone writes metrics, the checkpoints
 (the gathered state: a run resumes under another plan, as a tpuCount
 patch asks) and the quiesce marker and ack; every rank resumes from the
-same checkpoint and keeps its shards. The other axes (--pp/--ep above 1),
-MoE over ranks and multi-worker contracts are not yet ported and are
-refused.
+same checkpoint and keeps its shards. pp (--pp and --virtual-stages above
+1) and multi-worker contracts are not yet ported and are refused.
 
 Run: python -m gpu_docker_api_tpu_torch.workloads.train_llama \
         --config tiny --steps 100 --workdir /path/to/run1
@@ -92,12 +92,12 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     _refuse_multi_worker()
-    for flag in ("pp", "ep", "virtual_stages"):
+    for flag in ("pp", "virtual_stages"):
         if getattr(args, flag) > 1:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} {getattr(args, flag)}: "
                 f"this axis is not yet ported to PyTorch (only dp, fsdp, "
-                f"tp and sp are)")
+                f"ep, tp and sp are)")
 
     from ..models import named_config
     from ..parallel.mesh import plan_from_env, require_ported
@@ -133,8 +133,9 @@ def _unplanned(args):
     """unplanned_plan over the visible devices: on cuda every card
     (torch.cuda.device_count(), after refusing flags that ask for more
     cards than there are, and a machine with none); on --device cpu, which
-    has no device count to fill, what the flags ask, (--tp or 1) * --sp."""
-    asked = (args.tp or 1) * args.sp
+    has no device count to fill, what the flags ask, (--tp or 1) * --sp *
+    --ep."""
+    asked = (args.tp or 1) * args.sp * args.ep
     if args.device == "cpu":
         return unplanned_plan(asked, args.tp, args.sp, args.pp, args.ep)
     import torch
@@ -142,8 +143,8 @@ def _unplanned(args):
     from ..device import resolve_device
     n_dev = torch.cuda.device_count()
     if asked > 1 and asked > n_dev:
-        flags = " ".join(f"--{a} {getattr(args, a)}" for a in ("tp", "sp")
-                         if getattr(args, a) > 1)
+        flags = " ".join(f"--{a} {getattr(args, a)}"
+                         for a in ("tp", "sp", "ep") if getattr(args, a) > 1)
         raise RuntimeError(f"{flags} needs {asked} CUDA devices, sees "
                            f"{n_dev}")
     resolve_device(args.device)            # no card: raise
@@ -155,10 +156,6 @@ def _launch(args, argv, plan) -> int:
     import torch
 
     from .. import distributed
-    if args.family == "moe":
-        raise NotImplementedError(
-            f"--family moe under {plan}: MoE routing over a group of ranks "
-            f"is not yet ported to PyTorch")
     if args.device == "cuda" and torch.cuda.device_count() < plan.size:
         raise RuntimeError(f"TDAPI_MESH_PLAN {plan} needs {plan.size} CUDA "
                            f"devices, sees {torch.cuda.device_count()}")

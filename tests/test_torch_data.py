@@ -79,5 +79,6 @@ def test_mesh_plan_auto_and_single_device():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tmesh.require_ported(tmesh.MeshPlan(fsdp=2, pp=2))
     tmesh.require_ported(tmesh.MeshPlan(fsdp=2, tp=2, sp=2))   # and tp
+    tmesh.require_ported(tmesh.MeshPlan(sp=2, tp=2, ep=2))     # and ep
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmesh.require_ported(tmesh.MeshPlan(sp=2, tp=2, ep=2))
+        tmesh.require_ported(tmesh.MeshPlan(sp=2, tp=2, ep=2, pp=2))

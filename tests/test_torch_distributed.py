@@ -2,8 +2,9 @@
 cluster_spec_from_env against the JAX function on the same env dicts; two
 gloo ranks formed from the control plane's contract on 127.0.0.1; the
 single-host launcher failing fast when a rank dies; and the workload's
-refusals (--sp N without N cards, the axes not yet ported, MoE over
-ranks, a multi-worker grant)."""
+refusals (--sp N without N cards, pp, the axis not yet ported, a
+multi-worker grant), and the launches that MoE and ep over ranks now
+take."""
 
 import multiprocessing as mp
 import os
@@ -109,21 +110,44 @@ def test_sp_without_the_cards_raises(tmp_path):
 @pytest.mark.parametrize("extra, env", [
     ([], {"TDAPI_MESH_PLAN": '{"tp": 2, "pp": 2}'}),
     (["--pp", "2"], {}),
-    (["--ep", "2"], {}),
+    ([], {"TDAPI_MESH_PLAN": '{"pp": 2, "ep": 2}'}),
     (["--virtual-stages", "2"], {}),
-    (["--family", "moe", "--sp", "2"], {}),
-    (["--family", "moe"], {"TDAPI_MESH_PLAN": '{"dp": 2}'}),
-    ([], {"TDAPI_MESH_PLAN": '{"ep": 2, "tp": 2}'}),
-    (["--family", "moe", "--tp", "2"], {}),
+    (["--family", "moe", "--pp", "2"], {}),
+    (["--family", "moe"], {"TDAPI_MESH_PLAN": '{"dp": 2, "pp": 2}'}),
+    ([], {"TDAPI_MESH_PLAN": '{"ep": 2, "pp": 2, "tp": 2}'}),
+    (["--family", "moe", "--virtual-stages", "2"], {}),
     (["--sp", "2"], {"TPU_WORKER_HOSTNAMES": "w0,w1"}),
 ])
 def test_unported_axes_and_moe_over_ranks_are_refused(tmp_path, monkeypatch,
                                                       extra, env):
+    """pp (of either family) and a multi-worker grant are refused."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ttl.main(TINY + ["--workdir", str(tmp_path)] + extra)
     assert not os.path.exists(tmp_path / "metrics.jsonl")
+
+
+@pytest.mark.parametrize("extra, env, plan", [
+    (["--ep", "2"], {}, dict(ep=2)),
+    (["--family", "moe", "--sp", "2"], {}, dict(sp=2)),
+    (["--family", "moe"], {"TDAPI_MESH_PLAN": '{"dp": 2}'}, dict(dp=2)),
+    ([], {"TDAPI_MESH_PLAN": '{"ep": 2, "tp": 2}'}, dict(ep=2, tp=2)),
+    (["--family", "moe", "--tp", "2"], {}, dict(tp=2)),
+])
+def test_moe_and_ep_over_ranks_start(tmp_path, monkeypatch, extra, env,
+                                     plan):
+    """What was refused before ep and MoE over ranks were ported now
+    reaches the launch of its ranks, with the plan asked for (the runs
+    themselves: test_torch_moe_ranks_train.py)."""
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    launched = []
+    monkeypatch.setattr(ttl, "_launch",
+                        lambda args, argv, p: launched.append(p) or 0)
+    assert ttl.main(TINY + ["--workdir", str(tmp_path)] + extra) == 0
+    assert launched == [MeshPlan(**plan)]
 
 
 def test_trainer_refuses_a_plan_without_its_group():
@@ -145,7 +169,11 @@ def test_trainer_refuses_a_plan_without_its_group():
         Trainer.create(tiny, MeshPlan(sp=4), device="cpu",
                        groups=MeshGroups(MeshPlan(sp=2), 0, sp=two,
                                          replica=two, world=two))
+    # MoE over ranks is ported; pp is not
+    moe = named_config("moe", "tiny")
+    assert Trainer.create(moe, MeshPlan(dp=2), device="cpu",
+                          groups=MeshGroups(MeshPlan(dp=2), 0, dp=two,
+                                            replica=two, world=two))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        Trainer.create(named_config("moe", "tiny"), MeshPlan(dp=2),
-                       device="cpu", groups=MeshGroups(
-                           MeshPlan(dp=2), 0, dp=two, replica=two, world=two))
+        Trainer.create(moe, MeshPlan(pp=2), device="cpu",
+                       groups=MeshGroups(MeshPlan(pp=2), 0, world=two))

@@ -140,16 +140,17 @@ def test_sharded_trainer_matches_jax_and_one_rank(runs, name, remat):
 
 # ---- train_llama under TDAPI_MESH_PLAN -----------------------------------------
 
-def quiesce_and_resume(tmp_path, plan_json):
+def quiesce_and_resume(tmp_path, plan_json, extra=()):
     """Under TDAPI_MESH_PLAN `plan_json`: SIGUSR1 to the launcher reaches
     every rank; they agree on the step, all gather the state, rank 0
     writes checkpoint, marker and ack, all park; SIGTERM stops them; the
-    next generation resumes at the parked step with no gap."""
+    next generation resumes at the parked step with no gap. `extra`: more
+    train_llama flags (--family moe)."""
     wd = tmp_path / "run"
     plan = {"TDAPI_MESH_PLAN": plan_json}
     size = int(np.prod(list(json.loads(plan_json).values())))
-    args = TINY + ["--steps", "100000", "--checkpoint-every", "100000",
-                   "--workdir", str(wd)]
+    args = TINY + list(extra) + ["--steps", "100000", "--checkpoint-every",
+                                 "100000", "--workdir", str(wd)]
     env = dict(os.environ, CONTAINER_ROOT=str(tmp_path), OMP_NUM_THREADS="1",
                **plan)
     proc = subprocess.Popen([sys.executable, "-c", MAIN_SCRIPT, REPO,
@@ -187,21 +188,23 @@ def quiesce_and_resume(tmp_path, plan_json):
     assert ckpts[0]["quiesced"] is True
     ckpt_dir = wd / "checkpoints"
     assert (ckpt_dir / "QUIESCED").read_text() == f"{parked}\n"
-    _run_main(TINY + ["--workdir", str(wd), "--checkpoint-every", "100000",
-                      "--steps", str(parked + 2)], env=plan)
+    _run_main(TINY + list(extra) + ["--workdir", str(wd),
+                                    "--checkpoint-every", "100000",
+                                    "--steps", str(parked + 2)], env=plan)
     steps, _ = _records(str(wd))
     assert [r["step"] for r in steps] == list(range(1, parked + 3))
     assert not (ckpt_dir / "QUIESCED").exists()
 
 
-def resume_across(tmp_path, plans):
+def resume_across(tmp_path, plans, extra=()):
     """Two steps under each TDAPI_MESH_PLAN of `plans` in turn ("" = one
     rank), each run resuming from the gathered checkpoint the one before
     wrote (what a tpuCount patch does): the losses of an uninterrupted
-    one-rank run, no step missing or repeated."""
+    one-rank run, no step missing or repeated. `extra`: more train_llama
+    flags (--family moe)."""
     one, wd = str(tmp_path / "one"), str(tmp_path / "patched")
     base = ["--device", "cpu", "--config", "tiny", "--batch", "4", "--seq",
-            "16", "--checkpoint-every", "1"]
+            "16", "--checkpoint-every", "1", *extra]
     _run_main(base + ["--workdir", one, "--steps", str(2 * len(plans))])
     for i, plan in enumerate(plans):
         _run_main(base + ["--workdir", wd, "--steps", str(2 * i + 2)],

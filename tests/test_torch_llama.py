@@ -181,13 +181,17 @@ def test_family_registry():
 
 
 def test_mesh_raises_not_yet_ported():
-    """The one axis ported is sp, for the llama family; MoE under an sp
-    group of more than one rank is refused (JAX routes the global token
-    array)."""
+    """The axis not yet ported is pp, for either family: a pp plan and
+    MoE's pipelined trunk are refused (MoE over sp, ep and the other axes
+    runs: test_torch_moe_ranks_train.py)."""
     from gpu_docker_api_tpu_torch.models import moe as tmoe
-    from gpu_docker_api_tpu_torch.parallel.comm import SPGroup
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan, require_ported
+    from gpu_docker_api_tpu_torch.train import loss_fn
     cfg = tmoe.MoEConfig.tiny()
     params = tmoe.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmoe.moe_forward(params, torch.zeros(1, 4, dtype=torch.long), cfg,
-                         sp=SPGroup(group=None, rank=0, size=2))
+        loss_fn(params, torch.zeros(1, 4, dtype=torch.long), cfg,
+                n_microbatches=2)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        require_ported(MeshPlan(pp=2, ep=2))
+    require_ported(MeshPlan(dp=2, fsdp=2, ep=2, tp=2, sp=2))

@@ -159,12 +159,18 @@ def test_converter_round_trip_is_bit_exact_on_the_moe_tree(dtype):
 @pytest.mark.parametrize("t, k, e, seed", [(16, 2, 4, 0), (96, 2, 8, 1),
                                            (33, 3, 5, 2), (7, 1, 4, 3)])
 def test_capacity_positions_exact_against_jax(t, k, e, seed):
+    """One rank's global_positions (no routing group: the call's tokens
+    are the whole array), in one row block or in as many as t's smallest
+    factor above 1, are JAX's capacity_positions."""
     rng = np.random.default_rng(seed)
     idx = np.stack([rng.permutation(e)[:k] for _ in range(t)])  # [T, K]
     onehot = np.eye(e, dtype=np.int32)[idx]                      # [T, K, E]
     want = np.asarray(jmoe.capacity_positions(jnp.asarray(onehot)))
-    got = tmoe.capacity_positions(torch.from_numpy(onehot))
-    np.testing.assert_array_equal(got.numpy(), want)
+    rows = next(r for r in range(2, t + 1) if t % r == 0)
+    for n in (1, rows):
+        got, top1 = tmoe.global_positions(torch.from_numpy(onehot), n)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(top1.numpy(), onehot[:, 0].sum(0))
 
 
 def _jax_route(ht, router, cfg):

@@ -3,6 +3,7 @@ element's limit by, and that it passes the plain versions while rejecting
 every fault that planted_faults models (the same functions the script runs
 on the card at the main path's shape, here at a small one)."""
 
+import dataclasses
 import os
 import sys
 import threading
@@ -563,6 +564,17 @@ def test_routing_flips_counts_a_changed_drop_as_the_first_moved_token():
     assert len(flips) == 1 and upto == 0
 
 
+def test_routing_flips_rejects_changed_drops_without_a_flip():
+    """Drops that move while every decision is alike (a wrong capacity or
+    slot order) fail, in whichever layer they first show."""
+    ref = [_routes(IDX, KEEP, TOP),
+           _routes(IDX, [[True, True], [True, False], [True, True]], TOP)]
+    got = [ref[0], _routes(IDX, KEEP, TOP)]
+    with pytest.raises(cs.SmokeFailure, match="decision alike"):
+        cs.routing_flips(ref, got, "drops")
+    assert cs.route_drops(ref) == [0, 1]
+
+
 def test_moe_serve_bounds_count_every_expert_slot():
     from gpu_docker_api_tpu_torch.models import moe
     cfg = moe.MoEConfig.moe_1b()
@@ -800,6 +812,22 @@ def test_long_check_holds_bf16_to_the_whole_s_kernel():
         cs.long_check(torch, nan, ref, kernel, "nan")
 
 
+def test_sp_train_check_holds_moe_to_its_own_limits():
+    """Phase 11 passes EP_LOSS_TOL / EP_NORM_TOL: a reading past the sp
+    limits but within MoE's passes them, one past MoE's fails."""
+    one = {"losses": [10.0, 9.0], "grad_norms": [1.0, 2.0]}
+    tols = (cs.EP_LOSS_TOL, cs.EP_NORM_TOL)
+    assert cs.EP_LOSS_TOL > cs.SP_LOSS_TOL and cs.EP_NORM_TOL > cs.SP_NORM_TOL
+    mid = {"losses": [10.0 * (1 + cs.EP_LOSS_TOL / 2), 9.0],
+           "grad_norms": [1.0, 2.0 * (1 + cs.EP_NORM_TOL / 2)]}
+    cs.sp_train_check(one, [mid] * 4, "mid", tols)
+    with pytest.raises(cs.SmokeFailure, match="against sp=1"):
+        cs.sp_train_check(one, [mid] * 4, "mid")
+    far = dict(mid, grad_norms=[1.0, 2.0 * (1 + 2 * cs.EP_NORM_TOL)])
+    with pytest.raises(cs.SmokeFailure, match="against sp=1"):
+        cs.sp_train_check(one, [far] * 4, "far", tols)
+
+
 def test_long_check_holds_f32_to_f32_tol():
     ref = _grads(1)
     near = [r + cs.F32_TOL * 0.5 for r in ref]
@@ -1016,3 +1044,150 @@ def test_phase_tp_at_tiny_width_on_the_cpu():
         assert got["tp_sums_a_step"]["calls"] == cs.tp_sums_a_step(2, plan)
         assert got["state_bytes_a_rank"] == [cs.fsdp_state_bytes(
             cs_config("tiny"), plan.get("fsdp", 1), plan["tp"])] * cs.TP_RANKS
+
+
+# ---- A1: the cut phases 8-10 ------------------------------------------------
+
+def test_cut_phases_feed_the_launch_formulas():
+    """Phases 8c, 9 and 10 run 2 steps a layout (2 keep every check: the
+    step time is the median of the steps after the first), phases 9 and
+    10 llama 1b at 10 of its 20 layers, full width; the launches a rank
+    and step follow from the cut depth by the same formula."""
+    assert cs.SP_TRAIN["steps"] == 2 and cs.FSDP_TRAIN["steps"] == 2
+    assert all(steps == 2 for _, steps in cs.FSDP_LAYOUTS.values())
+    assert cs.TP_TRAIN["steps"] == 2
+    cut, full = cs.smoke_config(cs.FSDP_CONFIG), cs_config("1b")
+    assert cut.n_layers == 10 and full.n_layers == 20
+    assert dataclasses.replace(cut, n_layers=20) == full
+    assert cs.TP_CONFIGS["main"] == cs.FSDP_CONFIG
+    assert cs.fsdp_launches({"fsdp": 4}, 0, cut.n_layers) == {
+        "flash_fwd": 20, "flash_bwd_dq": 10, "flash_bwd_dkv": 10}
+    assert [cs.fsdp_launches({"tp": 2, "sp": 2}, r, cut.n_layers)
+            ["flash_bwd_dkv"] for r in (0, 1)] == [10, 20]
+    assert cs.tp_sums_a_step(cut.n_layers, {"tp": 4}) == 54
+    assert cs.smoke_config("mini") == cs_config("mini")
+    assert cs.smoke_config(("moe", "1b", None)).n_layers == 16
+
+
+# ---- phase 11 ---------------------------------------------------------------
+
+def moe_config(name):
+    from gpu_docker_api_tpu_torch.models import named_config
+    return named_config("moe", name)
+
+
+@pytest.mark.parametrize("layout", sorted(cs.EP_LAYOUTS))
+def test_shard_bytes_are_what_an_ep_trainer_holds(layout):
+    """shard_bytes cuts each leaf by the axes its spec names: under each
+    phase 11 plan the bytes of every leaf an MoE trainer's init leaves on
+    a rank, banks over ep, fsdp and tp, the f32 router and the norms
+    whole."""
+    from gpu_docker_api_tpu_torch.parallel.comm import AxisGroup
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshGroups, MeshPlan
+    from gpu_docker_api_tpu_torch.train import Trainer
+
+    cfg = moe_config("tiny")
+    plan = cs.EP_LAYOUTS[layout][0]
+    mplan = MeshPlan(**plan)
+    rank = mplan.size - 1
+    groups = MeshGroups(mplan, rank, world=AxisGroup(None, rank, mplan.size))
+    state = Trainer.create(cfg, mplan, device="cpu", groups=groups).init()
+    want = cs.shard_bytes(cfg, plan)
+    for tree in (state["params"], state["opt_state"]["mu"],
+                 state["opt_state"]["nu"]):
+        assert {p: cs.leaf_bytes(t) for p, t in cs.flat_leaves(tree)} == want
+    bank = 2 * 4 * 64 * 96 * 4
+    cut = plan.get("ep", 1) * plan.get("fsdp", 1) * plan.get("tp", 1)
+    assert want["layers.we1"] == bank // cut
+    assert want["layers.router"] == 2 * 64 * 4 * 4
+
+
+def test_state_bytes_of_phase_11_and_the_earlier_phases():
+    """The per-rank state of each phase 11 layout at moe_1b (the
+    prediction in PERF.md), and phases 9 and 10's at llama 1b's full
+    depth as shard_bytes gave them before it read the specs."""
+    one = moe_config("1b")
+    assert {name: cs.state_bytes(one, plan) for name, (plan, _)
+            in cs.EP_LAYOUTS.items()} == {
+        "11a": 2207133696, "11b": 1859530752, "11c": 1685729280,
+        "11d": 3717083136}
+    assert cs.state_bytes(one, {}) == 6736982016
+    assert cs.fsdp_state_bytes(cs_config("1b"), 4) == 1613193216
+    assert cs.fsdp_state_bytes(cs_config("1b"), 2, 2) == 1613193216
+    assert cs.state_bytes(cs_config("1b"), {"tp": 2, "sp": 2}) == \
+        3225378816
+    assert cs.fsdp_state_bytes(cs_config("mini"), 1, 4) == 66902016
+
+
+def test_phase_11_launches_and_tp_sums():
+    """32/16/16 a rank and step at moe_1b's 16 layers, the ring's rank + 1
+    times as many in 11d; MoE's tp sums, 6 a layer + 4."""
+    n = moe_config("1b").n_layers
+    for plan, _ in cs.EP_LAYOUTS.values():
+        if plan.get("sp", 1) == 1:
+            assert cs.fsdp_launches(plan, 0, n) == {
+                "flash_fwd": 32, "flash_bwd_dq": 16, "flash_bwd_dkv": 16}
+    assert [cs.fsdp_launches(cs.EP_LAYOUTS["11d"][0], r, n)
+            for r in (0, 1)] == [
+        {"flash_fwd": 32, "flash_bwd_dq": 16, "flash_bwd_dkv": 16},
+        {"flash_fwd": 64, "flash_bwd_dq": 32, "flash_bwd_dkv": 32}]
+    assert cs.tp_sums_a_step(n, {"tp": 4}, moe=True) == 100
+    assert cs.tp_sums_a_step(n, {"ep": 4}, moe=True) == 0
+
+
+def _rank_routes(b, s, plan, seed=3):
+    """A global routing (gate_idx, keep, top probs) of one layer over b*s
+    tokens and each rank's part of it, as layout_rank reports it."""
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan, coords
+    gen = torch.Generator().manual_seed(seed)
+    probs = torch.rand(b * s, 4, generator=gen).softmax(-1)
+    top, idx = probs.sort(dim=-1, descending=True)
+    call = (idx[:, :2].clone(), torch.rand(b * s, 2, generator=gen) > 0.2,
+            top[:, :3].clone())
+    mplan = MeshPlan(**plan)
+    n_rows = mplan.dp * mplan.fsdp * mplan.ep
+    runs = []
+    for r in range(mplan.size):
+        c = coords(mplan, r)
+        row = (c["dp"] * mplan.fsdp + c["fsdp"]) * mplan.ep + c["ep"]
+        rb, sl = b // n_rows, s // mplan.sp
+        part = tuple(x.reshape(b, s, -1)[row * rb:(row + 1) * rb,
+                                          c["sp"] * sl:(c["sp"] + 1) * sl]
+                     .reshape(rb * sl, -1) for x in call)
+        runs.append({"coords": c, "routes": [part]})
+    return [call], runs
+
+
+@pytest.mark.parametrize("layout", sorted(cs.EP_LAYOUTS))
+def test_routing_ranks_assembles_the_global_order(layout):
+    """Each rank's routing put back at its rows and sequence shard is the
+    one-rank routing; a decision moved on one rank, far from a tie, is
+    caught, and so are tp ranks that route apart."""
+    plan = cs.EP_LAYOUTS[layout][0]
+    ref, runs = _rank_routes(4, 8, plan)
+    assert cs.routing_ranks(ref, runs, plan, layout, 4, 8) == []
+    last = runs[-1]["routes"][0]
+    runs[-1]["routes"] = [(last[0].flip(-1), *last[1:])]
+    want = "apart" if plan.get("tp", 1) > 1 else "gap of"
+    with pytest.raises(cs.SmokeFailure, match=want):
+        cs.routing_ranks(ref, runs, plan, layout, 4, 8)
+
+
+def test_phase_ep_at_tiny_width_on_the_cpu():
+    """Phase 11 end to end on the CPU at MoE `tiny` (f32): four gloo ranks
+    through 11a-11d against one rank, each leaf's bytes, no launch (the
+    plain versions), the heads and the tp sums a step, the routing of
+    every layer, the checkpoint check over fsdp and ep."""
+    out = cs.phase_ep(torch, att, device="cpu", config=("moe", "tiny", None),
+                      train=dict(b=8, s=32, steps=2))
+    assert set(out["layouts"]) == set(cs.EP_LAYOUTS)
+    assert out["checkpoint_shards"] == 3 * 13 * 4
+    for name, (plan, _) in cs.EP_LAYOUTS.items():
+        got = out["layouts"][name]
+        assert len(got["losses"]) == cs.EP_TRAIN["steps"]
+        assert max(got["rel_to_one_rank"]["loss"]) <= 1e-5
+        assert got["routing_flips"] == []
+        assert got["tp_sums_a_step"]["calls"] == cs.tp_sums_a_step(
+            2, plan, moe=True)
+        assert got["state_bytes_a_rank"] == [cs.state_bytes(
+            moe_config("tiny"), plan)] * cs.EP_RANKS

@@ -118,8 +118,8 @@ def test_main_without_device_cpu_raises_when_no_card(tmp_path):
 @pytest.mark.parametrize("extra, env", [
     (["--tp", "2", "--pp", "2"], {}),
     (["--pp", "2"], {}),
-    (["--family", "moe", "--sp", "2"], {}),
-    (["--ep", "2"], {}),
+    (["--family", "moe", "--pp", "2"], {}),
+    ([], {"TDAPI_MESH_PLAN": '{"ep": 2, "pp": 2}'}),
     ([], {"TDAPI_MESH_PLAN": '{"dp": 2, "pp": 2}'}),
     ([], {"TPU_WORKER_HOSTNAMES": "w0,w1"}),
 ])

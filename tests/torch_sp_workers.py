@@ -1,7 +1,7 @@
 """Rank bodies of the port's multi-rank tests (test_torch_ring.py,
 test_torch_ulysses.py, test_torch_sp_train.py, test_torch_distributed.py,
 test_torch_mesh.py, test_torch_fsdp_train.py, test_torch_tp.py,
-test_torch_tp_train.py).
+test_torch_tp_train.py, test_torch_ep.py, test_torch_moe_ranks_train.py).
 
 gpu_docker_api_tpu_torch.distributed.launch spawns each rank afresh and
 imports its target by module path, so the targets live here, in a module
@@ -51,15 +51,17 @@ def attention_cases(rank: int, world: int, case_path: str, out_dir: str):
 
 
 def train_steps(rank: int, world: int, spec_path: str, out_dir: str):
-    """spec {config (a port LlamaConfig), params (numpy tree), batches
-    [[B, S] numpy], runs: [{name, remat_policy, sp_attn, and optionally
-    plan (MeshPlan fields; default sp over the world) and accum_steps}]}:
-    for each run, a fresh Trainer over the plan's groups from the same
-    params steps through the batches; its losses and grad norms (and, on
-    rank 0, its gathered final params) saved to out_dir/rank<r>.pt."""
+    """spec {config (a port LlamaConfig or MoEConfig), params (numpy
+    tree), batches [[B, S] numpy], runs: [{name, remat_policy, sp_attn,
+    and optionally plan (MeshPlan fields; default sp over the world),
+    accum_steps and fault (a key of FAULTS, planted for the run)}]}: for
+    each run, a fresh Trainer over the plan's groups from the same params
+    steps through the batches; its losses and grad norms (and, on rank 0,
+    its gathered final params) saved to out_dir/rank<r>.pt."""
     import dataclasses
 
     from gpu_docker_api_tpu_torch import convert
+    from gpu_docker_api_tpu_torch.models import moe
     from gpu_docker_api_tpu_torch.parallel.mesh import MeshGroups, MeshPlan
     from gpu_docker_api_tpu_torch.train import Trainer, TrainConfig
 
@@ -76,15 +78,100 @@ def train_steps(rank: int, world: int, spec_path: str, out_dir: str):
         state = trainer.state_from_params(
             convert.params_from_numpy(spec["params"], config))
         losses, norms = [], []
-        for toks in spec["batches"]:
-            state, m = trainer.step(state, trainer.shard_batch(toks))
-            losses.append(float(m["loss"]))
-            norms.append(float(m["grad_norm"]))
+        planted = FAULTS.get(run.get("fault"))
+        if planted:
+            name, make = planted
+            real = getattr(moe, name)
+            setattr(moe, name, make(real))
+        try:
+            for toks in spec["batches"]:
+                state, m = trainer.step(state, trainer.shard_batch(toks))
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+        finally:
+            if planted:
+                setattr(moe, name, real)
         full = trainer.full_state(state)
         results[run["name"]] = {
             "losses": losses, "grad_norms": norms,
             "params": (convert.params_to_numpy(full["params"])
                        if rank == 0 else None)}
+    torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+# ---- planted routing faults (MoE over ranks) --------------------------------
+
+def rank_local_route(real):
+    """models/moe._route with this rank's capacity and prefix: the
+    positions, keep and capacity of its tokens alone (the exchange still
+    runs, so the ranks stay in step)."""
+    def route(ht, router, config, data=None, rows=1, n_sp=1):
+        out = list(real(ht, router, config, data, rows, n_sp))
+        out[5:8] = real(ht, router, config)[5:8]
+        return tuple(out)
+    return route
+
+
+def rank_major_place(oh, within, every, rank, n_sp):
+    """models/moe.place_blocks with the blocks in rank order within each
+    k: all of rank 0's tokens, then rank 1's (wrong under sp, where a
+    rank's tokens interleave with its sequence peers')."""
+    k, rows, e, s_loc = oh.shape
+    flat = every.permute(1, 0, 2, 3).reshape(-1, e).long()    # (k, rank, row)
+    before = (torch.cumsum(flat, dim=0) - flat).reshape(
+        k, every.shape[0], rows, e)
+    pos = (within + before[:, rank][..., None]) * oh
+    pos = pos.sum(dim=2).permute(1, 2, 0).reshape(rows * s_loc, k)
+    return pos, flat.reshape(k, -1, e)[0].sum(dim=0)
+
+
+FAULTS = {"rank_local": ("_route", rank_local_route),
+          "rank_major": ("place_blocks", lambda real: rank_major_place)}
+
+
+def moe_block_cases(rank: int, world: int, spec_path: str, out_dir: str):
+    """spec {config (a port MoEConfig), layer (numpy, one layer's leaves),
+    x and cot (global [B, S, D] numpy), plans: [MeshPlan fields]}: for each
+    plan (no fsdp: moe_block takes whole D), this rank's moe_block of its
+    rows and sequence shard of x with its shard of the layer, and the
+    gradients of sum(out * cot) + aux + z: x's shard, and each leaf's,
+    summed as the Trainer sums them (a bank's over dp x sp, the router's
+    and the norm's over every axis but tp). Saved to out_dir/rank<r>.pt
+    with aux and z, this rank's shares."""
+    from gpu_docker_api_tpu_torch.models import moe
+    from gpu_docker_api_tpu_torch.parallel.mesh import (
+        MeshGroups, MeshPlan, param_sharding_rules, shard,
+    )
+
+    spec = torch.load(spec_path, weights_only=False)
+    cfg = spec["config"]
+    rules, kinds = param_sharding_rules(), moe.param_kinds(cfg)["layers"]
+    results = {}
+    for plan_d in spec["plans"]:
+        plan = MeshPlan(**plan_d)
+        g = MeshGroups.build(plan)
+        i, n = g.rows
+
+        def mine(x):
+            rows = torch.as_tensor(x).chunk(n, dim=0)[i]
+            return comm.local_shard(rows, g.sp).contiguous()
+        layer = {k: shard(torch.as_tensor(v), rules[kinds[k]], plan, rank)
+                 .clone().requires_grad_(True)
+                 for k, v in spec["layer"].items()}
+        x = mine(spec["x"]).requires_grad_(True)
+        out, aux, z = moe.moe_block(x, layer, cfg, g.data, g.sp, g.ep, g.tp)
+        loss = (out * mine(spec["cot"])).sum() + aux + z
+        keys = list(layer)
+        grads = torch.autograd.grad(loss, [x] + [layer[k] for k in keys])
+        grads = dict(zip(["x"] + keys, grads))
+        banks = [grads[k] for k in ("we1", "we3", "we2")]
+        whole = [grads[k] for k in ("router", "mlp_norm")]
+        if g.expert_replica is not None:
+            comm.all_reduce_sum(banks, g.expert_replica)
+        if g.data is not None:
+            comm.all_reduce_sum(whole, g.data)
+        results[str(plan)] = {"out": out.detach(), "aux": float(aux),
+                              "z": float(z), "grads": grads}
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
