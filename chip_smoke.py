@@ -157,14 +157,24 @@ Phases (any failure exits non-zero and prints no result):
      the drops only where a decision does; 11b's gathered checkpoint restored
      under the one-rank template, shard for shard over fsdp and ep. Step
      time and tokens/s labelled "gloo, 4 ranks on one card".
+ 12. pipeline parallelism over the same four gloo ranks (2 steps, bf16,
+     stage remat): 12a llama 1b, all 20 layers, pp=4 (GPipe, M=4, B=4),
+     12b fsdp=2 x pp=2 interleaved (v=2, M=2), 12c pp=2 x sp=2 ring (M=2)
+     against the one-rank llama 1b Trainer at phase 2's shape, 12d
+     moe_1b pp=2 x ep=2 (M=2, B=8) against the plain microbatched
+     version (pipeline.microbatched_loss: the same routing pools); the
+     checks of phases 9-11 (bytes with the layers over pp, launches a
+     stage's layers once a microbatch); 12b's checkpoint is grouped [2, 2,
+     5, ...]: restored under its own template shard for shard, and
+     through serve's loader ungrouped, equal bit for bit.
 
 Prints one `{"kernels": [...]}` line (with each kernel's launches in 7a
-and phases 8-11 too), the readings, one `{"serve": ...}` line, one
+and phases 8-12 too), the readings, one `{"serve": ...}` line, one
 `{"batching": ...}` line, one `{"paged": ...}` line, one `{"moe": ...}`
 line, one `{"sp": ...}` line, one `{"fsdp": ...}` line, one `{"tp": ...}`
-line, one `{"ep": ...}` line, the wall times of the whole script and of
-phase 11, the nvidia-smi line, and last `{"ok": true, "device":
-{...}}`.
+line, one `{"ep": ...}` line, one `{"pp": ...}` line, the wall times of
+the whole script and of phases 11 and 12, the nvidia-smi line, and last
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -2882,18 +2892,26 @@ def sp_trunk(torch, groups, device, cfg, s, seed=7):
     return out
 
 
-def sp_train(torch, device, cfg, train, attn, groups=None, seed=0):
+def sp_train(torch, device, cfg, train, attn, groups=None, seed=0,
+             microbatches=0):
     """8c and phase 9's one-rank run: Trainer of cfg (remat "dots"),
     B=train["b"], S=train["s"], for train["steps"] steps from init `seed`
     on batches drawn from (seed, step); over `groups`
-    (parallel.mesh.MeshGroups) this rank's part. -> losses, grad norms,
-    step times (host clock, each ending in the loss read)."""
+    (parallel.mesh.MeshGroups) this rank's part. With `microbatches` (one
+    rank, phase 12's MoE reference) the loss is the pipeline's plain
+    version, pipeline.microbatched_loss: the microbatches one after
+    another, each routed on its own. -> losses, grad norms, step times
+    (host clock, each ending in the loss read)."""
+    from gpu_docker_api_tpu_torch.parallel import pipeline
     from gpu_docker_api_tpu_torch.train import Trainer
 
     cfg = dataclasses.replace(cfg, sp_attn=attn)
     b, s = train["b"], train["s"]
     trainer = Trainer.create(cfg, groups.plan if groups else None,
                              device=device, groups=groups)
+    if microbatches:
+        trainer._loss = lambda params, tokens: pipeline.microbatched_loss(
+            params, tokens, cfg, microbatches, remat="dots")
     state = trainer.init(seed=seed)
     losses, norms, times = [], [], []
     for step in range(train["steps"]):
@@ -3092,8 +3110,8 @@ def shard_bytes(cfg, plan) -> dict:
     """{path: the bytes of one rank's shard of each parameter leaf} under
     `plan` (MeshPlan fields): each leaf's whole bytes over the sizes of
     the axes its spec cuts it by (mesh.split_dims of train.param_specs: a
-    matrix 1/(fsdp * tp), an expert bank also 1/ep, the norms and the f32
-    router whole)."""
+    matrix 1/(fsdp * tp), an expert bank also 1/ep, under pp every layer
+    leaf also 1/pp, the norms and the f32 router whole)."""
     from gpu_docker_api_tpu_torch.models import param_shapes
     from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan, split_dims
     from gpu_docker_api_tpu_torch.train import param_specs, tree_map_named
@@ -3105,7 +3123,7 @@ def shard_bytes(cfg, plan) -> dict:
         cut = math.prod(getattr(mplan, a) for a, _ in split_dims(spec, mplan))
         return math.prod(shape) * dtype.itemsize // cut
     return dict(flat_leaves(tree_map_named(
-        one, param_shapes(cfg), param_specs(cfg))))
+        one, param_shapes(cfg), param_specs(cfg, mplan.pp > 1))))
 
 
 def state_bytes(cfg, plan) -> int:
@@ -3120,14 +3138,18 @@ def fsdp_state_bytes(cfg, fsdp, tp=1) -> int:
     return state_bytes(cfg, {"fsdp": fsdp, "tp": tp})
 
 
-def fsdp_launches(plan, sp_rank, n_layers) -> dict:
+def fsdp_launches(plan, sp_rank, n_layers, microbatches=1) -> dict:
     """Launches of each kernel a rank makes in one step under remat
-    "dots" (the forward reruns in the backward): one flash call a layer,
-    or under sp the causal ring's sp_rank + 1 pairs."""
+    "dots" (the forward reruns in the backward), or under pp the stage's
+    remat: one flash call a layer visit, or under sp the causal ring's
+    sp_rank + 1 pairs. Under pp a rank visits its n_layers/pp layers once
+    a microbatch (bubble ticks compute nothing)."""
     pairs = sp_rank + 1 if plan.get("sp", 1) > 1 else 1
-    return {"flash_fwd": 2 * pairs * n_layers,
-            "flash_bwd_dq": pairs * n_layers,
-            "flash_bwd_dkv": pairs * n_layers}
+    pp = plan.get("pp", 1)
+    visits = n_layers // pp * (microbatches if pp > 1 else 1)
+    return {"flash_fwd": 2 * pairs * visits,
+            "flash_bwd_dq": pairs * visits,
+            "flash_bwd_dkv": pairs * visits}
 
 
 def leaf_digest(t) -> str:
@@ -3153,11 +3175,18 @@ def state_digests(state) -> dict:
                                ("nu", opt["nu"]))}
 
 
+def layout_fields(entry) -> tuple:
+    """(config spec, plan, sp_attn, steps, opts) of a layout of phases
+    9-12; opts (phase 12): "tc", TrainConfig fields (n_microbatches,
+    virtual_stages), and "b", the layout's own batch."""
+    return (*entry[:4], entry[4] if len(entry) > 4 else {})
+
+
 def layout_rank(rank, world, tmp, spec):
-    """One rank of phases 9-11 (distributed.launch, gloo, every rank on
+    """One rank of phases 9-12 (distributed.launch, gloo, every rank on
     spec["device"]): each layout of spec["layouts"] ({name: (config spec,
-    plan, sp_attn, steps)}, smoke_config) in turn, a Trainer over its
-    groups from init 0; the bytes of each leaf of its params, mu and nu
+    plan, sp_attn, steps[, opts])}, smoke_config, layout_fields) in turn,
+    a Trainer over its groups from init 0; the bytes of each leaf of its params, mu and nu
     after init; a step at a time (spec["train"]'s batches) its launches,
     tp sums, the q heads the forward kernel saw, losses, grad norms and
     step times; for MoE, first, each layer's routing of the first batch in
@@ -3174,26 +3203,33 @@ def layout_rank(rank, world, tmp, spec):
     from gpu_docker_api_tpu_torch.parallel.mesh import (
         MeshGroups, MeshPlan, coords,
     )
-    from gpu_docker_api_tpu_torch.train import Trainer, save_checkpoint
+    from gpu_docker_api_tpu_torch.train import (
+        Trainer, TrainConfig, save_checkpoint,
+    )
 
     device = resolve_device(spec["device"])
     on_card = device.type == "cuda"
     if on_card:
         torch.cuda.init()   # the allocator, before its peak is reset
     sums, heads = TpSums(comm), record_heads(att)
-    b, s = spec["train"]["b"], spec["train"]["s"]
+    s = spec["train"]["s"]
     res = {}
-    for name, (config, plan_d, attn, steps) in spec["layouts"].items():
+    for name, entry in spec["layouts"].items():
+        config, plan_d, attn, steps, opts = layout_fields(entry)
+        b = opts.get("b", spec["train"]["b"])
         plan = MeshPlan(**plan_d)
         cfg = dataclasses.replace(smoke_config(config), sp_attn=attn)
-        routed = family_for(cfg).returns_extra_loss
+        # the f32 routing check reads one forward's calls in layer order:
+        # phase 11's layouts (a pipeline's stages see their own layers)
+        routed = family_for(cfg).returns_extra_loss and plan.pp == 1
         groups = MeshGroups.build(plan)
         routes = (f32_routes(torch, cfg, groups, device, train_batch(
             torch, cfg, b, s, 0, 0)) if routed else None)
         if on_card:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(device)
-        trainer = Trainer.create(cfg, plan, device=device, groups=groups)
+        trainer = Trainer.create(cfg, plan, tc=TrainConfig(
+            **opts.get("tc", {})), device=device, groups=groups)
         state = trainer.init(seed=0)
         opt = state["opt_state"]
         out = {"leaf_bytes": {part: {path: leaf_bytes(t)
@@ -3236,27 +3272,45 @@ def layout_rank(rank, world, tmp, spec):
     torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
 
 
-def check_resharded_checkpoint(path, cfg, ranks, plan, steps,
-                               layout="9a") -> int:
-    """A layout's gathered checkpoint restored under the one-rank
-    template: its step and count, and each leaf of params, mu and nu equal,
-    bit for bit, to the ranks' shards reassembled over the plan's axes (by
-    their digests: each rank's digest is that of its slice of the restored
-    leaf, mesh.shard; the norms whole on every rank). -> the shards
-    compared."""
-    from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan, shard
+def layout_template(cfg, plan, tc=None):
+    """(the abstract state a layout's checkpoint is restored under, its
+    parameters' specs): the one-rank template, but under the interleaved
+    schedule the trainer's own, the layers grouped [v, pp, Lc, ...]."""
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshGroups, MeshPlan
     from gpu_docker_api_tpu_torch.train import (
-        Trainer, param_specs, restore_checkpoint,
+        Trainer, TrainConfig, param_specs,
     )
 
-    state, step = restore_checkpoint(
-        path, Trainer.create(cfg, device="cpu").abstract_state())
+    mplan, tc = MeshPlan(**plan), TrainConfig(**(tc or {}))
+    if mplan.pp > 1 and tc.virtual_stages > 1:
+        tr = Trainer.create(cfg, mplan, tc=tc, device="cpu",
+                            groups=MeshGroups(mplan, 0))
+    else:
+        tr = Trainer.create(cfg, device="cpu")
+    return (tr.abstract_state(),
+            param_specs(cfg, mplan.pp > 1, tc.virtual_stages))
+
+
+def check_resharded_checkpoint(path, cfg, ranks, plan, steps,
+                               layout="9a", tc=None) -> int:
+    """A layout's gathered checkpoint restored under its template
+    (layout_template: the one-rank one, grouped under the interleaved
+    schedule): its step and count, and each leaf of params, mu and nu
+    equal, bit for bit, to the ranks' shards reassembled over the plan's
+    axes (by their digests: each rank's digest is that of its slice of
+    the restored leaf, mesh.shard; the norms whole on every rank). -> the
+    shards compared."""
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan, shard
+    from gpu_docker_api_tpu_torch.train import restore_checkpoint
+
+    template, specs = layout_template(cfg, plan, tc)
+    state, step = restore_checkpoint(path, template)
     opt = state["opt_state"]
     check(step == steps and state["step"] == steps
           and opt["count"] == steps,
           f"{layout} checkpoint at step {step}, state {state['step']}, "
           f"count {opt['count']}; want {steps}")
-    specs = dict(flat_leaves(param_specs(cfg)))
+    specs = dict(flat_leaves(specs))
     plan = MeshPlan(**plan)
     n = 0
     for part, tree in (("params", state["params"]), ("mu", opt["mu"]),
@@ -3298,19 +3352,53 @@ def run_layouts(torch, device, layouts, train, checkpoint, ranks_n):
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
                  for r in range(ranks_n)]
         t0 = time.perf_counter()
-        config, plan, _, steps = layouts[checkpoint]
+        config, plan, _, steps, opts = layout_fields(layouts[checkpoint])
+        tc = opts.get("tc", {})
         n = check_resharded_checkpoint(
             os.path.join(tmp, "ckpt"), smoke_config(config), ranks, plan,
-            steps, checkpoint)
+            steps, checkpoint, tc)
         wall["restore_s"] = time.perf_counter() - t0
+        if tc.get("virtual_stages", 1) > 1:
+            t0 = time.perf_counter()
+            check_served_ungrouped(os.path.join(tmp, "ckpt"),
+                                   smoke_config(config), checkpoint)
+            wall["serve_restore_s"] = time.perf_counter() - t0
     print(f"  {checkpoint} checkpoint: {n} shards equal to the restored "
           f"leaves, gathered and saved in "
           f"{[r[checkpoint]['checkpoint_s'] for r in ranks]} s", flush=True)
     return ranks, n, wall
 
 
+def check_served_ungrouped(path, cfg, layout) -> int:
+    """A grouped checkpoint through serve's loader (_restore_params, one
+    rank): the served parameters hold the canonical one-rank shapes, and
+    each leaf equals the checkpoint's, bit for bit, its layers the grouped
+    leaves ungrouped. -> the leaves compared."""
+    import torch
+
+    from gpu_docker_api_tpu_torch.train import Trainer, restore_checkpoint
+    from gpu_docker_api_tpu_torch.workloads import serve
+
+    one = Trainer.create(cfg, device="cpu")
+    served, _ = serve._restore_params(one, path, "cpu")
+    stored, _ = restore_checkpoint(path)
+    stored = dict(flat_leaves(stored["params"]))
+    n = 0
+    for path_, t in flat_leaves(served):
+        want = stored[path_]
+        check(t.dim() == want.dim() - (2 if path_.startswith("layers.")
+                                       else 0)
+              and torch.equal(t.detach().reshape(want.shape), want.detach()),
+              f"{layout}: served {path_} {tuple(t.shape)} is not the "
+              f"checkpoint's {tuple(want.shape)} ungrouped")
+        n += 1
+    print(f"  {layout} checkpoint served ungrouped: {n} leaves equal",
+          flush=True)
+    return n
+
+
 def check_layouts(att, ranks, layouts, ones, device, tokens) -> dict:
-    """Phases 9-11's checks of each layout's runs over the ranks against
+    """Phases 9-12's checks of each layout's runs over the ranks against
     its config's one-rank run (ones[config]): every rank the same loss and
     grad norm, within SP_LOSS_TOL / SP_NORM_TOL of one rank's (MoE:
     EP_LOSS_TOL / EP_NORM_TOL), the first near its value at init; each
@@ -3324,7 +3412,9 @@ def check_layouts(att, ranks, layouts, ones, device, tokens) -> dict:
     from gpu_docker_api_tpu_torch.models import family_for
 
     readings = {}
-    for name, (config, plan, attn, steps) in layouts.items():
+    for name, entry in layouts.items():
+        config, plan, attn, steps, opts = layout_fields(entry)
+        m = opts.get("tc", {}).get("n_microbatches", 1)
         cfg = smoke_config(config)
         moe = family_for(cfg).returns_extra_loss
         runs = [r[name] for r in ranks]
@@ -3343,7 +3433,7 @@ def check_layouts(att, ranks, layouts, ones, device, tokens) -> dict:
                 check(held == want_bytes,
                       f"{label}: rank {r} {part} bytes {held}, want "
                       f"{want_bytes}")
-            want = (fsdp_launches(plan, run["sp_rank"], cfg.n_layers)
+            want = (fsdp_launches(plan, run["sp_rank"], cfg.n_layers, m)
                     if device == "cuda" else dict.fromkeys(att.LAUNCHES, 0))
             check(all(got == want for got in run["launches"]),
                   f"{label}: rank {r} launches {run['launches']}, want "
@@ -3370,7 +3460,7 @@ def check_layouts(att, ranks, layouts, ones, device, tokens) -> dict:
             "step_times_s": [run["step_times_s"] for run in runs],
             "step_s_gloo_4_ranks_one_card": step_s,
             "tokens_s_gloo_4_ranks_one_card": tokens / step_s}
-        if moe:
+        if moe and runs[0]["routes"] is not None:
             readings[name]["routing_flips"] = routing_ranks(
                 ones[config]["routes"], runs, plan, label,
                 tokens // ones[config]["s"], ones[config]["s"])
@@ -3664,6 +3754,83 @@ def phase_ep(torch, att, device="cuda", config=EP_CONFIG, train=EP_TRAIN):
             "wall": wall}
 
 
+# ---- phase 12: pipeline parallelism ----------------------------------------
+
+PP_RANKS = 4
+PP_CONFIGS = {"llama": ("llama", "1b", None),   # 12a-12c: all 20 layers
+              "moe": ("moe", "1b", None)}       # 12d: moe_1b, full depth
+PP_TRAIN = dict(b=4, s=2048, steps=2)    # phase 2's shape; bf16, stage remat
+PP_LAYOUTS = {  # name: (family, plan, sp_attn, TrainConfig fields, B / b)
+    "12a": ("llama", {"pp": 4}, "ring", dict(n_microbatches=4), 1),
+    "12b": ("llama", {"fsdp": 2, "pp": 2}, "ring",
+            dict(n_microbatches=2, virtual_stages=2), 1),
+    "12c": ("llama", {"pp": 2, "sp": 2}, "ring", dict(n_microbatches=2), 1),
+    "12d": ("moe", {"pp": 2, "ep": 2}, "ring", dict(n_microbatches=2), 2),
+}
+PP_CHECKPOINT = "12b"                    # stored grouped, [2, 2, 5, ...]
+
+
+def pp_layouts(configs, train) -> dict:
+    """PP_LAYOUTS as run_layouts takes them: (config spec, plan, sp_attn,
+    steps, {"tc": TrainConfig fields, "b": the layout's batch})."""
+    return {name: (configs[fam], plan, attn, train["steps"],
+                   {"tc": tc, "b": train["b"] * scale})
+            for name, (fam, plan, attn, tc, scale) in PP_LAYOUTS.items()}
+
+
+def phase_pp(torch, att, device="cuda", configs=None, train=PP_TRAIN):
+    """Phase 12: pipeline parallelism. The one-rank references here: the
+    llama Trainer (the pipeline changes no number of llama's) and, for
+    MoE, the plain microbatched version (the pipeline's routing pools, M
+    of them); then PP_RANKS processes on this one card through each layout
+    of PP_LAYOUTS (run_layouts), held to them (check_layouts: the same
+    loss and grad norm on every rank, within SP_LOSS_TOL / SP_NORM_TOL of
+    one rank, MoE within EP_LOSS_TOL / EP_NORM_TOL; each leaf's bytes over
+    the axes its spec cuts, the layers over pp too; launches a rank and
+    step, a stage's layers once a microbatch); PP_CHECKPOINT's grouped
+    checkpoint restored under its template shard for shard, and through
+    serve's loader ungrouped, bit for bit."""
+    configs = configs or PP_CONFIGS
+    layouts = pp_layouts(configs, train)
+    print(f"phase 12: pp, {configs} ({train}, stage remat) over {PP_RANKS} "
+          f"gloo ranks on one card: {layouts}", flush=True)
+    for name, entry in layouts.items():
+        config, plan, _, _, opts = layout_fields(entry)
+        cfg = smoke_config(config)
+        print(f"  {name} predicted: {state_bytes(cfg, plan)} state bytes a "
+              f"rank, launches a step "
+              f"{[fsdp_launches(plan, r, cfg.n_layers, opts['tc']['n_microbatches']) for r in range(plan.get('sp', 1))]}",
+              flush=True)
+    t0 = time.perf_counter()
+    llama, moe = configs["llama"], configs["moe"]
+    m = PP_LAYOUTS["12d"][3]["n_microbatches"]
+    moe_train = dict(train, b=layouts["12d"][4]["b"])
+    ones = {llama: sp_train(torch, device, smoke_config(llama), train,
+                            "ring")}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    ones[moe] = sp_train(torch, device, smoke_config(moe), moe_train, "ring",
+                         microbatches=m)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    one_rank_s = time.perf_counter() - t0
+    for name, run in ones.items():
+        print(f"  12 one rank, {name}: {run}", flush=True)
+    ranks, n, wall = run_layouts(torch, device, layouts, train,
+                                 PP_CHECKPOINT, PP_RANKS)
+    wall["one_rank_s"] = one_rank_s
+    readings = {}
+    for config, b in ((llama, train["b"]), (moe, moe_train["b"])):
+        mine = {k: v for k, v in layouts.items() if v[0] == config}
+        readings.update(check_layouts(att, ranks, mine, ones, device,
+                                      b * train["s"]))
+    print(f"  phase 12 wall time {wall}", flush=True)
+    return {"one_rank": {str(name): {k: run[k] for k in (
+                "losses", "grad_norms", "step_times_s")}
+                         for name, run in ones.items()},
+            "layouts": readings, "checkpoint_shards": n, "wall": wall}
+
+
 def build_kernels(torch):
     """Phase 0: the card's name and power limit, then the kernels' build.
     Returns (nvidia-smi line, the attention module)."""
@@ -3776,6 +3943,8 @@ def main() -> int:
         tp = phase_tp(torch, att, one=fsdp["one_rank"])
         before_ep = time.perf_counter() - start
         ep = phase_ep(torch, att)
+        before_pp = time.perf_counter() - start
+        pp = phase_pp(torch, att)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -3792,6 +3961,7 @@ def main() -> int:
             "launches_fsdp": fsdp_kernel_launches(fsdp, name),
             "launches_tp": fsdp_kernel_launches(tp, name),
             "launches_ep": fsdp_kernel_launches(ep, name),
+            "launches_pp": fsdp_kernel_launches(pp, name),
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": bnd[name][0],
             "bound_by": bnd[name][1], "library_ms": k["library_ms"]})
@@ -3811,9 +3981,11 @@ def main() -> int:
     print(json.dumps({"fsdp": fsdp}), flush=True)
     print(json.dumps({"tp": tp}), flush=True)
     print(json.dumps({"ep": ep}), flush=True)
+    print(json.dumps({"pp": pp}), flush=True)
     wall = time.perf_counter() - start
     print(f"wall time: the whole script {wall:.1f} s, phases 0-10 "
-          f"{before_ep:.1f} s, phase 11 {wall - before_ep:.1f} s", flush=True)
+          f"{before_ep:.1f} s, phase 11 {before_pp - before_ep:.1f} s, "
+          f"phase 12 {wall - before_pp:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,7 @@ torch.distributed group from it: NCCL for CUDA, gloo for the CPU.
 launch() is what `train_llama --sp N` runs on one host: N local rank
 processes (spawned, never threads: autograd runs a device's backward on one
 thread, so ranks as threads of one process would deadlock in a collective
-inside the backward), each given its rank and a rendezvous on 127.0.0.1. A
+inside the backward), each given its rank and a file rendezvous. A
 rank that exits non-zero stops the others and fails the launch; the
 signals of the control plane's drain and stop (SIGUSR1, SIGTERM, SIGINT)
 are forwarded to every rank.
@@ -24,6 +24,7 @@ import multiprocessing as mp
 import os
 import signal
 import socket
+import tempfile
 import threading
 import time
 from typing import Callable, Optional
@@ -128,12 +129,17 @@ def launch(target: Callable, args: tuple, world: int, backend: str,
            timeout: Optional[float] = None) -> None:
     """Run target(rank, world, *args) in `world` spawned processes over a
     `backend` group (the caller picks it: backend_for, or gloo by name) and
-    wait for them. The rendezvous is `init_method`, by default a free TCP
-    port on 127.0.0.1. Returns when every rank exits 0; raises
-    RuntimeError as soon as one exits otherwise, TimeoutError after
-    `timeout` seconds, stopping the others in both cases. target and args
-    must pickle (a module-level function)."""
-    init_method = init_method or f"tcp://127.0.0.1:{free_port()}"
+    wait for them. The rendezvous is `init_method`, by default a file in a
+    fresh temporary directory (a free TCP port, chosen and then bound by
+    rank 0, can be taken in between by another group's connections).
+    Returns when every rank exits 0; raises RuntimeError as soon as one
+    exits otherwise, TimeoutError after `timeout` seconds, stopping the
+    others in both cases. target and args must pickle (a module-level
+    function)."""
+    if init_method is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            return launch(target, args, world, backend,
+                          f"file://{os.path.join(tmp, 'rdzv')}", timeout)
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank_entry, daemon=True,
                          args=(target, rank, world, backend, init_method,

@@ -315,6 +315,45 @@ _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w1", "w3",
                "w2")
 
 
+def embed_tokens(params: dict, tokens: torch.Tensor, fsdp=None, tp=None
+                 ) -> torch.Tensor:
+    """The embedding of tokens [B, S]: embed gathered over `fsdp`, and
+    under `tp` the vocab-parallel lookup."""
+    embed, = gather([params["embed"]], ["embed"], fsdp)
+    return (vocab_embedding(tokens, embed, tp) if sharded(tp)
+            else F.embedding(tokens, embed))
+
+
+def head_logits(params: dict, x: torch.Tensor, config, fsdp=None, tp=None
+                ) -> torch.Tensor:
+    """Final norm and lm_head (gathered over `fsdp`) of the trunk's output
+    -> logits in f32 (the loss softmax needs the headroom); under `tp`
+    this rank's vocab shard."""
+    x = rms_norm(x, params["final_norm"], config.norm_eps)
+    lm_head, = gather([params["lm_head"]], ["lm_head"], fsdp)
+    if sharded(tp):
+        x = comm.copy_to_group(x, tp)
+    return (x @ lm_head).float()
+
+
+def layer_body(config: LlamaConfig, cos, sin, impl: str, sp=None, fsdp=None,
+               tp=None):
+    """One decoder layer: body(x, *weights) -> x, weights this rank's
+    shards of one layer's leaves in _LAYER_KEYS order, gathered over
+    `fsdp` inside the body (under remat the recompute gathers again).
+    llama_forward runs it layer by layer, a pipeline stage over its own
+    layers (parallel/pipeline.py)."""
+    kinds = param_kinds(config)
+    layer_kinds = [kinds["layers"][name] for name in _LAYER_KEYS]
+
+    def body(x, *weights):
+        weights = gather(weights, layer_kinds, fsdp)
+        layer = dict(zip(_LAYER_KEYS, weights))
+        x = _attention_block(x, layer, config, cos, sin, impl, sp, tp)
+        return _mlp_block(x, layer, config, tp)
+    return body
+
+
 def llama_forward(params: dict, tokens: torch.Tensor, config: LlamaConfig,
                   impl: str = "auto", sp=None, remat: str = "none",
                   fsdp=None, tp=None) -> torch.Tensor:
@@ -326,28 +365,11 @@ def llama_forward(params: dict, tokens: torch.Tensor, config: LlamaConfig,
     are this rank's vocab shard [..., V/tp]. Every rank calls together."""
     c = config
     s = tokens.shape[1]
-    kinds = param_kinds(c)
-    layer_kinds = [kinds["layers"][name] for name in _LAYER_KEYS]
-    embed, = gather([params["embed"]], ["embed"], fsdp)
-    x = (vocab_embedding(tokens, embed, tp) if sharded(tp)
-         else F.embedding(tokens, embed))
-    del embed
+    x = embed_tokens(params, tokens, fsdp, tp)
     cos, sin = rope_frequencies(c, shard_positions(s, sp, tokens.device))
-
-    def body(x, *weights):
-        weights = gather(weights, layer_kinds, fsdp)
-        layer = dict(zip(_LAYER_KEYS, weights))
-        x = _attention_block(x, layer, c, cos, sin, impl, sp, tp)
-        return _mlp_block(x, layer, c, tp)
-
-    step = remat_wrap(body, remat)
+    step = remat_wrap(layer_body(c, cos, sin, impl, sp, fsdp, tp), remat)
     # unbind once: the backward stacks the per-layer grads in one go
     stacks = [params["layers"][name].unbind(0) for name in _LAYER_KEYS]
     for weights in zip(*stacks):
         x = step(x, *weights)
-    x = rms_norm(x, params["final_norm"], c.norm_eps)
-    lm_head, = gather([params["lm_head"]], ["lm_head"], fsdp)
-    if sharded(tp):
-        x = comm.copy_to_group(x, tp)
-    # logits in f32: the loss softmax needs the headroom
-    return (x @ lm_head).float()
+    return head_logits(params, x, c, fsdp, tp)

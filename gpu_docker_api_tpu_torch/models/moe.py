@@ -51,8 +51,8 @@ import torch.nn.functional as F
 from ..ops.quant import qeinsum
 from ..parallel import comm
 from .llama import (
-    LlamaConfig, _attention_block, gather, init_from_shapes, rms_norm,
-    rope_frequencies, shard_positions, sharded, vocab_embedding,
+    LlamaConfig, _attention_block, embed_tokens, gather, head_logits,
+    init_from_shapes, rms_norm, rope_frequencies, shard_positions, sharded,
 )
 from . import llama as _llama
 from .remat import remat_wrap
@@ -426,6 +426,28 @@ def moe_block(x: torch.Tensor, layer: dict, config: MoEConfig, data=None,
 
 # ---- forward ----------------------------------------------------------------
 
+def layer_body(config: MoEConfig, cos, sin, impl: str, sp=None, fsdp=None,
+               tp=None, ep=None, data=None, shard_pools: bool = False):
+    """One decoder layer: body(x, *weights) -> (x, aux, z), weights this
+    rank's shards of one layer's leaves in _LAYER_KEYS order, gathered over
+    `fsdp` inside the body. Routing runs over `data` (moe_block); with
+    shard_pools each sequence shard of `sp` routes its own tokens (the
+    pipelined trunk's pools, parallel/pipeline.py), else the sequence
+    shards of a row route together."""
+    c = config
+    lc = c.as_llama()
+    kinds = param_kinds(c)
+    layer_kinds = [kinds["layers"][name] for name in _LAYER_KEYS]
+    route_sp = None if shard_pools else sp
+
+    def body(x, *weights):
+        weights = gather(weights, layer_kinds, fsdp)
+        layer = dict(zip(_LAYER_KEYS, weights))
+        x = _attention_block(x, layer, lc, cos, sin, impl, sp, tp)
+        return moe_block(x, layer, c, data, route_sp, ep, tp)
+    return body
+
+
 def moe_forward(params: dict, tokens: torch.Tensor, config: MoEConfig,
                 impl: str = "auto", sp=None, remat: str = "none",
                 fsdp=None, tp=None, ep=None, data=None
@@ -442,23 +464,12 @@ def moe_forward(params: dict, tokens: torch.Tensor, config: MoEConfig,
     `data` (every axis but tp; moe_block) and router_loss is this rank's
     share. Every rank calls together."""
     c = config
-    lc = c.as_llama()
     s = tokens.shape[1]
-    kinds = param_kinds(c)
-    layer_kinds = [kinds["layers"][name] for name in _LAYER_KEYS]
-    embed, = gather([params["embed"]], ["embed"], fsdp)
-    x = (vocab_embedding(tokens, embed, tp) if sharded(tp)
-         else F.embedding(tokens, embed))
-    del embed
-    cos, sin = rope_frequencies(lc, shard_positions(s, sp, tokens.device))
-
-    def body(x, *weights):
-        weights = gather(weights, layer_kinds, fsdp)
-        layer = dict(zip(_LAYER_KEYS, weights))
-        x = _attention_block(x, layer, lc, cos, sin, impl, sp, tp)
-        return moe_block(x, layer, c, data, sp, ep, tp)
-
-    step = remat_wrap(body, remat)
+    x = embed_tokens(params, tokens, fsdp, tp)
+    cos, sin = rope_frequencies(c.as_llama(),
+                                shard_positions(s, sp, tokens.device))
+    step = remat_wrap(layer_body(c, cos, sin, impl, sp, fsdp, tp, ep, data),
+                      remat)
     aux_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
     z_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
     stacks = [params["layers"][name].unbind(0) for name in _LAYER_KEYS]
@@ -466,9 +477,5 @@ def moe_forward(params: dict, tokens: torch.Tensor, config: MoEConfig,
         x, aux, z = step(x, *weights)
         aux_sum = aux_sum + aux
         z_sum = z_sum + z
-    x = rms_norm(x, params["final_norm"], c.norm_eps)
-    lm_head, = gather([params["lm_head"]], ["lm_head"], fsdp)
-    if sharded(tp):
-        x = comm.copy_to_group(x, tp)
-    logits = (x @ lm_head).float()
+    logits = head_logits(params, x, c, fsdp, tp)
     return logits, weighted_router_loss(aux_sum, z_sum, c)

@@ -12,6 +12,8 @@ their transpose:
   caller computes while it moves; backward sends the cotangents the other
   way.
 - tie_hops: keeps the last hop's backward on every rank's graph.
+- ring_shift(x, g): one hop, waited for: the pipeline's stage-to-stage
+  hop over a pp group (parallel/pipeline.py).
 - all_to_all(tensors, split_dim, concat_dim, sp): the tiled lax.all_to_all
   (split along one dim, the pieces gathered in rank order along another);
   backward is the inverse all-to-all.
@@ -163,6 +165,14 @@ def ring_shift_start(tensors: Sequence[torch.Tensor], sp: SPGroup,
     outs = _RingShift.apply(sp, box, wire, *tensors)
     box[0].outs = outs
     return box[0]
+
+
+def ring_shift(x: torch.Tensor, g: AxisGroup) -> torch.Tensor:
+    """x sent to rank + 1 of the group, and what rank - 1 sent returned
+    (one ring hop, in x's dtype, waited for). Differentiable: the backward
+    sends the cotangent back to rank - 1. Every rank of the group must
+    call it, in the same order."""
+    return ring_shift_start([x], g, x.dtype).wait()[0]
 
 
 class _Tie(torch.autograd.Function):

@@ -10,16 +10,17 @@ PartitionSpecs, written as tuples of axis names per dim: tp splits each
 matrix Megatron-style (column-parallel in, row-parallel out, the vocab of
 embed and lm_head) and fsdp the other dim (ZeRO-3); a dim named by both
 (embed's) is cut into tp x fsdp chunks, tp major, as JAX places it; ep
-cuts the expert banks' expert dim. The batch rows go over dp x fsdp x ep,
-the sequence over sp and the logits' vocab over tp. require_ported admits
-dp, fsdp, ep, tp and sp and refuses pp above 1.
+cuts the expert banks' expert dim; pp cuts the stacked layer dim of the
+decoder layers (train.param_specs), each stage holding its own layers. The
+batch rows go over dp x fsdp x ep, the sequence over sp and the logits'
+vocab over tp.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -89,19 +90,6 @@ def plan_from_env(env: Optional[dict] = None) -> Optional[MeshPlan]:
     return MeshPlan(**vals)
 
 
-PORTED = ("dp", "fsdp", "ep", "tp", "sp")
-
-
-def require_ported(plan: MeshPlan) -> None:
-    """dp, fsdp, ep, tp and sp are the axes ported; refuse a plan with
-    any other axis (pp) above 1."""
-    others = [a for a in AXES if a not in PORTED and getattr(plan, a) > 1]
-    if others:
-        raise NotImplementedError(
-            f"{plan}: the {', '.join(others)} axis is not yet ported to "
-            f"PyTorch (only {', '.join(PORTED)} are)")
-
-
 def make_mesh(plan: MeshPlan) -> np.ndarray:
     """The ranks of the plan laid out over AXES: an int array of shape
     (dp, fsdp, pp, ep, tp, sp), row-major, as the JAX make_mesh reshapes
@@ -151,10 +139,15 @@ def param_sharding_rules() -> dict:
 
 BATCH_AXES = ("dp", "fsdp", "ep")
 
-# the axes that split parameters in the rules above (pp is not ported):
-# fsdp first, the minor axis where two cut one dim (embed's); ep cuts a dim
-# of its own (the banks' experts)
-PARAM_AXES = ("fsdp", "tp", "ep")
+# the axes that split parameters: those of the rules above, fsdp first, the
+# minor axis where two cut one dim (embed's); ep cuts a dim of its own (the
+# banks' experts) and pp the stacked layer dim (train.param_specs)
+PARAM_AXES = ("fsdp", "tp", "ep", "pp")
+
+# the axes over which a parameter's gradient is a partial sum, less the
+# ones that cut it (MeshGroups.sum_group); tp's ranks hold the whole
+# gradient of what they share
+SUM_AXES = ("dp", "fsdp", "pp", "ep", "sp")
 
 
 def batch_spec() -> tuple:
@@ -263,35 +256,45 @@ def shard_params(params: dict, specs: dict, plan: MeshPlan, rank: int,
 @dataclass(frozen=True)
 class MeshGroups:
     """This rank's place in the plan's process groups: one AxisGroup per
-    ported axis above 1 (None at size 1); two replica groups, over the
-    ranks that hold the same shard of a sharded leaf, whose gradient sums
-    over them: `replica` (dp x ep x sp) for a leaf every ep rank holds
-    alike (attention, embed, lm_head), `expert_replica` (dp x sp) for a
-    leaf cut over ep (the expert banks); `data` over every axis but tp
-    (the ranks over which a tp-replicated value, the loss, a norm's or
-    the router's gradient, is a partial sum, and over which MoE routes:
-    its ranks run row shard major, sp minor); `world` over every rank
-    (None alone)."""
+    axis above 1 (None at size 1); `data` over every axis but tp (the
+    ranks over which a tp-replicated value, the loss, a norm's or the
+    router's gradient, is a partial sum, and over which MoE routes: its
+    ranks run row shard major, sp minor); `routes` over dp x fsdp x ep,
+    the ranks whose rows make one microbatch of the pipeline, over which a
+    pipelined MoE layer routes; `world` over every rank (None alone); and
+    through sum_group, from the axes that cut a leaf, the ranks that hold
+    the same shard of it, over which its gradient sums (dp x ep x sp for
+    a matrix, dp x sp for an expert bank, pp too for embed and
+    lm_head)."""
     plan: MeshPlan
     rank: int
     dp: Optional[AxisGroup] = None
     fsdp: Optional[AxisGroup] = None
+    pp: Optional[AxisGroup] = None
     ep: Optional[AxisGroup] = None
     tp: Optional[AxisGroup] = None
     sp: Optional[AxisGroup] = None
-    replica: Optional[AxisGroup] = None
-    expert_replica: Optional[AxisGroup] = None
     data: Optional[AxisGroup] = None
+    routes: Optional[AxisGroup] = None
     world: Optional[AxisGroup] = None
+    # frozenset(cut axes) -> the group over SUM_AXES less them
+    sums: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def rows(self) -> tuple[int, int]:
         """(this rank's row shard, how many): the batch rows go over dp x
-        fsdp x ep, dp major, ep minor (BATCH_AXES); the tp and sp ranks of
-        a row shard take the same rows."""
+        fsdp x ep, dp major, ep minor (BATCH_AXES); the pp, tp and sp
+        ranks of a row shard take the same rows."""
         c, p = coords(self.plan, self.rank), self.plan
         return ((c["dp"] * p.fsdp + c["fsdp"]) * p.ep + c["ep"],
                 p.dp * p.fsdp * p.ep)
+
+    def sum_group(self, cut) -> Optional[AxisGroup]:
+        """The group over which the gradient of a leaf cut by the axes
+        `cut` is a partial sum: the ranks that hold the same shard, along
+        SUM_AXES (fsdp's reduce-scatter already done in the backward, and
+        tp's ranks each holding the whole gradient of what they share)."""
+        return self.sums[frozenset(cut) & frozenset(SUM_AXES)]
 
     @classmethod
     def build(cls, plan: MeshPlan) -> "MeshGroups":
@@ -299,7 +302,6 @@ class MeshGroups:
         ranks are the plan's. Collective: every rank calls it and forms
         every group in the same order; an axis that spans the world takes
         the default group, and axes over the same ranks share one."""
-        require_ported(plan)
         world, rank = dist.get_world_size(), dist.get_rank()
         if world != plan.size:
             raise ValueError(f"{plan} needs {plan.size} ranks, the group "
@@ -318,9 +320,13 @@ class MeshGroups:
                 formed[key] = AxisGroup.of(mine)
             return formed[key]
 
-        return cls(plan=plan, rank=rank, dp=group("dp"), fsdp=group("fsdp"),
-                   ep=group("ep"), tp=group("tp"), sp=group("sp"),
-                   replica=group("dp", "ep", "sp"),
-                   expert_replica=group("dp", "sp"),
-                   data=group(*(a for a in AXES if a != "tp")),
+        axes = {a: group(a) for a in AXES}
+        out = dict(data=group(*(a for a in AXES if a != "tp")),
+                   routes=group("dp", "fsdp", "ep"),
                    world=group(*AXES))
+        sums = {}
+        for n in range(1 << 3):         # every subset of the cutting axes
+            cut = frozenset(a for i, a in enumerate(("fsdp", "ep", "pp"))
+                            if n >> i & 1)
+            sums[cut] = group(*(a for a in SUM_AXES if a not in cut))
+        return cls(plan=plan, rank=rank, **axes, **out, sums=sums)

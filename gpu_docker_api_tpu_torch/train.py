@@ -6,24 +6,30 @@ leaf), gradient accumulation with f32 sums, atomic torch.save checkpoints
 (one directory per step) and the byte-compatible quiesce protocol the
 control plane's Backend.quiesce drives.
 
-On one device, or on this rank of a plan over dp, fsdp, ep, tp and sp
-(parallel/mesh.MeshGroups): each rank takes its B/(dp*fsdp*ep) rows of
-the global batch (the tp ranks of a row shard the same rows) and its S/sp
-positions, and holds 1/(fsdp*tp) of every matrix and its AdamW moments
-(the MoE banks also 1/ep, by expert), cut along the dims its kind's rule
-names (param_specs; the norms and the router whole). The loss is the
-global mean (each rank's log-likelihood sum over the global count; under
-tp the cross-entropy runs over the vocab shards; MoE adds each rank's
-share of the router loss, routed over the global batch). A sharded leaf's
-gradient is reduce-scattered over fsdp in the backward (comm.all_gather)
-and summed over the ranks that hold its shard: dp x ep x sp, or dp x sp
-for a bank cut over ep; a whole leaf's, which every tp rank holds
-complete, and the loss over every axis but tp; all in f32. The clip takes
-the global norm, so each step is the one-rank step on the global batch;
-under accumulation a rank's micro-slice i is its rows of the global
+On one device, or on this rank of a plan over dp, fsdp, pp, ep, tp and
+sp (parallel/mesh.MeshGroups): each rank takes its B/(dp*fsdp*ep) rows of
+the global batch (the pp and tp ranks of a row shard the same rows) and
+its S/sp positions, and holds 1/(fsdp*tp) of every matrix and its AdamW
+moments (the MoE banks also 1/ep, by expert; under pp the decoder layers
+also 1/pp, its stage's), cut along the dims its kind's rule names
+(param_specs; the norms and the router whole). The loss is the global
+mean (each rank's log-likelihood sum over the global count; under tp the
+cross-entropy runs over the vocab shards; MoE adds each rank's share of
+the router loss, routed over the global batch, or under pp over each
+microbatch: parallel/pipeline.py). A sharded leaf's gradient is
+reduce-scattered over fsdp in the backward (comm.all_gather) and summed,
+in f32, over the ranks that hold the same shard, tp's aside
+(MeshGroups.sum_group): dp x ep x sp for a matrix, dp x sp for a bank cut
+over ep, every axis but tp for a whole leaf, and pp too for embed and
+lm_head, which every stage holds whole and one stage uses. The loss sums
+over every axis but tp. The clip takes the global norm, so each step is
+the one-rank step on the global batch; under accumulation (and under pp,
+per microbatch) a rank's micro-slice i is its rows of the global
 micro-slice i, so MoE routes each micro-slice as one rank does.
 Checkpoints hold the gathered state, so one written under any plan
-restores under any other.
+restores under any other; under the interleaved schedule the layers are
+stored grouped, [v, pp, L/(v*pp), ...], as JAX stores them, and such a
+checkpoint restores only under the same pp and v.
 """
 
 from __future__ import annotations
@@ -44,9 +50,10 @@ from .models import family_for, param_shapes
 from .models.llama import init_from_shapes, sharded
 from .parallel import comm
 from .parallel.mesh import (
-    MeshGroups, MeshPlan, param_sharding_rules, require_ported, shard,
+    PARAM_AXES, MeshGroups, MeshPlan, param_sharding_rules, shard,
     shard_params, split_dims,
 )
+from .parallel.pipeline import _check_divisible, group_layers, pipeline_loss
 
 
 @dataclass
@@ -71,6 +78,10 @@ class TrainConfig:
     # "dots" saves matmul outputs across the remat boundary; "full" saves
     # only layer inputs (least memory, forward recomputed on backward)
     remat_policy: str = "dots"
+    n_microbatches: int = 4  # pipeline microbatches when the plan has pp > 1
+    # >1 selects the interleaved pipeline schedule (v layer chunks per
+    # stage, bubble/v: parallel/pipeline.py)
+    virtual_stages: int = 1
 
 
 # ---- optimizer --------------------------------------------------------------
@@ -193,7 +204,8 @@ class AdamW:
 def loss_fn(params, tokens, config, impl: str = "auto_grad", sp=None,
             n_microbatches: int = 0, remat: bool = True,
             remat_policy: str = "dots", fsdp=None, row_shards: int = 1,
-            tp=None, ep=None, data=None):
+            tp=None, ep=None, data=None, groups=None,
+            virtual_stages: int = 1):
     """Next-token CE in f32 (+ the family's extra loss). tokens [B, S];
     predicts tokens[:, 1:].
 
@@ -208,10 +220,14 @@ def loss_fn(params, tokens, config, impl: str = "auto_grad", sp=None,
     under `tp` the logits are vocab shards and the cross-entropy is taken
     over the group, so every tp rank holds the same share. MoE routes over
     `data` (every axis but tp) and adds this rank's share of the router
-    loss."""
+    loss. n_microbatches > 0 selects the pipelined trunk
+    (pipeline.pipeline_loss over `groups`, the plan's MeshGroups; the
+    layers stored grouped when virtual_stages > 1)."""
     if n_microbatches:
-        raise NotImplementedError(
-            "the pipelined trunk is not yet ported to PyTorch")
+        return pipeline_loss(params, tokens, config, groups,
+                             n_microbatches=n_microbatches, impl=impl,
+                             remat=remat, virtual_stages=virtual_stages,
+                             pregrouped=virtual_stages > 1)
     fam = family_for(config)
     remat_policy = remat_policy if remat else "none"
     kw = dict(impl=impl, sp=sp, fsdp=fsdp, remat=remat_policy, tp=tp)
@@ -230,9 +246,21 @@ def loss_fn(params, tokens, config, impl: str = "auto_grad", sp=None,
     lo = sp_rank * s_loc
     out = fam.forward(params, tokens[:, lo:lo + s_loc], config, **kw)
     logits, extra = out if fam.returns_extra_loss else (out, 0.0)
+    return _ce_share(logits, tokens, sp, tp, row_shards) + extra
+
+
+def _ce_share(logits, tokens, sp, tp, row_shards: int) -> torch.Tensor:
+    """This rank's share of the global mean CE: the log-likelihood sum of
+    its logits [B, S/sp, V(/tp)] (its rows, its sequence shard of
+    `tokens` [B, S]) over the global count B * row_shards * (S - 1). A
+    shard's last position predicts the next shard's first token; the
+    global last position predicts nothing."""
+    b, s = tokens.shape
+    s_loc = logits.shape[1]
+    lo = sp.rank * s_loc if sharded(sp) else 0
     targets = tokens[:, lo + 1:lo + s_loc + 1]      # one short on the last
     ll = _log_likelihood(logits[:, :targets.shape[1]], targets, tp)
-    return -ll.sum() / (b * row_shards * (s - 1)) + extra
+    return -ll.sum() / (b * row_shards * (s - 1))
 
 
 def _log_likelihood(logits, targets, tp=None):
@@ -260,24 +288,55 @@ def _log_likelihood(logits, targets, tp=None):
 
 # ---- trainer ----------------------------------------------------------------
 
-def param_specs(config) -> dict:
+def _grad(loss: torch.Tensor, leaves: list) -> tuple:
+    """The gradient of `loss` for each leaf, zeros for a leaf this rank
+    does not use (under pp, embed off the first stage and the head off
+    the last)."""
+    return torch.autograd.grad(loss, leaves, allow_unused=True,
+                               materialize_grads=True)
+
+
+def param_specs(config, pipelined: bool = False,
+                virtual_stages: int = 1) -> dict:
     """The sharding spec tree of the train state's parameters
-    (param_sharding_rules by param_kinds): the stacked layers get an
-    unsharded leading [L] dim."""
+    (param_sharding_rules by param_kinds). The stacked layers' leading [L]
+    dim is cut over pp when the trunk is pipelined, else whole; under the
+    interleaved schedule (virtual_stages > 1) the layers are stored
+    grouped, [v, pp, L/(v*pp), ...] (pipeline.group_layers), cut over pp
+    on the pp dim."""
     rules = param_sharding_rules()
     kinds = family_for(config).param_kinds(config)
+    if pipelined and virtual_stages > 1:
+        lead = (None, "pp", None)
+    else:
+        lead = ("pp" if pipelined else None,)
     return {
         "embed": rules[kinds["embed"]],
-        "layers": {k: (None, *rules[v]) for k, v in kinds["layers"].items()},
+        "layers": {k: (*lead, *rules[v]) for k, v in kinds["layers"].items()},
         "final_norm": rules[kinds["final_norm"]],
         "lm_head": rules[kinds["lm_head"]],
     }
 
 
+def state_shapes(config, pp: int = 1, virtual_stages: int = 1) -> dict:
+    """{name: (shape, dtype)} of the train state's parameters: the
+    family's, with the layers grouped [v, pp, L/(v*pp), ...] under the
+    interleaved schedule (pp > 1 and virtual_stages > 1)."""
+    shapes = param_shapes(config)
+    if pp > 1 and virtual_stages > 1:
+        def grouped(sd):
+            shape, dtype = sd
+            lc = shape[0] // (virtual_stages * pp)
+            return (virtual_stages, pp, lc, *shape[1:]), dtype
+        shapes = {**shapes, "layers": {k: grouped(v) for k, v in
+                                       shapes["layers"].items()}}
+    return shapes
+
+
 @dataclass
 class Trainer:
     """Owns the train step on one device, or on this rank of a plan over
-    dp, fsdp, ep, tp and sp.
+    dp, fsdp, pp, ep, tp and sp.
 
     Usage:
         trainer = Trainer.create(config)            # on the card
@@ -301,21 +360,51 @@ class Trainer:
         only when asked for. groups: this rank's groups of the plan, which
         a plan over more than one rank needs."""
         plan = plan or (groups.plan if groups else MeshPlan())
-        require_ported(plan)
         if plan.size > 1 and (groups is None or groups.plan != plan):
             raise ValueError(f"{plan} needs the groups of its {plan.size} "
                              f"ranks (MeshGroups.build), got {groups}")
         tc = tc or TrainConfig()
+        # ill-formed pipeline layouts fail here, before any state exists
+        if plan.pp > 1:
+            v, m = tc.virtual_stages, tc.n_microbatches
+            if (plan.sp > 1 and config.sp_attn == "ulysses"
+                    and config.n_heads % plan.sp):
+                raise ValueError(
+                    f"Ulysses under pp needs n_heads {config.n_heads} "
+                    f"divisible by sp {plan.sp}")
+            # the layers over pp * v, the microbatches over pp when
+            # interleaved (the batch is checked at the step)
+            _check_divisible((config.n_layers,), m, plan.pp, m, v)
         trainer = cls(config=config, tc=tc, device=resolve_device(device),
                       plan=plan, optimizer=AdamW(tc),
                       groups=groups if plan.size > 1 else None)
-        # an uneven shard fails here, before any state exists
+        # an uneven shard fails here too
         shard_params(tree_map(lambda sd: torch.empty(
-            sd[0], dtype=sd[1], device="meta"), param_shapes(config)),
-            param_specs(config), plan, 0)
+            sd[0], dtype=sd[1], device="meta"), trainer._shapes()),
+            trainer._specs(), plan, 0)
         return trainer
 
     # ---- the layout ----
+
+    @property
+    def pipelined(self) -> bool:
+        return self.plan.pp > 1
+
+    def _specs(self) -> dict:
+        return param_specs(self.config, self.pipelined,
+                           self.tc.virtual_stages)
+
+    def _shapes(self) -> dict:
+        return state_shapes(self.config, self.plan.pp,
+                            self.tc.virtual_stages)
+
+    def _layout(self, params: dict) -> dict:
+        """Whole canonical parameters in the state's layout (grouped under
+        the interleaved schedule)."""
+        if not (self.pipelined and self.tc.virtual_stages > 1):
+            return params
+        return {**params, "layers": group_layers(
+            params["layers"], self.plan.pp, self.tc.virtual_stages)}
 
     @property
     def sp(self) -> Optional[comm.AxisGroup]:
@@ -344,10 +433,10 @@ class Trainer:
     @property
     def dims(self) -> dict:
         """((axis, the dim it cuts), ...) of each leaf of the state's
-        parameter tree, fsdp before tp before ep (split_dims; (): whole on
+        parameter tree, in PARAM_AXES order (split_dims; (): whole on
         every rank)."""
         return tree_map(lambda spec: split_dims(spec, self.plan),
-                        param_specs(self.config))
+                        self._specs())
 
     def _own(self, t: torch.Tensor) -> torch.Tensor:
         """An owned, contiguous copy on the trainer's device."""
@@ -358,7 +447,7 @@ class Trainer:
         """This rank's shards of a whole parameter-shaped tree
         (shard_params), owned copies on the trainer's device."""
         return tree_map(self._own, shard_params(
-            tree, param_specs(self.config), self.plan, self.rank))
+            tree, self._specs(), self.plan, self.rank))
 
     # ---- state ----
 
@@ -369,18 +458,20 @@ class Trainer:
         rank holds more than one whole leaf at a time."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
 
-        def leaf(path, shape_dtype, spec):
+        def leaf(path, shape_dtype, spec, held):
             name = path.rsplit(".", 1)[-1]
             whole = init_from_shapes({name: shape_dtype}, gen)[name]
+            whole = whole.reshape(held[0])  # grouped, under interleaving
             return self._own(shard(whole, spec, self.plan, self.rank, path))
         params = tree_map_named(leaf, param_shapes(self.config),
-                                param_specs(self.config))
+                                self._specs(), self._shapes())
         return self._fresh(params)
 
     def state_from_params(self, params: dict) -> dict:
-        """A fresh train state around whole parameters (e.g. converted
-        from the JAX package, convert.py): this rank's shards of them."""
-        return self._fresh(self._shard_tree(params))
+        """A fresh train state around whole canonical parameters (e.g.
+        converted from the JAX package, convert.py): this rank's shards of
+        them, in the state's layout."""
+        return self._fresh(self._shard_tree(self._layout(params)))
 
     def _fresh(self, params: dict) -> dict:
         for p in tree_leaves(params):
@@ -389,9 +480,9 @@ class Trainer:
                 "step": 0}
 
     def shard_state(self, state: dict) -> dict:
-        """This rank's shards of a whole train state (a checkpoint's): the
-        parameters and AdamW's mu and nu sharded alike, count and step as
-        they are."""
+        """This rank's shards of a whole train state (a checkpoint's, in the
+        state's layout): the parameters and AdamW's mu and nu sharded
+        alike, count and step as they are."""
         opt = state["opt_state"]
         params = self._shard_tree(state["params"])
         for p in tree_leaves(params):
@@ -405,10 +496,11 @@ class Trainer:
     def full_state(self, state: dict) -> Optional[dict]:
         """The whole train state, what a checkpoint holds: on the world's
         rank 0 the parameters, mu and nu gathered leaf by leaf to the host
-        (the state itself on one rank and without fsdp, tp or ep); None on
-        the other ranks. Collective: every rank calls it."""
+        (the state itself on one rank and without fsdp, pp, tp or ep; the
+        layers grouped under the interleaved schedule); None on the other
+        ranks. Collective: every rank calls it."""
         writer = self.rank == 0
-        if self.plan.fsdp == 1 and self.plan.tp == 1 and self.plan.ep == 1:
+        if all(getattr(self.plan, a) == 1 for a in PARAM_AXES):
             return state if writer else None
 
         def whole(t, dims):
@@ -427,9 +519,11 @@ class Trainer:
         return out if writer else None
 
     def abstract_state(self) -> dict:
-        """Shapes and dtypes of the whole parameters, without allocating:
-        the template a restored checkpoint is checked against."""
-        return {"params": param_shapes(self.config)}
+        """Shapes and dtypes of the whole parameters in the state's layout,
+        without allocating: the template a restored checkpoint is checked
+        against (so a grouped checkpoint restores only under its pp and
+        v)."""
+        return {"params": self._shapes()}
 
     # ---- the step ----
 
@@ -438,7 +532,11 @@ class Trainer:
                        fsdp=self.fsdp, tp=self.tp, ep=self.ep, data=self.data,
                        row_shards=self.groups.rows[1] if self.groups else 1,
                        remat=self.tc.remat,
-                       remat_policy=self.tc.remat_policy)
+                       remat_policy=self.tc.remat_policy,
+                       n_microbatches=(self.tc.n_microbatches
+                                       if self.pipelined else 0),
+                       groups=self.groups,
+                       virtual_stages=self.tc.virtual_stages)
 
     def step(self, state: dict, tokens: torch.Tensor):
         """One optimizer step, in place on `state`. Returns (state,
@@ -451,7 +549,7 @@ class Trainer:
         accum = max(self.tc.accum_steps, 1)
         if accum == 1:
             loss = self._loss(params, tokens)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = _grad(loss, leaves)
             loss = loss.detach()
         else:
             b = tokens.shape[0]
@@ -464,7 +562,7 @@ class Trainer:
             for toks in tokens.reshape(accum, b // accum, *tokens.shape[1:]):
                 part = self._loss(params, toks)
                 # sum in f32: adding bf16 micro-grads would bleed precision
-                for acc, g in zip(grad_sum, torch.autograd.grad(part, leaves)):
+                for acc, g in zip(grad_sum, _grad(part, leaves)):
                     acc.add_(g.float())
                 loss += part.detach()
             loss = loss / accum
@@ -480,56 +578,61 @@ class Trainer:
     def _sum_over_ranks(self, grads: list, dims: list, loss: torch.Tensor
                         ) -> torch.Tensor:
         """Each rank's gradients and loss are partial sums: add them up in
-        place, in f32, each over the ranks that hold the same shard, the
-        reduce-scatter over fsdp being done: a leaf every ep rank holds
-        alike over `replica` (dp x ep x sp), a bank cut over ep over
-        `expert_replica` (dp x sp); a whole leaf's, complete on every tp
-        rank, and the loss over every axis but tp (`data`). Returns the
-        global norm of the gradients: the shards' squares summed over fsdp
-        and tp (a bank's over ep too), each whole leaf counted once."""
+        place, in f32, each leaf's over the ranks that hold the same shard
+        (MeshGroups.sum_group of the axes that cut it, the reduce-scatter
+        over fsdp being done): dp x ep x sp for a matrix, dp x sp for a bank
+        cut over ep, every axis but tp for a whole leaf (whose tp ranks each
+        hold all of it), pp too for a leaf that is not a stage's; the loss
+        over every axis but tp (`data`). Returns the global norm of the
+        gradients: each leaf's squares summed over the axes that cut it,
+        so each shard counts once and each whole leaf once."""
         g = self.groups
         if g is None:
             return global_norm(grads)
-        banks = [x for x, d in zip(grads, dims) if "ep" in dict(d)]
-        split = [x for x, d in zip(grads, dims) if d and "ep" not in dict(d)]
-        whole = [x for x, d in zip(grads, dims) if not d]
-        if split and g.replica is not None:
-            comm.all_reduce_sum(split, g.replica)
-        if banks and g.expert_replica is not None:
-            comm.all_reduce_sum(banks, g.expert_replica)
-        if g.data is not None:
-            comm.all_reduce_sum([*whole, loss], g.data)
-        if not split and not banks:
-            return global_norm(whole)
-        squares = sum_squares(split) if split else 0.0
-        if banks:
-            experts = sum_squares(banks)
-            if g.ep is not None:
-                comm.all_reduce_sum([experts], g.ep)
-            squares = squares + experts
-        for axis in (g.fsdp, g.tp):
-            if axis is not None:
-                comm.all_reduce_sum([squares], axis)
-        return torch.sqrt(squares + sum_squares(whole))
+        cuts = [tuple(a for a, _ in d) for d in dims]
+        by_cut: dict = {(): [loss]}
+        for x, cut in zip(grads, cuts):
+            by_cut.setdefault(tuple(a for a in cut if a != "tp"), []).append(x)
+        for cut in sorted(by_cut):
+            group = g.sum_group(cut)
+            if group is not None:
+                comm.all_reduce_sum(by_cut[cut], group)
+        squares: dict = {}
+        for x, cut in zip(grads, cuts):        # of the summed gradients
+            squares[cut] = squares.get(cut, 0.0) + sum_squares([x])
+        cuts = sorted(squares)
+        total = torch.stack([squares[c] for c in cuts])
+        for axis in PARAM_AXES:
+            group = getattr(g, axis)
+            rows = [i for i, c in enumerate(cuts) if axis in c]
+            if group is not None and rows:
+                part = total[rows]
+                comm.all_reduce_sum([part], group)
+                total[rows] = part
+        return torch.sqrt(total.sum())
 
     def shard_batch(self, tokens) -> torch.Tensor:
         """This rank's rows of a host batch [B, S], onto the trainer's
         device: the rows shard over dp x fsdp x ep (all of them on one
-        rank). B must divide, as the JAX batch sharding requires. Under
-        accum_steps a the rank takes its 1/n of each of the a global
-        micro-slices (rows [i*B/a, (i+1)*B/a)), in order, so its i-th
-        micro-slice is its rows of JAX's i-th."""
+        rank; the pp ranks of a row shard take the same rows). B must
+        divide, as the JAX batch sharding requires. Under accum_steps a
+        the rank takes its 1/n of each of the a global micro-slices (rows
+        [i*B/a, (i+1)*B/a)), in order, so its i-th micro-slice is its rows
+        of JAX's i-th; under pp, of each of the M pipeline microbatches of
+        each micro-slice, so MoE routes each microbatch as JAX does."""
         if self.groups is not None:
             i, n = self.groups.rows
             b = tokens.shape[0]
             a = max(self.tc.accum_steps, 1)
-            if b % (n * a):
+            m = self.tc.n_microbatches if self.pipelined else 1
+            if b % (n * a * m):
                 raise ValueError(
                     f"batch {b} does not divide over dp x fsdp x ep = {n} "
-                    f"row shards" + (f" x accum_steps {a}" if a > 1 else ""))
-            m = b // a
-            lo = [j * m + i * m // n for j in range(a)]
-            tokens = tokens[[r for x in lo for r in range(x, x + m // n)]]
+                    f"row shards" + (f" x accum_steps {a}" if a > 1 else "")
+                    + (f" x n_microbatches {m}" if m > 1 else ""))
+            k = b // (a * m)
+            lo = [j * k + i * k // n for j in range(a * m)]
+            tokens = tokens[[r for x in lo for r in range(x, x + k // n)]]
         return to_device(tokens, self.device)
 
 
@@ -587,13 +690,15 @@ def latest_step(path: str) -> Optional[int]:
     return max(steps, default=None)
 
 
-def _check_template(params: dict, shapes: dict, path: str = "") -> None:
+def check_template(params: dict, shapes: dict, path: str = "") -> None:
+    """Raises ValueError unless params ({name: tensor}, nested) has the
+    keys, shapes and dtypes of `shapes` ({name: (shape, dtype)})."""
     if set(params) != set(shapes):
         raise ValueError(f"checkpoint {path or 'params'} keys "
                          f"{sorted(params)} != {sorted(shapes)}")
     for name, spec in shapes.items():
         if isinstance(spec, dict):
-            _check_template(params[name], spec, f"{path}{name}.")
+            check_template(params[name], spec, f"{path}{name}.")
         elif (tuple(params[name].shape), params[name].dtype) != spec:
             raise ValueError(
                 f"checkpoint {path}{name}: {tuple(params[name].shape)} "
@@ -614,7 +719,7 @@ def restore_checkpoint(path: str, abstract_state: Optional[dict] = None,
     state = torch.load(os.path.join(path, str(step), STATE_FILE),
                        map_location=device, weights_only=True, mmap=True)
     if abstract_state is not None:
-        _check_template(state["params"], abstract_state["params"])
+        check_template(state["params"], abstract_state["params"])
     for p in tree_leaves(state["params"]):
         p.requires_grad_(True)
     return state, step

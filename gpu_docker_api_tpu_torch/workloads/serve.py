@@ -53,21 +53,57 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 
+def _maybe_ungroup(params: dict, config) -> dict:
+    """Checkpoints from interleaved-pipelined trainers store layers as
+    [v, pp, Lc, ...] (pipeline.group_layers). The sequential KV-cache
+    forward needs the canonical [L, ...] stack; detect the two extra
+    leading dims against the family's canonical shapes and ungroup."""
+    from ..models import param_shapes
+    from ..parallel.pipeline import ungroup_layers
+
+    got = next(iter(params["layers"].values())).dim()
+    want = len(next(iter(param_shapes(config)["layers"].values()))[0])
+    if got == want:
+        return params
+    if got == want + 2:
+        lead = next(iter(params["layers"].values())).shape
+        v, pp = int(lead[0]), int(lead[1])
+        params = dict(params)
+        params["layers"] = ungroup_layers(params["layers"], pp, v)
+        print(f"ungrouped interleaved checkpoint (v={v}, pp={pp})",
+              flush=True)
+        return params
+    raise ValueError(
+        f"layer leaves have {got} dims, expected {want} (canonical) or "
+        f"{want + 2} (group_layers layout)")
+
+
+def _restore_params(trainer, ckpt_dir: str, device) -> tuple[dict, int]:
+    """The params of the newest checkpoint under `ckpt_dir` on `device`,
+    ungrouped if an interleaved trainer saved them (_maybe_ungroup), then
+    held to the one-rank template."""
+    from ..train import check_template, restore_checkpoint
+
+    # scheduled workloads pass volume-bind paths relative to
+    # $CONTAINER_ROOT (the process substrate's cwd)
+    state, step = restore_checkpoint(os.path.abspath(ckpt_dir),
+                                     device=device)
+    params = _maybe_ungroup(state["params"], trainer.config)
+    check_template(params, trainer.abstract_state()["params"])
+    return params, step
+
+
 def _load_params(trainer, ckpt_dir: str | None, init_seed: int = 0) -> dict:
     """Served weights: a fresh Trainer.init(init_seed), or the newest
-    checkpoint under `ckpt_dir` (a train_llama workdir's checkpoints/),
-    detached from autograd once (the trainer's leaves require grad)."""
-    from ..train import restore_checkpoint, tree_map
+    checkpoint under `ckpt_dir` (a train_llama workdir's checkpoints/,
+    _restore_params), detached from autograd once (the trainer's leaves
+    require grad)."""
+    from ..train import tree_map
     if not ckpt_dir:
         params = trainer.init(init_seed)["params"]
     else:
-        # scheduled workloads pass volume-bind paths relative to
-        # $CONTAINER_ROOT (the process substrate's cwd)
-        state, step = restore_checkpoint(os.path.abspath(ckpt_dir),
-                                         trainer.abstract_state(),
-                                         device=trainer.device)
+        params, step = _restore_params(trainer, ckpt_dir, trainer.device)
         print(f"restored checkpoint step {step}", flush=True)
-        params = state["params"]
     return tree_map(lambda t: t.detach(), params)
 
 
@@ -84,14 +120,12 @@ def _host_load(trainer, ckpt_dir: str | None, mode: str,
 
     from ..models import family_for
     from ..ops.quant import quantize_params_streaming
-    from ..train import restore_checkpoint, tree_map
+    from ..train import tree_map
     if ckpt_dir:
-        state, step = restore_checkpoint(os.path.abspath(ckpt_dir),
-                                         trainer.abstract_state(),
-                                         device="cpu")
+        params, step = _restore_params(trainer, ckpt_dir, "cpu")
         print(f"restored checkpoint step {step} (host)", flush=True)
-        host = tree_map(lambda t: t.detach(), state["params"])
-        del state
+        host = tree_map(lambda t: t.detach(), params)
+        del params
     else:
         gen = torch.Generator(device=trainer.device).manual_seed(init_seed)
         host = family_for(trainer.config).init_params(

@@ -8,18 +8,20 @@ newest checkpoint, the same metrics.jsonl schema and the quiesce park on
 SIGUSR1. It trains on the CUDA card the container was given; --device cpu
 runs on the CPU instead (tests).
 
-A TDAPI_MESH_PLAN whose axes above 1 are among dp, fsdp, ep, tp and sp
-(the control plane's gang contract) is honoured exactly. Without one the
-plan is the JAX workload's: --tp (or best_tp_for over the devices left by
---sp and --ep), --sp, --ep, and the rest of the visible devices on fsdp
-(unplanned_plan), for either family.
+A TDAPI_MESH_PLAN (the control plane's gang contract) is honoured
+exactly. Without one the plan is the JAX workload's: --tp (or best_tp_for
+over the devices left by --sp, --pp and --ep), --sp, --pp, --ep, and the
+rest of the visible devices on fsdp (unplanned_plan), for either family.
+Under pp the trunk is pipelined (parallel/pipeline.py) over
+--microbatches, interleaved when --virtual-stages is above 1.
 A plan over more than one rank trains over plan.size ranks on this host
 (distributed.launch): processes on cuda:0..N-1 over NCCL, or with --device
 cpu on the CPU over gloo. Rank 0 alone writes metrics, the checkpoints
 (the gathered state: a run resumes under another plan, as a tpuCount
-patch asks) and the quiesce marker and ack; every rank resumes from the
-same checkpoint and keeps its shards. pp (--pp and --virtual-stages above
-1) and multi-worker contracts are not yet ported and are refused.
+patch asks; under the interleaved schedule the layers stay grouped, so
+such a run resumes only under the same pp and v) and the quiesce marker
+and ack; every rank resumes from the same checkpoint and keeps its shards.
+Multi-worker contracts are not yet ported and are refused.
 
 Run: python -m gpu_docker_api_tpu_torch.workloads.train_llama \
         --config tiny --steps 100 --workdir /path/to/run1
@@ -92,20 +94,13 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     _refuse_multi_worker()
-    for flag in ("pp", "virtual_stages"):
-        if getattr(args, flag) > 1:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} {getattr(args, flag)}: "
-                f"this axis is not yet ported to PyTorch (only dp, fsdp, "
-                f"ep, tp and sp are)")
 
     from ..models import named_config
-    from ..parallel.mesh import plan_from_env, require_ported
+    from ..parallel.mesh import plan_from_env
 
     # gang contract: a plan the control plane stamped is honoured exactly
     # (the CLI's axis flags apply to un-planned launches only)
     plan = plan_from_env() or _unplanned(args)
-    require_ported(plan)
     try:
         config = named_config(args.family, args.config)
     except KeyError as e:
@@ -134,8 +129,8 @@ def _unplanned(args):
     (torch.cuda.device_count(), after refusing flags that ask for more
     cards than there are, and a machine with none); on --device cpu, which
     has no device count to fill, what the flags ask, (--tp or 1) * --sp *
-    --ep."""
-    asked = (args.tp or 1) * args.sp * args.ep
+    --pp * --ep."""
+    asked = (args.tp or 1) * args.sp * args.pp * args.ep
     if args.device == "cpu":
         return unplanned_plan(asked, args.tp, args.sp, args.pp, args.ep)
     import torch
@@ -144,7 +139,8 @@ def _unplanned(args):
     n_dev = torch.cuda.device_count()
     if asked > 1 and asked > n_dev:
         flags = " ".join(f"--{a} {getattr(args, a)}"
-                         for a in ("tp", "sp", "ep") if getattr(args, a) > 1)
+                         for a in ("tp", "sp", "pp", "ep")
+                         if getattr(args, a) > 1)
         raise RuntimeError(f"{flags} needs {asked} CUDA devices, sees "
                            f"{n_dev}")
     resolve_device(args.device)            # no card: raise
@@ -198,7 +194,9 @@ def _run(args, config, plan, device, groups=None) -> int:
     metrics_path = os.path.join(args.workdir, "metrics.jsonl")
 
     trainer = Trainer.create(
-        config, plan, tc=TrainConfig(learning_rate=args.lr,
+        config, plan, tc=TrainConfig(n_microbatches=args.microbatches,
+                                     virtual_stages=args.virtual_stages,
+                                     learning_rate=args.lr,
                                      warmup_steps=args.warmup_steps,
                                      decay_steps=args.decay_steps,
                                      min_lr_ratio=args.min_lr_ratio,
@@ -223,8 +221,10 @@ def _run(args, config, plan, device, groups=None) -> int:
             print(f"resumed from checkpoint step {start_step}", flush=True)
     except FileNotFoundError:
         # no checkpoint yet. Anything else (a shape mismatch from a changed
-        # --config, a corrupt payload) fails loudly: silently starting over
-        # would discard real progress on the same workdir.
+        # --config or, grouped, --pp / --virtual-stages; a corrupt payload)
+        # fails loudly: silently starting over would discard real progress
+        # on the same workdir (pipeline.ungroup_layers converts layouts
+        # when a schedule change across a resume is intended).
         state = trainer.init(seed=0)
 
     # deterministic (seed, step) batches — resume replays the exact stream —

@@ -73,12 +73,17 @@ def test_mesh_plan_auto_and_single_device():
         8, tp=2))
     with pytest.raises(ValueError):
         tmesh.MeshPlan.auto(6, tp=4)
-    tmesh.require_ported(tmesh.MeshPlan())
-    tmesh.require_ported(tmesh.MeshPlan(sp=4))        # sp is ported
-    tmesh.require_ported(tmesh.MeshPlan(dp=2, fsdp=2, sp=2))   # so are these
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmesh.require_ported(tmesh.MeshPlan(fsdp=2, pp=2))
-    tmesh.require_ported(tmesh.MeshPlan(fsdp=2, tp=2, sp=2))   # and tp
-    tmesh.require_ported(tmesh.MeshPlan(sp=2, tp=2, ep=2))     # and ep
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmesh.require_ported(tmesh.MeshPlan(sp=2, tp=2, ep=2, pp=2))
+    # every axis is ported: each plan's rank coordinates are JAX's mesh
+    # layout, pp between fsdp and ep, and pp cuts the stacked layer dim
+    for plan in (tmesh.MeshPlan(), tmesh.MeshPlan(sp=4),
+                 tmesh.MeshPlan(dp=2, fsdp=2, sp=2),
+                 tmesh.MeshPlan(fsdp=2, pp=2),
+                 tmesh.MeshPlan(fsdp=2, tp=2, sp=2),
+                 tmesh.MeshPlan(sp=2, tp=2, ep=2),
+                 tmesh.MeshPlan(sp=2, tp=2, ep=2, pp=2)):
+        assert tmesh.AXES == ("dp", "fsdp", "pp", "ep", "tp", "sp")
+        assert tmesh.make_mesh(plan).shape == tuple(
+            getattr(plan, a) for a in tmesh.AXES)
+        cut = tmesh.split_dims(("pp", "fsdp", "tp"), plan)
+        assert [a for a, _ in cut] == [a for a in ("fsdp", "tp", "pp")
+                                       if getattr(plan, a) > 1]

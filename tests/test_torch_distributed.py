@@ -2,9 +2,8 @@
 cluster_spec_from_env against the JAX function on the same env dicts; two
 gloo ranks formed from the control plane's contract on 127.0.0.1; the
 single-host launcher failing fast when a rank dies; and the workload's
-refusals (--sp N without N cards, pp, the axis not yet ported, a
-multi-worker grant), and the launches that MoE and ep over ranks now
-take."""
+refusals (--sp N without N cards, a multi-worker grant), and the launches
+that MoE, ep and pp over ranks now take."""
 
 import multiprocessing as mp
 import os
@@ -108,23 +107,57 @@ def test_sp_without_the_cards_raises(tmp_path):
 
 
 @pytest.mark.parametrize("extra, env", [
-    ([], {"TDAPI_MESH_PLAN": '{"tp": 2, "pp": 2}'}),
-    (["--pp", "2"], {}),
-    ([], {"TDAPI_MESH_PLAN": '{"pp": 2, "ep": 2}'}),
-    (["--virtual-stages", "2"], {}),
-    (["--family", "moe", "--pp", "2"], {}),
-    (["--family", "moe"], {"TDAPI_MESH_PLAN": '{"dp": 2, "pp": 2}'}),
-    ([], {"TDAPI_MESH_PLAN": '{"ep": 2, "pp": 2, "tp": 2}'}),
-    (["--family", "moe", "--virtual-stages", "2"], {}),
     (["--sp", "2"], {"TPU_WORKER_HOSTNAMES": "w0,w1"}),
 ])
 def test_unported_axes_and_moe_over_ranks_are_refused(tmp_path, monkeypatch,
                                                       extra, env):
-    """pp (of either family) and a multi-worker grant are refused."""
+    """A multi-worker grant is refused (every mesh axis is ported:
+    test_pp_plans_are_built_and_accepted)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ttl.main(TINY + ["--workdir", str(tmp_path)] + extra)
+    assert not os.path.exists(tmp_path / "metrics.jsonl")
+
+
+@pytest.mark.parametrize("extra, env, plan", [
+    ([], {"TDAPI_MESH_PLAN": '{"tp": 2, "pp": 2}'}, dict(pp=2, tp=2)),
+    (["--pp", "2"], {}, dict(pp=2)),
+    ([], {"TDAPI_MESH_PLAN": '{"pp": 2, "ep": 2}'}, dict(pp=2, ep=2)),
+    (["--virtual-stages", "2"], {}, {}),
+    (["--family", "moe", "--pp", "2"], {}, dict(pp=2)),
+    (["--family", "moe"], {"TDAPI_MESH_PLAN": '{"dp": 2, "pp": 2}'},
+     dict(dp=2, pp=2)),
+    ([], {"TDAPI_MESH_PLAN": '{"ep": 2, "pp": 2, "tp": 2}'},
+     dict(pp=2, ep=2, tp=2)),
+    (["--family", "moe", "--virtual-stages", "2"], {}, {}),
+])
+def test_pp_plans_are_built_and_accepted(tmp_path, monkeypatch, extra, env,
+                                         plan):
+    """What was refused before pp was ported now reaches the run, with the
+    plan asked for (--virtual-stages without --pp is one rank, as in JAX,
+    which reads it only under pp), and Trainer.create accepts it with the
+    flags' microbatches and virtual stages (the runs themselves:
+    test_torch_pp_train.py)."""
+    from gpu_docker_api_tpu_torch.models import named_config
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshGroups, MeshPlan
+    from gpu_docker_api_tpu_torch.train import Trainer, TrainConfig
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    started = []
+    monkeypatch.setattr(ttl, "_launch",
+                        lambda args, argv, p: started.append((args, p)) or 0)
+    monkeypatch.setattr(ttl, "_run", lambda args, config, p, device:
+                        started.append((args, p)) or 0)
+    assert ttl.main(TINY + ["--workdir", str(tmp_path)] + extra) == 0
+    (args, got), = started
+    assert got == MeshPlan(**plan)
+    trainer = Trainer.create(
+        named_config(args.family, args.config), got,
+        tc=TrainConfig(n_microbatches=args.microbatches,
+                       virtual_stages=args.virtual_stages),
+        device="cpu", groups=MeshGroups(got, 0) if got.size > 1 else None)
+    assert trainer.pipelined == (got.pp > 1)
     assert not os.path.exists(tmp_path / "metrics.jsonl")
 
 
@@ -168,12 +201,14 @@ def test_trainer_refuses_a_plan_without_its_group():
     with pytest.raises(ValueError, match="needs the groups of its 4 ranks"):
         Trainer.create(tiny, MeshPlan(sp=4), device="cpu",
                        groups=MeshGroups(MeshPlan(sp=2), 0, sp=two,
-                                         replica=two, world=two))
-    # MoE over ranks is ported; pp is not
+                                         world=two))
+    # MoE over ranks is ported, and so is pp, which needs its groups too
     moe = named_config("moe", "tiny")
     assert Trainer.create(moe, MeshPlan(dp=2), device="cpu",
                           groups=MeshGroups(MeshPlan(dp=2), 0, dp=two,
-                                            replica=two, world=two))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Trainer.create(moe, MeshPlan(pp=2), device="cpu",
-                       groups=MeshGroups(MeshPlan(pp=2), 0, world=two))
+                                            world=two))
+    with pytest.raises(ValueError, match="needs the groups of its 2 ranks"):
+        Trainer.create(moe, MeshPlan(pp=2), device="cpu")
+    assert Trainer.create(moe, MeshPlan(pp=2), device="cpu",
+                          groups=MeshGroups(MeshPlan(pp=2), 0, pp=two,
+                                            world=two)).pipelined

@@ -105,7 +105,7 @@ def test_the_sp_modules_are_walked_and_scanned():
     assert names <= set(_modules())
     allowed = {"__future__", "dataclasses", "typing", "math", "torch",
                "datetime", "multiprocessing", "os", "signal", "socket",
-               "threading", "time"}
+               "tempfile", "threading", "time"}
     for rel in ("distributed.py", "parallel/comm.py", "parallel/ring.py",
                 "parallel/ulysses.py"):
         path = os.path.join(PORT_DIR, rel)

@@ -180,18 +180,24 @@ def test_family_registry():
         named_config("llama", "nosuch")
 
 
-def test_mesh_raises_not_yet_ported():
-    """The axis not yet ported is pp, for either family: a pp plan and
-    MoE's pipelined trunk are refused (MoE over sp, ep and the other axes
-    runs: test_torch_moe_ranks_train.py)."""
+def test_pp_is_ported_for_either_family():
+    """pp was the last axis refused: a pp plan builds its trainer for
+    either family, and the pipelined loss without a pp group is JAX's pp=1
+    fast path, the whole batch through every layer in order (so MoE routes
+    it as one pool: the loss of the plain forward)."""
     from gpu_docker_api_tpu_torch.models import moe as tmoe
-    from gpu_docker_api_tpu_torch.parallel.mesh import MeshPlan, require_ported
-    from gpu_docker_api_tpu_torch.train import loss_fn
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshGroups, MeshPlan
+    from gpu_docker_api_tpu_torch.train import Trainer, loss_fn
     cfg = tmoe.MoEConfig.tiny()
     params = tmoe.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        loss_fn(params, torch.zeros(1, 4, dtype=torch.long), cfg,
-                n_microbatches=2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        require_ported(MeshPlan(pp=2, ep=2))
-    require_ported(MeshPlan(dp=2, fsdp=2, ep=2, tp=2, sp=2))
+    tokens = torch.randint(0, 256, (2, 8),
+                           generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        torch.testing.assert_close(
+            loss_fn(params, tokens, cfg, n_microbatches=2),
+            loss_fn(params, tokens, cfg), rtol=1e-6, atol=1e-6)
+    for c in (cfg, tllama.LlamaConfig.tiny()):
+        for plan in (MeshPlan(pp=2, ep=2), MeshPlan(dp=2, fsdp=2, pp=2),
+                     MeshPlan(pp=2, tp=2, sp=2)):
+            assert Trainer.create(c, plan, device="cpu",
+                                  groups=MeshGroups(plan, 0)).pipelined

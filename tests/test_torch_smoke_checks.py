@@ -1191,3 +1191,76 @@ def test_phase_ep_at_tiny_width_on_the_cpu():
             2, plan, moe=True)
         assert got["state_bytes_a_rank"] == [cs.state_bytes(
             moe_config("tiny"), plan)] * cs.EP_RANKS
+
+
+# ---- phase 12 ---------------------------------------------------------------
+
+def test_phase_12_state_bytes_and_launches():
+    """The per-rank state of each phase 12 layout at full size (the
+    prediction in PERF.md: under pp every layer leaf 1/pp too, embed and
+    lm_head whole on each stage) and its launches a rank and step: a
+    stage's layers once a microbatch, the ring's rank + 1 times in 12c."""
+    layouts = cs.pp_layouts(cs.PP_CONFIGS, cs.PP_TRAIN)
+    got = {}
+    for name, entry in layouts.items():
+        config, plan, _, steps, opts = cs.layout_fields(entry)
+        cfg = cs.smoke_config(config)
+        got[name] = (cs.state_bytes(cfg, plan), [
+            cs.fsdp_launches(plan, r, cfg.n_layers,
+                             opts["tc"]["n_microbatches"])["flash_fwd"]
+            for r in range(plan.get("sp", 1))], opts["b"], steps)
+    assert got == {"12a": (2202279936, [40], 4, 2),
+                   "12b": (1809309696, [40], 4, 2),
+                   "12c": (3618103296, [40, 80], 4, 2),
+                   "12d": (2055155712, [32], 8, 2)}
+    assert cs.fsdp_launches({"pp": 4}, 0, 20, 4) == {
+        "flash_fwd": 40, "flash_bwd_dq": 20, "flash_bwd_dkv": 20}
+    # without pp the microbatches change nothing (phases 9-11)
+    assert cs.fsdp_launches({"fsdp": 4}, 0, 20, 4) == cs.fsdp_launches(
+        {"fsdp": 4}, 0, 20)
+
+
+def test_phase_pp_at_tiny_width_on_the_cpu():
+    """Phase 12 end to end on the CPU at `tiny` with 4 layers (f32): four
+    gloo ranks through 12a-12d against one rank (the plain microbatched
+    version for MoE), each leaf's bytes, no launch (the plain versions),
+    the grouped checkpoint shard for shard and served ungrouped."""
+    configs = {"llama": ("llama", "tiny", 4), "moe": ("moe", "tiny", 4)}
+    out = cs.phase_pp(torch, att, device="cpu", configs=configs,
+                      train=dict(b=4, s=32, steps=2))
+    assert set(out["layouts"]) == set(cs.PP_LAYOUTS)
+    assert out["checkpoint_shards"] == 3 * 12 * 4
+    assert "serve_restore_s" in out["wall"]
+    for name, (fam, plan, *_) in cs.PP_LAYOUTS.items():
+        got = out["layouts"][name]
+        assert len(got["losses"]) == 2
+        assert max(got["rel_to_one_rank"]["loss"]) <= 1e-5
+        assert max(got["rel_to_one_rank"]["grad_norm"]) <= 1e-5
+        assert got["state_bytes_a_rank"] == [cs.state_bytes(
+            cs.smoke_config(configs[fam]), plan)] * cs.PP_RANKS
+
+
+def test_served_ungrouped_check_finds_a_changed_leaf(tmp_path):
+    """check_served_ungrouped passes a grouped checkpoint served as it is
+    and fails one whose stored layer differs from what serve loads."""
+    from gpu_docker_api_tpu_torch.parallel.pipeline import group_layers
+    from gpu_docker_api_tpu_torch.train import Trainer, save_checkpoint
+    from gpu_docker_api_tpu_torch.workloads import serve
+
+    cfg = dataclasses.replace(cs_config("tiny"), n_layers=4)
+    params = Trainer.create(cfg, device="cpu").init(seed=1)["params"]
+    params["layers"] = group_layers(params["layers"], 2, 2)
+    save_checkpoint(str(tmp_path), {"params": params, "step": 0}, 1)
+    assert cs.check_served_ungrouped(str(tmp_path), cfg, "12b") == 12
+    load = serve._restore_params
+
+    def shifted(*args):
+        got, step = load(*args)
+        got["layers"]["wq"] = got["layers"]["wq"].roll(1, 0)
+        return got, step
+    serve._restore_params = shifted
+    try:
+        with pytest.raises(cs.SmokeFailure, match="served layers.wq"):
+            cs.check_served_ungrouped(str(tmp_path), cfg, "12b")
+    finally:
+        serve._restore_params = load

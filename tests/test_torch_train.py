@@ -229,10 +229,15 @@ def test_trainer_refuses_no_card_and_multi_device():
         pytest.skip("this machine has a card: the no-card refusal is moot")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttrain.Trainer.create(tcfg)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # every axis is ported: a plan over more than one rank without its
+    # groups is refused for that
+    with pytest.raises(ValueError, match="needs the groups of its 4 ranks"):
         ttrain.Trainer.create(tcfg, MeshPlan(tp=2, pp=2), device="cpu")
-    # tp is ported: a tp plan without its group is refused for that
     with pytest.raises(ValueError, match="needs the groups of its 2 ranks"):
         ttrain.Trainer.create(tcfg, MeshPlan(tp=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttrain.loss_fn({}, torch.zeros(1, 2), tcfg, n_microbatches=2)
+    # and the pipelined loss needs a batch its microbatches divide
+    with pytest.raises(ValueError, match="not divisible by n_microbatches"):
+        ttrain.loss_fn({"layers": {"wq": torch.zeros(2, 1)}},
+                       torch.zeros(1, 2, dtype=torch.long), tcfg,
+                       n_microbatches=2,
+                       groups=ttrain.MeshGroups(MeshPlan(pp=2), 0))

@@ -1,8 +1,8 @@
 """PyTorch port, workloads/train_llama.py: the workload contract the control
 plane relies on — resume with a gapless step sequence, the metrics.jsonl
-schema of the JAX workload, the SIGUSR1 quiesce park, and refusals of what
-is not yet ported — run on the CPU with --device cpu. The sp twins (--sp 2
-over gloo ranks) are in tests/test_torch_sp_train.py."""
+schema of the JAX workload, the SIGUSR1 quiesce park, the pp launches, and
+refusals of what is not yet ported — run on the CPU with --device cpu. The
+sp twins (--sp 2 over gloo ranks) are in tests/test_torch_sp_train.py."""
 
 import argparse
 import json
@@ -116,18 +116,34 @@ def test_main_without_device_cpu_raises_when_no_card(tmp_path):
 
 
 @pytest.mark.parametrize("extra, env", [
-    (["--tp", "2", "--pp", "2"], {}),
-    (["--pp", "2"], {}),
-    (["--family", "moe", "--pp", "2"], {}),
-    ([], {"TDAPI_MESH_PLAN": '{"ep": 2, "pp": 2}'}),
-    ([], {"TDAPI_MESH_PLAN": '{"dp": 2, "pp": 2}'}),
     ([], {"TPU_WORKER_HOSTNAMES": "w0,w1"}),
 ])
 def test_not_yet_ported_is_refused(tmp_path, monkeypatch, extra, env):
+    """A multi-worker grant (the pp launches: test_pp_is_launched)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ttl.main(TINY + ["--steps", "1", "--workdir", str(tmp_path)] + extra)
+
+
+@pytest.mark.parametrize("extra, env, plan", [
+    (["--tp", "2", "--pp", "2"], {}, JMeshPlan(pp=2, tp=2)),
+    (["--pp", "2"], {}, JMeshPlan(pp=2)),
+    (["--family", "moe", "--pp", "2"], {}, JMeshPlan(pp=2)),
+    ([], {"TDAPI_MESH_PLAN": '{"ep": 2, "pp": 2}'}, JMeshPlan(pp=2, ep=2)),
+    ([], {"TDAPI_MESH_PLAN": '{"dp": 2, "pp": 2}'}, JMeshPlan(dp=2, pp=2)),
+])
+def test_pp_is_launched(tmp_path, monkeypatch, extra, env, plan):
+    """What was refused before pp was ported now launches its ranks with
+    the plan asked for (the runs: tests/test_torch_pp_train.py)."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    launched = []
+    monkeypatch.setattr(ttl, "_launch",
+                        lambda args, argv, p: launched.append(p) or 0)
+    assert ttl.main(TINY + ["--steps", "1", "--workdir", str(tmp_path)]
+                    + extra) == 0
+    assert [str(p) for p in launched] == [str(plan)]
 
 
 def test_one_device_mesh_plan_is_accepted(tmp_path, monkeypatch,

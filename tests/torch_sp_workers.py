@@ -1,7 +1,8 @@
 """Rank bodies of the port's multi-rank tests (test_torch_ring.py,
 test_torch_ulysses.py, test_torch_sp_train.py, test_torch_distributed.py,
 test_torch_mesh.py, test_torch_fsdp_train.py, test_torch_tp.py,
-test_torch_tp_train.py, test_torch_ep.py, test_torch_moe_ranks_train.py).
+test_torch_tp_train.py, test_torch_ep.py, test_torch_moe_ranks_train.py,
+test_torch_pipeline.py, test_torch_pp_train.py).
 
 gpu_docker_api_tpu_torch.distributed.launch spawns each rank afresh and
 imports its target by module path, so the targets live here, in a module
@@ -54,10 +55,14 @@ def train_steps(rank: int, world: int, spec_path: str, out_dir: str):
     """spec {config (a port LlamaConfig or MoEConfig), params (numpy
     tree), batches [[B, S] numpy], runs: [{name, remat_policy, sp_attn,
     and optionally plan (MeshPlan fields; default sp over the world),
-    accum_steps and fault (a key of FAULTS, planted for the run)}]}: for
-    each run, a fresh Trainer over the plan's groups from the same params
-    steps through the batches; its losses and grad norms (and, on rank 0,
-    its gathered final params) saved to out_dir/rank<r>.pt."""
+    accum_steps, train (more TrainConfig fields: n_microbatches,
+    virtual_stages), fault (a key of FAULTS, planted for the run) and save
+    (write the gathered state)}]}: for each run, a fresh Trainer over the
+    plan's groups from the same params steps through the batches; its
+    losses and grad norms (and, on rank 0, its gathered final params)
+    saved to out_dir/rank<r>.pt. With save, rank 0 also writes the
+    gathered state as the checkpoint out_dir/<name>-ckpt and every rank
+    returns its parameter shards."""
     import dataclasses
 
     from gpu_docker_api_tpu_torch import convert
@@ -73,7 +78,8 @@ def train_steps(rank: int, world: int, spec_path: str, out_dir: str):
         trainer = Trainer.create(
             config, plan, tc=TrainConfig(
                 remat_policy=run["remat_policy"],
-                accum_steps=run.get("accum_steps", 1)),
+                accum_steps=run.get("accum_steps", 1),
+                **run.get("train", {})),
             device="cpu", groups=MeshGroups.build(plan))
         state = trainer.state_from_params(
             convert.params_from_numpy(spec["params"], config))
@@ -96,6 +102,15 @@ def train_steps(rank: int, world: int, spec_path: str, out_dir: str):
             "losses": losses, "grad_norms": norms,
             "params": (convert.params_to_numpy(full["params"])
                        if rank == 0 else None)}
+        if run.get("save"):
+            from gpu_docker_api_tpu_torch.train import (
+                save_checkpoint, tree_map,
+            )
+            if rank == 0:
+                save_checkpoint(os.path.join(out_dir, f"{run['name']}-ckpt"),
+                                full, len(spec["batches"]))
+            results[run["name"]]["shards"] = tree_map(
+                lambda t: t.detach().clone(), state["params"])
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
@@ -166,8 +181,8 @@ def moe_block_cases(rank: int, world: int, spec_path: str, out_dir: str):
         grads = dict(zip(["x"] + keys, grads))
         banks = [grads[k] for k in ("we1", "we3", "we2")]
         whole = [grads[k] for k in ("router", "mlp_norm")]
-        if g.expert_replica is not None:
-            comm.all_reduce_sum(banks, g.expert_replica)
+        if g.sum_group(("ep",)) is not None:
+            comm.all_reduce_sum(banks, g.sum_group(("ep",)))
         if g.data is not None:
             comm.all_reduce_sum(whole, g.data)
         results[str(plan)] = {"out": out.detach(), "aux": float(aux),
@@ -238,6 +253,51 @@ def tp_cases(rank: int, world: int, spec_path: str, out_dir: str):
                 "ll_grad": ll_grad, "rows": rows.detach(),
                 "embed_grad": embed_grad},
                os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def pipeline_cases(rank: int, world: int, spec_path: str, out_dir: str):
+    """spec [{name, config (a port config), params (whole canonical numpy
+    tree), tokens [B, S] numpy, plan (MeshPlan fields), microbatches,
+    virtual_stages, pregrouped}]: this rank's pipeline_forward of its rows
+    (Trainer.shard_batch's) with its shards of the params (param_specs
+    under pp; grouped when pregrouped), no gradient. Saved to
+    out_dir/rank<r>.pt: the logits (None off the last stage), the router
+    loss (MoE), the global rows this rank took, its coordinates."""
+    from gpu_docker_api_tpu_torch import convert
+    from gpu_docker_api_tpu_torch.parallel import pipeline
+    from gpu_docker_api_tpu_torch.parallel.mesh import (
+        MeshGroups, MeshPlan, coords, shard_params,
+    )
+    from gpu_docker_api_tpu_torch.train import (
+        Trainer, TrainConfig, param_specs,
+    )
+
+    results = {}
+    for case in torch.load(spec_path, weights_only=False):
+        cfg, plan = case["config"], MeshPlan(**case["plan"])
+        m, v = case["microbatches"], case["virtual_stages"]
+        groups = MeshGroups.build(plan)
+        trainer = Trainer.create(cfg, plan, tc=TrainConfig(
+            n_microbatches=m, virtual_stages=v), device="cpu", groups=groups)
+        params = convert.params_from_numpy(case["params"], cfg)
+        if case["pregrouped"]:
+            params["layers"] = pipeline.group_layers(params["layers"],
+                                                     plan.pp, v)
+        params = shard_params(params, param_specs(
+            cfg, True, v if case["pregrouped"] else 1), plan, rank)
+        tokens = torch.as_tensor(case["tokens"]).long()
+        rows = trainer.shard_batch(torch.arange(tokens.shape[0])[:, None])
+        with torch.no_grad():
+            out = pipeline.pipeline_forward(
+                params, trainer.shard_batch(tokens), cfg, groups,
+                n_microbatches=m, virtual_stages=v,
+                pregrouped=case["pregrouped"])
+        logits, router = out if isinstance(out, tuple) else (out, None)
+        results[case["name"]] = {
+            "logits": logits, "router": None if router is None
+            else float(router), "rows": rows[:, 0].tolist(),
+            "coords": coords(plan, rank)}
+    torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
 def run(target, payload, world: int, tmp_dir: str, timeout: float = 120.0):
