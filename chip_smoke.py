@@ -101,15 +101,16 @@ Phases (any failure exits non-zero and prints no result):
      rank) in bf16 and S=4096 in f32: the causal flash ring (rank + 1
      launches), the windowed ring, the einsum ring and Ulysses, each
      rank's output and q/k/v gradient shards against the same shards of
-     the whole-S kernels run here, by 8a's rules. 8c, on the same ranks:
-     the llama 1b trunk in f32 (B=1, S=1024) against one rank (logits
+     the whole-S kernels run here, by 8a's rules. 8c, on the same ranks,
+     at llama 1b's width and 10 of its 20 layers:
+     the trunk in f32 (B=1, S=1024) against one rank (logits
      shards, loss, gradients within F32_TOL), then Trainer at sp=4 in
      bf16 (B=1, S=8192, remat "dots", 2 steps, ring then Ulysses) against
      the one-rank Trainer run here (losses and grad norms within
      SP_LOSS_TOL / SP_NORM_TOL), step time and tokens/s labelled "gloo,
      4 ranks on one card".
   9. data parallelism and fully-sharded parameters at llama 1b's width
-     and 10 of its 20 layers (bf16, B=4, S=2048, remat "dots"): the
+     and 4 of its 20 layers (bf16, B=4, S=2048, remat "dots"): the
      one-rank Trainer here, then four processes on this one card in a
      gloo group (as in phase 8) through 9a fsdp=4, 9b dp=2 x fsdp=2 and
      9c fsdp=2 x sp=2 (the ring; 2 steps each): every rank's loss and
@@ -117,7 +118,7 @@ Phases (any failure exits non-zero and prints no result):
      within SP_LOSS_TOL / SP_NORM_TOL of the one-rank run's; the bytes of
      each rank's parameters, mu and nu after init exactly the whole
      state's over fsdp, the norms whole (no rank keeps a replica); the
-     kernels' launches a rank and step those of one rank (20/10/10 at 10
+     kernels' launches a rank and step those of one rank (8/4/4 at 4
      layers; under the ring rank + 1 times as many); 9a's gathered
      checkpoint restored under the one-rank template, each leaf equal bit
      for bit to the ranks' shards. Step time and tokens/s labelled "gloo,
@@ -131,15 +132,16 @@ Phases (any failure exits non-zero and prints no result):
      its own): every rank's loss and grad norm equal, each within
      SP_LOSS_TOL / SP_NORM_TOL of one rank's, the first near its value at
      init; each rank's params, mu and nu exactly 1/(fsdp * tp) of every
-     matrix's bytes, the norms whole; launches a rank and step (20/10/10
-     at 10 layers, the ring's in 10c, 8/4/4 in 10d), the q heads the
+     matrix's bytes, the norms whole; launches a rank and step (8/4/4
+     at 4 layers, the ring's in 10c, 8/4/4 in 10d), the q heads the
      forward kernel saw (H/tp, all H in the fallback) and the tp
      activation sums a step (5 a layer + 4 under "dots"); 10b's gathered
      checkpoint restored under the one-rank template, shard for shard
      over both axes. Step time and tokens/s labelled "gloo, 4 ranks on
      one card", each rank's peak allocation.
- 11. expert parallelism and MoE over ranks at moe_1b, full width and
-     depth (bf16, B=8, S=2048 as 7a, remat "dots"): the one-rank Trainer
+ 11. expert parallelism and MoE over ranks at moe_1b's full width and 4
+     of its 16 layers (bf16, B=8, S=2048 as 7a, remat "dots"): the
+     one-rank Trainer
      here (2 steps), then four
      processes on this one card in a gloo group through 11a ep=4, 11b
      fsdp=2 x ep=2 (MeshPlan.auto's plan for --ep 2 on four cards), 11c
@@ -149,7 +151,7 @@ Phases (any failure exits non-zero and prints no result):
      EP_NORM_TOL of one rank's (the difference printed), the first near
      its value at init; each rank's params, mu and nu exactly each leaf's
      bytes over the axes its spec cuts (banks over ep too, the f32 router
-     whole); launches a rank and step (32/16/16 at 16 layers, the ring's
+     whole); launches a rank and step (8/4/4 at 4 layers, the ring's
      in 11d), heads and tp sums; the routing of every layer in an f32
      forward of the first batch at capacity factor EP_ROUTE_CAPACITY
      (choices drop), assembled over the ranks, against one rank's: a
@@ -158,22 +160,53 @@ Phases (any failure exits non-zero and prints no result):
      under the one-rank template, shard for shard over fsdp and ep. Step
      time and tokens/s labelled "gloo, 4 ranks on one card".
  12. pipeline parallelism over the same four gloo ranks (2 steps, bf16,
-     stage remat): 12a llama 1b, all 20 layers, pp=4 (GPipe, M=4, B=4),
+     stage remat): 12a llama 1b at full width and 4 of its 20 layers,
+     pp=4 (GPipe, M=4, B=4),
      12b fsdp=2 x pp=2 interleaved (v=2, M=2), 12c pp=2 x sp=2 ring (M=2)
-     against the one-rank llama 1b Trainer at phase 2's shape, 12d
+     against the one-rank Trainer of the same cut at phase 2's shape, 12d
      moe_1b pp=2 x ep=2 (M=2, B=8) against the plain microbatched
      version (pipeline.microbatched_loss: the same routing pools); the
      checks of phases 9-11 (bytes with the layers over pp, launches a
      stage's layers once a microbatch); 12b's checkpoint is grouped [2, 2,
-     5, ...]: restored under its own template shard for shard, and
+     1, ...]: restored under its own template shard for shard, and
      through serve's loader ungrouped, equal bit for bit.
+ 13. multi-worker grants: each "worker" a process formed from its own
+     contract env (TPU_WORKER_HOSTNAMES, TPU_WORKER_ID,
+     JAX_COORDINATOR_ADDRESS) on 127.0.0.1, its ranks on this card in one
+     gloo group formed at the coordinator. 13a: the training workload's
+     loop (train_llama._run) on 2 workers x 2 ranks, fsdp=2 x tp=2 (tp
+     inside a worker), llama 1b at full width and 10 of its 20 layers on
+     phase 9's batches, 2 steps, against the one-rank run of that cut by
+     phase 9's checks (losses, grad
+     norms, bytes 1/4 of every matrix, launches 20/10/10, q heads, tp
+     sums); rank 0 alone writes the records, with "process": "0/2", and
+     one gathered checkpoint, restored under the one-rank template shard
+     for shard. 13b: multi-host serving, 2 workers of one rank, tp=2, llama
+     1b (20 layers): in f32 in-process ranks, single-flight generate
+     (tokens equal to one rank's but at a near tie, teacher-forced logits
+     within F32_TOL of the full forward), the lock-step batcher under 5a's
+     staggered schedule (each stream its solo stream by 5a's rule),
+     paged with the prefix cache, and --shard-kv (each rank's K/V bytes
+     1/2 of the whole cache's); moe_1b's lock-step batcher under one
+     hand-driven schedule against one rank's (schedule_moves); then in
+     bf16 serve's multi-host rank over HTTP (rank 0): a burst with the
+     batching headers and healthz counts, decode ms a token at B=1 and
+     with 8 slots busy (gloo, 2 workers on one card, beside phases 4 and
+     5's one-rank times), and rank 0's stop ending both workers with 0.
+     13c: two llama 1b f32 batchers share chip 0 through its regulator
+     (best effort at weight 3 with decode chunks, latency at weight 1):
+     every stream its solo stream, a preemption counted, single steps
+     while contended, the busy-seconds ratio printed beside the weights';
+     `serve --batch-slots 4` with TDAPI_TPU_SHARES=2 prints its co-tenancy
+     line and serves.
 
 Prints one `{"kernels": [...]}` line (with each kernel's launches in 7a
-and phases 8-12 too), the readings, one `{"serve": ...}` line, one
+and phases 8-13 too), the readings, one `{"serve": ...}` line, one
 `{"batching": ...}` line, one `{"paged": ...}` line, one `{"moe": ...}`
 line, one `{"sp": ...}` line, one `{"fsdp": ...}` line, one `{"tp": ...}`
-line, one `{"ep": ...}` line, one `{"pp": ...}` line, the wall times of
-the whole script and of phases 11 and 12, the nvidia-smi line, and last
+line, one `{"ep": ...}` line, one `{"pp": ...}` line, one
+`{"multiworker": ...}` line, the wall times of the whole script and of
+phases 11, 12 and 13, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 """
 
@@ -2616,7 +2649,9 @@ LONG_TIME_ITERS = 10
 SP_RANKS = 4
 SP_S = 8192                              # 8b: 2048 tokens a rank
 SP_F32_S = 4096                          # 8b's f32 cases: the first 4096
-SP_CONFIG = "1b"                         # 8c: llama 1b, full depth
+# 8c: llama 1b at full width and 10 of its 20 layers (the depth cut that
+# makes room for phase 13)
+SP_CONFIG = ("llama", "1b", 10)
 SP_TRUNK_S = 1024                        # 8c: the f32 trunk, B=1
 SP_TRAIN = dict(b=1, s=8192, steps=2)    # 8c: bf16, remat "dots"
 SP_DEADLINE_S = 480                      # the ranks' whole run
@@ -2782,11 +2817,10 @@ def sp_rank(rank, world, tmp, spec):
     import torch
 
     from gpu_docker_api_tpu_torch.device import resolve_device
-    from gpu_docker_api_tpu_torch.models import named_config
     from gpu_docker_api_tpu_torch.parallel.mesh import MeshGroups, MeshPlan
 
     device = resolve_device(spec["device"])
-    cfg = named_config("llama", spec["config"])
+    cfg = smoke_config(spec["config"])
     groups = MeshGroups.build(MeshPlan(sp=world))
     inputs = torch.load(os.path.join(tmp, "inputs.pt"))
     res = {"cases": sp_cases(torch, groups.sp, device, inputs,
@@ -2893,22 +2927,23 @@ def sp_trunk(torch, groups, device, cfg, s, seed=7):
 
 
 def sp_train(torch, device, cfg, train, attn, groups=None, seed=0,
-             microbatches=0):
-    """8c and phase 9's one-rank run: Trainer of cfg (remat "dots"),
-    B=train["b"], S=train["s"], for train["steps"] steps from init `seed`
-    on batches drawn from (seed, step); over `groups`
-    (parallel.mesh.MeshGroups) this rank's part. With `microbatches` (one
-    rank, phase 12's MoE reference) the loss is the pipeline's plain
-    version, pipeline.microbatched_loss: the microbatches one after
-    another, each routed on its own. -> losses, grad norms, step times
-    (host clock, each ending in the loss read)."""
+             microbatches=0, tc=None):
+    """8c and phase 9's one-rank run: Trainer of cfg (remat "dots"; tc:
+    other TrainConfig fields), B=train["b"], S=train["s"], for
+    train["steps"] steps from init `seed` on batches drawn from (seed,
+    step); over `groups` (parallel.mesh.MeshGroups) this rank's part. With
+    `microbatches` (one rank, phase 12's MoE reference) the loss is the
+    pipeline's plain version, pipeline.microbatched_loss: the microbatches
+    one after another, each routed on its own. -> losses, grad norms, step
+    times (host clock, each ending in the loss read)."""
     from gpu_docker_api_tpu_torch.parallel import pipeline
-    from gpu_docker_api_tpu_torch.train import Trainer
+    from gpu_docker_api_tpu_torch.train import Trainer, TrainConfig
 
     cfg = dataclasses.replace(cfg, sp_attn=attn)
     b, s = train["b"], train["s"]
     trainer = Trainer.create(cfg, groups.plan if groups else None,
-                             device=device, groups=groups)
+                             tc=TrainConfig(**(tc or {})), device=device,
+                             groups=groups)
     if microbatches:
         trainer._loss = lambda params, tokens: pipeline.microbatched_loss(
             params, tokens, cfg, microbatches, remat="dots")
@@ -2976,9 +3011,8 @@ def phase_sp(torch, att, device="cuda"):
     group, named: NCCL refuses two ranks on one GPU); 8c the trainer over
     them, against one rank."""
     from gpu_docker_api_tpu_torch import distributed
-    from gpu_docker_api_tpu_torch.models import named_config
 
-    cfg = named_config("llama", SP_CONFIG)
+    cfg = smoke_config(SP_CONFIG)
     print(f"phase 8: long context and sp (8a blockwise S={LONG_S}, chunk "
           f"{LONG_CHUNK}; 8b ring/ulysses over {SP_RANKS} gloo ranks on one "
           f"card, S={SP_S}, f32 at {SP_F32_S}; 8c llama 1b trainer over "
@@ -3074,9 +3108,9 @@ def phase_sp(torch, att, device="cuda"):
 # ---- phase 9: data parallelism and fully-sharded parameters -----------------
 
 FSDP_RANKS = 4
-# llama 1b at full width, 10 of its 20 layers: the depth cut that makes
-# room for phase 11 (PERF.md §4); phase 10 takes the same
-FSDP_CONFIG = ("llama", "1b", 10)
+# llama 1b at full width, 4 of its 20 layers: the depth cut that makes
+# room for phases 11-13 (PERF.md §4); phase 10 takes the same
+FSDP_CONFIG = ("llama", "1b", 4)
 FSDP_TRAIN = dict(b=4, s=2048, steps=2)  # phase 2's shape; bf16, "dots"
 FSDP_LAYOUTS = {                         # name: (plan, steps)
     "9a": ({"fsdp": 4}, 2),
@@ -3681,7 +3715,9 @@ def phase_tp(torch, att, one=None, device="cuda", configs=None,
 # ---- phase 11: expert parallelism and MoE over ranks ------------------------
 
 EP_RANKS = 4
-EP_CONFIG = ("moe", "1b", None)          # moe_1b, full width and depth
+# moe_1b at full width and 4 of its 16 layers (the depth cut that makes
+# room for phase 13)
+EP_CONFIG = ("moe", "1b", 4)
 EP_TRAIN = dict(b=8, s=2048, steps=2)    # 7a's shape; bf16, "dots"
 EP_LAYOUTS = {                           # name: (plan, sp_attn)
     "11a": ({"ep": 4}, "ring"),
@@ -3757,7 +3793,11 @@ def phase_ep(torch, att, device="cuda", config=EP_CONFIG, train=EP_TRAIN):
 # ---- phase 12: pipeline parallelism ----------------------------------------
 
 PP_RANKS = 4
-PP_CONFIGS = {"llama": ("llama", "1b", None),   # 12a-12c: all 20 layers
+# 12a-12c: llama 1b at full width and 4 of its 20 layers (the depth cut
+# that makes room for phase 13; 4 divides over pp=4 and over pp=2 x v=2,
+# one layer a chunk: the order within a chunk is held on the CPU, by
+# tests/test_torch_pipeline.py's group_layers against JAX's at 8 layers)
+PP_CONFIGS = {"llama": ("llama", "1b", 4),
               "moe": ("moe", "1b", None)}       # 12d: moe_1b, full depth
 PP_TRAIN = dict(b=4, s=2048, steps=2)    # phase 2's shape; bf16, stage remat
 PP_LAYOUTS = {  # name: (family, plan, sp_attn, TrainConfig fields, B / b)
@@ -3767,7 +3807,7 @@ PP_LAYOUTS = {  # name: (family, plan, sp_attn, TrainConfig fields, B / b)
     "12c": ("llama", {"pp": 2, "sp": 2}, "ring", dict(n_microbatches=2), 1),
     "12d": ("moe", {"pp": 2, "ep": 2}, "ring", dict(n_microbatches=2), 2),
 }
-PP_CHECKPOINT = "12b"                    # stored grouped, [2, 2, 5, ...]
+PP_CHECKPOINT = "12b"                    # stored grouped, [2, 2, 1, ...]
 
 
 def pp_layouts(configs, train) -> dict:
@@ -3829,6 +3869,853 @@ def phase_pp(torch, att, device="cuda", configs=None, train=PP_TRAIN):
                 "losses", "grad_norms", "step_times_s")}
                          for name, run in ones.items()},
             "layouts": readings, "checkpoint_shards": n, "wall": wall}
+
+
+# ---- phase 13: multi-worker grants --------------------------------------------
+
+# Each "worker" is a process formed from its own contract env (TPU_WORKER_
+# HOSTNAMES, TPU_WORKER_ID, JAX_COORDINATOR_ADDRESS) on 127.0.0.1; its ranks
+# live on this one card in one gloo group (named: NCCL refuses two ranks on
+# one GPU).
+MW_WORKERS = 2
+MW_LOCAL = 2                       # 13a: ranks a worker, 4 in all
+MW_PLAN = {"fsdp": 2, "tp": 2}     # tp inside a worker (worker-major ranks)
+MW_DEADLINE_S = 480                # a sub-phase's workers' whole run
+MW_CONFIG = ("llama", "1b", 10)    # 13a: llama 1b, 10 of its 20 layers
+MH_TP = 2                          # 13b: one rank a worker, tp 2, fsdp 1
+MH_ORACLE = dict(b=2, prompt=256, steps=32)   # phase 4's f32 oracle shape
+MH_MOE = dict(slots=4, max_len=256, lens=(37, 100, 64, 160), at=(0, 1, 3, 6),
+              new=16)
+MH_SERVE = ("--batch-slots", "8", "--batch-max-len", "1024",
+            "--batch-prefill-chunk", "256")
+MH_TRAFFIC = dict(requests=8, clients=4, prompt=(128, 256), new=(16, 32))
+MH_TIME = dict(prompt=128, new=33)  # decode ms: (t(new) - t(1)) / (new - 1)
+COTENANCY = dict(be_weight=3, lat_weight=1, slots=4, max_len=256,
+                 be_lens=(40, 70, 100, 130), be_new=48, lat_lens=(50, 90),
+                 lat_new=16, decode_chunk=8)
+# the configs and sizes of phase 13 on the card (phase_multiworker's
+# `scale` overrides them: a small run on the CPU)
+MW_SCALE = dict(config=MW_CONFIG, train=FSDP_TRAIN, llama="1b", moe="1b",
+                sizes=BATCH_EXACT, moe_sizes=MH_MOE, oracle=MH_ORACLE,
+                kv_block=16, serve=MH_SERVE, traffic=MH_TRAFFIC,
+                time=MH_TIME, cotenancy=COTENANCY)
+
+
+def contract_env(worker, workers, coordinator) -> dict:
+    """The control plane's multi-worker contract of one worker on this
+    host, its coordinator given (JAX_COORDINATOR_ADDRESS)."""
+    return {"TPU_WORKER_HOSTNAMES": ",".join(["127.0.0.1"] * workers),
+            "TPU_WORKER_ID": str(worker),
+            "JAX_COORDINATOR_ADDRESS": coordinator}
+
+
+def worker_main(env, local, target, args, timeout):
+    """One worker process: its contract env alone gives the cluster
+    (cluster_spec_from_env: workers, this worker's index, the
+    coordinator), with `local` ranks a worker on this one card; its ranks
+    run target(rank, world, *args, cluster) over one gloo group formed at
+    the coordinator (distributed.run_cluster)."""
+    from gpu_docker_api_tpu_torch import distributed
+    os.environ.update(env)
+    spec = distributed.cluster_spec_from_env()
+    cluster = distributed.Cluster(spec["coordinator"], spec["num_processes"],
+                                  spec["process_id"], local)
+    distributed.run_cluster(target, (*args, cluster), cluster, "gloo",
+                            timeout)
+
+
+def start_workers(target, args, local, workers=MW_WORKERS,
+                  timeout=MW_DEADLINE_S):
+    """`workers` worker processes (worker_main), not waited for."""
+    import multiprocessing as mp
+
+    from gpu_docker_api_tpu_torch import distributed
+    coordinator = f"127.0.0.1:{distributed.free_port()}"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=worker_main, args=(
+        contract_env(w, workers, coordinator), local, target, args,
+        timeout)) for w in range(workers)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def join_workers(procs, timeout, label, want=None):
+    """Each worker's exit code; a worker still running after `timeout` s
+    in all is killed. Fails unless the codes are `want` (all 0 by
+    default)."""
+    deadline = time.monotonic() + timeout
+    codes = []
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+        if p.is_alive():
+            p.kill()
+            p.join()
+        codes.append(p.exitcode)
+    want = want or [0] * len(procs)
+    check(codes == want, f"{label}: workers exited with {codes}, want {want}")
+    return codes
+
+
+def worker_train_rank(rank, world, tmp, spec, cluster):
+    """13a's rank: the training workload's own loop (train_llama._run, on
+    this rank's groups and the worker's cluster, so its records carry
+    "process" and global rank 0 alone writes them and the gathered
+    checkpoint) over phase 9's batches (train_batch, fed through the
+    workload's prefetcher) from init 0; around each step the readings of
+    layout_rank (launches, tp sums, q heads, loss, grad norm, step time),
+    the bytes of each leaf of params, mu and nu after init, the shard
+    digests after the last step. Results to tmp/rank<r>.pt."""
+    import torch
+
+    from gpu_docker_api_tpu_torch import data, train
+    from gpu_docker_api_tpu_torch.device import resolve_device
+    from gpu_docker_api_tpu_torch.ops import attention as att
+    from gpu_docker_api_tpu_torch.parallel import comm
+    from gpu_docker_api_tpu_torch.parallel.mesh import (
+        MeshGroups, MeshPlan, coords,
+    )
+    from gpu_docker_api_tpu_torch.workloads import train_llama
+
+    device = resolve_device(spec["device"])
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.init()   # the allocator, before its peak is reset
+    sums, heads = TpSums(comm), record_heads(att)
+    cfg, plan = smoke_config(spec["config"]), MeshPlan(**spec["plan"])
+    b, s, steps = (spec["train"][k] for k in ("b", "s", "steps"))
+    out = {"launches": [], "tp_sums": [], "heads": [], "losses": [],
+           "grad_norms": [], "step_times_s": [], "routes": None,
+           "sp_rank": coords(plan, rank)["sp"], "coords": coords(plan, rank)}
+
+    class Batches:              # phase 9's batches, as the dataset's
+        def iter_from(self, start):
+            for step in range(start, steps):
+                yield train_batch(torch, cfg, b, s, 0, step)
+
+    data.make_dataset = lambda *a, **k: Batches()
+    init, step_fn = train.Trainer.init, train.Trainer.step
+
+    def counted_init(self, seed=0):
+        state = init(self, seed)
+        opt = state["opt_state"]
+        out["leaf_bytes"] = {part: {path: leaf_bytes(t) for path, t in
+                                    flat_leaves(tree)}
+                             for part, tree in (("params", state["params"]),
+                                                ("mu", opt["mu"]),
+                                                ("nu", opt["nu"]))}
+        return state
+
+    def counted_step(self, state, tokens):
+        att.reset_launches()
+        sums.take()
+        heads.clear()
+        t0 = time.perf_counter()
+        state, m = step_fn(self, state, tokens)
+        out["losses"].append(float(m["loss"]))
+        out["step_times_s"].append(time.perf_counter() - t0)
+        out["grad_norms"].append(float(m["grad_norm"]))
+        out["launches"].append(dict(att.LAUNCHES))
+        out["tp_sums"].append(sums.take())
+        out["heads"].append(sorted(heads))
+        if len(out["losses"]) == steps:
+            out["digests"] = state_digests(state)
+        return state, m
+
+    train.Trainer.init, train.Trainer.step = counted_init, counted_step
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    args = train_llama._parser().parse_args([
+        "--steps", str(steps), "--checkpoint-every", str(steps), "--batch",
+        str(b), "--seq", str(s), "--workdir", os.path.join(tmp, "work")])
+    t0 = time.perf_counter()
+    train_llama._run(args, cfg, plan, device, MeshGroups.build(plan),
+                     cluster)
+    out["run_s"] = time.perf_counter() - t0
+    out["checkpoint_s"] = out["run_s"] - sum(out["step_times_s"])
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
+                         if on_card else None)
+    torch.save({"13a": out}, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def phase_multiworker_train(torch, att, one, device="cuda",
+                            config=MW_CONFIG, train=FSDP_TRAIN):
+    """13a: the multi-worker training workload over MW_WORKERS workers of
+    MW_LOCAL gloo ranks on this card, MW_PLAN at `config` (MW_CONFIG) on
+    phase 9's batches (worker_train_rank), held to the one-rank run `one`
+    of `config` by
+    check_layouts (losses and grad norms within SP_LOSS_TOL / SP_NORM_TOL,
+    each rank's params, mu and nu exactly 1/(fsdp * tp) of every matrix,
+    launches 20/10/10 a rank and step, H/tp q heads, the tp sums); the
+    records: 2 steps with "process": "0/2", written once, and one
+    checkpoint line; the gathered checkpoint restored under the one-rank
+    template, shard for shard."""
+    layout = {"13a": (config, MW_PLAN, "ring", train["steps"])}
+    print(f"  13a: train_llama over {MW_WORKERS} workers x {MW_LOCAL} gloo "
+          f"ranks, {MW_PLAN}, {config} {train}", flush=True)
+    wall = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = {"device": f"{device}:0" if device == "cuda" else device,
+                "config": config, "plan": MW_PLAN, "train": train}
+        procs = start_workers(worker_train_rank, (tmp, spec), MW_LOCAL)
+        join_workers(procs, MW_DEADLINE_S, "13a")
+        wall["workers_s"] = time.perf_counter() - t0
+        n = MW_WORKERS * MW_LOCAL
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(n)]
+        readings = check_layouts(att, ranks, layout, {config: one}, device,
+                                 train["b"] * train["s"])
+        steps, recs = read_metrics(os.path.join(tmp, "work",
+                                                "metrics.jsonl"))
+        check([r["step"] for r in steps] == [1, 2]
+              and all(r["process"] == f"0/{MW_WORKERS}" and r["devices"] == n
+                      for r in steps)
+              and [r["checkpoint"] for r in recs if "checkpoint" in r] == [2],
+              f"13a records {recs}")
+        t0 = time.perf_counter()
+        shards = check_resharded_checkpoint(
+            os.path.join(tmp, "work", "checkpoints"), smoke_config(config),
+            ranks, MW_PLAN, train["steps"], "13a")
+        wall["restore_s"] = time.perf_counter() - t0
+    r = readings["13a"]
+    r.update(records=steps, checkpoint_shards=shards, wall=wall,
+             run_s=[x["13a"]["run_s"] for x in ranks])
+    r["step_s_gloo_2_workers_x_2_ranks_one_card"] = r.pop(
+        "step_s_gloo_4_ranks_one_card")
+    r["tokens_s_gloo_2_workers_x_2_ranks_one_card"] = r.pop(
+        "tokens_s_gloo_4_ranks_one_card")
+    print(f"  13a: records {steps}; checkpoint: {shards} shards equal; "
+          f"wall {wall}", flush=True)
+    return r
+
+
+# ---- 13b: multi-host serving ------------------------------------------------
+
+def record_streams(b):
+    """Keep each finished stream of lock-step batcher `b` by prompt (every
+    rank, the followers included)."""
+    b.recorded = {}
+    finish = b._finish
+
+    def recording(i, item):
+        b.recorded[tuple(item["prompt"].tolist())] = list(item["stream"])
+        finish(i, item)
+    b._finish = recording
+
+
+def lockstep_staggered(b, rank, prompts, n, stagger=STAGGER_S, **submit_kw):
+    """Rank 0 submits each prompt from a thread of its own (submit_kw: its
+    sampling parameters), request i stagger * i s after the first (5a's
+    schedule by default), then closes the batcher (the stop op); the
+    followers follow until it. -> rank 0's streams (None on the
+    followers)."""
+    import threading
+    if rank != 0:
+        b.thread.join(timeout=600)
+        return None
+    out = [None] * len(prompts)
+
+    def ask(i):
+        time.sleep(stagger * i)
+        out[i] = b.submit(prompts[i], n, **submit_kw)
+    threads = [threading.Thread(target=ask, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    b.close()
+    return out
+
+
+def lockstep_scheduled(torch, b, rank, prompts, at, n, log=None):
+    """The lock-step batcher by hand under one schedule: rank 0 drives
+    scheduled_streams (stopping the scheduler threads with the stop op,
+    then _sync and _tick a tick; `log` as there) and ends the followers
+    with the stop op; the followers tick with it. -> rank 0's streams
+    (None on the followers)."""
+    if rank != 0:
+        b.thread.join(timeout=120)
+        b._stop = False
+        with torch.no_grad():
+            while b._sync():
+                b._tick()
+        return None
+
+    def tick():
+        with torch.no_grad():
+            b._sync()
+            b._tick()
+    out = scheduled_streams(b, tick, prompts, at, n, log)
+    b._stop = True
+    b._sync()
+    return out
+
+
+def mh_serve_rank(rank, world, tmp, spec, cluster):
+    """13b's in-process rank (f32): JAX's serving plan over the workers
+    (tp MH_TP), this rank's seed-0 shards of llama 1b (serve.rank_params);
+    single-flight generate of spec["oracle_prompt"] and its teacher-forced
+    logits; the lock-step batcher under 5a's staggered schedule, dense,
+    paged with the prefix cache (prompts sharing a prefix), and dense under
+    --shard-kv (the cache's shapes kept); then moe_1b's seed-0 shards, the
+    lock-step batcher under MH_MOE's schedule, rank 0's steps and routing
+    logged. Results to tmp/rank<r>.pt."""
+    import torch
+
+    from gpu_docker_api_tpu_torch import infer
+    from gpu_docker_api_tpu_torch.models import moe
+    from gpu_docker_api_tpu_torch.parallel import comm
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshGroups
+    from gpu_docker_api_tpu_torch.workloads import serve
+
+    device = torch.device(spec["device"])
+    plan = infer.serving_plan(world, MH_TP)
+    groups = MeshGroups.build(plan)
+    wire = comm.AxisGroup.of()
+    cfg = spec["llama"]
+    params, _ = serve.rank_params(cfg, plan, groups, device)
+    res = {"plan": dataclasses.asdict(plan),
+           "param_bytes": sum(leaf_bytes(t) for _, t in
+                              flat_leaves(dict(params)))}
+    prompt = spec["oracle_prompt"].to(device)
+    n = spec["oracle"]["steps"] + 1
+    t0 = time.perf_counter()
+    tokens = infer.generate(params, prompt, cfg, n)
+    res["generate_s"] = time.perf_counter() - t0
+    seq = torch.cat([prompt, tokens[:, :-1]], dim=1)
+    with torch.no_grad():
+        logits, _ = infer._forward_cached(params, seq, infer.init_cache(
+            cfg, seq.shape[0], seq.shape[1], device=device), cfg)
+    res["oracle"] = {"tokens": tokens.cpu(),
+                     "logits": logits[:, prompt.shape[1] - 1:].cpu()}
+    del logits
+    sizes = spec["sizes"]
+    slot_kw = dict(slots=sizes["slots"], max_len=sizes["max_len"])
+    runs = {"staggered": ("plain", {}),
+            "paged, prefix cache": ("shared", dict(
+                kv_block=spec["kv_block"],
+                prefix_cache=sizes["prefix_cache"])),
+            "shard_kv": ("plain", dict(shard_kv=True))}
+    for name, (which, kw) in runs.items():
+        prompts = [p.to(device) for p in spec[which]]
+        b = serve._LockstepBatcher(cfg, params, world=wire, rank=rank,
+                                   seed=spec["seed"], **slot_kw, **kw)
+        record_streams(b)
+        shapes = {k: tuple(b.cache[k].shape) for k in
+                  ("k", "v", "ks", "vs", "lengths", "pages") if k in b.cache}
+        kv_bytes = sum(leaf_bytes(b.cache[k]) for k in ("k", "v", "ks", "vs")
+                       if k in b.cache)
+        t0 = time.perf_counter()
+        out = lockstep_staggered(b, rank, prompts, sizes["new"])
+        res[name] = {"out": out, "recorded": b.recorded,
+                     "cache_shapes": shapes, "kv_bytes": kv_bytes,
+                     "prefix_hits": b.prefix_hits,
+                     "wall_s": time.perf_counter() - t0}
+        del b
+    del params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    mcfg, ms = spec["moe_config"], spec["moe_sizes"]
+    mparams, _ = serve.rank_params(mcfg, plan, groups, device)
+    b = serve._LockstepBatcher(mcfg, mparams, world=wire, rank=rank,
+                               seed=spec["seed"], slots=ms["slots"],
+                               max_len=ms["max_len"])
+    record_streams(b)
+    log = {"events": []} if rank == 0 else None
+    t0 = time.perf_counter()
+    if rank == 0:
+        with RoutingRecorder(moe, log["events"]):
+            out = lockstep_scheduled(
+                torch, b, rank, [p.to(device) for p in spec["moe"]],
+                ms["at"], ms["new"], log)
+        log["events"] = [e if isinstance(e[0], str) else
+                         tuple(t.cpu() for t in e) for e in log["events"]]
+    else:
+        out = lockstep_scheduled(torch, b, rank, None, None, None, None)
+    res["moe"] = {"out": out, "recorded": b.recorded, "log": log,
+                  "wall_s": time.perf_counter() - t0}
+    b.close()
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def mh_references(torch, spec):
+    """13b's one-rank references on the same seed-0 weights (f32): llama
+    1b's solo stream and top-2 gaps of every batcher prompt
+    (solo_reference), generate() of the oracle prompt and the full
+    forward's logits on its tokens (llama_forward through the forward
+    kernel), then moe_1b's one-rank _Batcher under MH_MOE's schedule, its
+    steps and routing logged."""
+    from gpu_docker_api_tpu_torch import infer
+    from gpu_docker_api_tpu_torch.models import family_for, moe
+    from gpu_docker_api_tpu_torch.train import Trainer
+    from gpu_docker_api_tpu_torch.workloads.serve import _Batcher
+
+    device, cfg, ms = spec["device"], spec["llama"], spec["moe_sizes"]
+    params = Trainer.create(cfg, device=device).init_params(0)
+    ref = {"solo": {}}
+    n = spec["sizes"]["new"]
+    for p in spec["plain"] + spec["shared"]:
+        ref["solo"][tuple(p.tolist())] = solo_reference(
+            torch, params, cfg, p.to(device), n)
+    prompt = spec["oracle_prompt"].to(device)
+    tokens = infer.generate(params, prompt, cfg, spec["oracle"]["steps"] + 1)
+    with torch.no_grad():
+        full = family_for(cfg).forward(params, torch.cat(
+            [prompt, tokens[:, :-1]], dim=1), cfg, impl="auto")
+    ref["oracle"] = {"tokens": tokens.cpu(),
+                     "logits": full[:, prompt.shape[1] - 1:].cpu()}
+    del params, full
+    mcfg = spec["moe_config"]
+    mparams = Trainer.create(mcfg, device=device).init_params(0)
+    b = _Batcher(mcfg, mparams, slots=ms["slots"], max_len=ms["max_len"])
+    log = {"events": []}
+    try:
+        def tick():
+            with torch.no_grad():
+                b._tick()
+        with RoutingRecorder(moe, log["events"]):
+            ref["moe"] = scheduled_streams(
+                b, tick, [p.to(device) for p in spec["moe"]], ms["at"],
+                ms["new"], log)
+        log["events"] = [e if isinstance(e[0], str) else
+                         tuple(t.cpu() for t in e) for e in log["events"]]
+        ref["moe_log"] = log
+    finally:
+        b.close()
+    return ref
+
+
+def check_mh_serving(torch, ranks, ref, spec):
+    """13b's f32 checks: single-flight tokens equal to one rank's
+    generate() but at a near tie (the full forward's top-2 gap under
+    TIE_GAP) and logits within F32_TOL of the full forward's; each
+    lock-step stream equal to its solo stream by 5a's near-tie rule, the
+    followers' the same as rank 0's; a prefix hit in the paged run; under
+    --shard-kv each rank's K/V bytes exactly 1/tp of the whole cache's, the
+    kv-head dim cut, the lengths whole; moe_1b's streams against one
+    rank's under the same schedule (schedule_moves). -> readings."""
+    from gpu_docker_api_tpu_torch import infer
+
+    cfg, sizes = spec["llama"], spec["sizes"]
+    out = {"param_bytes_a_rank": [r["param_bytes"] for r in ranks],
+           "generate_s": [r["generate_s"] for r in ranks]}
+    want_bytes = sum(shard_bytes(cfg, {"tp": MH_TP}).values())
+    check(all(b == want_bytes for b in out["param_bytes_a_rank"]),
+          f"13b: a rank holds {out['param_bytes_a_rank']} parameter bytes, "
+          f"want {want_bytes} (each matrix 1/{MH_TP}, the norms whole)")
+    want = ref["oracle"]
+    gaps = want["logits"].topk(2, dim=-1).values
+    gaps = (gaps[..., 0] - gaps[..., 1]).tolist()
+    for r, got in enumerate(ranks):
+        toks = got["oracle"]["tokens"]
+        check(torch.equal(toks, ranks[0]["oracle"]["tokens"]),
+              f"13b single-flight: rank {r}'s tokens differ from rank 0's")
+        for row in range(toks.shape[0]):
+            near_tie_check(toks[row].tolist(), want["tokens"][row].tolist(),
+                           gaps[row], f"13b single-flight row {row}")
+    out["oracle"] = teacher_forced_check(
+        torch, ranks[0]["oracle"]["logits"], want["logits"],
+        ranks[0]["oracle"]["tokens"], F32_TOL, "13b single-flight")
+    for name, which in (("staggered", "plain"),
+                        ("paged, prefix cache", "shared"),
+                        ("shard_kv", "plain")):
+        prompts = spec[which]
+        got = ranks[0][name]
+        ties = sum(near_tie_check(s, *ref["solo"][tuple(p.tolist())],
+                                  f"13b {name}, request {i}")
+                   for i, (s, p) in enumerate(zip(got["out"], prompts)))
+        check(ties <= 1, f"13b {name}: {ties} streams left their solo "
+                         f"streams at near ties (at most 1)")
+        for r in ranks[1:]:
+            check(r[name]["recorded"] == got["recorded"],
+                  f"13b {name}: a follower finished other streams")
+        out[name] = {"near_ties": ties, "wall_s": got["wall_s"],
+                     "prefix_hits": got["prefix_hits"],
+                     "kv_bytes_a_rank": [r[name]["kv_bytes"] for r in ranks]}
+    check(ranks[0]["paged, prefix cache"]["prefix_hits"] >= 1,
+          "13b paged: no prefix hit")
+    whole_kv = sum(math.prod(shape) * dtype.itemsize for shape, dtype, _ in
+                   infer.kv_leaves(cfg, (cfg.n_layers, sizes["slots"],
+                                         sizes["max_len"])).values())
+    for r in ranks:
+        shapes = r["shard_kv"]["cache_shapes"]
+        check(r["shard_kv"]["kv_bytes"] * MH_TP == whole_kv
+              and shapes["k"][-2] == cfg.n_kv_heads // MH_TP
+              and shapes["lengths"] == (sizes["slots"],),
+              f"13b --shard-kv: a rank holds {r['shard_kv']['kv_bytes']} "
+              f"K/V bytes ({shapes}), want {whole_kv} / {MH_TP}")
+        check(r["staggered"]["kv_bytes"] == whole_kv,
+              "13b: the default cache is not whole on every rank")
+    out["whole_kv_bytes"] = whole_kv
+    moved, flips = schedule_moves(ref["moe_log"]["events"],
+                                  ranks[0]["moe"]["log"]["events"], "13b moe")
+    ties, compared = 0, 0
+    for i, (g, d, p) in enumerate(zip(ranks[0]["moe"]["out"], ref["moe"],
+                                      spec["moe"])):
+        key = tuple(p.tolist())
+        m = moved.get(key, len(d))
+        compared += m
+        ties += near_tie_check(g[:m], d[:m], ref["moe_log"]["gaps"][key],
+                               f"13b moe request {i}")
+    check(ties <= 1, f"13b moe: {ties} streams left one rank's at near "
+                     f"ties (at most 1)")
+    check(ranks[1]["moe"]["recorded"] == ranks[0]["moe"]["recorded"],
+          "13b moe: a follower finished other streams")
+    out["moe"] = {"near_ties": ties, "routing_near_ties": flips,
+                  "tokens_compared": compared,
+                  "streams_equal": sum(g == d for g, d in zip(
+                      ranks[0]["moe"]["out"], ref["moe"])),
+                  "wall_s": ranks[0]["moe"]["wall_s"]}
+    return out
+
+
+def mh_http(torch, logs_dir, name="1b", device="cuda", flags=MH_SERVE,
+            traffic=MH_TRAFFIC, timing=MH_TIME):
+    """13b in bf16: serve's multi-host rank (serve._serve_rank) on
+    MW_WORKERS workers of one gloo rank, llama 1b seed-0 shards, MH_SERVE;
+    rank 0 serves HTTP. /healthz reports the whole model and a batching
+    block; a burst (MH_TRAFFIC) answered with the batching headers and
+    counted in /healthz; decode ms a token at B=1 and with 8 slots busy
+    ((t(MH_TIME new) - t(1 new)) / (new - 1)); then SIGINT to rank 0's
+    worker, whose close stops the follower: both exit 0."""
+    import signal
+
+    from gpu_docker_api_tpu_torch.infer import serving_plan
+    from gpu_docker_api_tpu_torch.workloads import serve
+
+    from gpu_docker_api_tpu_torch.models import named_config
+    cfg = named_config("llama", name)
+    port = free_port()
+    args = serve._parser().parse_args(["--config", name, "--host",
+                                       "127.0.0.1", "--port", str(port),
+                                       "--device", device, *flags])
+    plan = serving_plan(MW_WORKERS, MH_TP)
+    procs = start_workers(serve._serve_rank, (args, cfg, None, plan), 1)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        while True:
+            check(all(p.is_alive() for p in procs), "13b: a worker exited")
+            check(time.perf_counter() - t0 < HTTP_DEADLINE_S,
+                  f"13b: no /healthz within {HTTP_DEADLINE_S} s")
+            try:
+                health, _ = http_call(port, "GET", "/healthz")
+                break
+            except OSError:
+                time.sleep(0.5)
+        out["ready_s"] = time.perf_counter() - t0
+        from gpu_docker_api_tpu_torch.workloads.serve import _whole_params
+        check(health["data"]["params"] == _whole_params(cfg)
+              and health["data"]["batching"]["slots"] == 8,
+              f"13b /healthz {health}")
+        requests = http_traffic(cfg.vocab_size, traffic)
+        results, out["burst_s"] = drive_traffic(port, requests,
+                                                traffic["clients"])
+        for (env, hdrs, _), (prompt, new) in zip(results, requests):
+            check(env["code"] == 200 and len(env["data"]["tokens"][0]) == new,
+                  f"13b burst: {env}")
+            check_batching_headers(hdrs, "13b burst")
+        health, _ = http_call(port, "GET", "/healthz")
+        check(health["data"]["batching"]["queueWait"]["count"]
+              == len(requests), f"13b /healthz after the burst {health}")
+        out["tokens_s"] = sum(n for _, n in requests) / out["burst_s"]
+        gen = torch.Generator().manual_seed(17)
+        prompt = torch.randint(0, cfg.vocab_size, (timing["prompt"],),
+                               generator=gen).tolist()
+
+        def timed(rows, new):
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(rows) as ex:
+                t0 = time.perf_counter()
+                list(ex.map(lambda _: http_call(port, "POST", "/generate", {
+                    "tokens": [prompt], "max_new": new}), range(rows)))
+                return time.perf_counter() - t0
+        for rows in (1, 8):
+            timed(rows, 2)                    # warm
+            t1, tn = timed(rows, 1), timed(rows, timing["new"])
+            out[f"decode_ms_b{rows}_gloo_2_workers_one_card"] = (
+                (tn - t1) / (timing["new"] - 1) * 1e3)
+        os.kill(procs[0].pid, signal.SIGINT)
+        out["exit_codes"] = join_workers(procs, 120, "13b stop")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return out
+
+
+# ---- 13c: co-tenancy -----------------------------------------------------------
+
+def cotenancy(torch, cfg, device="cuda", c=COTENANCY):
+    """13c: two llama 1b f32 batchers (seed-0 weights) share chip 0 in this
+    process through its regulator: a best-effort tenant (weight
+    be_weight, decode chunks of decode_chunk) and a latency tenant (weight
+    lat_weight). The best-effort streams start; once it decodes in chunks
+    the latency requests arrive, one after another (cycling over
+    lat_lens) until the best-effort streams are back. Every stream equals
+    its solo stream (5a's near-tie rule); preemptTotal > 0; every
+    best-effort decode taken while contended (should_yield) is a single
+    step. _tick reads should_yield between slices, where a latency waiter
+    is caught only by chance, so one contention is then planted: while a
+    best-effort stream decodes in chunks, two latency arrivals inside one
+    of its admission slices (the chip held); on its release one takes the
+    chip and the other still waits, so that tick's decode must be a single
+    step. Printed with no bound: the tenants' busy seconds, their ratio
+    beside the weights'."""
+    import threading
+
+    from gpu_docker_api_tpu_torch import regulator
+    from gpu_docker_api_tpu_torch.train import Trainer
+    from gpu_docker_api_tpu_torch.workloads.serve import _Batcher
+
+    params = Trainer.create(cfg, device=device).init_params(0)
+    gen = torch.Generator(device=device).manual_seed(31)
+    be_prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                                device=device) for n in c["be_lens"]]
+    lat_prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                                 device=device) for n in c["lat_lens"]]
+    solo = {id(p): solo_reference(torch, params, cfg, p, n) for p, n in
+            [(p, c["be_new"]) for p in be_prompts]
+            + [(p, c["lat_new"]) for p in lat_prompts]}
+    regulator.reset()
+    reg = regulator.for_chip(0)
+    be_t = reg.register("best-effort", c["be_weight"])
+    lat_t = reg.register("latency", c["lat_weight"],
+                         priority=regulator.LATENCY)
+    kw = dict(slots=c["slots"], max_len=c["max_len"])
+    be = _Batcher(cfg, params, decode_chunk=c["decode_chunk"],
+                  regulator=be_t, **kw)
+    lat = _Batcher(cfg, params, regulator=lat_t, **kw)
+    # which decode program each best-effort step took, beside whether the
+    # regulator had just asked it to yield
+    decisions, last = [], [False]
+    should_yield, fn = be_t.should_yield, be._fn
+
+    def asked():
+        last[0] = should_yield()
+        return last[0]
+
+    def logged(name):
+        if name in ("slot_decode", "slot_decode_multi"):
+            decisions.append((last[0], name))
+        return fn(name)
+    be_t.should_yield, be._fn = asked, logged
+    out = {}
+    streams, lat_streams = {}, []
+
+    def ask(b, p, n):
+        streams[id(p)] = b.submit(p, n)
+
+    def latency_traffic(threads):
+        k = 0
+        while k < len(lat_prompts) or any(t.is_alive() for t in threads):
+            p = lat_prompts[k % len(lat_prompts)]
+            lat_streams.append((p, lat.submit(p, c["lat_new"])))
+            k += 1
+    try:
+        threads = [threading.Thread(target=ask, args=(be, p, c["be_new"]),
+                                    daemon=True) for p in be_prompts]
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        while not any(name == "slot_decode_multi" for _, name in decisions):
+            check(time.perf_counter() - t0 < 300,
+                  "13c: the best-effort batcher never decoded in chunks")
+            time.sleep(0.005)
+        lat_thread = threading.Thread(target=latency_traffic,
+                                      args=(threads,), daemon=True)
+        lat_thread.start()
+        for t in threads + [lat_thread]:
+            t.join(timeout=600)
+        check(len(streams) == len(be_prompts)
+              and len(lat_streams) >= len(lat_prompts),
+              "13c: a request did not return")
+        planted, planted_stream = plant_contention(torch, be, reg, decisions,
+                                                   be_prompts[0], c)
+    finally:
+        be.close()
+        lat.close()
+    d = reg.describe()
+    be_t.unregister()
+    lat_t.unregister()
+    ties = sum(near_tie_check(got, *solo[id(p)], f"13c request {i}")
+               for i, (p, got) in enumerate(
+                   [(p, streams[id(p)]) for p in be_prompts] + lat_streams))
+    check(ties <= 1, f"13c: {ties} streams left their solo streams at near "
+                     f"ties (at most 1)")
+    ties += near_tie_check(planted_stream, *solo[id(be_prompts[0])],
+                           "13c planted contention's stream")
+    contended = [name for yielded, name in decisions if yielded]
+    check(d["preemptTotal"] > 0, f"13c: no preemption {d}")
+    check(all(n == "slot_decode" for n in contended)
+          and planted == (True, "slot_decode"),
+          f"13c: best-effort decodes while contended {contended}, at the "
+          f"planted contention {planted}")
+    busy = {t["name"]: t["busySeconds"] for t in d["tenants"]}
+    out.update(near_ties=ties, preempt_total=d["preemptTotal"],
+               latency_requests=len(lat_streams),
+               contended_single_steps=len(contended),
+               planted_contention=list(planted),
+               chunked_steps=sum(n == "slot_decode_multi"
+                                 for _, n in decisions),
+               busy_seconds=busy,
+               busy_ratio=busy["best-effort"] / max(busy["latency"], 1e-9),
+               weight_ratio=c["be_weight"] / c["lat_weight"],
+               tenants=d["tenants"])
+    return out
+
+
+def plant_contention(torch, be, reg, decisions, prompt, c):
+    """13c's planted contention (cotenancy): a best-effort stream of
+    `prompt` through `be`; once it decodes in chunks, two latency tenants
+    arrive inside its next admission slice (each then holds the chip for
+    50 ms). -> (the decision of that tick: (should_yield, the decode
+    program), the stream)."""
+    import threading
+
+    from gpu_docker_api_tpu_torch import regulator
+    armed, at, admit = threading.Event(), [], be._admit
+
+    def hold(t):
+        t.acquire()
+        time.sleep(0.05)
+        t.release()
+
+    def admit_planted():
+        if armed.is_set():          # inside the slice: the chip is held
+            armed.clear()
+            probes = [reg.register(f"latency-probe{i}", 1,
+                                   priority=regulator.LATENCY)
+                      for i in range(2)]
+            for t in probes:
+                threading.Thread(target=hold, args=(t,), daemon=True).start()
+                t0 = time.perf_counter()
+                while not t.waiting:
+                    check(time.perf_counter() - t0 < 60,
+                          "13c: a planted latency tenant never waited")
+                    time.sleep(0.001)
+            at.append((len(decisions), probes))
+        return admit()
+    be._admit = admit_planted
+    out = []
+    start = len(decisions)
+    asker = threading.Thread(target=lambda: out.append(
+        be.submit(prompt, c["be_new"])), daemon=True)
+    asker.start()
+    t0 = time.perf_counter()
+    while not any(n == "slot_decode_multi" for _, n in decisions[start:]):
+        check(time.perf_counter() - t0 < 300 and asker.is_alive(),
+              "13c: the planted stream never decoded in chunks")
+        time.sleep(0.001)
+    armed.set()
+    asker.join(timeout=600)
+    check(out and at and len(decisions) > at[0][0],
+          "13c: the planted contention did not happen")
+    for t in at[0][1]:
+        t.unregister()
+    return decisions[at[0][0]], out[0]
+
+
+def cotenancy_serve(logs_dir, name="1b", extra=()):
+    """13c: `serve --config 1b --batch-slots 4` with TDAPI_TPU_SHARES=2
+    starts, prints the co-tenancy line and serves a request."""
+    proc, port, log_path = spawn_serve(
+        name, logs_dir, ["--batch-slots", "4", *extra],
+        env=dict(os.environ, TDAPI_TPU_SHARES="2"),
+        log_name="serve_cotenant.log")
+    proc, port, ready_s, health = wait_serve(proc, port, log_path)
+    try:
+        env, hdrs = http_call(port, "POST", "/generate",
+                              {"tokens": [[5, 9, 2, 7]], "max_new": 4})
+        check(env["code"] == 200 and len(env["data"]["tokens"][0]) == 4,
+              f"13c serve: {env}")
+        check_batching_headers(hdrs, "13c serve")
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    log = open(log_path, encoding="utf-8").read()
+    check("chip co-tenancy: weight 2, class best_effort" in log,
+          f"13c serve: no co-tenancy line in {log[-2000:]}")
+    return {"ready_s": ready_s}
+
+
+def phase_multiworker(torch, att, one, one_rank_times, device="cuda",
+                      scale=None):
+    """Phase 13: multi-worker grants. 13a multi-worker training
+    (phase_multiworker_train, against the one-rank run `one` of its
+    config on the same batches), 13b
+    multi-host serving (f32 in-process ranks against one rank's
+    references, then bf16 over HTTP: decode times printed beside
+    `one_rank_times`, phase 4's and 5's one-rank readings), 13c
+    co-tenancy. `scale` overrides MW_SCALE's configs and sizes (a small
+    run on the CPU)."""
+    from gpu_docker_api_tpu_torch.models import named_config
+    sc = dict(MW_SCALE, **(scale or {}))
+    print(f"phase 13: multi-worker grants ({MW_WORKERS} workers formed from "
+          f"their contract envs on this card, gloo)", flush=True)
+    wall = {}
+    t0 = time.perf_counter()
+    train = phase_multiworker_train(torch, att, one, device, sc["config"],
+                                    sc["train"])
+    wall["13a_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    f32 = dict(dtype=torch.float32)
+    cfg = dataclasses.replace(named_config("llama", sc["llama"]), **f32)
+    mcfg = dataclasses.replace(named_config("moe", sc["moe"]), **f32)
+    gen = torch.Generator().manual_seed(21)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+    sizes, ms, oracle = sc["sizes"], sc["moe_sizes"], sc["oracle"]
+    base = prompt(sizes["prefix"])
+    spec = {"device": f"{device}:0" if device == "cuda" else device,
+            "seed": 9, "llama": cfg, "moe_config": mcfg, "sizes": sizes,
+            "moe_sizes": ms, "oracle": oracle, "kv_block": sc["kv_block"],
+            "plain": [prompt(n) for n in sizes["lens"]],
+            "shared": [torch.cat([base, prompt(n)])
+                       for n in sizes["suffixes"]],
+            "oracle_prompt": torch.randint(
+                0, cfg.vocab_size, (oracle["b"], oracle["prompt"]),
+                generator=gen),
+            "moe": [torch.randint(0, mcfg.vocab_size, (n,), generator=gen)
+                    for n in ms["lens"]]}
+    print(f"  13b: multi-host serving over {MW_WORKERS} workers, tp "
+          f"{MH_TP}: f32 ranks (llama {sc['llama']} oracle {oracle}, 5a's "
+          f"schedule {sizes}, moe {sc['moe']} {ms}), then bf16 HTTP "
+          f"{' '.join(sc['serve'])} {sc['traffic']}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = start_workers(mh_serve_rank, (tmp, spec), 1)
+        ref = mh_references(torch, spec)
+        wall["13b_refs_s"] = time.perf_counter() - t0
+        join_workers(procs, MW_DEADLINE_S, "13b ranks")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(MW_WORKERS)]
+    serving = check_mh_serving(torch, ranks, ref, spec)
+    wall["13b_f32_s"] = time.perf_counter() - t0
+    print(f"  13b f32: {serving}", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as logs:
+        serving["http"] = mh_http(torch, logs, sc["llama"], device,
+                                  sc["serve"], sc["traffic"], sc["time"])
+    serving["http"]["one_rank"] = one_rank_times
+    wall["13b_http_s"] = time.perf_counter() - t0
+    print(f"  13b HTTP (bf16; gloo, 2 workers on one card): "
+          f"{serving['http']}", flush=True)
+
+    t0 = time.perf_counter()
+    co = cotenancy(torch, cfg, device, sc["cotenancy"])
+    with tempfile.TemporaryDirectory() as logs:
+        co["serve"] = cotenancy_serve(
+            logs, sc["llama"], () if device == "cuda" else ("--device", device))
+    wall["13c_s"] = time.perf_counter() - t0
+    print(f"  13c co-tenancy: {co}", flush=True)
+    print(f"  phase 13 wall time {wall}", flush=True)
+    return {"train": train, "serve": serving, "cotenancy": co,
+            "wall": wall}
 
 
 def build_kernels(torch):
@@ -3945,6 +4832,15 @@ def main() -> int:
         ep = phase_ep(torch, att)
         before_pp = time.perf_counter() - start
         pp = phase_pp(torch, att)
+        before_mw = time.perf_counter() - start
+        mw_one = sp_train(torch, "cuda", smoke_config(MW_CONFIG), FSDP_TRAIN,
+                          "ring")
+        torch.cuda.empty_cache()
+        mw = phase_multiworker(torch, att, mw_one, {
+            "phase4_bf16_b1_decode_ms": serve["times"]["bf16_b1"]["decode_ms"],
+            "phase4_bf16_b8_decode_ms": serve["times"]["bf16_b8"]["decode_ms"],
+            "phase5_8_slot_step_ms":
+                batching["busy"]["decode_chunk_1"]["step_ms"]})
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -3962,6 +4858,9 @@ def main() -> int:
             "launches_tp": fsdp_kernel_launches(tp, name),
             "launches_ep": fsdp_kernel_launches(ep, name),
             "launches_pp": fsdp_kernel_launches(pp, name),
+            "launches_multiworker": [
+                launches[name]
+                for launches in mw["train"]["launches_a_step"]],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": bnd[name][0],
             "bound_by": bnd[name][1], "library_ms": k["library_ms"]})
@@ -3982,10 +4881,12 @@ def main() -> int:
     print(json.dumps({"tp": tp}), flush=True)
     print(json.dumps({"ep": ep}), flush=True)
     print(json.dumps({"pp": pp}), flush=True)
+    print(json.dumps({"multiworker": mw}, default=str), flush=True)
     wall = time.perf_counter() - start
     print(f"wall time: the whole script {wall:.1f} s, phases 0-10 "
           f"{before_ep:.1f} s, phase 11 {before_pp - before_ep:.1f} s, "
-          f"phase 12 {wall - before_pp:.1f} s", flush=True)
+          f"phase 12 {before_mw - before_pp:.1f} s, phase 13 "
+          f"{wall - before_mw:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

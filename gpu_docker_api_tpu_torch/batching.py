@@ -31,32 +31,74 @@ Differences from the JAX version:
 PrefixTrie, the radix index of the paged block pool (paging.py), is the JAX
 class as it is: host-side Python.
 
-Not ported: kv_shard_specs (multi-host). Every public function runs under
-torch.no_grad().
+Over ranks (multi-host serving, infer.RankParams) every function runs on
+the rank's shards as infer.py does; a cache the lock-step batcher builds
+with kv_tp > 1 (serve --shard-kv) holds the rank's kv heads only, cut as
+kv_shard_specs names, the one definition of that layout (dense and paged
+caches, target only). Every public function runs under torch.no_grad().
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from .device import resolve_device
-from .infer import (Frontiers, _categorical, _checked_length,
-                    _forward_cached, _run_layers, init_cache)
+from .infer import (Frontiers, _categorical, _checked_length, _embed,
+                    _forward_cached, _llama_view, _run_layers, alloc_leaves,
+                    kv_leaves)
 from .models.llama import rope_frequencies
+
+
+def kv_shard_specs(shapes: dict, axis: str = "tp") -> dict:
+    """{name: spec} of a cache's leaves ({name: shape}) under serve
+    --shard-kv: the K/V buffers and their kv8 scales cut over `axis` on
+    the kv-head dim, always ndim-2 in every layout (dense
+    [L,slots,T,Hkv,D], paged pool [L,blocks,blk,Hkv,D], scales
+    [...,Hkv,1]); every other leaf (lengths, page tables) whole. A spec is
+    a tuple with one entry per dim, an axis name or None (mesh.py's
+    rules). The one definition of the cut cache's layout: the slot and
+    paged caches are built through it (kv_buffers)."""
+    out = {}
+    for key, shape in shapes.items():
+        spec = [None] * len(shape)
+        if key in ("k", "v", "ks", "vs"):
+            spec[len(shape) - 2] = axis
+        out[key] = tuple(spec)
+    return out
+
+
+def kv_buffers(config, lead: tuple, quantized: bool, device,
+               kv_tp: int = 1) -> dict:
+    """The K/V buffers of a cache of leading dims `lead` (infer.kv_leaves)
+    on `device`; with kv_tp > 1 one tp rank's of them, each dim
+    kv_shard_specs cuts divided by kv_tp (which must divide it)."""
+    leaves = kv_leaves(config, lead, quantized)
+    if kv_tp > 1:
+        specs = kv_shard_specs({k: shape for k, (shape, _, _)
+                                in leaves.items()})
+        cut = {}
+        for k, (shape, dtype, fill) in leaves.items():
+            if any(n % kv_tp for n, a in zip(shape, specs[k]) if a):
+                raise ValueError(f"cache {k} {shape} does not cut over "
+                                 f"tp {kv_tp} as {specs[k]}")
+            cut[k] = (tuple(n // kv_tp if a else n
+                            for n, a in zip(shape, specs[k])), dtype, fill)
+        leaves = cut
+    return alloc_leaves(leaves, device)
 
 
 @torch.no_grad()
 def init_slot_cache(config, slots: int, max_len: int,
-                    quantized: bool = False, device=None) -> dict:
+                    quantized: bool = False, device=None,
+                    kv_tp: int = 1) -> dict:
     """Cache of `slots` rows, each up to max_len tokens, with per-row
     lengths, on `device` (None: the card, raising without one).
     quantized=True stores K/V as int8 with per-token-per-head f32 scales
-    ("ks"/"vs"), the layout of infer.init_cache."""
+    ("ks"/"vs"), the layout of infer.init_cache. kv_tp > 1: one tp rank's
+    kv heads (kv_buffers)."""
     dev = resolve_device(device)
-    cache = init_cache(config, slots, max_len, quantized=quantized,
-                       device=dev)
-    del cache["length"], cache["host_length"]
+    cache = kv_buffers(config, (_llama_view(config).n_layers, slots,
+                                max_len), quantized, dev, kv_tp)
     cache["lengths"] = torch.zeros(slots, dtype=torch.int32, device=dev)
     cache["host_lengths"] = [0] * slots
     return cache
@@ -154,7 +196,7 @@ def _slot_decode_core(params, tokens, cache, active, config, dev_active=None):
     if dev_active is None:
         active, dev_active = _active(active, tokens.device)
     fr = Frontiers(cache["host_lengths"], cache["lengths"])
-    x = F.embedding(tokens[:, None], params["embed"])        # [slots,1,D]
+    x = _embed(params, tokens[:, None])                       # [slots,1,D]
     cos, sin = rope_frequencies(config, fr.dev)               # [slots, d/2]
     logits = _run_layers(params, x, cache, fr, config, cos[:, None],
                          sin[:, None], active=active)
@@ -274,7 +316,7 @@ def slot_verify(params, blocks, cache, active, config):
     t = blocks.shape[1]
     active, dev_active = _active(active, blocks.device)
     fr = Frontiers(cache["host_lengths"], cache["lengths"])
-    x = F.embedding(blocks, params["embed"])                  # [slots,T,D]
+    x = _embed(params, blocks)                                # [slots,T,D]
     rows = fr.dev[:, None] + torch.arange(t, device=blocks.device)
     cos, sin = rope_frequencies(config, rows)                 # [slots,T,d/2]
     logits = _run_layers(params, x, cache, fr, config, cos, sin,

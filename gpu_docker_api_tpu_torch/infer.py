@@ -29,6 +29,20 @@ every token.
 MoE layers route the B x T tokens of each step together through
 models/moe.moe_block (one capacity over the whole step, as in the JAX
 package) and drop its aux losses.
+
+Over ranks (multi-host serving: serving_plan, RankParams) the served
+weights are one rank's shards under JAX's serving plan, tp Megatron-style
+and fsdp over the rest: each layer's fsdp shards are gathered in the
+layer, as in training; wq/wk/wv and w1/w3 are the rank's columns and
+wo/w2 its rows, summed over tp (comm.reduce_from_group, in f32); the
+embedding is vocab-parallel and the head's vocab shards are gathered whole
+for the pick; MoE banks are cut over tp on F, their outputs summed over tp
+before the gates weigh them (moe_block). Each rank attends only its own q
+heads (both head counts divide by tp; else q, k and v are gathered whole,
+training's fallback). A cache that holds every kv head (the default, as
+the JAX lock-step batcher replicates it) is written whole, the rank's new
+K/V gathered over tp first; a cache cut over tp on the kv-head dim
+(serve --shard-kv, batching.kv_shard_specs) holds the rank's own.
 """
 
 from __future__ import annotations
@@ -41,14 +55,115 @@ import torch.nn.functional as F
 
 from .device import resolve_device
 from .models import family_for
-from .models.llama import LlamaConfig, apply_rope, rms_norm, rope_frequencies
+from .models.llama import (LlamaConfig, apply_rope, embed_tokens, gather,
+                           head_logits, rms_norm, rope_frequencies, sharded)
 from .models.moe import MoEConfig, moe_block
 from .ops.quant import _round_int8, qmatmul
+from .parallel import comm
+from .parallel.mesh import MeshPlan, best_tp_for, head_axis_for
 
 
 def _llama_view(config) -> LlamaConfig:
     """The attention-side config of either family."""
     return config.as_llama() if isinstance(config, MoEConfig) else config
+
+
+# ---- serving over ranks -----------------------------------------------------
+
+class RankParams(dict):
+    """One rank's served weights under a serving plan: its shards of the
+    parameter tree (the Trainer's layout, train.param_specs) and, as
+    `groups`, its MeshGroups, over whose fsdp and tp groups every cached
+    forward on these weights runs its collectives. Every rank of the plan
+    calls each function together, in the same order."""
+
+    def __init__(self, params: dict, groups):
+        super().__init__(params)
+        self.groups = groups
+
+
+def serving_plan(n_devices: int, tp: int = 0) -> MeshPlan:
+    """JAX's multi-host serving plan over n_devices: tp as asked (0:
+    best_tp_for the devices), fsdp the rest (MeshPlan.auto)."""
+    return MeshPlan.auto(n_devices, tp=tp or best_tp_for(n_devices))
+
+
+def _groups(params):
+    """(fsdp, tp) AxisGroups of served weights (None, None on one rank)."""
+    g = getattr(params, "groups", None)
+    return (g.fsdp, g.tp) if g is not None else (None, None)
+
+
+def _embed(params, tokens):
+    """The embedding of tokens [B, T]: on one rank a lookup; over ranks
+    the table gathered over fsdp and looked up vocab-parallel over tp."""
+    fsdp, tp = _groups(params)
+    if fsdp is None and tp is None:
+        return F.embedding(tokens, params["embed"])
+    return embed_tokens(params, tokens, fsdp, tp)
+
+
+def _head(params, x, config):
+    """Final norm and lm_head -> logits f32 over the whole vocab (over
+    ranks the vocab shards gathered whole)."""
+    fsdp, tp = _groups(params)
+    c = _llama_view(config)
+    if fsdp is None and tp is None:
+        x = rms_norm(x, params["final_norm"], c.norm_eps)
+        return qmatmul(x, params["lm_head"]).float()
+    logits = head_logits(params, x, c, fsdp, tp)
+    if sharded(tp):
+        logits, = comm.all_gather([logits], [logits.dim() - 1], tp)
+    return logits
+
+
+def _split_heads(config, tp) -> bool:
+    """Each tp rank computes its own heads (head_axis_for); False on one
+    rank or under the head-gather fallback."""
+    c = _llama_view(config)
+    return (sharded(tp)
+            and head_axis_for(tp.size, c.n_heads, c.n_kv_heads) == "tp")
+
+
+def _kv_for_cache(k, v, cache_heads: int, tp):
+    """A layer's new k, v [B,T,hk,D] as a cache of `cache_heads` kv heads
+    stores them: as they are, or, where the cache holds every head and the
+    rank computed its own, gathered over tp in one collective."""
+    if k.shape[2] == cache_heads:
+        return k, v
+    return comm.all_gather((k, v), (2, 2), tp)
+
+
+def _rank_heads(buf, hk: int, tp):
+    """This rank's hk kv heads of a cache buffer [..., heads, X] (a view;
+    the buffer itself when it holds only those)."""
+    if buf is None or buf.shape[-2] == hk:
+        return buf
+    lo = tp.rank * hk
+    return buf[..., lo:lo + hk, :]
+
+
+# ---- the cache --------------------------------------------------------------
+
+def kv_leaves(config, lead: tuple, quantized: bool = False) -> dict:
+    """{name: (shape, dtype, fill)} of a cache's K/V buffers of leading
+    dims `lead` ([L, batch, S_max] dense, [L, blocks, block] paged), each
+    [*lead, Hkv, D]; quantized: int8 K/V and per-token-per-head f32
+    scales [*lead, Hkv, 1] (ones until written)."""
+    c = _llama_view(config)
+    shape = (*lead, c.n_kv_heads, c.head_dim)
+    if not quantized:
+        return {"k": (shape, c.dtype, 0), "v": (shape, c.dtype, 0)}
+    sshape = shape[:-1] + (1,)
+    return {"k": (shape, torch.int8, 0), "v": (shape, torch.int8, 0),
+            "ks": (sshape, torch.float32, 1),
+            "vs": (sshape, torch.float32, 1)}
+
+
+def alloc_leaves(leaves: dict, device) -> dict:
+    """The buffers of kv_leaves on `device`."""
+    return {name: torch.full(shape, fill, dtype=dtype, device=device)
+            for name, (shape, dtype, fill) in leaves.items()}
 
 
 @torch.no_grad()
@@ -63,18 +178,11 @@ def init_cache(config, batch: int, max_len: int, quantized: bool = False,
     from the cache."""
     dev = resolve_device(device)
     c = _llama_view(config)
-    shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.head_dim)
-    length = torch.zeros((), dtype=torch.int32, device=dev)
-    if not quantized:
-        return {"k": torch.zeros(shape, dtype=c.dtype, device=dev),
-                "v": torch.zeros(shape, dtype=c.dtype, device=dev),
-                "length": length, "host_length": 0}
-    sshape = shape[:-1] + (1,)
-    return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
-            "v": torch.zeros(shape, dtype=torch.int8, device=dev),
-            "ks": torch.ones(sshape, dtype=torch.float32, device=dev),
-            "vs": torch.ones(sshape, dtype=torch.float32, device=dev),
-            "length": length, "host_length": 0}
+    cache = alloc_leaves(kv_leaves(config, (c.n_layers, batch, max_len),
+                                   quantized), dev)
+    cache["length"] = torch.zeros((), dtype=torch.int32, device=dev)
+    cache["host_length"] = 0
+    return cache
 
 
 def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -245,13 +353,16 @@ def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
 
 
 def _layer_step(x, layer, cache_k, cache_v, pos, config, cos, sin,
-                scale_k=None, scale_v=None, active=None):
+                scale_k=None, scale_v=None, active=None, tp=None):
     """One decoder layer over a T-token slice with cache read + write.
     x [B,T,D]; cache_k/v [B,S_max,Hkv,D] (this layer's views, written in
     place); pos = absolute start position (int, or Frontiers / [B] per
     row). With scale_k/scale_v (int8 cache) new K/V quantize on write.
-    Returns x."""
-    q, k, v = _qkv(x, layer, config, cos, sin)
+    Under a `tp` group the layer's weights are this rank's slices and it
+    attends its own heads. Returns x."""
+    q, k, v = _qkv(x, layer, config, cos, sin, tp)
+    hk = k.shape[2]
+    k, v = _kv_for_cache(k, v, cache_k.shape[-2], tp)
     if scale_k is not None:
         k, ks_new = _quantize_kv(k)
         v, vs_new = _quantize_kv(v)
@@ -259,38 +370,56 @@ def _layer_step(x, layer, cache_k, cache_v, pos, config, cos, sin,
         _cache_write(scale_v, vs_new, pos)
     _cache_write(cache_k, k, pos)
     _cache_write(cache_v, v, pos)
-    out = _attend_cached(q, cache_k, cache_v, pos, scale_k, scale_v,
+    kb, vb, sk, sv = (_rank_heads(b, hk, tp)
+                      for b in (cache_k, cache_v, scale_k, scale_v))
+    out = _attend_cached(q, kb, vb, pos, sk, sv,
                          window=_llama_view(config).sliding_window,
                          active=active)
-    return _out_and_mlp(x, out, layer, config)
+    return _out_and_mlp(x, out, layer, config, tp)
 
 
-def _qkv(x, layer, config, cos, sin):
+def _qkv(x, layer, config, cos, sin, tp=None):
     """The attention inputs of one decoder layer over x [B,T,D]: q
-    [B,T,H,D] and k [B,T,Hkv,D] with RoPE applied, v [B,T,Hkv,D]."""
+    [B,T,H,D] and k [B,T,Hkv,D] with RoPE applied, v [B,T,Hkv,D]; under a
+    `tp` group this rank's H/tp and Hkv/tp heads (its columns of wq, wk,
+    wv), or under the fallback every head (the columns gathered)."""
     c = _llama_view(config)
     b, t, _ = x.shape
     h = rms_norm(x, layer["attn_norm"], c.norm_eps)
     # qmatmul == `@` for dense weights; the int8 path for quantized serving
-    q = qmatmul(h, layer["wq"]).reshape(b, t, c.n_heads, c.head_dim)
-    k = qmatmul(h, layer["wk"]).reshape(b, t, c.n_kv_heads, c.head_dim)
-    v = qmatmul(h, layer["wv"]).reshape(b, t, c.n_kv_heads, c.head_dim)
+    q, k, v = (qmatmul(h, layer[w]) for w in ("wq", "wk", "wv"))
+    cut = tp.size if _split_heads(config, tp) else 1
+    if sharded(tp) and cut == 1:
+        q, k, v = comm.all_gather((q, k, v), (2, 2, 2), tp)
+    q = q.reshape(b, t, c.n_heads // cut, c.head_dim)
+    k = k.reshape(b, t, c.n_kv_heads // cut, c.head_dim)
+    v = v.reshape(b, t, c.n_kv_heads // cut, c.head_dim)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _out_and_mlp(x, out, layer, config):
+def _row_parallel(h, w, tp):
+    """h @ w, summed over tp (in f32) where w is this rank's rows."""
+    out = qmatmul(h, w)
+    return comm.reduce_from_group(out, tp) if sharded(tp) else out
+
+
+def _out_and_mlp(x, out, layer, config, tp=None):
     """The rest of the decoder layer after the attention output out
-    [B,T,H,D]: the output projection and the family's FFN (the dense MLP,
-    or the MoE block over the B x T tokens, its aux losses dropped), each
-    residual."""
+    [B,T,H,D] (under tp this rank's heads, or every head under the
+    fallback, of which it keeps its rows of wo): the output projection and
+    the family's FFN (the dense MLP, or the MoE block over the B x T
+    tokens, its aux losses dropped), each residual."""
     c = _llama_view(config)
     b, t, _ = x.shape
-    x = x + qmatmul(out.reshape(b, t, c.n_heads * c.head_dim), layer["wo"])
+    out = out.reshape(b, t, -1)
+    if sharded(tp) and not _split_heads(config, tp):
+        out = out.chunk(tp.size, dim=-1)[tp.rank]
+    x = x + _row_parallel(out, layer["wo"], tp)
     if "we1" in layer:
-        return moe_block(x, layer, config)[0]
+        return moe_block(x, layer, config, tp=tp)[0]
     hm = rms_norm(x, layer["mlp_norm"], c.norm_eps)
-    return x + qmatmul(F.silu(qmatmul(hm, layer["w1"]))
-                       * qmatmul(hm, layer["w3"]), layer["w2"])
+    return x + _row_parallel(F.silu(qmatmul(hm, layer["w1"]))
+                             * qmatmul(hm, layer["w3"]), layer["w2"], tp)
 
 
 def _host_length(cache) -> int:
@@ -304,7 +433,7 @@ def _forward_cached(params, tokens, cache, config, last_only=False):
     position when last_only, and the cache dict with its lengths moved)."""
     t = tokens.shape[1]
     pos = _host_length(cache)
-    x = F.embedding(tokens, params["embed"])
+    x = _embed(params, tokens)
     cos, sin = rope_frequencies(
         _llama_view(config), torch.arange(pos, pos + t, device=tokens.device))
     logits = _run_layers(params, x, cache, pos, config, cos, sin,
@@ -320,22 +449,26 @@ def _run_layers(params, x, cache, pos, config, cos, sin, active=None,
     in place at `pos` (int, or Frontiers per row), then the final norm and
     lm_head: logits [B,T,V] f32 ([B,1,V] of the last position when
     last_only). `layer_step` (default _layer_step) runs one layer on its
-    cache buffers: the paged cache (paging.py) gives its own."""
+    cache buffers: the paged cache (paging.py) gives its own. Over ranks
+    (RankParams) each layer's fsdp shards are gathered before it runs."""
     c = config
     layers = params["layers"]
-    keys = family_for(config).layer_keys
+    family = family_for(config)
+    keys = family.layer_keys
+    kinds = [family.param_kinds(config)["layers"][name] for name in keys]
+    fsdp, tp = _groups(params)
     stacks = [layers[name].unbind(0) for name in keys]
     quantized = "ks" in cache
     layer_step = layer_step or _layer_step
     for i, weights in enumerate(zip(*stacks)):
+        weights = gather(weights, kinds, fsdp)
         scales = (cache["ks"][i], cache["vs"][i]) if quantized else ()
         x = layer_step(x, dict(zip(keys, weights)), cache["k"][i],
                         cache["v"][i], pos, c, cos, sin, *scales,
-                        active=active)
+                        active=active, tp=tp)
     if last_only:
         x = x[:, -1:]
-    x = rms_norm(x, params["final_norm"], c.norm_eps)
-    return qmatmul(x, params["lm_head"]).float()
+    return _head(params, x, c)
 
 
 def _checked_length(cache, new_tokens: int) -> None:

@@ -34,42 +34,38 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .batching import (_active, _advance, _buf_keys, _set_length,
-                       make_decode_multi, make_decode_pick, to_device)
+                       kv_buffers, make_decode_multi, make_decode_pick,
+                       to_device)
 from .device import resolve_device
-from .infer import (Frontiers, _llama_view, _out_and_mlp, _qkv,
-                    _quantize_kv, _run_layers, _softmax_attend)
+from .infer import (Frontiers, _embed, _kv_for_cache, _llama_view,
+                    _out_and_mlp, _qkv, _quantize_kv, _rank_heads,
+                    _run_layers, _softmax_attend)
 from .models.llama import rope_frequencies
 
 
 @torch.no_grad()
 def init_paged_cache(config, n_blocks: int, block_size: int, slots: int,
                      max_pages: int, quantized: bool = False,
-                     device=None) -> dict:
+                     device=None, kv_tp: int = 1) -> dict:
     """Block pool + per-slot page tables on `device` (None: the card,
     raising without one). Pool memory = n_blocks x block_size tokens of KV
     per layer, independent of slots and max_len. pages[s, j] is the pool
     block backing token positions [j*block, (j+1)*block) of slot s; 0 is
-    the scratch block."""
+    the scratch block. kv_tp > 1: one tp rank's kv heads of the pool
+    (batching.kv_buffers); the page tables stay whole."""
     dev = resolve_device(device)
     c = _llama_view(config)
-    shape = (c.n_layers, n_blocks, block_size, c.n_kv_heads, c.head_dim)
-    dtype = torch.int8 if quantized else c.dtype
-    out = {
-        "k": torch.zeros(shape, dtype=dtype, device=dev),
-        "v": torch.zeros(shape, dtype=dtype, device=dev),
+    out = kv_buffers(config, (c.n_layers, n_blocks, block_size), quantized,
+                     dev, kv_tp)
+    out.update({
         "pages": torch.zeros((slots, max_pages), dtype=torch.int32,
                              device=dev),
         "lengths": torch.zeros(slots, dtype=torch.int32, device=dev),
         "host_lengths": [0] * slots,
         "host_pages": [[0] * max_pages for _ in range(slots)],
-    }
-    if quantized:
-        sshape = shape[:-1] + (1,)
-        out["ks"] = torch.ones(sshape, dtype=torch.float32, device=dev)
-        out["vs"] = torch.ones(sshape, dtype=torch.float32, device=dev)
+    })
     return out
 
 
@@ -135,10 +131,12 @@ class _Step:
 
 
 def _paged_layer_step(x, layer, pool_k, pool_v, step, config, cos, sin,
-                      scale_k=None, scale_v=None, active=None):
+                      scale_k=None, scale_v=None, active=None, tp=None):
     """One decoder layer over a T-token slice with paged cache read and
     write: the paged twin of infer._layer_step (step: the _Step)."""
-    q, k, v = _qkv(x, layer, config, cos, sin)
+    q, k, v = _qkv(x, layer, config, cos, sin, tp)
+    hk = k.shape[2]
+    k, v = _kv_for_cache(k, v, pool_k.shape[-2], tp)
     if scale_k is not None:
         k, ks_new = _quantize_kv(k)
         v, vs_new = _quantize_kv(v)
@@ -146,8 +144,9 @@ def _paged_layer_step(x, layer, pool_k, pool_v, step, config, cos, sin,
         step.write(scale_v, vs_new)
     step.write(pool_k, k)
     step.write(pool_v, v)
-    out = step.attend(q, pool_k, pool_v, scale_k, scale_v)
-    return _out_and_mlp(x, out, layer, config)
+    out = step.attend(q, *(_rank_heads(b, hk, tp)
+                           for b in (pool_k, pool_v, scale_k, scale_v)))
+    return _out_and_mlp(x, out, layer, config, tp)
 
 
 def _block(cache) -> int:
@@ -171,7 +170,7 @@ def paged_prefill(params, prompt, cache, slot: int, config,
     dev = prompt.device
     fr = Frontiers([start], to_device([start], torch.int32, dev))
     step = _Step(cache["pages"][slot:slot + 1], blk, fr, t)
-    x = F.embedding(prompt, params["embed"])
+    x = _embed(params, prompt)
     cos, sin = rope_frequencies(config, torch.arange(start, start + t,
                                                      device=dev))
     logits = _run_layers(params, x, cache, step, config, cos, sin,
@@ -189,7 +188,7 @@ def _paged_decode_core(params, tokens, cache, active, config,
         active, dev_active = _active(active, tokens.device)
     fr = Frontiers(cache["host_lengths"], cache["lengths"])
     step = _Step(cache["pages"], _block(cache), fr, 1, active, dev_active)
-    x = F.embedding(tokens[:, None], params["embed"])         # [slots,1,D]
+    x = _embed(params, tokens[:, None])                        # [slots,1,D]
     cos, sin = rope_frequencies(config, fr.dev)
     logits = _run_layers(params, x, cache, step, config, cos[:, None],
                          sin[:, None], layer_step=_paged_layer_step)
@@ -223,7 +222,7 @@ def paged_verify(params, blocks, cache, active, config):
     active, dev_active = _active(active, blocks.device)
     fr = Frontiers(cache["host_lengths"], cache["lengths"])
     step = _Step(cache["pages"], _block(cache), fr, t, active, dev_active)
-    x = F.embedding(blocks, params["embed"])                  # [slots,T,D]
+    x = _embed(params, blocks)                                # [slots,T,D]
     cos, sin = rope_frequencies(config, step.rows)            # [slots,T,d/2]
     logits = _run_layers(params, x, cache, step, config, cos, sin,
                          layer_step=_paged_layer_step)

@@ -34,6 +34,10 @@ their transpose:
   routing counts (no gradient; MoE's global routing).
 - all_reduce_sum and all_reduce_max: in place, no gradient, for the
   trainer (the sum bucketed through a flat buffer).
+- broadcast_one_to_all(tensors, g): JAX's multihost_utils.
+  broadcast_one_to_all, fixed-shape tensors from the group's rank 0 to
+  every rank in one collective (the multi-host serving engine's per-tick
+  and per-request wire).
 
 Transport: on an NCCL group the tensors go as they are. On a gloo group a
 CUDA tensor goes through a host buffer and comes back to its device,
@@ -471,6 +475,35 @@ def all_reduce_max(tensors: Sequence[torch.Tensor], g: AxisGroup) -> None:
         dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=g.group)
         if buf is not t:
             t.copy_(buf)
+
+
+@torch.no_grad()
+def broadcast_one_to_all(tensors: Sequence[torch.Tensor],
+                         g: Optional[AxisGroup]) -> list:
+    """Rank 0's values of `tensors` on every rank of the group: each rank
+    passes tensors of the same shapes and dtypes (its own values are read
+    on rank 0 only) and gets new tensors on their devices, bit for bit, in
+    one broadcast of their bytes (host tensors go through this rank's
+    card under NCCL). Without a group (one rank) the tensors
+    themselves."""
+    if g is None or g.size == 1:
+        return list(tensors)
+    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in tensors])
+    buf = _wire(flat, g)
+    if not buf.is_cuda and dist.get_backend(g.group) == "nccl":
+        buf = buf.cuda()
+    if buf is flat:
+        buf = flat.clone()
+    dist.broadcast(buf, src=_global(g, 0), group=g.group)
+    buf = buf.to(flat.device)
+    out, pos = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        out.append(buf[pos:pos + n].clone().view(t.dtype).view(t.shape)
+                   .to(t.device))
+        pos += n
+    return out
 
 
 def local_shard(x: torch.Tensor, sp: Optional[AxisGroup]) -> torch.Tensor:

@@ -452,10 +452,15 @@ class Trainer:
     # ---- state ----
 
     def init(self, seed: int = 0) -> dict:
-        """Fresh parameters from `seed`, drawn leaf by leaf as the
-        one-rank init draws them (so every rank draws rank 0's values);
-        each rank keeps its shard of a leaf as soon as it is drawn, so no
-        rank holds more than one whole leaf at a time."""
+        """A fresh train state around init_params(seed)."""
+        return self._fresh(self.init_params(seed))
+
+    def init_params(self, seed: int = 0) -> dict:
+        """Fresh parameters from `seed` (no optimizer state: what a
+        serving rank holds), drawn leaf by leaf as the one-rank init
+        draws them (so every rank draws rank 0's values); each rank keeps
+        its shard of a leaf as soon as it is drawn, so no rank holds more
+        than one whole leaf at a time."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
 
         def leaf(path, shape_dtype, spec, held):
@@ -463,9 +468,8 @@ class Trainer:
             whole = init_from_shapes({name: shape_dtype}, gen)[name]
             whole = whole.reshape(held[0])  # grouped, under interleaving
             return self._own(shard(whole, spec, self.plan, self.rank, path))
-        params = tree_map_named(leaf, param_shapes(self.config),
-                                self._specs(), self._shapes())
-        return self._fresh(params)
+        return tree_map_named(leaf, param_shapes(self.config),
+                              self._specs(), self._shapes())
 
     def state_from_params(self, params: dict) -> dict:
         """A fresh train state around whole canonical parameters (e.g.

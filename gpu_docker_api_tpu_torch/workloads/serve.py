@@ -35,9 +35,17 @@ w8). --host-load --quantize w8|w8a8 builds the weights on the host and
 streams them to the card as int8, leaf by leaf: the card never holds the
 dense tree.
 
-Not yet ported, and refused at start-up: the co-tenancy regulator
-(TDAPI_TPU_SHARES / TDAPI_PRIORITY with --batch-slots) and multi-host
-serving.
+A co-tenancy env (TDAPI_TPU_SHARES / TDAPI_PRIORITY) with --batch-slots
+registers the batcher as a tenant of its chip's regulator (regulator.py).
+
+A multi-worker grant (TPU_WORKER_HOSTNAMES over more than one host) is
+served in lock-step over ranks (_serve_multihost): each worker runs its
+ranks of JAX's serving plan (tp, fsdp the rest) in one group formed at the
+contract's coordinator; global rank 0 serves HTTP and broadcasts each
+request (single-flight) or each tick's admissions (_LockstepBatcher, with
+--batch-slots: dense, paged, prefix cache, speculative, int8 KV, and
+--shard-kv to cut the cache over tp), and every rank runs the same steps
+on its shards. The multi-host refusals are the JAX server's.
 
 Run: python -m gpu_docker_api_tpu_torch.workloads.serve --config tiny \
         --device cpu --port 8000 [--batch-slots 4 [--kv-block 16]]
@@ -46,6 +54,7 @@ Run: python -m gpu_docker_api_tpu_torch.workloads.serve --config tiny \
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import threading
@@ -150,19 +159,28 @@ class _Batcher:
     dense (slots x max_len) or, with kv_block > 0, paged (paging.py): one
     shared block pool, admission that waits on free blocks, zero-copy
     prefix sharing and the KV handoff exports of prefill/decode
-    disaggregation. The JAX _Batcher without its co-tenancy regulator.
+    disaggregation.
 
     The cache lives where the weights are. Only the scheduler thread
     touches the cache, the block allocator and the prefix trie; it runs
     under torch.no_grad() (grad mode is per thread). Sampling rows draw
-    from one torch.Generator per batcher, seeded from `seed`."""
+    from one torch.Generator per batcher, seeded from `seed`.
+
+    `regulator` (a regulator.Tenant: a co-tenant of a shared chip) wraps
+    every device dispatch in its slice, and a waiting latency co-tenant
+    drops this batcher back to single-step chunks (_tick)."""
+
+    # kv heads of the target cache are cut over this many tp ranks
+    # (_LockstepBatcher under --shard-kv); 1 = every head
+    _kv_tp = 1
 
     def __init__(self, config, params, slots: int, max_len: int,
                  prefill_chunk: int = 0, prefix_cache: int = 0,
                  restarts: int = 3, kv_quant: bool = False,
                  kv_block: int = 0, kv_pool_blocks: int = 0,
                  decode_chunk: int = 1, seed: int | None = None,
-                 draft: tuple | None = None, gamma: int = 4):
+                 draft: tuple | None = None, gamma: int = 4,
+                 regulator=None):
         import collections
         import queue
 
@@ -172,6 +190,7 @@ class _Batcher:
         self.params = params
         self.max_len = max_len
         self.device = params["embed"].device
+        self._regulator = regulator          # co-tenancy (regulator.py)
         # speculative decoding INSIDE the batch: a draft model (own slot
         # cache) proposes gamma tokens per active row each round; the
         # target verifies every row's gamma+1 positions in ONE multi-token
@@ -266,7 +285,7 @@ class _Batcher:
             self.cache = init_paged_cache(
                 self.config, self.kv_pool_blocks, self.kv_block,
                 len(self.slots), self._max_pages, quantized=self.kv_quant,
-                device=self.device)
+                device=self.device, kv_tp=self._kv_tp)
             self._alloc = BlockAllocator(self.kv_pool_blocks)
             self._slot_blocks: list = [None] * len(self.slots)
             # the paged prefix store is a trie over block-sized token
@@ -283,7 +302,8 @@ class _Batcher:
         else:
             self.cache = init_slot_cache(
                 self.config, len(self.slots), self._cache_len,
-                quantized=self.kv_quant, device=self.device)
+                quantized=self.kv_quant, device=self.device,
+                kv_tp=self._kv_tp)
         if self._draft is not None:
             self.d_cache = init_slot_cache(
                 self._draft[0], len(self.slots), self._cache_len,
@@ -955,25 +975,49 @@ class _Batcher:
 
     def _has_waiters(self) -> bool:
         """Work is waiting to join (defers chunked decode so admission
-        latency stays one step)."""
+        latency stays one step). The lock-step subclass reads its
+        broadcast pending list instead: queue timing would desync the
+        ranks."""
         return self._waiting is not None or not self.queue.empty()
 
+    def _sync(self) -> int:
+        """Per-tick prologue: 0 = leave the loop. The lock-step subclass
+        overrides it with the cross-rank admission broadcast (one hook:
+        the tick loop itself is shared)."""
+        return 0 if self._stop else 1
+
     def _loop(self):
-        while not self._stop:
+        while True:
+            if self._sync() == 0:
+                return
             if not self._tick():
                 time.sleep(0.002)
+
+    def _chip_slice(self, tokens: int = 0):
+        """Admission for one device chunk: the co-tenancy regulator's
+        slice when this batcher shares its chip, else free."""
+        if self._regulator is None:
+            return contextlib.nullcontext()
+        return self._regulator.slice(tokens=tokens)
 
     def _tick(self) -> bool:
         """One scheduler tick: admit, feed one prefill piece, one decode
         step (or spec round, or decode chunk) for the active rows. False
-        when there was nothing to do (the loop sleeps)."""
+        when there was nothing to do (the loop sleeps).
+
+        Every device dispatch runs inside a _chip_slice: on a shared chip
+        the regulator admits chunks by share weight, and a waiting
+        latency-class co-tenant both preempts at the chunk boundary and
+        (should_yield) drops this batcher to single-step chunks, so the
+        next boundary is one step away."""
         import torch
 
         from .. import batching
         if self._paged:
             self._purge_kv_exports()
-        self._admit()
-        fed = self._prefill_tick()      # one prompt piece per tick
+        with self._chip_slice():
+            self._admit()
+            fed = self._prefill_tick()      # one prompt piece per tick
         if self._trie is not None and self._sketch_dirty:
             self._refresh_sketch()
         # decodable = prefill finished (mid-prefill slots sit out the step:
@@ -982,44 +1026,226 @@ class _Batcher:
                   for s in self.slots]
         if not any(active):
             return fed
+        n_active = sum(active)
         toks = batching.to_device(
             [s["last"] if active[i] else 0 for i, s in enumerate(self.slots)],
             torch.long, self.device)
         if self._draft is not None:
-            self._spec_round(active, toks)
+            with self._chip_slice(tokens=n_active * (self.gamma + 1)):
+                self._spec_round(active, toks)
             return True
         # chunked decode only when nothing is waiting to join and no prefill
         # is mid-flight; otherwise single steps keep admission latency at
         # one step. The chunk size stays fixed: stream tails run masked
-        # steps (their rows stop advancing at their budget)
+        # steps (their rows stop advancing at their budget). A contended
+        # shared chip also forces single steps: the latency co-tenant's
+        # stall bound shrinks from one chunk to one step
         chunk = self.decode_chunk
-        idle = chunk > 1 and not fed and not self._has_waiters()
+        contended = (self._regulator is not None
+                     and self._regulator.should_yield())
+        idle = (chunk > 1 and not fed and not self._has_waiters()
+                and not contended)
         # greedy fast path: no sampling row decoding -> pure argmax
         sample = ((*self._sample_vectors(), self._gen) if self._sampling()
                   else None)
         if idle:
             remaining = [s["max_new"] - len(s["stream"]) if active[i] else 0
                          for i, s in enumerate(self.slots)]
-            steps, self.cache = self._fn("slot_decode_multi")(
-                self.params, toks, self.cache, active, remaining,
-                self.config, chunk, sample=sample)
-            steps = steps.t().tolist()              # [slots, chunk]
+            with self._chip_slice(tokens=n_active * chunk):
+                steps, self.cache = self._fn("slot_decode_multi")(
+                    self.params, toks, self.cache, active, remaining,
+                    self.config, chunk, sample=sample)
+                steps = steps.t().tolist()          # [slots, chunk]
             for i, s in enumerate(self.slots):
                 if active[i]:
                     self._extend(i, s, steps[i][:remaining[i]])
             return True
-        if sample is not None:
-            picked, self.cache = self._fn("slot_decode_pick")(
-                self.params, toks, self.cache, active, *sample, self.config)
-        else:
-            logits, self.cache = self._fn("slot_decode")(
-                self.params, toks, self.cache, active, self.config)
-            picked = logits.argmax(dim=-1)
-        nxt = picked.tolist()
+        with self._chip_slice(tokens=n_active):
+            if sample is not None:
+                picked, self.cache = self._fn("slot_decode_pick")(
+                    self.params, toks, self.cache, active, *sample,
+                    self.config)
+            else:
+                logits, self.cache = self._fn("slot_decode")(
+                    self.params, toks, self.cache, active, self.config)
+                picked = logits.argmax(dim=-1)
+            nxt = picked.tolist()
         for i, s in enumerate(self.slots):
             if active[i]:
                 self._extend(i, s, nxt[i:i + 1])
         return True
+
+
+class _LockstepBatcher(_Batcher):
+    """Continuous batching over ranks (multi-host serving): every rank
+    runs the same scheduler on its shards of the weights; rank 0 alone
+    has HTTP arrivals, and each tick begins with one broadcast of the
+    requests newly admitted to the pending list (prompt tokens, budget,
+    sampling parameters), after which every rank's scheduler state moves
+    deterministically, so all ranks run the same slot ops in the same
+    order with the same collectives inside them.
+
+    What a tick's decisions read: the pending list (broadcast), slot
+    occupancy and stream lengths (from the pending list and the tokens,
+    equal on every rank), the sampling generator (seeded from one
+    broadcast seed and drawn in the same order) and the chunk sizes (the
+    same flags). queue.empty(), the one timing-dependent input of the base
+    loop, is replaced by the pending list (_has_waiters). The paged
+    allocator, the prefix store and in-flight sharing are host bookkeeping
+    driven by the same inputs, so they stay in step; the speculative
+    draft runs on the same plan. The prompt-KV handoff is not carried on
+    the wire, so submit() serves a request that asks to export or import
+    one in full.
+
+    The caches: by default every rank holds the whole cache (its new K/V
+    gathered over tp, infer._kv_for_cache); with shard_kv the target's
+    K/V and kv8 scales are cut over tp on the kv-head dim
+    (batching.kv_shard_specs), the lengths and page tables whole; the
+    draft's cache is whole.
+
+    restarts=0: a crash on one rank cannot be restarted in lock-step (its
+    peers wait in a collective nobody will complete): every waiter fails,
+    and a crashed rank 0 broadcasts the stop op first."""
+
+    # at most this many admissions are broadcast a tick (the rest stay in
+    # rank 0's queue for later ticks)
+    BCAST_K = 4
+
+    def __init__(self, config, params, slots: int, max_len: int, world,
+                 rank: int, shard_kv: bool = False, **kw):
+        """params: infer.RankParams. world: the AxisGroup the wire goes
+        over (every rank); rank: this rank's index in it. kw: the
+        _Batcher composition knobs (prefill_chunk, decode_chunk, seed,
+        kv_quant, kv_block, kv_pool_blocks, prefix_cache, draft, gamma)."""
+        self._world = world
+        self._rank = rank
+        self._shard_kv = shard_kv
+        self._pending: list = []
+        tp = params.groups.tp
+        if shard_kv and tp is not None:
+            self._kv_tp = tp.size
+        super().__init__(config, params, slots, max_len, restarts=0, **kw)
+
+    def submit(self, prompt_row, max_new: int, temperature: float = 0.0,
+               top_k: int = 0, top_p: float = 1.0,
+               stats_out: dict | None = None, kv_key: str = "",
+               kv_import: dict | None = None) -> list[int]:
+        """_Batcher.submit without the handoff (the wire does not carry
+        it: an export or import on rank 0 alone would move its allocator
+        apart from the other ranks')."""
+        return super().submit(prompt_row, max_new, temperature, top_k,
+                              top_p, stats_out)
+
+    def _has_waiters(self) -> bool:
+        return self._waiting is not None or bool(self._pending)
+
+    @property
+    def queued(self) -> int:
+        return (self.queue.qsize() + len(self._pending)
+                + (self._waiting is not None))
+
+    def _next_item(self):
+        """The parked head-of-line item first, as in the base (its parking
+        was itself in lock-step), then the pending list."""
+        if self._waiting is not None:
+            item, self._waiting = self._waiting, None
+            return item
+        return self._pending.pop(0) if self._pending else None
+
+    def _fail_all(self, exc: Exception) -> None:
+        super()._fail_all(exc)
+        for it in self._pending:        # rank 0: real waiters live here
+            it["error"] = exc
+            it["done"].set()
+        self._pending.clear()
+
+    def _sync(self) -> int:
+        """The per-tick broadcast: rank 0 encodes the tick's newly pending
+        requests (or the stop op) as ints[2+3K] (op, count, then length,
+        max_new, top_k each), floats[2K] (temperature, top_p each) and
+        prompts[K, max_len]; every rank decodes the same payload into its
+        pending list. Fixed shapes, one collective.
+
+        Three invariants:
+        - drained requests enter _pending before the broadcast, so a
+          failed broadcast reaching _fail_all still releases their
+          waiters;
+        - rank 0 adopts the f32 wire values of each request's sampling
+          parameters, so every rank gates on the same rounded values (a
+          temperature that rounds to f32 0.0 takes the greedy program on
+          every rank, or the generators' draws fall out of step);
+        - the drain is capped at free slots + 1, not a flat BCAST_K, so
+          an overload backs up in rank 0's queue, not in every rank's
+          pending list."""
+        import queue as _queue
+
+        import torch
+
+        from ..parallel import comm
+        k, t = self.BCAST_K, self.max_len
+        ints = torch.zeros(2 + 3 * k, dtype=torch.int32)
+        floats = torch.zeros(2 * k, dtype=torch.float32)
+        prompts = torch.zeros((k, t), dtype=torch.int32)
+        items: list = []
+        if self._rank == 0:
+            if not self._stop:
+                ints[0] = 1
+                free = sum(s is None for s in self.slots)
+                budget = min(k, max(0, free + 1 - len(self._pending)))
+                while len(items) < budget:
+                    try:
+                        items.append(self.queue.get_nowait())
+                    except _queue.Empty:
+                        break
+                self._pending.extend(items)
+                ints[1] = len(items)
+                for j, it in enumerate(items):
+                    p = it["prompt"].cpu()
+                    ints[2 + 3 * j:5 + 3 * j] = torch.tensor(
+                        [p.shape[0], it["max_new"], it["top_k"]])
+                    floats[2 * j:2 * j + 2] = torch.tensor(
+                        [it["temperature"], it["top_p"]])
+                    prompts[j, :p.shape[0]] = p
+        ints, floats, prompts = comm.broadcast_one_to_all(
+            (ints, floats, prompts), self._world)
+        ints, floats = ints.tolist(), floats.tolist()
+        if ints[0] == 0:
+            return 0
+        if self._rank == 0:
+            for j, it in enumerate(items):      # adopt the f32 wire values
+                it["temperature"] = floats[2 * j]
+                it["top_p"] = floats[2 * j + 1]
+        else:
+            for j in range(ints[1]):
+                plen, mx, tk = ints[2 + 3 * j:5 + 3 * j]
+                self._pending.append({
+                    "prompt": prompts[j, :plen].to(self.device, torch.long),
+                    "max_new": mx, "temperature": floats[2 * j],
+                    "top_k": tk, "top_p": floats[2 * j + 1],
+                    "enq_at": time.monotonic(), "done": threading.Event(),
+                    "out": None, "error": None})
+        return 1
+
+    def _run(self):
+        """Crash liveness: a rank-0 crash still broadcasts the stop op, or
+        every follower would wait in a broadcast nobody sources; a
+        follower crash ends its process, which fails the peers' next
+        collective and lands them here too. Either way every process
+        leaves, and a supervisor sees it."""
+        import torch
+        try:
+            with torch.no_grad():
+                self._loop()
+        except Exception as e:  # noqa: BLE001 — device or collective
+            import traceback
+            traceback.print_exc()
+            self._fail_all(e)
+            self._stop = True
+            if self._rank == 0:
+                try:
+                    self._sync()          # the stop op, best effort
+                except Exception:  # noqa: BLE001 — peers may be gone
+                    pass
 
 
 class _Server:
@@ -1319,18 +1545,367 @@ def _handler_for(srv: _Server, model_name: str, admit_queue: int = 0):
     return Handler
 
 
-def _refuse_unported(args, env=None) -> None:
-    """SystemExit for what the port cannot serve yet: multi-host grants,
-    and with --batch-slots a co-tenancy env (TDAPI_TPU_SHARES or
-    TDAPI_PRIORITY, where the JAX server registers a regulator tenant).
-    Where the JAX server itself refuses a combination, its message. --tp
-    is read on the multi-host path only; single-host serving ignores it,
-    as the JAX server does."""
-    e = os.environ if env is None else env
-    hosts = [h for h in e.get("TPU_WORKER_HOSTNAMES", "").split(",") if h]
-    if len(hosts) > 1:
-        raise SystemExit(f"a {len(hosts)}-worker grant: multi-host serving "
-                         f"is not yet ported to PyTorch")
+class _MultihostServer:
+    """Rank 0's facade for the HTTP handler in single-flight multi-host
+    mode: generate queues the request for the lock-step engine loop and
+    waits for its result (single-flight follows from the one consumer)."""
+
+    def __init__(self, config, n_params: int, work_q, kv_quant: bool,
+                 b_max: int, t_max: int):
+        self.config = config
+        self.n_params = n_params
+        self.kv_quant = kv_quant
+        self.batcher = None
+        self.draft = None
+        self._q = work_q
+        self.b_max = b_max
+        self.t_max = t_max
+
+    def generate(self, tokens, max_new: int, temperature: float,
+                 top_k: int = 0, top_p: float = 1.0,
+                 stats_out: dict | None = None):
+        import torch
+        try:
+            prompt = torch.tensor(tokens, dtype=torch.long)
+        except (OverflowError, RuntimeError) as e:   # ints past int64
+            raise ValueError(f"token id out of range ({e})") from e
+        if prompt.ndim != 2 or prompt.numel() == 0:
+            raise ValueError("tokens must be [batch, prompt_len]")
+        # the request limits reject here (a 400): an invalid item must
+        # never reach the engine loop, where a rank-0 failure before the
+        # broadcast would strand the other ranks
+        if prompt.shape[0] > self.b_max or prompt.shape[1] >= self.t_max:
+            raise ValueError(f"batch <= {self.b_max} and prompt < "
+                             f"{self.t_max} in multihost mode")
+        if prompt.shape[1] + int(max_new) > self.t_max:
+            raise ValueError(
+                f"prompt + max_new exceeds the model's max_seq_len "
+                f"({self.t_max})")
+        if int(prompt.max()) >= self.config.vocab_size or int(prompt.min()) < 0:
+            raise ValueError("token id out of range")
+        item = {"prompt": prompt, "max_new": int(max_new),
+                "temperature": float(temperature), "top_k": int(top_k),
+                "top_p": float(top_p),
+                "done": threading.Event(), "out": None, "error": None}
+        self._q.put(item)
+        item["done"].wait()
+        if item["error"] is not None:
+            raise RuntimeError(f"multihost engine failed: {item['error']}")
+        return item["out"]
+
+
+# single-flight rank 0 broadcasts an idle no-op round after this long
+# without a request, so a follower never waits in a broadcast near the
+# group's timeout, and a rank 0 that dies without its stop op (killed, or
+# its host lost) ends the followers within that timeout
+SERVE_IDLE_S = 5.0
+
+
+def _serve_multihost(args, config, spec) -> int:
+    """Lock-step serving over the multi-worker contract `spec`
+    (distributed.cluster_spec_from_env): each worker runs its ranks
+    (distributed.cluster_layout: its cards, or on the CPU the devices
+    over the workers: --tp, at least one a worker) of JAX's serving plan
+    (infer.serving_plan: tp as asked or best_tp_for, fsdp the rest) over
+    one group formed at the coordinator (NCCL on cuda, gloo on the CPU);
+    _serve_rank on each. The checks that need only the flags and configs
+    run before the group forms. A group that does not form raises: there
+    is no single-host fallback."""
+    from .. import distributed
+    from ..infer import serving_plan
+    n_dev = (None if args.device == "cuda"
+             else max(args.tp or 1, spec["num_processes"]))
+    cluster = distributed.cluster_layout(spec, args.device, n_dev)
+    plan = serving_plan(cluster.world, args.tp)
+    draft_cfg = _multihost_checks(args, config, plan.tp)
+    distributed.run_cluster(
+        _serve_rank, (args, config, draft_cfg, plan, cluster), cluster,
+        distributed.backend_for(args.device))
+    return 0
+
+
+def _multihost_checks(args, config, tp: int):
+    """The head-count checks of multi-host batching (JAX's messages):
+    --shard-kv needs the kv heads to divide over tp, a draft its heads and
+    the target's vocab. -> the draft's config or None."""
+    if not args.batch_slots:
+        return None
+    if args.shard_kv:
+        n_kv = getattr(config, "n_kv_heads", 0) or config.n_heads
+        if n_kv % tp:
+            raise SystemExit(f"--shard-kv needs n_kv_heads ({n_kv}) "
+                             f"divisible by tp ({tp})")
+    if not args.draft_config:
+        return None
+    from ..models import named_config
+    dcfg = named_config(args.family, args.draft_config)
+    if dcfg.vocab_size != config.vocab_size:
+        raise SystemExit("draft and target must share a vocab")
+    d_kv = getattr(dcfg, "n_kv_heads", 0) or dcfg.n_heads
+    if dcfg.n_heads % tp or d_kv % tp:
+        raise SystemExit(
+            f"--draft-config {args.draft_config!r} needs n_heads "
+            f"({dcfg.n_heads}) and n_kv_heads ({d_kv}) divisible "
+            f"by the target's tp ({tp}); pick a draft config "
+            f"with compatible head counts or lower --tp")
+    return dcfg
+
+
+def rank_params(config, plan, groups, device, ckpt_dir: str = "",
+                init_seed: int = 0):
+    """This rank's served weights (infer.RankParams) under `plan`: its
+    shards of a fresh Trainer init (init_seed; every rank draws the whole
+    init and keeps its shard) or of the newest checkpoint under ckpt_dir
+    (restored whole on the host, ungrouped if need be, then cut)."""
+    from ..infer import RankParams
+    from ..train import Trainer
+    trainer = Trainer.create(config, plan, device=device, groups=groups)
+    if not ckpt_dir:
+        return RankParams(trainer.init_params(init_seed), groups), None
+    params, step = _restore_params(trainer, ckpt_dir, "cpu")
+    return RankParams(trainer._shard_tree(params), groups), step
+
+
+def _whole_params(config) -> int:
+    """The whole model's parameter count (what /healthz reports)."""
+    import math
+
+    from ..models import param_shapes
+    from ..train import tree_leaves
+    return sum(math.prod(shape)
+               for shape, _ in tree_leaves(param_shapes(config)))
+
+
+def _serve_rank(rank: int, world: int, args, config, draft_cfg, plan,
+                cluster) -> None:
+    """One rank of multi-host serving: its groups and weights, the wire
+    over every rank (the world group), then the lock-step batcher
+    (--batch-slots) or the single-flight engine. Global rank 0 serves
+    HTTP. Raises SystemExit(1) when the engine failed."""
+    from ..parallel import comm
+    from ..parallel.mesh import MeshGroups
+
+    device = cluster.device(rank, args.device)
+    groups = MeshGroups.build(plan)
+    wire = comm.AxisGroup.of()
+    params, step = rank_params(config, plan, groups, device,
+                               args.checkpoint)
+    if step is not None and rank == 0:
+        print(f"restored checkpoint step {step} (sharded)", flush=True)
+    if args.batch_slots > 0:
+        draft = None
+        if draft_cfg is not None:
+            # seed 1, not 0: a fresh draft under the target's seed would BE
+            # the target when both share a named config
+            dparams, _ = rank_params(draft_cfg, plan, groups, device,
+                                     args.draft_checkpoint, init_seed=1)
+            draft = (draft_cfg, dparams)
+        code = _serve_multihost_batched(args, config, params, rank, wire,
+                                        draft)
+    else:
+        code = _serve_single_flight(args, config, params, rank, wire, device)
+    if code:
+        raise SystemExit(code)
+
+
+def _serve_single_flight(args, config, params, rank, wire, device) -> int:
+    """The single-flight engine: rank 0 broadcasts each request (tokens
+    padded to [b_max, t_max], its sampling parameters and a fresh seed),
+    every rank runs the same generate on its shards, and a stop op ends
+    every rank's loop. Idle, rank 0 broadcasts a no-op round every
+    SERVE_IDLE_S."""
+    import queue as _queue
+
+    import torch
+
+    from ..infer import generate
+    from ..parallel import comm
+    b_max, t_max = 8, config.max_seq_len
+    work_q: "_queue.Queue" = _queue.Queue()
+    httpd = None
+    name = f"{args.family}/{args.config}"
+    if rank == 0:
+        srv = _MultihostServer(config, _whole_params(config), work_q,
+                               args.kv_quant, b_max, t_max)
+        httpd = ThreadingHTTPServer((args.host, args.port),
+                                    _handler_for(srv, name))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        print(f"multihost serving {name} ({srv.n_params:,} params) on "
+              f"{args.host}:{httpd.server_address[1]} — rank 0 of "
+              f"{wire.size}, mesh tp={params.groups.plan.tp} over "
+              f"{wire.size} devices", flush=True)
+    else:
+        print(f"multihost engine rank {rank}/{wire.size} following",
+              flush=True)
+
+    def engine_round(item, op: int = 0):
+        """One broadcast and, for a request, one lock-step generate. Rank
+        0 passes its request, or None with op 0 (the stop op) or op 2
+        (the idle no-op); the followers pass None."""
+        pad = torch.zeros((b_max, t_max), dtype=torch.int32)
+        ints = torch.tensor([op, 0, 0, 0, 0, 0], dtype=torch.int32)
+        floats = torch.zeros(2, dtype=torch.float32)
+        if item is not None:
+            b, t = item["prompt"].shape
+            pad[:b, :t] = item["prompt"]
+            ints = torch.tensor(
+                [1, b, t, item["max_new"], item["top_k"],
+                 int.from_bytes(os.urandom(3), "big")], dtype=torch.int32)
+            floats = torch.tensor([item["temperature"], item["top_p"]],
+                                  dtype=torch.float32)
+        ints, floats, pad = comm.broadcast_one_to_all((ints, floats, pad),
+                                                      wire)
+        op, b, t, max_new, top_k, seed = ints.tolist()
+        temperature, top_p = floats.tolist()
+        if op == 0:
+            return "stop"
+        if op == 2:
+            return None
+        gen = torch.Generator(device=device).manual_seed(seed)
+        out = generate(params, pad[:b, :t].to(device, torch.long), config,
+                       max_new, temperature=temperature, top_k=top_k,
+                       top_p=top_p, kv_quant=args.kv_quant, generator=gen)
+        if item is not None:
+            item["out"] = out.cpu().tolist()
+        return None
+
+    try:
+        while True:
+            if rank != 0:
+                if engine_round(None) == "stop":
+                    break
+                continue
+            try:
+                item = work_q.get(timeout=SERVE_IDLE_S)
+            except _queue.Empty:
+                engine_round(None, op=2)
+                continue
+            if item is None:              # the stop sentinel
+                engine_round(None)
+                break
+            try:
+                engine_round(item)
+            except Exception as e:  # noqa: BLE001 — surfaced to the client
+                item["error"] = e
+                # the followers may wait in (or past) this round's
+                # collective: a best-effort stop op keeps a rank-0 failure
+                # from stranding them
+                try:
+                    engine_round(None)
+                except Exception:  # noqa: BLE001
+                    pass
+                raise
+            finally:
+                item["done"].set()
+    except KeyboardInterrupt:
+        if rank == 0:
+            engine_round(None)
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+    return 0
+
+
+def _serve_multihost_batched(args, config, params, rank, wire,
+                             draft=None) -> int:
+    """Lock-step continuous batching: every rank builds the same
+    _LockstepBatcher (one seed for the whole pod, broadcast: a rank's own
+    would draw different samples); rank 0 owns the HTTP endpoint and its
+    queue. -> 0, or 1 when the scheduler died."""
+    import torch
+
+    from ..parallel import comm
+    seed, = comm.broadcast_one_to_all(
+        [torch.tensor([int.from_bytes(os.urandom(4), "big")],
+                      dtype=torch.int64)], wire)
+    try:
+        batcher = _LockstepBatcher(
+            config, params, slots=args.batch_slots,
+            max_len=args.batch_max_len or config.max_seq_len,
+            world=wire, rank=rank,
+            prefill_chunk=args.batch_prefill_chunk,
+            decode_chunk=args.decode_chunk, seed=int(seed[0]),
+            kv_quant=args.kv_quant, kv_block=args.kv_block,
+            kv_pool_blocks=args.kv_pool, prefix_cache=args.prefix_cache,
+            draft=draft, gamma=args.gamma, shard_kv=args.shard_kv)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if rank != 0:
+        print(f"multihost batching engine rank {rank}/{wire.size} "
+              "following", flush=True)
+        try:
+            batcher.thread.join()
+        except KeyboardInterrupt:
+            # rank 0's stop op ends the loop; wait for it a while
+            batcher.thread.join(timeout=10)
+        return 0 if batcher._dead is None else 1
+    srv = _Server(config, params)
+    srv.n_params = _whole_params(config)
+    srv.batcher = batcher
+    name = f"{args.family}/{args.config}"
+    httpd = ThreadingHTTPServer((args.host, args.port),
+                                _handler_for(srv, name,
+                                             admit_queue=args.admit_queue))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    mode = (f"paged ({batcher.kv_pool_blocks} x {args.kv_block} "
+            f"token blocks)" if args.kv_block else "dense")
+    if args.shard_kv:
+        mode += ", tp-sharded"
+    spec = (f", speculative (draft {args.draft_config}, gamma "
+            f"{args.gamma})" if draft else "")
+    print(f"multihost continuous batching {name} "
+          f"({srv.n_params:,} params) on {args.host}:"
+          f"{httpd.server_address[1]} — {args.batch_slots} slots x "
+          f"{batcher.max_len} tokens, {mode} KV{spec}, rank 0 of "
+          f"{wire.size}", flush=True)
+    # the main thread follows the scheduler, not the HTTP server: a dead
+    # lock-step loop ends rank 0 (not a process answering "batcher
+    # unavailable" while a supervisor sees it healthy)
+    try:
+        batcher.thread.join()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        crashed = batcher._dead is not None
+        batcher.close()     # broadcasts the stop op: the followers exit
+        httpd.shutdown()
+        httpd.server_close()
+    return 1 if crashed else 0
+
+
+def _refuse_unported(args, multihost: bool = False) -> None:
+    """SystemExit, with the JAX server's message, for what it refuses:
+    in multi-host mode (`multihost`) --quantize, --host-load, and without
+    --batch-slots a draft, --shard-kv or the paged and prefix flags; on
+    one host --shard-kv, --host-load without --quantize, and without
+    --batch-slots the paged and prefix flags. --tp is read on the
+    multi-host path only; single-host serving ignores it, as the JAX
+    server does."""
+    if multihost:
+        for flag, msg in ((args.quantize, "--quantize"),
+                          (args.host_load, "--host-load")):
+            if flag:
+                raise SystemExit(
+                    f"{msg} is single-host serving for now; the "
+                    "multi-host engine runs plain sharded generate "
+                    "(drop the flag, or serve per-host)")
+        if args.draft_config and not args.batch_slots:
+            raise SystemExit(
+                "--draft-config in multihost mode runs inside the "
+                "lock-step batcher (per-slot proposals, shared sharded "
+                "verify) — add --batch-slots N")
+        if args.shard_kv and not args.batch_slots:
+            raise SystemExit(
+                "--shard-kv shards the batching scheduler's cache; it "
+                "needs --batch-slots N")
+        if not args.batch_slots and (args.prefix_cache or args.kv_block
+                                     or args.kv_pool):
+            raise SystemExit(
+                "--prefix-cache/--kv-block/--kv-pool configure the "
+                "batching scheduler; they need --batch-slots N "
+                "(multihost or not)")
+        return
     if args.shard_kv:
         raise SystemExit(
             "--shard-kv is multihost serving (the single-host cache "
@@ -1346,16 +1921,9 @@ def _refuse_unported(args, env=None) -> None:
         if args.kv_block or args.kv_pool:
             raise SystemExit("--kv-block/--kv-pool configure the batching "
                              "scheduler's cache; they need --batch-slots N")
-    else:
-        cotenancy = [k for k in ("TDAPI_TPU_SHARES", "TDAPI_PRIORITY")
-                     if e.get(k)]
-        if cotenancy:
-            raise SystemExit(f"{'/'.join(cotenancy)} with --batch-slots: the "
-                             f"co-tenancy regulator is not yet ported to "
-                             f"PyTorch")
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--family", default="llama", choices=["llama", "moe"])
     p.add_argument("--config", default="tiny",
@@ -1433,13 +2001,16 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to serve: the CUDA card (default; raises "
                         "without one) or, when asked, the CPU")
+    return p
+
+
+def main(argv=None) -> int:
+    p = _parser()
     args = p.parse_args(argv)
     if not args.port:
         args.port = int(os.environ.get("PORT", "8000"))
-    _refuse_unported(args)
 
-    from ..device import resolve_device
-    device = resolve_device(args.device)   # no card and no --device cpu: raise
+    from ..distributed import cluster_spec_from_env
     from ..models import named_config
     from ..train import Trainer
 
@@ -1447,6 +2018,15 @@ def main(argv=None) -> int:
         config = named_config(args.family, args.config)
     except KeyError as e:
         p.error(str(e))
+    # a grant that spans workers: its contract describes the cluster, and
+    # the lock-step engine serves it (a malformed contract raises)
+    cluster = cluster_spec_from_env()
+    _refuse_unported(args, multihost=cluster is not None)
+    if cluster is not None:
+        return _serve_multihost(args, config, cluster)
+
+    from ..device import resolve_device
+    device = resolve_device(args.device)   # no card and no --device cpu: raise
 
     trainer = Trainer.create(config, device=device)
     if args.host_load:
@@ -1479,11 +2059,21 @@ def main(argv=None) -> int:
               f"gamma {args.gamma}", flush=True)
     srv = _Server(config, params, kv_quant=args.kv_quant, draft=draft,
                   gamma=args.gamma)
+    reg_tenant = None
     if args.batch_slots > 0:
         # --draft-config composes (speculative rounds over the whole slot
         # batch), so does --kv-quant (int8 caches, both models), and so
         # does --kv-block (paged_verify writes each row's gamma+1 tokens
-        # through its page table; admission reserves the overshoot)
+        # through its page table; admission reserves the overshoot).
+        # Fractional co-tenancy: a share-granted container
+        # (TDAPI_TPU_SHARES / TDAPI_PRIORITY) registers with its chip's
+        # regulator, so its device chunks time-slice against co-tenants
+        # by share weight
+        from .. import regulator
+        reg_tenant = regulator.tenant_from_env()
+        if reg_tenant is not None:
+            print(f"chip co-tenancy: weight {reg_tenant.weight}, "
+                  f"class {reg_tenant.priority}", flush=True)
         try:
             srv.batcher = _Batcher(config, params, slots=args.batch_slots,
                                    max_len=args.batch_max_len
@@ -1494,8 +2084,11 @@ def main(argv=None) -> int:
                                    kv_block=args.kv_block,
                                    kv_pool_blocks=args.kv_pool,
                                    decode_chunk=args.decode_chunk,
-                                   draft=draft, gamma=args.gamma)
+                                   draft=draft, gamma=args.gamma,
+                                   regulator=reg_tenant)
         except ValueError as e:
+            if reg_tenant is not None:
+                reg_tenant.unregister()
             raise SystemExit(str(e))
         mode = (f"paged ({srv.batcher.kv_pool_blocks} x {args.kv_block} "
                 f"token blocks)" if args.kv_block else "dense")
@@ -1520,6 +2113,10 @@ def main(argv=None) -> int:
     finally:
         if srv.batcher is not None:
             srv.batcher.close()
+        if reg_tenant is not None:
+            # leave the chip's regulator clean: a replaced version must not
+            # leave a dead tenant in the process-wide registry
+            reg_tenant.unregister()
     return 0
 
 

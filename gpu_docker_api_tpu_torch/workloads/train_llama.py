@@ -21,7 +21,20 @@ cpu on the CPU over gloo. Rank 0 alone writes metrics, the checkpoints
 patch asks; under the interleaved schedule the layers stay grouped, so
 such a run resumes only under the same pp and v) and the quiesce marker
 and ack; every rank resumes from the same checkpoint and keeps its shards.
-Multi-worker contracts are not yet ported and are refused.
+
+A multi-worker grant (the control plane's contract: TPU_WORKER_HOSTNAMES
+over more than one host, TPU_WORKER_ID, the coordinator) trains over
+every worker's ranks in one group formed at the coordinator
+(distributed.cluster_layout / run_cluster): each worker holds its cards
+(on --device cpu the plan's ranks over the workers), global rank = worker
+x local + i, so tp and sp stay inside a worker. The plan is
+TDAPI_MESH_PLAN over the whole cluster, or without one the un-planned plan
+over the global device count. Metrics records carry the JAX workload's
+"process": "<worker>/<workers>" field, and global rank 0 alone writes
+metrics, checkpoints and the quiesce files. Every worker's --workdir must
+see the same checkpoint directory (a shared volume), the JAX workload's
+assumption too (orbax's multi-process restore needs it): every rank
+restores the checkpoint rank 0 wrote.
 
 Run: python -m gpu_docker_api_tpu_torch.workloads.train_llama \
         --config tiny --steps 100 --workdir /path/to/run1
@@ -34,17 +47,6 @@ import json
 import os
 import sys
 import time
-
-
-def _refuse_multi_worker(env=None) -> None:
-    """The control plane's multi-worker contract (TPU_WORKER_HOSTNAMES over
-    more than one host) needs a distributed runtime the port lacks."""
-    e = os.environ if env is None else env
-    hosts = [h for h in e.get("TPU_WORKER_HOSTNAMES", "").split(",") if h]
-    if len(hosts) > 1:
-        raise NotImplementedError(
-            f"a {len(hosts)}-worker grant: multi-worker training is not yet "
-            f"ported to PyTorch")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -93,18 +95,23 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
 
-    _refuse_multi_worker()
-
+    from ..distributed import cluster_spec_from_env
     from ..models import named_config
     from ..parallel.mesh import plan_from_env
 
+    # multi-worker: the contract describes the cluster (a malformed one
+    # raises)
+    spec = cluster_spec_from_env()
+    workers = spec["num_processes"] if spec else 1
     # gang contract: a plan the control plane stamped is honoured exactly
     # (the CLI's axis flags apply to un-planned launches only)
-    plan = plan_from_env() or _unplanned(args)
+    plan = plan_from_env() or _unplanned(args, workers)
     try:
         config = named_config(args.family, args.config)
     except KeyError as e:
         p.error(str(e))
+    if spec is not None:
+        return _launch_cluster(args, argv, plan, spec)
     if plan.size > 1:
         return _launch(args, argv, plan)
 
@@ -124,19 +131,20 @@ def unplanned_plan(n_dev: int, tp: int, sp: int, pp: int = 1, ep: int = 1):
     return MeshPlan.auto(n_dev, tp=tp, sp=sp, pp=pp, ep=ep)
 
 
-def _unplanned(args):
-    """unplanned_plan over the visible devices: on cuda every card
-    (torch.cuda.device_count(), after refusing flags that ask for more
-    cards than there are, and a machine with none); on --device cpu, which
-    has no device count to fill, what the flags ask, (--tp or 1) * --sp *
-    --pp * --ep."""
+def _unplanned(args, workers: int = 1):
+    """unplanned_plan over the visible devices of every worker: on cuda
+    every card (torch.cuda.device_count() a worker, after refusing flags
+    that ask for more cards than there are, and a machine with none); on
+    --device cpu, which has no device count to fill, what the flags ask,
+    (--tp or 1) * --sp * --pp * --ep, and at least one rank a worker."""
     asked = (args.tp or 1) * args.sp * args.pp * args.ep
     if args.device == "cpu":
-        return unplanned_plan(asked, args.tp, args.sp, args.pp, args.ep)
+        return unplanned_plan(max(asked, workers), args.tp, args.sp,
+                              args.pp, args.ep)
     import torch
 
     from ..device import resolve_device
-    n_dev = torch.cuda.device_count()
+    n_dev = torch.cuda.device_count() * workers
     if asked > 1 and asked > n_dev:
         flags = " ".join(f"--{a} {getattr(args, a)}"
                          for a in ("tp", "sp", "pp", "ep")
@@ -160,23 +168,44 @@ def _launch(args, argv, plan) -> int:
     return 0
 
 
-def _rank_main(rank: int, world: int, argv: list, plan) -> None:
-    """One rank of a run over ranks (distributed.launch formed the world's
-    group; this forms the plan's)."""
+def _launch_cluster(args, argv, plan, spec) -> int:
+    """This worker's ranks of a multi-worker run (distributed.run_cluster:
+    the group forms at the contract's coordinator, or the run raises)."""
+    from .. import distributed
+    cluster = distributed.cluster_layout(
+        spec, args.device, plan.size if args.device == "cpu" else None)
+    if plan.size != cluster.world:
+        raise RuntimeError(f"{plan} needs {plan.size} ranks; the grant's "
+                           f"{cluster.workers} workers hold {cluster.world}")
+    distributed.run_cluster(_rank_main, (argv, plan, cluster), cluster,
+                            distributed.backend_for(args.device))
+    return 0
+
+
+def _rank_main(rank: int, world: int, argv: list, plan,
+               cluster=None) -> None:
+    """One rank of a run over ranks (distributed.launch or run_cluster
+    formed the world's group; this forms the plan's). cluster: the
+    multi-worker run's layout (distributed.Cluster), None on one host."""
     from ..device import resolve_device
     from ..models import named_config
     from ..parallel.mesh import MeshGroups
 
     args = _parser().parse_args(argv)
     groups = MeshGroups.build(plan)
-    device = resolve_device(f"cuda:{rank}" if args.device == "cuda"
-                            else "cpu")
-    _run(args, named_config(args.family, args.config), plan, device, groups)
+    if cluster is not None:
+        device = resolve_device(cluster.device(rank, args.device))
+    else:
+        device = resolve_device(f"cuda:{rank}" if args.device == "cuda"
+                                else "cpu")
+    _run(args, named_config(args.family, args.config), plan, device, groups,
+         cluster)
 
 
-def _run(args, config, plan, device, groups=None) -> int:
+def _run(args, config, plan, device, groups=None, cluster=None) -> int:
     """Train on `device` (this rank's, over the plan's groups) to
-    --steps."""
+    --steps; cluster: a multi-worker run's layout (its records carry the
+    "process" field)."""
     from ..data import Prefetcher, make_dataset
     from ..train import (
         QuiesceSignal, Trainer, TrainConfig, clear_quiesce_marker,
@@ -236,9 +265,11 @@ def _run(args, config, plan, device, groups=None) -> int:
                           place=trainer.shard_batch)
 
     metrics_f = open(metrics_path, "a", encoding="utf-8") if writer else None
+    process = (f"{cluster.worker}/{cluster.workers}" if cluster is not None
+               else None)
     try:
         _train_loop(args, trainer, state, start_step, prefetch, metrics_f,
-                    ckpt_dir, plan, quiesce)
+                    ckpt_dir, plan, quiesce, process)
     finally:
         if metrics_f is not None:
             metrics_f.close()
@@ -270,10 +301,11 @@ def _quiesce_agreed(quiesce, trainer) -> bool:
 
 
 def _train_loop(args, trainer, state, start_step, prefetch, metrics_f,
-                ckpt_dir, plan, quiesce):
+                ckpt_dir, plan, quiesce, process=None):
     """The steps; metrics_f is None on every rank but the world's 0th,
     which alone writes metrics, checkpoints and the quiesce files. Every
-    rank gathers the state it saves (Trainer.full_state)."""
+    rank gathers the state it saves (Trainer.full_state). process: the
+    multi-worker record field "<worker>/<workers>" (None on one host)."""
     from ..train import (
         save_checkpoint, write_quiesce_ack, write_quiesce_marker,
     )
@@ -286,6 +318,8 @@ def _train_loop(args, trainer, state, start_step, prefetch, metrics_f,
         rec = {"step": step + 1, "loss": round(loss, 5),
                "step_time_s": round(time.perf_counter() - t0, 4),
                "devices": plan.size, "plan": str(plan), "time": time.time()}
+        if process is not None:
+            rec["process"] = process
         if writer:
             metrics_f.write(json.dumps(rec) + "\n")
             metrics_f.flush()

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Read chip_smoke.py phase 11's checks over several seeds on one card.
 
-For each seed: the one-rank bf16 Trainer at moe_1b (chip_smoke.EP_TRAIN:
-B=8, S=2048, 2 steps, remat "dots"; init and batches from the seed) and
+For each seed: the one-rank bf16 Trainer at chip_smoke.EP_CONFIG (moe_1b's
+width at the layers phase 11 runs; chip_smoke.EP_TRAIN: B=8, S=2048, 2
+steps, remat "dots"; init and batches from the seed) and
 each layout of chip_smoke.EP_LAYOUTS over EP_RANKS gloo ranks on the card,
 the relative differences of their losses and grad norms (what EP_LOSS_TOL
 and EP_NORM_TOL bound). Then, at seed 0:
@@ -24,7 +25,7 @@ witness, then one with the largest reading of each over the seeds; the
 limits in chip_smoke.py are set from these lines (PERF.md).
 
     python3 scripts/torch_moe_margin.py [--seeds 0 1 2 3] [--witness-only]
-    python3 scripts/torch_moe_margin.py --device cpu --config tiny --b 8 --s 32
+    python3 scripts/torch_moe_margin.py --device cpu --config tiny --b 8 --s 32 --layers 0
 """
 
 from __future__ import annotations
@@ -176,6 +177,8 @@ def main(argv=None) -> int:
     p.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3])
     p.add_argument("--device", default="cuda")
     p.add_argument("--config", default=cs.EP_CONFIG[1])
+    p.add_argument("--layers", type=int, default=cs.EP_CONFIG[2] or 0,
+                   help="the depth cut (0: the config's own depth)")
     p.add_argument("--b", type=int, default=cs.EP_TRAIN["b"])
     p.add_argument("--s", type=int, default=cs.EP_TRAIN["s"])
     p.add_argument("--witness-only", action="store_true",
@@ -192,7 +195,7 @@ def main(argv=None) -> int:
             raise SystemExit("no CUDA card: the margins are read on the card")
         smi, _ = cs.build_kernels(torch)
     device = resolve_device(args.device)
-    config = ("moe", args.config, None)
+    config = ("moe", args.config, args.layers or None)
     cfg = cs.smoke_config(config)
     tokens = cs.train_batch(torch, cfg, args.b, args.s, 0, 0)
     if args.witness_only:

@@ -35,11 +35,10 @@ def margin_rank(rank, world, tmp, seeds):
     import torch
 
     from gpu_docker_api_tpu_torch.device import resolve_device
-    from gpu_docker_api_tpu_torch.models import named_config
     from gpu_docker_api_tpu_torch.parallel.mesh import MeshGroups, MeshPlan
 
     device = resolve_device("cuda:0")
-    cfg = named_config("llama", cs.SP_CONFIG)
+    cfg = cs.smoke_config(cs.SP_CONFIG)
     groups = MeshGroups.build(MeshPlan(sp=world))
     res = {}
     for seed in seeds:
@@ -63,10 +62,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA card: the margins are read on the card")
     from gpu_docker_api_tpu_torch import distributed
-    from gpu_docker_api_tpu_torch.models import named_config
 
     smi, att = cs.build_kernels(torch)
-    cfg = named_config("llama", cs.SP_CONFIG)
+    cfg = cs.smoke_config(cs.SP_CONFIG)
     refs, one = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for seed in args.seeds:

@@ -109,14 +109,20 @@ def test_sp_without_the_cards_raises(tmp_path):
 @pytest.mark.parametrize("extra, env", [
     (["--sp", "2"], {"TPU_WORKER_HOSTNAMES": "w0,w1"}),
 ])
-def test_unported_axes_and_moe_over_ranks_are_refused(tmp_path, monkeypatch,
-                                                      extra, env):
-    """A multi-worker grant is refused (every mesh axis is ported:
+def test_sp_over_a_multi_worker_grant_is_launched(tmp_path, monkeypatch,
+                                                  extra, env):
+    """--sp 2 on a two-worker grant: one sp rank a worker, over the
+    cluster's group (every mesh axis is ported:
     test_pp_plans_are_built_and_accepted)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttl.main(TINY + ["--workdir", str(tmp_path)] + extra)
+    launched = []
+    monkeypatch.setattr(tdist, "run_cluster",
+                        lambda target, args, cluster, backend: launched.append(
+                            (args[1], cluster)))
+    assert ttl.main(TINY + ["--workdir", str(tmp_path)] + extra) == 0
+    (plan, cluster), = launched
+    assert (plan.sp, plan.size, cluster.world, cluster.local) == (2, 2, 2, 1)
     assert not os.path.exists(tmp_path / "metrics.jsonl")
 
 

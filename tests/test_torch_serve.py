@@ -196,11 +196,6 @@ BASE = ["--device", "cpu", "--config", "tiny", "--port", "1"]
 
 
 @pytest.mark.parametrize("extra, env, message", [
-    (["--batch-slots", "2"], {"TDAPI_TPU_SHARES": "2"},
-     "co-tenancy regulator is not yet ported"),
-    (["--batch-slots", "2"], {"TDAPI_PRIORITY": "latency"},
-     "co-tenancy regulator is not yet ported"),
-    ([], {"TPU_WORKER_HOSTNAMES": "w0,w1"}, "not yet ported"),
     # refused by the JAX server too: its messages
     (["--prefix-cache", "8"], {}, "needs --batch-slots N"),
     (["--kv-block", "16"], {}, "need --batch-slots N"),
@@ -319,6 +314,47 @@ def test_paged_and_tp_flags_start_a_server(monkeypatch, capsys, extra, want):
     assert (f"continuous batching: 4 slots x 128 tokens, paged "
             f"({want['poolBlocks']} x {want['blockSize']} token blocks) KV"
             in out)
+
+
+@pytest.mark.parametrize("extra, env, want", [
+    (["--batch-slots", "2"], {"TDAPI_TPU_SHARES": "2"},
+     "chip co-tenancy: weight 2, class best_effort"),
+    (["--batch-slots", "2"], {"TDAPI_PRIORITY": "latency",
+                              "TPU_VISIBLE_CHIPS": "3"},
+     "chip co-tenancy: weight 1, class latency"),
+    ([], {"TPU_WORKER_HOSTNAMES": "w0,w1"}, None),
+])
+def test_cotenancy_and_multihost_envs_now_serve(monkeypatch, capsys, extra,
+                                                env, want):
+    """A co-tenancy env with --batch-slots starts a batcher registered with
+    its chip's regulator (the JAX server's line), unregistered when the
+    server stops; a multi-worker grant launches the lock-step engine over
+    the cluster (one CPU rank a worker, JAX's serving plan: tp 2)."""
+    from gpu_docker_api_tpu_torch import distributed, regulator
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    if want is None:
+        launched = []
+        monkeypatch.setattr(distributed, "run_cluster",
+                            lambda target, args, cluster, backend: (
+                                launched.append((target, args, cluster,
+                                                 backend))))
+        assert tserve.main(BASE + extra) == 0
+        (target, args, cluster, backend), = launched
+        assert target is tserve._serve_rank and backend == "gloo"
+        assert (cluster.workers, cluster.worker, cluster.local) == (2, 0, 1)
+        assert cluster.init_method == "tcp://w0:9487"
+        assert (args[3].tp, args[3].fsdp) == (2, 1)
+        return
+    regulator.reset()
+    _OneHealthz.HEALTH.clear()
+    monkeypatch.setattr(tserve, "ThreadingHTTPServer", _OneHealthz)
+    assert tserve.main(BASE + extra) == 0
+    (health,) = _OneHealthz.HEALTH
+    assert health["batching"]["slots"] == 2
+    assert want in capsys.readouterr().out
+    chip = int(env.get("TPU_VISIBLE_CHIPS", "-1"))
+    assert regulator.for_chip(chip).describe()["tenants"] == []
 
 
 def test_kv_block_without_device_cpu_raises_when_no_card():

@@ -1051,20 +1051,26 @@ def test_phase_tp_at_tiny_width_on_the_cpu():
 def test_cut_phases_feed_the_launch_formulas():
     """Phases 8c, 9 and 10 run 2 steps a layout (2 keep every check: the
     step time is the median of the steps after the first), phases 9 and
-    10 llama 1b at 10 of its 20 layers, full width; the launches a rank
-    and step follow from the cut depth by the same formula."""
+    10 llama 1b at 4 of its 20 layers and 13a at 10, full width; the
+    launches a rank and step follow from the cut depth by the same
+    formula."""
     assert cs.SP_TRAIN["steps"] == 2 and cs.FSDP_TRAIN["steps"] == 2
     assert all(steps == 2 for _, steps in cs.FSDP_LAYOUTS.values())
     assert cs.TP_TRAIN["steps"] == 2
     cut, full = cs.smoke_config(cs.FSDP_CONFIG), cs_config("1b")
-    assert cut.n_layers == 10 and full.n_layers == 20
+    assert cut.n_layers == 4 and full.n_layers == 20
     assert dataclasses.replace(cut, n_layers=20) == full
     assert cs.TP_CONFIGS["main"] == cs.FSDP_CONFIG
     assert cs.fsdp_launches({"fsdp": 4}, 0, cut.n_layers) == {
-        "flash_fwd": 20, "flash_bwd_dq": 10, "flash_bwd_dkv": 10}
+        "flash_fwd": 8, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
     assert [cs.fsdp_launches({"tp": 2, "sp": 2}, r, cut.n_layers)
-            ["flash_bwd_dkv"] for r in (0, 1)] == [10, 20]
-    assert cs.tp_sums_a_step(cut.n_layers, {"tp": 4}) == 54
+            ["flash_bwd_dkv"] for r in (0, 1)] == [4, 8]
+    assert cs.tp_sums_a_step(cut.n_layers, {"tp": 4}) == 24
+    mw = cs.smoke_config(cs.MW_CONFIG)
+    assert mw.n_layers == 10 and dataclasses.replace(mw, n_layers=20) == full
+    assert cs.fsdp_launches(cs.MW_PLAN, 0, mw.n_layers) == {
+        "flash_fwd": 20, "flash_bwd_dq": 10, "flash_bwd_dkv": 10}
+    assert cs.tp_sums_a_step(mw.n_layers, {"tp": 4}) == 54
     assert cs.smoke_config("mini") == cs_config("mini")
     assert cs.smoke_config(("moe", "1b", None)).n_layers == 16
 
@@ -1103,15 +1109,17 @@ def test_shard_bytes_are_what_an_ep_trainer_holds(layout):
 
 
 def test_state_bytes_of_phase_11_and_the_earlier_phases():
-    """The per-rank state of each phase 11 layout at moe_1b (the
+    """The per-rank state of each phase 11 layout at moe_1b's width and 4
+    of its 16 layers (EP_CONFIG), moe_1b's whole at full depth (the
     prediction in PERF.md), and phases 9 and 10's at llama 1b's full
     depth as shard_bytes gave them before it read the specs."""
-    one = moe_config("1b")
+    one = cs.smoke_config(cs.EP_CONFIG)
     assert {name: cs.state_bytes(one, plan) for name, (plan, _)
             in cs.EP_LAYOUTS.items()} == {
-        "11a": 2207133696, "11b": 1859530752, "11c": 1685729280,
-        "11d": 3717083136}
-    assert cs.state_bytes(one, {}) == 6736982016
+        "11a": 846704640, "11b": 612347904, "11c": 495169536,
+        "11d": 1224192000}
+    assert cs.state_bytes(one, {}) == 1979166720
+    assert cs.state_bytes(moe_config("1b"), {}) == 6736982016
     assert cs.fsdp_state_bytes(cs_config("1b"), 4) == 1613193216
     assert cs.fsdp_state_bytes(cs_config("1b"), 2, 2) == 1613193216
     assert cs.state_bytes(cs_config("1b"), {"tp": 2, "sp": 2}) == \
@@ -1120,18 +1128,21 @@ def test_state_bytes_of_phase_11_and_the_earlier_phases():
 
 
 def test_phase_11_launches_and_tp_sums():
-    """32/16/16 a rank and step at moe_1b's 16 layers, the ring's rank + 1
-    times as many in 11d; MoE's tp sums, 6 a layer + 4."""
-    n = moe_config("1b").n_layers
+    """8/4/4 a rank and step at phase 11's 4 layers of moe_1b, the ring's
+    rank + 1 times as many in 11d; MoE's tp sums, 6 a layer + 4 (100 at
+    moe_1b's full 16 layers)."""
+    n = cs.smoke_config(cs.EP_CONFIG).n_layers
     for plan, _ in cs.EP_LAYOUTS.values():
         if plan.get("sp", 1) == 1:
             assert cs.fsdp_launches(plan, 0, n) == {
-                "flash_fwd": 32, "flash_bwd_dq": 16, "flash_bwd_dkv": 16}
+                "flash_fwd": 8, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
     assert [cs.fsdp_launches(cs.EP_LAYOUTS["11d"][0], r, n)
             for r in (0, 1)] == [
-        {"flash_fwd": 32, "flash_bwd_dq": 16, "flash_bwd_dkv": 16},
-        {"flash_fwd": 64, "flash_bwd_dq": 32, "flash_bwd_dkv": 32}]
-    assert cs.tp_sums_a_step(n, {"tp": 4}, moe=True) == 100
+        {"flash_fwd": 8, "flash_bwd_dq": 4, "flash_bwd_dkv": 4},
+        {"flash_fwd": 16, "flash_bwd_dq": 8, "flash_bwd_dkv": 8}]
+    assert cs.tp_sums_a_step(n, {"tp": 4}, moe=True) == 28
+    assert cs.tp_sums_a_step(moe_config("1b").n_layers, {"tp": 4},
+                             moe=True) == 100
     assert cs.tp_sums_a_step(n, {"ep": 4}, moe=True) == 0
 
 
@@ -1196,10 +1207,11 @@ def test_phase_ep_at_tiny_width_on_the_cpu():
 # ---- phase 12 ---------------------------------------------------------------
 
 def test_phase_12_state_bytes_and_launches():
-    """The per-rank state of each phase 12 layout at full size (the
-    prediction in PERF.md: under pp every layer leaf 1/pp too, embed and
-    lm_head whole on each stage) and its launches a rank and step: a
-    stage's layers once a microbatch, the ring's rank + 1 times in 12c."""
+    """The per-rank state of each phase 12 layout at its size (llama 1b's
+    width at 4 of its 20 layers, moe_1b whole; the prediction in PERF.md:
+    under pp every layer leaf 1/pp too, embed and lm_head whole on each
+    stage) and its launches a rank and step: a stage's layers once a
+    microbatch, the ring's rank + 1 times in 12c."""
     layouts = cs.pp_layouts(cs.PP_CONFIGS, cs.PP_TRAIN)
     got = {}
     for name, entry in layouts.items():
@@ -1209,9 +1221,9 @@ def test_phase_12_state_bytes_and_launches():
             cs.fsdp_launches(plan, r, cfg.n_layers,
                              opts["tc"]["n_microbatches"])["flash_fwd"]
             for r in range(plan.get("sp", 1))], opts["b"], steps)
-    assert got == {"12a": (2202279936, [40], 4, 2),
-                   "12b": (1809309696, [40], 4, 2),
-                   "12c": (3618103296, [40, 80], 4, 2),
+    assert got == {"12a": (1069621248, [8], 4, 2),
+                   "12b": (676454400, [8], 4, 2),
+                   "12c": (1352785920, [8, 16], 4, 2),
                    "12d": (2055155712, [32], 8, 2)}
     assert cs.fsdp_launches({"pp": 4}, 0, 20, 4) == {
         "flash_fwd": 40, "flash_bwd_dq": 20, "flash_bwd_dkv": 20}
@@ -1264,3 +1276,45 @@ def test_served_ungrouped_check_finds_a_changed_leaf(tmp_path):
             cs.check_served_ungrouped(str(tmp_path), cfg, "12b")
     finally:
         serve._restore_params = load
+
+
+# ---- phase 13 ---------------------------------------------------------------
+
+MW_TINY = dict(
+    config=("llama", "tiny", None), train=dict(b=4, s=32, steps=2),
+    llama="tiny", moe="tiny",
+    sizes=dict(slots=4, max_len=96, lens=(7, 12, 20, 9, 15, 11), new=8,
+               prefix=20, suffixes=(3, 5, 8, 11), prefix_cache=4),
+    moe_sizes=dict(slots=3, max_len=48, lens=(5, 9, 6, 12), at=(0, 1, 3, 6),
+                   new=7),
+    oracle=dict(b=2, prompt=11, steps=7), kv_block=16,
+    serve=("--batch-slots", "8", "--batch-max-len", "96"),
+    traffic=dict(requests=4, clients=2, prompt=(8, 16), new=(4, 8)),
+    time=dict(prompt=8, new=9),
+    cotenancy=dict(be_weight=3, lat_weight=1, slots=4, max_len=128,
+                   be_lens=(10, 14, 18, 22), be_new=100, lat_lens=(9, 12),
+                   lat_new=8, decode_chunk=8))
+
+
+def test_phase_multiworker_at_tiny_width_on_the_cpu():
+    """Phase 13 end to end on the CPU at `tiny` (f32): 13a train_llama's
+    loop on 2 workers x 2 gloo ranks against one rank (the records'
+    "process" field, the checkpoint shard for shard), 13b the f32
+    lock-step checks against one rank's references and the serve ranks
+    over HTTP (both workers stopping with 0), 13c two co-tenant batchers
+    (a preemption, single steps while contended) and a co-tenant serve
+    process."""
+    cfg = cs.smoke_config(MW_TINY["config"])
+    one = cs.sp_train(torch, "cpu", cfg, MW_TINY["train"], "ring")
+    out = cs.phase_multiworker(torch, att, one, {}, device="cpu",
+                               scale=MW_TINY)
+    train = out["train"]
+    assert max(train["rel_to_one_rank"]["loss"]) <= 1e-5
+    assert train["state_bytes_a_rank"] == [cs.state_bytes(
+        cfg, cs.MW_PLAN)] * (cs.MW_WORKERS * cs.MW_LOCAL)
+    assert all(r["process"] == "0/2" for r in train["records"])
+    serve = out["serve"]
+    assert serve["shard_kv"]["kv_bytes_a_rank"] == [
+        serve["whole_kv_bytes"] // cs.MH_TP] * cs.MW_WORKERS
+    assert serve["http"]["exit_codes"] == [0, 0]
+    assert out["cotenancy"]["preempt_total"] > 0

@@ -118,12 +118,24 @@ def test_main_without_device_cpu_raises_when_no_card(tmp_path):
 @pytest.mark.parametrize("extra, env", [
     ([], {"TPU_WORKER_HOSTNAMES": "w0,w1"}),
 ])
-def test_not_yet_ported_is_refused(tmp_path, monkeypatch, extra, env):
-    """A multi-worker grant (the pp launches: test_pp_is_launched)."""
+def test_multi_worker_grant_is_launched(tmp_path, monkeypatch, extra, env):
+    """A multi-worker grant launches this worker's ranks over the cluster
+    (no plan: JAX's un-planned plan over the global device count, one CPU
+    rank a worker; the pp launches: test_pp_is_launched)."""
+    from gpu_docker_api_tpu_torch import distributed
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttl.main(TINY + ["--steps", "1", "--workdir", str(tmp_path)] + extra)
+    launched = []
+    monkeypatch.setattr(distributed, "run_cluster",
+                        lambda target, args, cluster, backend: launched.append(
+                            (target, args, cluster, backend)))
+    assert ttl.main(TINY + ["--steps", "1", "--workdir", str(tmp_path)]
+                    + extra) == 0
+    (target, (argv, plan, _), cluster, backend), = launched
+    assert target is ttl._rank_main and backend == "gloo"
+    assert (cluster.world, list(cluster.ranks)) == (2, [0])
+    assert cluster.init_method == "tcp://w0:9487"
+    assert (plan.tp, plan.fsdp) == (2, 1)       # best_tp_for(2), as JAX
 
 
 @pytest.mark.parametrize("extra, env, plan", [

@@ -2,7 +2,8 @@
 test_torch_ulysses.py, test_torch_sp_train.py, test_torch_distributed.py,
 test_torch_mesh.py, test_torch_fsdp_train.py, test_torch_tp.py,
 test_torch_tp_train.py, test_torch_ep.py, test_torch_moe_ranks_train.py,
-test_torch_pipeline.py, test_torch_pp_train.py).
+test_torch_pipeline.py, test_torch_pp_train.py, test_torch_multiworker.py,
+test_torch_multihost_serving.py).
 
 gpu_docker_api_tpu_torch.distributed.launch spawns each rank afresh and
 imports its target by module path, so the targets live here, in a module
@@ -312,6 +313,191 @@ def run(target, payload, world: int, tmp_dir: str, timeout: float = 120.0):
                        timeout=timeout)
     return [torch.load(os.path.join(tmp_dir, f"rank{r}.pt"),
                        weights_only=False) for r in range(world)]
+
+
+# ---- multi-worker runs: each worker a process formed from its contract -------
+
+def cluster_env(worker: int, workers: int, coordinator: str) -> dict:
+    """The control plane's contract for worker `worker` of `workers` on
+    this host, the coordinator given (JAX_COORDINATOR_ADDRESS)."""
+    return {"TPU_WORKER_HOSTNAMES": ",".join(["127.0.0.1"] * workers),
+            "TPU_WORKER_ID": str(worker),
+            "JAX_COORDINATOR_ADDRESS": coordinator}
+
+
+def cluster_worker(env: dict, n_dev: int, target, args: tuple,
+                   timeout: float):
+    """One worker: its contract env alone decides its ranks (cluster_spec_
+    from_env, cluster_layout over n_dev CPU devices) and the group forms at
+    the coordinator (run_cluster, gloo)."""
+    from gpu_docker_api_tpu_torch import distributed
+    torch.set_num_threads(1)
+    os.environ.update(env)
+    spec = distributed.cluster_spec_from_env()
+    cluster = distributed.cluster_layout(spec, "cpu", n_dev)
+    distributed.run_cluster(target, args, cluster, "gloo", timeout)
+
+
+def start_workers(target, args: tuple, workers: int, n_dev: int,
+                  timeout: float = 120.0) -> list:
+    """Test-side: `workers` worker processes (spawned, each running
+    cluster_worker from its own contract env) of a run of n_dev ranks;
+    target(rank, world, *args) on each rank. Returns the processes."""
+    import multiprocessing as mp
+
+    from gpu_docker_api_tpu_torch import distributed
+    coordinator = f"127.0.0.1:{distributed.free_port()}"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=cluster_worker, args=(
+        cluster_env(w, workers, coordinator), n_dev, target, args, timeout))
+        for w in range(workers)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def wait_workers(procs, timeout: float) -> list:
+    """Each worker's exit code within `timeout` s in all; a worker still
+    running then is killed and reads None."""
+    import time
+    deadline = time.monotonic() + timeout
+    codes = []
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+        if p.is_alive():
+            p.kill()
+            p.join()
+            codes.append(None)
+        else:
+            codes.append(p.exitcode)
+    return codes
+
+
+def run_workers(target, payload, workers: int, n_dev: int, tmp_dir: str,
+                timeout: float = 120.0) -> list:
+    """Test-side: save `payload`, run target(rank, world, payload path,
+    tmp_dir) on n_dev ranks over `workers` workers (start_workers), and
+    return each global rank's saved results."""
+    path = os.path.join(tmp_dir, "payload.pt")
+    torch.save(payload, path)
+    procs = start_workers(target, (path, tmp_dir), workers, n_dev, timeout)
+    codes = wait_workers(procs, timeout)
+    if codes != [0] * workers:
+        raise RuntimeError(f"workers exited with {codes}")
+    return [torch.load(os.path.join(tmp_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(n_dev)]
+
+
+# ---- multi-host serving ------------------------------------------------------
+
+def serve_cases(rank: int, world: int, spec_path: str, out_dir: str):
+    """One rank of multi-host serving over the workers' group, tp =
+    spec["tp"] (infer.serving_plan): the weights (spec["params"], a numpy
+    tree of spec["config"]) cut to this rank (its leaf shapes saved);
+    single-flight generate of spec["prompt"] greedy, its teacher-forced
+    logits, and a sampled request (generator seed spec["seed"]); then each
+    of spec["batch_cases"] ({name: {kw: _LockstepBatcher knobs, draft:
+    bool, moe: bool, temperature}}) through a lock-step batcher: spec
+    ["prompts"] staggered, or for MoE (spec["moe_config"], spec["moe_
+    params"]) spec["moe_prompts"] under the schedule spec["moe_at"]; each
+    rank's recorded streams, rank 0's in order, the cache's shapes and
+    the generator's draws. Results to out_dir/rank<r>.pt."""
+    import chip_smoke as cs
+    from gpu_docker_api_tpu_torch import convert, infer
+    from gpu_docker_api_tpu_torch.parallel import comm
+    from gpu_docker_api_tpu_torch.parallel.mesh import MeshGroups
+    from gpu_docker_api_tpu_torch.train import Trainer, tree_map_named
+    from gpu_docker_api_tpu_torch.workloads import serve
+
+    spec = torch.load(spec_path, weights_only=False)
+    plan = infer.serving_plan(world, spec["tp"])
+    groups = MeshGroups.build(plan)
+    wire = comm.AxisGroup.of()
+
+    def shards(config, tree):
+        tr = Trainer.create(config, plan, device="cpu", groups=groups)
+        return infer.RankParams(tr._shard_tree(
+            convert.params_from_numpy(tree, config)), groups)
+
+    cfg = spec["config"]
+    params = shards(cfg, spec["params"])
+    res = {"plan": plan, "leaf_shapes": tree_map_named(
+        lambda _, t: tuple(t.shape), dict(params))}
+    prompt = torch.as_tensor(spec["prompt"]).long()[None]
+    n = spec["max_new"]
+    res["greedy"] = infer.generate(params, prompt, cfg, n).tolist()
+    seq = torch.cat([prompt, torch.tensor(res["greedy"])], dim=1)
+    logits, _ = infer._forward_cached(
+        params, seq, infer.init_cache(cfg, 1, seq.shape[1], device="cpu"),
+        cfg)
+    res["logits"] = logits
+    gen = torch.Generator().manual_seed(spec["seed"])
+    res["sampled"] = infer.generate(params, prompt, cfg, n, temperature=0.8,
+                                    top_k=20, generator=gen).tolist()
+    draft = (cfg, shards(cfg, spec["draft_params"]))
+    moe_cfg = spec["moe_config"]
+    moe_params = shards(moe_cfg, spec["moe_params"])
+    for name, case in spec["batch_cases"].items():
+        kw = dict(case["kw"])
+        if case.get("draft"):
+            kw["draft"] = draft
+        moe = case.get("moe", False)
+        b = serve._LockstepBatcher(
+            moe_cfg if moe else cfg, moe_params if moe else params,
+            world=wire, rank=rank, seed=11, **kw)
+        cs.record_streams(b)
+        gen0 = b._gen.get_state().clone()
+        shapes = {k: tuple(b.cache[k].shape) for k in
+                  ("k", "v", "ks", "vs", "lengths", "pages") if k in b.cache}
+        prompts = [torch.as_tensor(p).long()
+                   for p in spec["moe_prompts" if moe else "prompts"]]
+        if moe:
+            out = cs.lockstep_scheduled(torch, b, rank, prompts,
+                                        spec["moe_at"], n)
+            b.close()
+        else:
+            out = cs.lockstep_staggered(
+                b, rank, prompts, n, spec["stagger"],
+                temperature=case.get("temperature", 0.0))
+        res[name] = {"out": out, "recorded": b.recorded,
+                     "cache_shapes": shapes,
+                     "drew": not torch.equal(gen0, b._gen.get_state())}
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def serve_main_worker(env: dict, argv: list, fail_rank: int = -1,
+                      fail_at: int = 3, idle_s: float = 0.0,
+                      rounds_path: str = ""):
+    """A worker process of `serve.main(argv)` from its contract env; with
+    fail_rank set, that global rank's lock-step scheduler raises at its
+    fail_at-th tick (a planted crash). idle_s > 0 sets the single-flight
+    idle round's period; with rounds_path each broadcast_one_to_all of
+    this worker appends a line to that file. Exits with main's code."""
+    os.environ.update(env)
+    torch.set_num_threads(1)
+    from gpu_docker_api_tpu_torch.parallel import comm
+    from gpu_docker_api_tpu_torch.workloads import serve
+    if idle_s > 0:
+        serve.SERVE_IDLE_S = idle_s
+    if rounds_path:
+        bcast = comm.broadcast_one_to_all
+
+        def counted(tensors, g):
+            out = bcast(tensors, g)
+            with open(rounds_path, "a") as f:
+                f.write("1\n")
+            return out
+        comm.broadcast_one_to_all = counted
+    if fail_rank >= 0:
+        real = serve._LockstepBatcher._tick
+
+        def tick(self):
+            self._ticks = getattr(self, "_ticks", 0) + 1
+            if self._rank == fail_rank and self._ticks >= fail_at:
+                raise RuntimeError(f"planted failure on rank {fail_rank}")
+            return real(self)
+        serve._LockstepBatcher._tick = tick
+    raise SystemExit(serve.main(argv))
 
 
 def contract_rank(rank: int, env: dict, out_dir: str):
