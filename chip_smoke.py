@@ -199,14 +199,30 @@ Phases (any failure exits non-zero and prints no result):
      while contended, the busy-seconds ratio printed beside the weights';
      `serve --batch-slots 4` with TDAPI_TPU_SHARES=2 prints its co-tenancy
      line and serves.
+ 14. the GPU seam's node layer. 14a: discover_topology() finds the card's
+     node (/dev/nvidia<minor>, nvidia-smi's minor number) and nvidia-smi's
+     name; device_path_available holds for that node and not for one the
+     host lacks. 14b: a GpuScheduler over an MVCCStore (through the
+     write-behind queue) grants 1 card with a dp=1 plan (env_for:
+     CUDA_VISIBLE_DEVICES, CUDA_DEVICE_ORDER, TDAPI_MESH_PLAN;
+     device_paths: the node); a second whole-card grant raises the
+     not-enough error (code 1013); a scheduler rebuilt from the drained
+     store sees the card held. 14c: the process backend runs a `python -c`
+     wrapper of train_llama.main at phase 2's width, depth and shape for 3
+     steps with the grant's env and a 48 GiB memory grant: exit 0,
+     launches 120/60/60, one card seen, its UUID the granted card's,
+     records 1-3, the first loss near its init value, the losses within
+     SEAM_LOSS_TOL of phase 2's first three; then stop, remove, release,
+     and the store's history holds the grant and the release at two
+     revisions.
 
 Prints one `{"kernels": [...]}` line (with each kernel's launches in 7a
-and phases 8-13 too), the readings, one `{"serve": ...}` line, one
+and phases 8-14 too), the readings, one `{"serve": ...}` line, one
 `{"batching": ...}` line, one `{"paged": ...}` line, one `{"moe": ...}`
 line, one `{"sp": ...}` line, one `{"fsdp": ...}` line, one `{"tp": ...}`
 line, one `{"ep": ...}` line, one `{"pp": ...}` line, one
-`{"multiworker": ...}` line, the wall times of the whole script and of
-phases 11, 12 and 13, the nvidia-smi line, and last
+`{"multiworker": ...}` line, one `{"seam": ...}` line, the wall times of
+the whole script and of phases 11-14, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 """
 
@@ -4718,6 +4734,364 @@ def phase_multiworker(torch, att, one, one_rank_times, device="cuda",
             "wall": wall}
 
 
+# phase 14: the GPU seam's node layer
+SEAM_OWNER = "seam-trainer"
+SEAM_MEMORY_BYTES = 48 << 30       # the child's grant of host data memory
+SEAM_DEADLINE_S = 600              # the child's whole run
+# the child's losses against phase 2's first three, both rounded to 5
+# decimals in metrics.jsonl: two units of that rounding. The card read
+# them equal (PERF.md, PR 14): deterministic kernels, the same seed.
+SEAM_LOSS_TOL = 2e-5
+# 14c's second container: a CUDA process holding more host data memory
+# than its grant must die (the kernel's refusal, or the backend's watchdog
+# where the kernel does not enforce RLIMIT_DATA)
+SEAM_OVER_GRANT = dict(grant=4 << 30, alloc=6 << 30, deadline_s=120)
+# 14c's reading of the memory watchdog's own load: this many sleeping
+# memory-limited containers, watched for this long
+SEAM_WATCHED = dict(containers=16, seconds=2.0)
+SEAM_OVER_CMD = r"""
+import sys, time
+import torch
+if torch.cuda.is_available():
+    torch.zeros(1, device="cuda")
+held = bytearray(int(sys.argv[1]))
+print("survived", flush=True)
+time.sleep(60)
+"""
+# the container's command: train_llama.main, then one line of what the
+# child saw (its launches, its cards, its data memory)
+SEAM_WRAPPER = r"""
+import json, sys
+import torch
+from gpu_docker_api_tpu_torch.ops import attention
+from gpu_docker_api_tpu_torch.workloads import train_llama
+rc = train_llama.main(json.loads(sys.argv[1]))
+cuda = torch.cuda.is_available()
+if cuda:
+    torch.cuda.synchronize()
+vm = {}
+for line in open("/proc/self/status"):
+    key = line.split(":")[0]
+    if key in ("VmData", "VmHWM"):
+        vm[key] = int(line.split()[1]) * 1024
+print("SEAM " + json.dumps({
+    "rc": rc, "launches": dict(attention.LAUNCHES),
+    "count": torch.cuda.device_count() if cuda else 0,
+    "uuid": str(torch.cuda.get_device_properties(0).uuid) if cuda else "",
+    "name": torch.cuda.get_device_name(0) if cuda else "", "vm": vm}),
+    flush=True)
+sys.exit(rc)
+"""
+
+
+def seam_argv(device, config="1b", shape=None, steps=3):
+    """The child's train_llama argv: phase 2's shape, `steps` steps."""
+    shape = shape or MAIN_SHAPE
+    b, s = shape["b"], shape["s"]
+    argv = ["--config", config, "--batch", str(b), "--seq", str(s),
+            "--steps", str(steps)]
+    return argv + (["--device", device] if device != "cuda" else [])
+
+
+def missing_card_node() -> str:
+    """A /dev/nvidia<minor> node this host lacks."""
+    return next(f"/dev/nvidia{k}" for k in range(1024)
+                if not os.path.exists(f"/dev/nvidia{k}"))
+
+
+def uuid_reference(topo, index) -> str:
+    """The UUID the granted card must have: nvidia-smi's for the granted
+    index, without its "GPU-" prefix (torch's form)."""
+    smi = topo.chip(index).uuid
+    check(re.fullmatch(r"GPU-[0-9a-fA-F]{8}(-[0-9a-fA-F]{4}){3}-"
+                       r"[0-9a-fA-F]{12}", smi) is not None,
+          f"nvidia-smi gives card {index} no UUID ({smi!r})")
+    return smi[len("GPU-"):].lower()
+
+
+def seam_over_grant(backend, env, paths, grant, c=SEAM_OVER_GRANT):
+    """A container on the grant whose process (CUDA initialised) holds more
+    host data memory than its memory grant: it must not survive. Returns
+    its exit code and how it was stopped."""
+    from gpu_docker_api_tpu_torch.dtos import ContainerSpec
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    name = f"{SEAM_OWNER}-over"
+    kills = backend.memory_kills
+    backend.create(name, ContainerSpec(
+        cmd=[sys.executable, "-c", SEAM_OVER_CMD, str(c["alloc"])],
+        env=[f"PYTHONPATH={repo}"], tpu_chips=grant, tpu_env=env,
+        devices=paths, memory_bytes=c["grant"], restart_policy="no"))
+    t0 = time.perf_counter()
+    backend.start(name)
+    try:
+        rc = backend.wait(name, timeout=c["deadline_s"])
+    except subprocess.TimeoutExpired:
+        rc = None
+    log = backend.log_text(name)
+    backend.stop(name, timeout=10)
+    backend.remove(name)
+    by = ("the watchdog" if backend.memory_kills > kills
+          else "the kernel (RLIMIT_DATA)")
+    out = {"exit": rc, "by": by, "seconds": time.perf_counter() - t0,
+           **{k: c[k] for k in ("grant", "alloc")}}
+    print(f"  14c a container holding {c['alloc']} bytes over a {c['grant']}"
+          f"-byte grant: exit {rc} after {out['seconds']:.1f} s, stopped by "
+          f"{by}", flush=True)
+    check(rc is not None and rc != 0 and "survived" not in log,
+          f"14c a container over its memory grant survived: exit {rc}, "
+          f"{log[-1500:]}")
+    return out
+
+
+def seam_watchdog_load(backend, c=SEAM_WATCHED):
+    """The memory watchdog's own load while it watches `containers`
+    memory-limited containers: its thread's CPU seconds (thread_time at
+    each poll) over a wall-clock window, a share of one core, and the CPU
+    a poll."""
+    from gpu_docker_api_tpu_torch.dtos import ContainerSpec
+
+    names = [f"{SEAM_OWNER}-watched-{i}" for i in range(c["containers"])]
+    try:
+        for name in names:
+            backend.create(name, ContainerSpec(
+                cmd=["sleep", "120"], memory_bytes=1 << 30,
+                restart_policy="no"))
+            backend.start(name)
+        # two polls after the last start: every container is in each pass
+        start = backend.memory_polls
+        deadline = time.monotonic() + 30
+        while (backend.memory_polls < start + 2
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        cpu0, polls0 = backend.memory_watch_cpu_s, backend.memory_polls
+        t0 = time.perf_counter()
+        time.sleep(c["seconds"])
+        cpu1, polls1 = backend.memory_watch_cpu_s, backend.memory_polls
+        wall = time.perf_counter() - t0
+        running = sum(backend.inspect(n).running for n in names)
+        # what a poll walks: every process on the host, the watched too
+        host_procs = sum(d.isdigit() for d in os.listdir("/proc"))
+    finally:
+        for name in names:
+            backend.stop(name, timeout=5)
+            backend.remove(name, force=True)
+    polls = polls1 - polls0
+    check(polls > 0 and running == len(names),
+          f"14c the watchdog polled {polls} times over {wall:.2f} s with "
+          f"{running} of {len(names)} containers running")
+    out = {"containers": len(names), "host_processes": host_procs,
+           "wall_s": wall, "polls": polls, "cpu_s": cpu1 - cpu0,
+           "cpu_share": (cpu1 - cpu0) / wall,
+           "cpu_ms_a_poll": (cpu1 - cpu0) * 1e3 / polls}
+    print(f"  14c the memory watchdog over {len(names)} containers "
+          f"({host_procs} processes on the host): {polls} polls in "
+          f"{wall:.2f} s, {out['cpu_s']:.4f} CPU s, a share of "
+          f"{out['cpu_share']:.4f} of one core, {out['cpu_ms_a_poll']:.3f} "
+          f"ms a poll", flush=True)
+    return out
+
+
+def seam_history(store):
+    """[(revision, holder of card 0)] of the scheduler's stored state."""
+    from gpu_docker_api_tpu_torch.schedulers import GpuScheduler
+    from gpu_docker_api_tpu_torch.store.client import resource_key
+
+    key = resource_key(GpuScheduler.resource, GpuScheduler.state_key)
+    return [(kv.mod_revision, json.loads(kv.value)["status"].get("0"))
+            for kv in store.history(key)]
+
+
+def phase_seam(torch, main_losses, device="cuda", topo=None, config="1b",
+               shape=None, want_launches=None, over=SEAM_OVER_GRANT,
+               watched=SEAM_WATCHED):
+    """Phase 14: the GPU seam's node layer. 14a discovery, 14b a grant
+    persisted in the MVCC store through the write-behind queue, 14c the
+    port's trainer launched with that grant through the process backend,
+    then the release. `topo` replaces discovery, `config` and `shape`
+    phase 2's model and batch, `over` the sizes of the container over its
+    memory grant and `watched` the watchdog's load reading (a small run on
+    the CPU); `want_launches` the launches
+    the child must count (default: phase 2's per step, over 3 steps)."""
+    from gpu_docker_api_tpu_torch import topology, xerrors
+    from gpu_docker_api_tpu_torch.backend import ProcessBackend
+    from gpu_docker_api_tpu_torch.backend.base import device_path_available
+    from gpu_docker_api_tpu_torch.dtos import ContainerSpec
+    from gpu_docker_api_tpu_torch.meshplan import PlanSpec
+    from gpu_docker_api_tpu_torch.models import named_config
+    from gpu_docker_api_tpu_torch.schedulers import GpuScheduler
+    from gpu_docker_api_tpu_torch.store import MVCCStore, StateClient
+    from gpu_docker_api_tpu_torch.workqueue import WorkQueue
+
+    cuda = device == "cuda"
+    out = {}
+    print("phase 14: the GPU seam's node layer (discovery, the card "
+          "scheduler over the MVCC store, the process backend)", flush=True)
+    t0 = time.perf_counter()
+    if topo is None:
+        topo = topology.discover_topology()
+    out["discover_ms"] = (time.perf_counter() - t0) * 1e3
+    out["topology"] = topo.serialize()
+    print(f"  14a topology {json.dumps(out['topology'])} "
+          f"cards {[(c.index, c.device_path, c.uuid, c.name) for c in topo.chips]}"
+          f" in {out['discover_ms']:.1f} ms", flush=True)
+    if cuda:
+        check(topo.num_chips == torch.cuda.device_count(),
+              f"discovery found {topo.num_chips} cards, torch sees "
+              f"{torch.cuda.device_count()}")
+        check(topo.chip(0).name == torch.cuda.get_device_name(0),
+              f"nvidia-smi names {topo.chip(0).name!r}, torch "
+              f"{torch.cuda.get_device_name(0)!r}")
+        node = topo.chip(0).device_path
+        check(os.path.exists(node), f"the card's node {node} is missing")
+        missing = missing_card_node()
+        check(device_path_available(node) and
+              not device_path_available(missing),
+              f"device_path_available({node}) / ({missing}) wrong")
+        out["node"], out["missing_node"] = node, missing
+
+    plan = PlanSpec()                      # an explicit dp=1: pins one card
+    plan_env = plan.to_env()
+    with tempfile.TemporaryDirectory() as state:
+        store = MVCCStore(wal_path=os.path.join(state, "state.wal"))
+        client = StateClient(store)
+        wq = WorkQueue(client)
+        wq.start()
+        backend = ProcessBackend(os.path.join(state, "backend"))
+        try:
+            sched = GpuScheduler(client, wq, topology=topo)
+            t0 = time.perf_counter()
+            grant = sched.apply(1, SEAM_OWNER, plan=plan)
+            out["grant_ms"] = (time.perf_counter() - t0) * 1e3
+            env = sched.env_for(grant, plan=plan)
+            paths = sched.device_paths(grant)
+            print(f"  14b grant {grant} in {out['grant_ms']:.3f} ms env "
+                  f"{env} nodes {paths}", flush=True)
+            check(grant == [0], f"grant {grant}")
+            check((env["CUDA_VISIBLE_DEVICES"], env["CUDA_DEVICE_ORDER"],
+                   env["TDAPI_MESH_PLAN"]) == ("0", "PCI_BUS_ID", plan_env),
+                  f"the grant's env {env}")
+            check(paths == [topo.chip(0).device_path], f"nodes {paths}")
+            try:
+                sched.apply(topo.num_chips, "second")
+                raise SmokeFailure("a second whole-card grant succeeded")
+            except xerrors.GpuNotEnoughError as e:
+                check(e.code == 1013, f"not-enough code {e.code}")
+                print(f"  14b a second grant of {topo.num_chips} refused: "
+                      f"{e} (code {e.code})", flush=True)
+            check(wq.join(timeout=30), "the write-behind queue did not drain")
+            rebuilt = GpuScheduler(client)
+            check(rebuilt.status.get(0) == SEAM_OWNER,
+                  f"rebuilt from the store: card 0 held by "
+                  f"{rebuilt.status.get(0)!r}")
+            check(rebuilt.device_paths(grant) == paths,
+                  f"rebuilt nodes {rebuilt.device_paths(grant)}")
+            out["revision_after_grant"] = store.revision
+
+            # 14c: the launch
+            if cuda:
+                torch.cuda.empty_cache()
+                free, total = torch.cuda.mem_get_info()
+                out["mem_free_bytes"], out["mem_total_bytes"] = free, total
+                print(f"  14c card memory before the launch: {free} free of "
+                      f"{total} bytes", flush=True)
+            argv = seam_argv(device, config, shape)
+            repo = os.path.dirname(os.path.abspath(__file__))
+            spec = ContainerSpec(
+                cmd=[sys.executable, "-c", SEAM_WRAPPER, json.dumps(argv)],
+                env=[f"PYTHONPATH={repo}"]
+                + ([] if cuda else ["OMP_NUM_THREADS=1"]),
+                tpu_chips=grant, tpu_env=env, devices=paths,
+                memory_bytes=SEAM_MEMORY_BYTES, restart_policy="no")
+            name = f"{SEAM_OWNER}-1"
+            backend.create(name, spec)
+            launched = time.time()
+            backend.start(name)
+            rootfs = backend.inspect(name).upper_dir
+            metrics_path = os.path.join(rootfs, "metrics.jsonl")
+            first_step_at = None
+            deadline = time.monotonic() + SEAM_DEADLINE_S
+            while (backend.inspect(name).running
+                   and time.monotonic() < deadline):
+                if first_step_at is None and os.path.exists(metrics_path):
+                    steps, _ = read_metrics(metrics_path)
+                    if steps:
+                        first_step_at = steps[0]["time"]
+                time.sleep(0.05)
+            if backend.inspect(name).running:
+                backend.stop(name, timeout=10)
+                raise SmokeFailure(f"14c: the child ran past "
+                                   f"{SEAM_DEADLINE_S} s")
+            out["child_s"] = time.time() - launched
+            rc = backend.wait(name, timeout=10)
+            log = backend.log_text(name)
+            lines = [ln for ln in log.splitlines() if ln.startswith("SEAM ")]
+            check(rc == 0 and lines,
+                  f"14c: the child exited {rc}: {log[-3000:]}")
+            child = json.loads(lines[-1][len("SEAM "):])
+            steps, _ = read_metrics(metrics_path)
+            losses = [r["loss"] for r in steps]
+            if first_step_at is None:
+                first_step_at = steps[0]["time"] if steps else launched
+            out.update(child=child, losses=losses,
+                       launch_to_first_step_s=first_step_at - launched,
+                       step_times_s=[r["step_time_s"] for r in steps])
+            print(f"  14c child: {child}", flush=True)
+            print(f"  14c losses {losses} (phase 2: {main_losses[:3]}), "
+                  f"launch to first step {out['launch_to_first_step_s']:.2f}"
+                  f" s, the child {out['child_s']:.1f} s", flush=True)
+            check([r["step"] for r in steps] == [1, 2, 3],
+                  f"14c step records {[r['step'] for r in steps]}")
+            check(child["rc"] == 0, f"14c train_llama returned {child['rc']}")
+            cfg = named_config("llama", config)
+            want = want_launches or {
+                "flash_fwd": 2 * cfg.n_layers * 3,
+                "flash_bwd_dq": cfg.n_layers * 3,
+                "flash_bwd_dkv": cfg.n_layers * 3}
+            check(child["launches"] == want,
+                  f"14c launches {child['launches']}, want {want}")
+            want0 = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+            check(all(math.isfinite(x) for x in losses) and
+                  abs(losses[0] - want0) < 0.1,
+                  f"14c first loss {losses[0]} not near {want0:.3f}")
+            diffs = [abs(a - b) for a, b in zip(losses, main_losses[:3])]
+            out["loss_diffs"] = diffs
+            check(len(diffs) == 3 and max(diffs) <= SEAM_LOSS_TOL,
+                  f"14c losses {losses} against phase 2's "
+                  f"{main_losses[:3]}: {diffs} > {SEAM_LOSS_TOL}")
+            if cuda:
+                check(child["count"] == 1,
+                      f"14c the child sees {child['count']} cards")
+                ref = uuid_reference(topo, grant[0])
+                out["uuid"] = child["uuid"]
+                check(child["uuid"] == ref,
+                      f"14c the child's card {child['uuid']} is not the "
+                      f"granted one {ref} (nvidia-smi)")
+                print(f"  14c the child's card UUID {child['uuid']} is "
+                      f"nvidia-smi's for card {grant[0]}", flush=True)
+            backend.stop(name)
+            backend.remove(name)
+            out["over_grant"] = seam_over_grant(backend, env, paths, grant,
+                                                over)
+            out["watchdog"] = seam_watchdog_load(backend, watched)
+            sched.restore(grant, SEAM_OWNER)
+            check(wq.join(timeout=30), "the write-behind queue did not drain")
+            hist = seam_history(store)
+            held = [r for r, h in hist if h == SEAM_OWNER]
+            check(hist[-1][1] is None and held and held[-1] < hist[-1][0],
+                  f"the store's history of card 0 {hist}")
+            out["grant_revision"], out["release_revision"] = \
+                held[0], hist[-1][0]
+            out["store_revisions"] = store.revision
+            print(f"  14c released: card 0 held at revision {held[0]}, free "
+                  f"at {hist[-1][0]} (history {hist})", flush=True)
+        finally:
+            backend.close()
+            wq.close()
+            store.close()
+    return out
+
+
 def build_kernels(torch):
     """Phase 0: the card's name and power limit, then the kernels' build.
     Returns (nvidia-smi line, the attention module)."""
@@ -4841,6 +5215,8 @@ def main() -> int:
             "phase4_bf16_b8_decode_ms": serve["times"]["bf16_b8"]["decode_ms"],
             "phase5_8_slot_step_ms":
                 batching["busy"]["decode_chunk_1"]["step_ms"]})
+        before_seam = time.perf_counter() - start
+        seam = phase_seam(torch, m["losses"])
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -4861,6 +5237,7 @@ def main() -> int:
             "launches_multiworker": [
                 launches[name]
                 for launches in mw["train"]["launches_a_step"]],
+            "launches_seam": seam["child"]["launches"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": bnd[name][0],
             "bound_by": bnd[name][1], "library_ms": k["library_ms"]})
@@ -4882,11 +5259,13 @@ def main() -> int:
     print(json.dumps({"ep": ep}), flush=True)
     print(json.dumps({"pp": pp}), flush=True)
     print(json.dumps({"multiworker": mw}, default=str), flush=True)
+    print(json.dumps({"seam": seam}), flush=True)
     wall = time.perf_counter() - start
     print(f"wall time: the whole script {wall:.1f} s, phases 0-10 "
           f"{before_ep:.1f} s, phase 11 {before_pp - before_ep:.1f} s, "
           f"phase 12 {before_mw - before_pp:.1f} s, phase 13 "
-          f"{wall - before_mw:.1f} s", flush=True)
+          f"{before_seam - before_mw:.1f} s, phase 14 "
+          f"{wall - before_seam:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

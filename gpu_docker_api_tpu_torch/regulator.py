@@ -254,9 +254,12 @@ def reset() -> None:
 def tenant_from_env() -> Optional[Tenant]:
     """Build a tenant handle from the env the control plane injects into
     fractionally granted containers: weight from TDAPI_TPU_SHARES, class
-    from TDAPI_PRIORITY, chip from the first TPU_VISIBLE_CHIPS entry.
-    None when the env says this workload owns its chips whole (no shares
-    and no explicit priority)."""
+    from TDAPI_PRIORITY, chip from the first CUDA_VISIBLE_DEVICES entry
+    (what the card scheduler writes), or from the first TPU_VISIBLE_CHIPS
+    entry when CUDA_VISIBLE_DEVICES is absent (the JAX daemon's grant). An
+    entry that is no index (a GPU UUID) keys chip -1. None when the env
+    says this workload owns its chips whole (no shares and no explicit
+    priority)."""
     import os
     shares = os.environ.get("TDAPI_TPU_SHARES", "")
     priority = os.environ.get("TDAPI_PRIORITY", "")
@@ -266,7 +269,9 @@ def tenant_from_env() -> Optional[Tenant]:
         weight = max(int(shares or 0), 1)
     except ValueError:
         weight = 1
-    chips = os.environ.get("TPU_VISIBLE_CHIPS", "")
+    chips = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if chips is None:
+        chips = os.environ.get("TPU_VISIBLE_CHIPS", "")
     try:
         chip = int(chips.split(",")[0]) if chips else -1
     except ValueError:

@@ -114,6 +114,32 @@ def test_the_sp_modules_are_walked_and_scanned():
     assert distributed.cluster_spec_from_env.__module__ == distributed.__name__
 
 
+def test_the_node_layer_is_walked_and_scanned():
+    """The control plane's node layer is the port's own: its subpackages
+    (obs, store, schedulers, backend) and modules are walked, imported with
+    jax blocked (test_port_imports_with_jax_blocked) and import nothing of
+    gpu_docker_api_tpu; the node layer imports no torch either."""
+    mods = set(_modules())
+    subpackages = ("obs", "store", "schedulers", "backend", "utils")
+    modules = ("xerrors", "faults", "meshplan", "topology", "workqueue",
+               "dtos", "obs.trace", "obs.metrics", "store.walio",
+               "store.mvcc", "store.client", "schedulers.base",
+               "schedulers.gpu", "backend.base", "backend.process",
+               "utils.file")
+    assert {f"gpu_docker_api_tpu_torch.{m}"
+            for m in subpackages + modules} <= mods
+    for m in subpackages + modules:
+        rel = m.replace(".", "/")
+        path = os.path.join(PORT_DIR, rel, "__init__.py") \
+            if m in subpackages else os.path.join(PORT_DIR, rel + ".py")
+        tops = {n.split(".")[0] for n in _imports(path)}
+        assert not tops & {"jax", "gpu_docker_api_tpu", "torch"}, m
+    import importlib
+    for m in ("topology", "schedulers.gpu", "store.mvcc", "backend.process"):
+        mod = importlib.import_module(f"gpu_docker_api_tpu_torch.{m}")
+        assert os.path.dirname(mod.__file__).startswith(PORT_DIR)
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     names = set(_imports(os.path.join(REPO, "chip_smoke.py")))
     assert not {n for n in names

@@ -139,7 +139,7 @@ def test_latency_preemption_is_counted_once_per_held_chunk():
 ])
 def test_tenant_from_env_equals_the_jax_one(monkeypatch, env):
     for k in ("TDAPI_TPU_SHARES", "TDAPI_PRIORITY", "TPU_VISIBLE_CHIPS",
-              "CONTAINER_VERSION"):
+              "CUDA_VISIBLE_DEVICES", "CONTAINER_VERSION"):
         monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -151,6 +151,31 @@ def test_tenant_from_env_equals_the_jax_one(monkeypatch, env):
         return
     assert (got.name, got.weight, got.priority, got.reg.chip) == (
         want.name, want.weight, want.priority, want.reg.chip)
+
+
+@pytest.mark.parametrize("env, chip", [
+    # the card scheduler's grant: the first CUDA_VISIBLE_DEVICES entry
+    ({"CUDA_VISIBLE_DEVICES": "3,4"}, 3),
+    # it wins over a TPU_VISIBLE_CHIPS the env also carries
+    ({"CUDA_VISIBLE_DEVICES": "1", "TPU_VISIBLE_CHIPS": "6"}, 1),
+    # absent: the JAX daemon's grant keys the chip, as before
+    ({"TPU_VISIBLE_CHIPS": "6,7"}, 6),
+    # a UUID entry is no index: chip -1, as an unparsable value is
+    ({"CUDA_VISIBLE_DEVICES": "GPU-46fc04bf-19d5-a7c9-023d-1411cd925509"}, -1),
+    # present but empty (a container granted no card): chip -1
+    ({"CUDA_VISIBLE_DEVICES": "", "TPU_VISIBLE_CHIPS": "2"}, -1),
+])
+def test_tenant_chip_comes_from_the_card_grant(monkeypatch, env, chip):
+    for k in ("TPU_VISIBLE_CHIPS", "CUDA_VISIBLE_DEVICES",
+              "CONTAINER_VERSION", "TDAPI_PRIORITY"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("TDAPI_TPU_SHARES", "2")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    treg.reset()
+    tenant = treg.tenant_from_env()
+    assert (tenant.reg.chip, tenant.weight) == (chip, 2)
+    assert treg.for_chip(chip) is tenant.reg
 
 
 def test_chunk_histogram_is_the_jax_one():

@@ -1318,3 +1318,68 @@ def test_phase_multiworker_at_tiny_width_on_the_cpu():
         serve["whole_kv_bytes"] // cs.MH_TP] * cs.MW_WORKERS
     assert serve["http"]["exit_codes"] == [0, 0]
     assert out["cotenancy"]["preempt_total"] > 0
+
+
+# ---- phase 14: the GPU seam's node layer ------------------------------------
+
+SEAM_TINY = dict(b=2, s=16)
+SEAM_OVER = dict(grant=1 << 30, alloc=2 << 30, deadline_s=60)
+
+
+@pytest.fixture
+def keep_sigusr1():
+    """train_llama.main installs the quiesce handler; give the old one back."""
+    import signal
+    old = signal.getsignal(signal.SIGUSR1)
+    yield
+    signal.signal(signal.SIGUSR1, old)
+
+
+def test_phase_seam_at_tiny_width_on_the_cpu(tmp_path, keep_sigusr1):
+    """Phase 14 end to end on the CPU at `tiny`, over a one-card mock
+    topology: the grant, its env and nodes, the refused second grant, the
+    rebuild from the drained store, the child launched through the process
+    backend with the grant (no kernel launch on CPU tensors), its losses
+    against an in-process run of the same argv, the watchdog's load
+    reading, and the release at its own revision."""
+    from gpu_docker_api_tpu_torch.topology import make_topology
+    from gpu_docker_api_tpu_torch.workloads import train_llama
+    argv = cs.seam_argv("cpu", "tiny", SEAM_TINY)
+    assert train_llama.main(argv + ["--workdir", str(tmp_path)]) == 0
+    steps, _ = cs.read_metrics(str(tmp_path / "metrics.jsonl"))
+    out = cs.phase_seam(torch, [r["loss"] for r in steps], device="cpu",
+                        topo=make_topology("h100-1"), config="tiny",
+                        shape=SEAM_TINY, over=SEAM_OVER,
+                        watched=dict(containers=4, seconds=0.5),
+                        want_launches=dict.fromkeys(att.LAUNCHES, 0))
+    assert out["loss_diffs"] == [0.0, 0.0, 0.0]
+    assert out["child"]["rc"] == 0 and out["child"]["count"] == 0
+    assert out["child"]["vm"]["VmData"] < cs.SEAM_MEMORY_BYTES
+    assert out["grant_revision"] < out["release_revision"]
+    assert out["over_grant"]["exit"] not in (None, 0)
+    assert out["watchdog"]["containers"] == 4 and out["watchdog"]["polls"] > 0
+    assert out["topology"]["acceleratorType"] == "h100-1"
+
+
+def test_seam_fails_on_a_child_that_breaks_its_grant(tmp_path, monkeypatch,
+                                                     keep_sigusr1):
+    """A child whose losses are not phase 2's fails the phase."""
+    from gpu_docker_api_tpu_torch.topology import make_topology
+    with pytest.raises(cs.SmokeFailure, match="against phase 2"):
+        cs.phase_seam(torch, [0.0, 0.0, 0.0], device="cpu",
+                      topo=make_topology("h100-1"), config="tiny",
+                      shape=SEAM_TINY, over=SEAM_OVER,
+                      want_launches=dict.fromkeys(att.LAUNCHES, 0))
+
+
+def test_uuid_reference_prefers_nvidia_smi():
+    from gpu_docker_api_tpu_torch.topology import Chip, GpuTopology
+    uuid = "46fc04bf-19d5-a7c9-023d-1411cd925509"
+    topo = GpuTopology("h100-1", "h100", (1, 1, 1), chips=[
+        Chip(0, (0, 0, 0), "/dev/nvidia5", f"GPU-{uuid.upper()}")],
+        chips_per_host=1)
+    assert cs.uuid_reference(topo, 0) == uuid
+    redacted = GpuTopology("h100-1", "h100", (1, 1, 1), chips=[
+        Chip(0, (0, 0, 0), "/dev/nvidia5", "")], chips_per_host=1)
+    with pytest.raises(cs.SmokeFailure, match="no UUID"):
+        cs.uuid_reference(redacted, 0)
