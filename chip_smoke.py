@@ -102,7 +102,7 @@ Phases (any failure exits non-zero and prints no result):
      launches), the windowed ring, the einsum ring and Ulysses, each
      rank's output and q/k/v gradient shards against the same shards of
      the whole-S kernels run here, by 8a's rules. 8c, on the same ranks,
-     at llama 1b's width and 10 of its 20 layers:
+     at llama 1b's width and 4 of its 20 layers:
      the trunk in f32 (B=1, S=1024) against one rank (logits
      shards, loss, gradients within F32_TOL), then Trainer at sp=4 in
      bf16 (B=1, S=8192, remat "dots", 2 steps, ring then Ulysses) against
@@ -175,7 +175,7 @@ Phases (any failure exits non-zero and prints no result):
      JAX_COORDINATOR_ADDRESS) on 127.0.0.1, its ranks on this card in one
      gloo group formed at the coordinator. 13a: the training workload's
      loop (train_llama._run) on 2 workers x 2 ranks, fsdp=2 x tp=2 (tp
-     inside a worker), llama 1b at full width and 10 of its 20 layers on
+     inside a worker), llama 1b at full width and 4 of its 20 layers on
      phase 9's batches, 2 steps, against the one-rank run of that cut by
      phase 9's checks (losses, grad
      norms, bytes 1/4 of every matrix, launches 20/10/10, q heads, tp
@@ -215,24 +215,48 @@ Phases (any failure exits non-zero and prints no result):
      SEAM_LOSS_TOL of phase 2's first three; then stop, remove, release,
      and the store's history holds the grant and the release at two
      revisions.
+ 15. the GPU seam's services, wired as the JAX App wires them
+     (ReplicaSetService and VolumeService over GuardedBackend(
+     ProcessBackend) with a warm pool of one torch worker, the card, CPU
+     and port schedulers, the version maps, the intent journal and the
+     event log on one MVCC store and write-behind queue). 15a: a volume,
+     then a replicaSet of 1 card (dp=1 plan, a 48GB memory grant,
+     TDAPI_QUIESCE=1) running train_llama at phase 2's width, depth and
+     shape for 8 steps with its workdir on the volume; the span tree
+     svc.run -> intent.run -> sched.gpu.apply / backend.start. 15b: once
+     step 1 is recorded, a memory patch: the rolling replace quiesces v1
+     (its checkpoint at step k, k below 5), stops it, copies the layer and
+     starts v2 on card 0, which the store shows held throughout; one
+     replace.copied event with quiesceStep k and downtimeMs; the intent
+     committed; v2 resumes at k+1 and ends the 8 steps: the steps gapless,
+     each version's launches its steps times 40/20/20, both warm-started
+     on card 0 (UUID), every loss at steps 1-5 within SEAM_LOSS_TOL of
+     phase 2's. 15c: history v2, v1; stop frees the card; delete of the
+     replicaSet and the volume leaves no key, container or volume; a
+     rebuilt scheduler sees card 0 free. 15d: a warm worker whose
+     preimport initialised the driver through torch.cuda.is_available()
+     starts its job cold, and the job sees its one card.
 
 Prints one `{"kernels": [...]}` line (with each kernel's launches in 7a
-and phases 8-14 too), the readings, one `{"serve": ...}` line, one
+and phases 8-15 too), the readings, one `{"serve": ...}` line, one
 `{"batching": ...}` line, one `{"paged": ...}` line, one `{"moe": ...}`
 line, one `{"sp": ...}` line, one `{"fsdp": ...}` line, one `{"tp": ...}`
 line, one `{"ep": ...}` line, one `{"pp": ...}` line, one
-`{"multiworker": ...}` line, one `{"seam": ...}` line, the wall times of
-the whole script and of phases 11-14, the nvidia-smi line, and last
+`{"multiworker": ...}` line, one `{"seam": ...}` line, one
+`{"services": ...}` line, the wall times of the whole script and of phases
+11-15, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2665,9 +2689,9 @@ LONG_TIME_ITERS = 10
 SP_RANKS = 4
 SP_S = 8192                              # 8b: 2048 tokens a rank
 SP_F32_S = 4096                          # 8b's f32 cases: the first 4096
-# 8c: llama 1b at full width and 10 of its 20 layers (the depth cut that
-# makes room for phase 13)
-SP_CONFIG = ("llama", "1b", 10)
+# 8c: llama 1b at full width and 4 of its 20 layers (the depth cuts that
+# made room for phases 13 and 15)
+SP_CONFIG = ("llama", "1b", 4)
 SP_TRUNK_S = 1024                        # 8c: the f32 trunk, B=1
 SP_TRAIN = dict(b=1, s=8192, steps=2)    # 8c: bf16, remat "dots"
 SP_DEADLINE_S = 480                      # the ranks' whole run
@@ -3897,7 +3921,6 @@ MW_WORKERS = 2
 MW_LOCAL = 2                       # 13a: ranks a worker, 4 in all
 MW_PLAN = {"fsdp": 2, "tp": 2}     # tp inside a worker (worker-major ranks)
 MW_DEADLINE_S = 480                # a sub-phase's workers' whole run
-MW_CONFIG = ("llama", "1b", 10)    # 13a: llama 1b, 10 of its 20 layers
 MH_TP = 2                          # 13b: one rank a worker, tp 2, fsdp 1
 MH_ORACLE = dict(b=2, prompt=256, steps=32)   # phase 4's f32 oracle shape
 MH_MOE = dict(slots=4, max_len=256, lens=(37, 100, 64, 160), at=(0, 1, 3, 6),
@@ -3910,8 +3933,9 @@ COTENANCY = dict(be_weight=3, lat_weight=1, slots=4, max_len=256,
                  be_lens=(40, 70, 100, 130), be_new=48, lat_lens=(50, 90),
                  lat_new=16, decode_chunk=8)
 # the configs and sizes of phase 13 on the card (phase_multiworker's
-# `scale` overrides them: a small run on the CPU)
-MW_SCALE = dict(config=MW_CONFIG, train=FSDP_TRAIN, llama="1b", moe="1b",
+# `scale` overrides them: a small run on the CPU); 13a trains phase 9's
+# llama 1b cut, so phase 9's one-rank run is its reference
+MW_SCALE = dict(config=FSDP_CONFIG, train=FSDP_TRAIN, llama="1b", moe="1b",
                 sizes=BATCH_EXACT, moe_sizes=MH_MOE, oracle=MH_ORACLE,
                 kv_block=16, serve=MH_SERVE, traffic=MH_TRAFFIC,
                 time=MH_TIME, cotenancy=COTENANCY)
@@ -4055,14 +4079,14 @@ def worker_train_rank(rank, world, tmp, spec, cluster):
 
 
 def phase_multiworker_train(torch, att, one, device="cuda",
-                            config=MW_CONFIG, train=FSDP_TRAIN):
+                            config=FSDP_CONFIG, train=FSDP_TRAIN):
     """13a: the multi-worker training workload over MW_WORKERS workers of
-    MW_LOCAL gloo ranks on this card, MW_PLAN at `config` (MW_CONFIG) on
-    phase 9's batches (worker_train_rank), held to the one-rank run `one`
-    of `config` by
+    MW_LOCAL gloo ranks on this card, MW_PLAN at `config` (phase 9's cut)
+    on phase 9's batches (worker_train_rank), held to the one-rank run
+    `one` of `config` by
     check_layouts (losses and grad norms within SP_LOSS_TOL / SP_NORM_TOL,
     each rank's params, mu and nu exactly 1/(fsdp * tp) of every matrix,
-    launches 20/10/10 a rank and step, H/tp q heads, the tp sums); the
+    launches 2/1/1 a layer, rank and step, H/tp q heads, the tp sums); the
     records: 2 steps with "process": "0/2", written once, and one
     checkpoint line; the gathered checkpoint restored under the one-rank
     template, shard for shard."""
@@ -5092,6 +5116,467 @@ def phase_seam(torch, main_losses, device="cuda", topo=None, config="1b",
     return out
 
 
+# phase 15: the GPU seam's services
+SVC_NAME = "svctrainer"            # the replicaSet
+SVC_VOLUME = "svcdata"
+SVC_STEPS = 8                      # v1 is patched long before; v2 ends them
+SVC_PATCH_AT = 1                   # the patch goes in once this step is in
+SVC_MEMORY = ("48GB", "40GB")      # v1's memory grant, the patch's
+SVC_QUIESCE_TIMEOUT_S = 300        # bounds the 1b state's quiesce checkpoint
+SVC_DEADLINE_S = 900               # each version's whole run
+SVC_WARM_PREIMPORT = "torch,gpu_docker_api_tpu_torch.workloads.train_llama"
+# the container's command: train_llama.main, then a report of what the
+# child saw (its launches, whether a warm worker ran it, its card) into
+# the workdir, which outlives the container; SIGTERM (the stop of a
+# parked v1) ends the run through the report
+SVC_WRAPPER = r"""
+import json, os, signal, sys
+import torch
+from gpu_docker_api_tpu_torch.ops import attention
+from gpu_docker_api_tpu_torch.workloads import train_llama
+argv = json.loads(sys.argv[1])
+warm = sys._getframe(0).f_code.co_filename == "<warm-worker>"
+cuda = torch.cuda.is_available()
+if not cuda:
+    torch.set_num_threads(1)
+
+
+def report(rc):
+    if cuda and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    out = {"rc": rc, "launches": dict(attention.LAUNCHES), "warm": warm,
+           "version": os.environ.get("CONTAINER_VERSION", ""),
+           "count": torch.cuda.device_count() if cuda else 0,
+           "uuid": str(torch.cuda.get_device_properties(0).uuid)
+           if cuda else ""}
+    workdir = argv[argv.index("--workdir") + 1]
+    with open(os.path.join(workdir, f"child-{out['version']}.json"),
+              "w") as f:
+        json.dump(out, f)
+    print("SVC " + json.dumps(out), flush=True)
+
+
+def on_term(signum, frame):
+    raise SystemExit(128 + signum)
+
+
+signal.signal(signal.SIGTERM, on_term)
+rc = None
+try:
+    rc = train_llama.main(argv)
+except SystemExit as e:
+    rc = e.code
+finally:
+    report(rc)
+sys.exit(rc)
+"""
+
+
+# 15d's card guard: a warm worker's preimport that asks torch whether a
+# card is there (on a CUDA build cuInit runs, torch's own flag stays unset)
+# and records whether the driver is initialised (cuDeviceGetCount answers
+# CUDA_ERROR_NOT_INITIALIZED, 3, until cuInit); the job then reports
+# whether a warm worker ran it and how many cards it sees
+SVC_DRIVER_PROBE = (
+    "import ctypes, os, torch\n"
+    "torch.cuda.is_available()\n"
+    "libs = [l.split()[-1] for l in open('/proc/self/maps')\n"
+    "        if '/libcuda.so' in l]\n"
+    "n = ctypes.c_int(0)\n"
+    "up = bool(libs) and ctypes.CDLL(libs[0]).cuDeviceGetCount(\n"
+    "    ctypes.byref(n)) != 3\n"
+    "open(os.environ['PROBE_AT'], 'w').write(str(up))\n")
+SVC_GRANT_PROBE = (
+    "import json, sys, torch\n"
+    "warm = sys._getframe(0).f_code.co_filename == '<warm-worker>'\n"
+    "print('GRANT ' + json.dumps({'warm': warm,\n"
+    "                             'count': torch.cuda.device_count()}),\n"
+    "      flush=True)\n")
+
+
+def services_driver_guard(topo, device):
+    """15d: a warm worker whose preimport initialised the driver through
+    torch.cuda.is_available() starts its job cold, and the job sees its
+    one-card grant. On the CPU build there is no driver, and the job runs
+    warm and sees no card."""
+    from gpu_docker_api_tpu_torch.backend import ProcessBackend
+    from gpu_docker_api_tpu_torch.dtos import ContainerSpec
+
+    cuda = device == "cuda"
+    state = tempfile.mkdtemp()
+    libs = os.path.join(state, "libs")
+    os.makedirs(libs)
+    with open(os.path.join(libs, "probe_driver.py"), "w") as f:
+        f.write(SVC_DRIVER_PROBE)
+    probe_at = os.path.join(state, "probe.txt")
+    process = ProcessBackend(os.path.join(state, "backend"), warm_pool=1,
+                             warm_preimport="torch,probe_driver",
+                             warm_env={"PYTHONPATH": libs,
+                                       "PROBE_AT": probe_at})
+    try:
+        wait_warm(process.pool)
+        with open(probe_at) as f:
+            initialised = f.read() == "True"
+        check(initialised == cuda, f"15d the preimport's is_available() "
+              f"initialised the driver: {initialised}")
+        t0 = time.perf_counter()
+        process.create("guard", ContainerSpec(
+            image="", cmd=[sys.executable, "-c", SVC_GRANT_PROBE],
+            tpu_chips=[0], tpu_env=topo.visible_chips_env([0])))
+        process.start("guard")
+        rc = process.wait("guard", timeout=120)
+        seconds = time.perf_counter() - t0
+        log = process.log_text("guard")
+        check(rc == 0, f"15d the guard's job exited {rc}: {log[-2000:]}")
+        rec = json.loads(next(line for line in log.splitlines()
+                              if line.startswith("GRANT "))[6:])
+        cold = "CUDA was initialised before the job" in log
+        check(cold == initialised and rec["warm"] is not initialised,
+              f"15d driver initialised {initialised}, cold {cold}, job "
+              f"{rec}")
+        check(rec["count"] == (1 if cuda else 0),
+              f"15d the job sees {rec['count']} cards")
+    finally:
+        process.close()
+        shutil.rmtree(state, ignore_errors=True)
+    print(f"  15d a worker whose preimport initialised the driver "
+          f"({initialised}) started its job {'cold' if cold else 'warm'}; "
+          f"the job saw {rec['count']} card(s), {seconds:.2f} s from start "
+          f"to exit", flush=True)
+    return {"driver_initialised": initialised, "cold": cold,
+            "count": rec["count"], "seconds": seconds}
+
+
+def cpu_ticks(pid) -> int:
+    """utime + stime of a process, in clock ticks (/proc/<pid>/stat)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return int(fields[11]) + int(fields[12])
+
+
+def wait_warm(pool, timeout=120.0, settle=0.5):
+    """Wait until every idle warm worker has done its preimports: its CPU
+    time stops moving over `settle` seconds twice running (it then waits on
+    its stdin for a job). Returns the seconds waited."""
+    t0 = time.perf_counter()
+    pids = pool.idle_pids()
+    check(pids, "15: the warm pool has no idle worker")
+    deadline = time.monotonic() + timeout
+    for pid in pids:
+        last, still = cpu_ticks(pid), 0
+        while still < 2:
+            check(time.monotonic() < deadline,
+                  f"15: warm worker {pid} still busy after {timeout} s")
+            time.sleep(settle)
+            now = cpu_ticks(pid)
+            still = still + 1 if now == last else 0
+            last = now
+    return time.perf_counter() - t0
+
+
+def wait_step(path, step, running, deadline_s, label):
+    """The step records of metrics.jsonl once `step` is recorded; fails if
+    the container stops first or the deadline passes."""
+    deadline = time.monotonic() + deadline_s
+    while True:
+        if os.path.exists(path):
+            steps, _ = read_metrics(path)
+            if any(r["step"] >= step for r in steps):
+                return steps
+        check(running(), f"{label}: the container stopped before step "
+              f"{step}")
+        check(time.monotonic() < deadline,
+              f"{label}: no step {step} within {deadline_s} s")
+        time.sleep(0.02)
+
+
+def wait_exit(backend, name, deadline_s, label):
+    deadline = time.monotonic() + deadline_s
+    while backend.inspect(name).running:
+        if time.monotonic() > deadline:
+            backend.stop(name, timeout=10)
+            raise SmokeFailure(f"{label}: {name} ran past {deadline_s} s")
+        time.sleep(0.05)
+
+
+def span_chain(spans, span):
+    """The ops from `span` up to its trace's root."""
+    by_id = {s["spanId"]: s for s in spans}
+    ops = []
+    while span is not None:
+        ops.append(span["op"])
+        span = by_id.get(span.get("parentId") or "")
+    return ops
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def phase_services(torch, main_losses, device="cuda", topo=None,
+                   config="1b", shape=None, steps=SVC_STEPS,
+                   patch_at=SVC_PATCH_AT, want_per_step=None, warm_pool=1):
+    """Phase 15: the GPU seam's services. 15a a volume and a replicaSet
+    running the port's trainer on the card, through ReplicaSetService and
+    VolumeService over the guarded process backend (a warm pool of one
+    torch worker), the card scheduler, the CPU and port schedulers, the
+    version maps, the intent journal and the event log, all on one MVCC
+    store and write-behind queue, as the JAX App wires them; 15b a memory
+    patch, a quiesced rolling replace on the same card, and the resumed
+    run; 15c history, stop, delete, and the card free in a rebuilt
+    scheduler; 15d the warm worker's card guard. `topo`, `config`, `shape`, `steps` and `want_per_step` (the
+    launches a step) replace the card's discovery, phase 2's model and
+    shape, the run's steps and phase 2's launches (a small run on the
+    CPU); `main_losses` are an uninterrupted run's."""
+    from gpu_docker_api_tpu_torch import topology
+    from gpu_docker_api_tpu_torch.backend import (GuardedBackend,
+                                                  ProcessBackend)
+    from gpu_docker_api_tpu_torch.dtos import (Bind, ContainerRun,
+                                               MemoryPatch, PatchRequest)
+    from gpu_docker_api_tpu_torch.events import EventLog
+    from gpu_docker_api_tpu_torch.intents import IntentJournal
+    from gpu_docker_api_tpu_torch.models import named_config
+    from gpu_docker_api_tpu_torch.obs import trace
+    from gpu_docker_api_tpu_torch.schedulers import (CpuScheduler,
+                                                     GpuScheduler,
+                                                     PortScheduler)
+    from gpu_docker_api_tpu_torch.services import (ReplicaSetService,
+                                                   VolumeService)
+    from gpu_docker_api_tpu_torch.store import MVCCStore, StateClient
+    from gpu_docker_api_tpu_torch.version import MergeMap, VersionMap
+    from gpu_docker_api_tpu_torch.workqueue import WorkQueue
+
+    cuda = device == "cuda"
+    cfg = named_config("llama", config)
+    per_step = want_per_step or {"flash_fwd": 2 * cfg.n_layers,
+                                 "flash_bwd_dq": cfg.n_layers,
+                                 "flash_bwd_dkv": cfg.n_layers}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    print("phase 15: the GPU seam's services (a volume, a replicaSet of the "
+          "trainer, a quiesced rolling replace, history, stop, delete)",
+          flush=True)
+    t_phase = time.perf_counter()
+    if topo is None:
+        topo = topology.discover_topology()
+    quiesce_env = os.environ.get("TDAPI_QUIESCE_TIMEOUT")
+    os.environ["TDAPI_QUIESCE_TIMEOUT"] = str(SVC_QUIESCE_TIMEOUT_S)
+    state = tempfile.mkdtemp()
+    store = MVCCStore(wal_path=os.path.join(state, "state.wal"))
+    client = StateClient(store)
+    wq = WorkQueue(client)
+    wq.start()
+    process = ProcessBackend(os.path.join(state, "backend"),
+                             warm_pool=warm_pool,
+                             warm_preimport=SVC_WARM_PREIMPORT,
+                             warm_env={"PYTHONPATH": repo})
+    backend = GuardedBackend(process)
+    collector = trace.TraceCollector()
+    events = EventLog()
+    v1, v2 = f"{SVC_NAME}-1", f"{SVC_NAME}-2"
+    # 15d beside 15a-15c: its worker only initialises the driver and its
+    # job only counts the cards, so it holds no memory on the card
+    side = concurrent.futures.ThreadPoolExecutor(1)
+    guard = side.submit(services_driver_guard, topo, device) \
+        if warm_pool else None
+    try:
+        gpu = GpuScheduler(client, wq, topology=topo)
+        intents = IntentJournal(client)
+        rs = ReplicaSetService(
+            backend, client, wq, gpu, CpuScheduler(client, wq),
+            PortScheduler(client, wq),
+            VersionMap("containerVersionMap", client, wq),
+            MergeMap(client, wq), intents=intents, events=events)
+        vol = VolumeService(backend, client, wq,
+                            VersionMap("volumeVersionMap", client, wq),
+                            intents=intents)
+        revisions = {"boot": store.revision}
+        if warm_pool:
+            out["warm_wait_s"] = wait_warm(process.pool)
+            print(f"  15a the warm worker's preimports took "
+                  f"{out['warm_wait_s']:.2f} s to settle", flush=True)
+
+        # 15a: the volume and the replicaSet
+        made = vol.create_volume(SVC_VOLUME, "")
+        mount = made["mountpoint"]
+        workdir = os.path.join(mount, "run")
+        metrics_path = os.path.join(workdir, "metrics.jsonl")
+        argv = seam_argv(device, config, shape, steps) + [
+            "--workdir", "data/run", "--checkpoint-every", str(10 * steps)]
+        req = ContainerRun(
+            replicaSetName=SVC_NAME, tpuCount=1, meshPlan={"dp": 1},
+            memory=SVC_MEMORY[0], binds=[Bind(mount, "/data")],
+            env=["TDAPI_QUIESCE=1"],
+            cmd=[sys.executable, "-c", SVC_WRAPPER, json.dumps(argv)])
+        launched = time.time()
+        with trace.root_span(collector, "smoke.run", target=SVC_NAME) as root:
+            ran = rs.run_container(req)
+        run_trace = collector.get(root.trace_id)
+        revisions["run"] = store.revision
+        print(f"  15a volume {made}; run {ran}", flush=True)
+        check(ran["version"] == 1 and ran["tpuChips"] == [0]
+              and ran["meshPlan"]["dp"] == 1, f"15a run {ran}")
+        spec = rs.get_container_info(SVC_NAME)["spec"]
+        check(spec["tpu_env"].get("CUDA_VISIBLE_DEVICES") == "0"
+              and spec["devices"] == [topo.chip(0).device_path]
+              and spec["memory_bytes"] == 48 << 30,
+              f"15a the stored grant {spec}")
+        sched = [s for s in run_trace["spans"] if s["op"] == "sched.gpu.apply"]
+        check(len(sched) == 1 and span_chain(run_trace["spans"], sched[0])
+              == ["sched.gpu.apply", "intent.run", "svc.run", "smoke.run"],
+              f"15a the run's span tree: "
+              f"{[(s['op'], s['parentId']) for s in run_trace['spans']]}")
+        starts = [s for s in run_trace["spans"] if s["op"] == "backend.start"]
+        check(len(starts) == 1 and span_chain(run_trace["spans"], starts[0])
+              [1:] == ["intent.run", "svc.run", "smoke.run"],
+              "15a backend.start is not under intent.run")
+
+        # 15b: the patch once step `patch_at` is recorded
+        first = wait_step(metrics_path, patch_at,
+                          lambda: backend.inspect(v1).running,
+                          SVC_DEADLINE_S, "15b")
+        out["v1_launch_to_first_step_s"] = first[0]["time"] - launched
+        with trace.root_span(collector, "smoke.patch",
+                             target=SVC_NAME) as root:
+            t0 = time.perf_counter()
+            patched = rs.patch_container(SVC_NAME, PatchRequest(
+                memoryPatch=MemoryPatch(SVC_MEMORY[1])))
+            out["patch_s"] = time.perf_counter() - t0
+        patch_trace = collector.get(root.trace_id)
+        revisions["patch"] = store.revision
+        print(f"  15b patch {patched} in {out['patch_s']:.2f} s", flush=True)
+        check(patched["version"] == 2 and patched["tpuChips"] == [0],
+              f"15b patch {patched}")
+        spans = {s["op"]: s for s in patch_trace["spans"]}
+        for op in ("backend.quiesce", "backend.stop", "backend.start"):
+            check(op in spans and span_chain(patch_trace["spans"], spans[op])
+                  == [op, "intent.replace", "svc.patch", "smoke.patch"],
+                  f"15b {op} is not under intent.replace")
+        check(spans["intent.replace"]["status"] == "committed",
+              f"15b the replace intent {spans['intent.replace']}")
+        check(not any(s["op"].startswith("sched.gpu.")
+                      for s in patch_trace["spans"]),
+              "15b the memory patch went back to the card scheduler")
+        check(intents.open_intents() == [], "15b an intent stayed open")
+        out["quiesce_ack_ms"] = spans["backend.quiesce"]["durationMs"]
+        v2_launched = spans["backend.start"]["start"]
+        copied = [e for e in events.recent(target=SVC_NAME)
+                  if e["op"] == "replace.copied"]
+        check(len(copied) == 1, f"15b replace.copied events {copied}")
+        ev = copied[0]
+        k = ev.get("quiesceStep")
+        out["replace"] = {key: ev.get(key) for key in (
+            "quiesced", "quiesceStep", "precopied", "precopyBytes",
+            "windowBytes", "deltaFiles", "mode", "copySeconds",
+            "downtimeMs")}
+        print(f"  15b replace.copied {out['replace']}; the quiesce acked in "
+              f"{out['quiesce_ack_ms']:.1f} ms", flush=True)
+        check(ev.get("quiesced") is True and isinstance(k, int) and k >= 1
+              and isinstance(ev.get("downtimeMs"), (int, float)),
+              f"15b the replace was not quiesced: {ev}")
+        check(k < len(main_losses), f"15b quiesced at step {k}: no resumed "
+              f"step within the reference's {len(main_losses)}")
+
+        wait_exit(backend, v2, SVC_DEADLINE_S, "15b")
+        steps_recs, recs = read_metrics(metrics_path)
+        out["v2_launch_to_first_step_s"] = next(
+            r["time"] for r in steps_recs if r["step"] == k + 1) - v2_launched
+        losses = [r["loss"] for r in steps_recs]
+        marks = [r for r in recs if "checkpoint" in r]
+        out["checkpoint_bytes"] = dir_bytes(
+            os.path.join(workdir, "checkpoints", str(k)))
+        children = {}
+        for v in (1, 2):
+            with open(os.path.join(workdir, f"child-{v}.json")) as f:
+                children[v] = json.load(f)
+        out.update(steps=[r["step"] for r in steps_recs], losses=losses,
+                   checkpoints=marks, children=children)
+        print(f"  15b steps {out['steps']}, losses {losses}, checkpoints "
+              f"{marks}", flush=True)
+        print(f"  15b v1 {children[1]}; v2 {children[2]}", flush=True)
+        print(f"  15b launch to first step: v1 "
+              f"{out['v1_launch_to_first_step_s']:.2f} s, v2 "
+              f"{out['v2_launch_to_first_step_s']:.2f} s (the resume "
+              f"included); the quiesce checkpoint {out['checkpoint_bytes']} "
+              f"bytes", flush=True)
+        check(out["steps"] == list(range(1, steps + 1)),
+              f"15b the steps across both versions: {out['steps']}")
+        check({"checkpoint": k, "quiesced": True}.items()
+              <= next((m for m in marks if m.get("quiesced")), {}).items(),
+              f"15b no quiesce checkpoint at step {k}: {marks}")
+        check(children[1]["rc"] == 143 and children[2]["rc"] == 0,
+              f"15b exits {children[1]['rc']} / {children[2]['rc']}")
+        for v, n in ((1, k), (2, steps - k)):
+            want = {name: c * n for name, c in per_step.items()}
+            check(children[v]["launches"] == want,
+                  f"15b v{v} launches {children[v]['launches']}, want {want}")
+            check(children[v]["warm"] == bool(warm_pool),
+                  f"15b v{v} warm {children[v]['warm']}")
+        n = min(len(losses), len(main_losses))
+        diffs = [abs(a - b) for a, b in zip(losses[:n], main_losses[:n])]
+        out["loss_diffs"] = diffs
+        check(all(math.isfinite(x) for x in losses)
+              and max(diffs) <= SEAM_LOSS_TOL,
+              f"15b losses {losses[:n]} against the reference "
+              f"{main_losses[:n]}: {diffs} > {SEAM_LOSS_TOL}")
+        if cuda:
+            ref = uuid_reference(topo, 0)
+            check(all(c["count"] == 1 and c["uuid"] == ref
+                      for c in children.values()),
+                  f"15b the children's cards {children} are not card 0 "
+                  f"({ref})")
+        check(wq.join(timeout=30), "the write-behind queue did not drain")
+        hist = seam_history(store)
+        held = [i for i, (_, h) in enumerate(hist) if h == SVC_NAME]
+        check(held and all(h == SVC_NAME for _, h in hist[held[0]:]),
+              f"15b card 0 was free between the versions: {hist}")
+
+        # 15c: history, stop, delete
+        history = rs.get_container_history(SVC_NAME)
+        check([h["version"] for h in history] == [2, 1],
+              f"15c history versions {[h['version'] for h in history]}")
+        rs.stop_container(SVC_NAME)
+        check(wq.join(timeout=30), "the write-behind queue did not drain")
+        revisions["stop"] = store.revision
+        hist = seam_history(store)
+        check(hist[-1][1] is None, f"15c card 0 after the stop: {hist}")
+        rs.delete_container(SVC_NAME)
+        vol.delete_volume(SVC_VOLUME)
+        check(wq.join(timeout=30), "the write-behind queue did not drain")
+        revisions["delete"] = store.revision
+        left = [kv.key for kv in store.range("")
+                if SVC_NAME in kv.key + kv.value
+                or SVC_VOLUME in kv.key + kv.value]
+        check(left == [], f"15c keys left after delete: {left}")
+        check(backend.list_names(SVC_NAME) == []
+              and not any(n.startswith(SVC_VOLUME)
+                          for n in backend.volume_list()),
+              f"15c containers {backend.list_names(SVC_NAME)} volumes "
+              f"{backend.volume_list()} left")
+        check(GpuScheduler(client).status.get(0) is None,
+              "15c a scheduler rebuilt from the store sees card 0 held")
+        out["card0_history"] = hist
+        out["revisions"] = revisions
+        print(f"  15c history {[h['version'] for h in history]}; card 0 "
+              f"{hist}; store revisions {revisions}", flush=True)
+        if guard is not None:
+            out["driver_guard"] = guard.result(timeout=300)
+    finally:
+        side.shutdown(wait=True)
+        backend.close()
+        wq.close()
+        store.close()
+        shutil.rmtree(state, ignore_errors=True)
+        if quiesce_env is None:
+            os.environ.pop("TDAPI_QUIESCE_TIMEOUT", None)
+        else:
+            os.environ["TDAPI_QUIESCE_TIMEOUT"] = quiesce_env
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 15 wall time {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def build_kernels(torch):
     """Phase 0: the card's name and power limit, then the kernels' build.
     Returns (nvidia-smi line, the attention module)."""
@@ -5207,16 +5692,20 @@ def main() -> int:
         before_pp = time.perf_counter() - start
         pp = phase_pp(torch, att)
         before_mw = time.perf_counter() - start
-        mw_one = sp_train(torch, "cuda", smoke_config(MW_CONFIG), FSDP_TRAIN,
-                          "ring")
         torch.cuda.empty_cache()
-        mw = phase_multiworker(torch, att, mw_one, {
+        mw = phase_multiworker(torch, att, fsdp["one_rank"], {
             "phase4_bf16_b1_decode_ms": serve["times"]["bf16_b1"]["decode_ms"],
             "phase4_bf16_b8_decode_ms": serve["times"]["bf16_b8"]["decode_ms"],
             "phase5_8_slot_step_ms":
                 batching["busy"]["decode_chunk_1"]["step_ms"]})
         before_seam = time.perf_counter() - start
         seam = phase_seam(torch, m["losses"])
+        before_svc = time.perf_counter() - start
+        svc = phase_services(torch, m["losses"])
+        print(f"  15d launch to first step: "
+              f"{svc['v1_launch_to_first_step_s']:.2f} s on a warm worker "
+              f"(15a's v1) against 14c's cold "
+              f"{seam['launch_to_first_step_s']:.2f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -5238,6 +5727,8 @@ def main() -> int:
                 launches[name]
                 for launches in mw["train"]["launches_a_step"]],
             "launches_seam": seam["child"]["launches"][name],
+            "launches_services": [svc["children"][v]["launches"][name]
+                                  for v in (1, 2)],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": bnd[name][0],
             "bound_by": bnd[name][1], "library_ms": k["library_ms"]})
@@ -5260,12 +5751,14 @@ def main() -> int:
     print(json.dumps({"pp": pp}), flush=True)
     print(json.dumps({"multiworker": mw}, default=str), flush=True)
     print(json.dumps({"seam": seam}), flush=True)
+    print(json.dumps({"services": svc}), flush=True)
     wall = time.perf_counter() - start
     print(f"wall time: the whole script {wall:.1f} s, phases 0-10 "
           f"{before_ep:.1f} s, phase 11 {before_pp - before_ep:.1f} s, "
           f"phase 12 {before_mw - before_pp:.1f} s, phase 13 "
           f"{before_seam - before_mw:.1f} s, phase 14 "
-          f"{wall - before_seam:.1f} s", flush=True)
+          f"{before_svc - before_seam:.1f} s, phase 15 "
+          f"{wall - before_svc:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

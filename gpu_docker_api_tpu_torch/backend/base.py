@@ -1,15 +1,19 @@
 """Backend seam: the substrate interface the services layer drives.
 
-The port's copy of the JAX control plane's backend/base.py. The
-implementations ported so far:
+The port's copy of the JAX control plane's backend/base.py, with three
+implementations:
 
+- MockBackend    — in-memory, instant; unit/CI substrate (reference
+                   `-tags mock`)
 - ProcessBackend — containers are real host processes with the card env
                    grant injected (CUDA_VISIBLE_DEVICES, the worker
-                   contract); the node-native substrate and the bench path.
+                   contract); the node-native substrate and the bench path
+- DockerBackend  — dockerd over its Unix socket under the nvidia runtime,
+                   the card passed by a CDI DeviceRequest (reference
+                   `-tags nvidia`)
 
-MockBackend and DockerBackend (the nvidia runtime with DeviceRequests)
-come with a later slice, and so do the layer-copy helpers of the rolling
-replace (they need utils/copyfast.py).
+and the layer-copy helpers of the rolling replace (copy_container_layer,
+precopy_container_layer over utils/copyfast.py).
 """
 
 from __future__ import annotations
@@ -62,6 +66,60 @@ def resolve_tier_root(default_root: str, tiers: dict, tier: str) -> str:
     # may contain foreign directories that must never be mistaken for (or
     # rmtree'd as) volumes
     return os.path.join(root, "tpu-volumes")
+
+
+def copy_container_layer(backend: "Backend", old_name: str,
+                         new_name: str, snapshot=None):
+    """Carry one container's writable layer forward to another (reference
+    CopyOldMergedToNewContainerMerged, utils/copy.go:31-46). Shared by the
+    rolling-replace step and the crash reconciler's replay of it.
+
+    Without ``snapshot`` this is a full tree clone through the copyfast
+    mode ladder (reflink -> copy_file_range -> threaded pool). With a
+    ``snapshot`` from :func:`precopy_container_layer` it is the DELTA pass
+    of the pre-copy protocol: only files dirtied since the warm copy move,
+    and files deleted in between are removed — O(dirty set) inside the
+    stop->start window instead of O(layer). Returns the CopyStats when a
+    copy actually ran, None when either layer dir is unavailable (falsy,
+    preserving the old boolean contract)."""
+    from ..utils.copyfast import METRICS, delta_sync, sync_tree
+    old_state = backend.inspect(old_name)
+    new_state = backend.inspect(new_name)
+    if (old_state.exists and new_state.exists
+            and old_state.upper_dir and new_state.upper_dir):
+        if snapshot is not None:
+            stats = delta_sync(old_state.upper_dir, new_state.upper_dir,
+                               snapshot)
+        else:
+            # sync (clone + symlink-protected delete), not a bare clone:
+            # the reconciler replays this over a dest a crashed pre-copy
+            # may have warm-populated — files the old container deleted
+            # since must not ghost into the new layer
+            stats = sync_tree(old_state.upper_dir, new_state.upper_dir)
+        METRICS.observe_copy(stats)
+        return stats
+    return None
+
+
+def precopy_container_layer(backend: "Backend", old_name: str,
+                            new_name: str):
+    """Warm-copy ``old``'s writable layer into ``new`` while ``old`` is
+    still RUNNING (the pre-copy half of the pre-copy/delta replace).
+    Returns ``(snapshot, stats)`` to feed the later
+    :func:`copy_container_layer` delta pass, or ``None`` when either layer
+    dir is unavailable (caller falls back to the in-window full copy)."""
+    from ..utils.copyfast import METRICS, clone_tree, snapshot_tree
+    old_state = backend.inspect(old_name)
+    new_state = backend.inspect(new_name)
+    if not (old_state.exists and new_state.exists
+            and old_state.upper_dir and new_state.upper_dir):
+        return None
+    # snapshot BEFORE the warm copy: a write racing the copy then shows as
+    # a (size, mtime) mismatch in the delta pass — the safe direction
+    snap = snapshot_tree(old_state.upper_dir, new_state.upper_dir)
+    stats = clone_tree(old_state.upper_dir, new_state.upper_dir)
+    METRICS.observe_copy(stats)
+    return snap, stats
 
 
 class Backend(abc.ABC):

@@ -22,9 +22,10 @@ The watchdog is what enforces the grant on kernels that set RLIMIT_DATA
 without enforcing it (gVisor). Pause/continue are SIGSTOP/SIGCONT — the
 exact process-level analog of docker pause (which freezes the cgroup).
 
-The warm worker pool (JAX's backend/warmpool.py preimports jax) is not
-ported: asking for one raises. A torch preimport is safe only while CUDA
-is uninitialised, which a pool would have to guarantee.
+With `warm_pool > 0` Python workloads start on a pre-imported torch
+interpreter (warmpool.py), which takes the job's card grant because CUDA
+is still uninitialised there; a worker that finds it initialised starts
+the job cold.
 """
 
 from __future__ import annotations
@@ -121,13 +122,10 @@ MEMORY_POLL_S = 0.05
 
 class ProcessBackend(Backend):
     def __init__(self, state_dir: str, warm_pool: int = 0,
-                 supervise: bool = False,
+                 warm_preimport: str = "torch", supervise: bool = False,
                  supervise_interval: float = 0.3,
-                 forgive_after: float = 10.0):
-        if warm_pool > 0:
-            raise NotImplementedError(
-                "the warm worker pool is not yet ported to the card "
-                "backend (run with warm_pool=0)")
+                 forgive_after: float = 10.0,
+                 warm_env: Optional[dict] = None):
         self.state_dir = state_dir
         self._lock = threading.RLock()
         self._procs: dict[str, _Proc] = {}
@@ -139,6 +137,15 @@ class ProcessBackend(Backend):
         self.stop_kills = 0
         for sub in ("rootfs", "volumes", "images", "logs"):
             os.makedirs(os.path.join(state_dir, sub), exist_ok=True)
+        # warm worker pool (warmpool.py): python workloads start in a
+        # pre-imported interpreter, skipping startup+`import torch` on the
+        # cold-start critical path. 0 = off. warm_env is the workers' own
+        # environment (e.g. the PYTHONPATH a job's env may not set).
+        self._pool = None
+        if warm_pool > 0:
+            from .warmpool import WarmPool
+            self._pool = WarmPool(size=warm_pool, preimport=warm_preimport,
+                                  env=warm_env)
         # memory watchdog: {pid: (limit bytes, whole process group?)} of
         # every memory-limited container and exec while it runs; its thread
         # starts with the first such process
@@ -228,13 +235,15 @@ class ProcessBackend(Backend):
                 pass
             env = self._build_env(p)
             cmd = list(p.spec.cmd) or ["sleep", "infinity"]
-            if p.spec.cpuset and shutil.which("taskset"):
-                cmd = ["taskset", "-c", p.spec.cpuset] + cmd
-            with open(p.log_path, "ab") as logf:
-                p.popen = subprocess.Popen(
-                    cmd, cwd=p.rootfs, env=env, stdout=logf,
-                    stderr=subprocess.STDOUT,
-                    start_new_session=True)  # own pgid for clean signaling
+            p.popen = self._start_warm(p, cmd, env)
+            if p.popen is None:
+                if p.spec.cpuset and shutil.which("taskset"):
+                    cmd = ["taskset", "-c", p.spec.cpuset] + cmd
+                with open(p.log_path, "ab") as logf:
+                    p.popen = subprocess.Popen(
+                        cmd, cwd=p.rootfs, env=env, stdout=logf,
+                        stderr=subprocess.STDOUT,
+                        start_new_session=True)  # own pgid for signaling
             self._apply_memory_limit(p.popen.pid, p.spec.memory_bytes,
                                      group=True)
             p.started_at = time.time()
@@ -242,6 +251,34 @@ class ProcessBackend(Backend):
             p.exit_code = None
             p.user_stopped = False
             p.restart_at = 0.0
+
+    @property
+    def pool(self):
+        """The warm worker pool (warmpool.WarmPool), or None without one."""
+        return self._pool
+
+    def _start_warm(self, p: _Proc, cmd: list[str], env: dict):
+        """Try to run the container on a warm pool worker; None -> cold
+        spawn. The worker becomes the container process (its Popen is kept),
+        so stop/pause/inspect work identically. CPU pinning that the cold
+        path does with a taskset wrapper is applied here via
+        sched_setaffinity on the live worker."""
+        if self._pool is None or not self._pool.supports(cmd, p.spec.env):
+            return None
+        w = self._pool.take()
+        if w is None:
+            return None
+        if not self._pool.dispatch(w, cmd, env, p.rootfs, p.log_path):
+            from .warmpool import _reap
+            _reap(w)
+            return None
+        if p.spec.cpuset:
+            try:
+                cpus = {int(c) for c in p.spec.cpuset.split(",") if c.strip()}
+                os.sched_setaffinity(w.pid, cpus)
+            except (OSError, ValueError):
+                pass  # already exited / bad set: same tolerance as taskset
+        return w
 
     def stop(self, name: str, timeout: float = 10.0) -> None:
         with self._lock:
@@ -718,6 +755,8 @@ class ProcessBackend(Backend):
                 self.stop(name, timeout=2)
             except Exception:  # noqa: BLE001 — best-effort teardown
                 pass
+        if self._pool is not None:
+            self._pool.close()
         # release loop mounts (the images and volume dirs persist — a
         # restarted daemon's volume_create/--state-dir reuse finds them)
         if os.path.isdir(self._volimg_dir):

@@ -1,9 +1,11 @@
 """Thread-safe metrics registry rendering Prometheus text exposition.
 
 The JAX control plane's obs/metrics.py, cut to the instruments the node
-layer feeds: the scheduler's grant latency (schedulers/gpu.py), the WAL's
-group-commit flushes (store/mvcc.py), the store's synchronous writes
-(store/client.py) and the span count (obs/trace.py). Names, label shapes
+layer and the services feed: the guarded backend's op latency
+(backend/guard.py), the scheduler's grant latency (schedulers/gpu.py), the
+WAL's group-commit flushes (store/mvcc.py), the store's synchronous writes
+(store/client.py), the rolling replace's downtime windows
+(utils/copyfast.py) and the span count (obs/trace.py). Names, label shapes
 and buckets are the JAX daemon's, so a dashboard reads either.
 """
 
@@ -200,9 +202,14 @@ class Registry:
         return "\n".join(lines) + "\n"
 
 
-# ---- process-global instruments of the node layer ------------------------
+# ---- process-global instruments of the node layer and the services -------
 
 REGISTRY = Registry()
+
+BACKEND_OP_LATENCY = REGISTRY.histogram(
+    "tdapi_backend_op_duration_ms",
+    "GuardedBackend op latency incl. retries/backoff (guard.py)",
+    labels=("op",))
 
 GRANT_LATENCY = REGISTRY.histogram(
     "tdapi_sched_grant_duration_ms",
@@ -221,6 +228,12 @@ STORE_PUT_LATENCY = REGISTRY.histogram(
     "synchronous store writes as callers see them: group-commit wait "
     "included (store/client.py)",
     buckets=(0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 25, 50, 100, 250))
+
+REPLACE_DOWNTIME = REGISTRY.histogram(
+    "tdapi_replace_downtime_window_ms",
+    "rolling-replace stop->start windows (the cards-idle time); the "
+    "last-value gauge tdapi_replace_downtime_ms stays for dashboards",
+    buckets=(1, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000, 10000))
 
 SPANS_TOTAL = REGISTRY.counter(
     "tdapi_trace_spans_total",

@@ -1,13 +1,18 @@
-"""Causal tracing: span trees over the node layer's stages.
+"""Causal tracing: span trees over the node layer's and the services' stages.
 
-The JAX control plane's obs/trace.py cut to what the node layer calls:
-child spans of the current context (`span`, the scheduler's grants and
-the store's writes), and a captured context resumed on another thread
-(`capture` / `resume`, the write-behind queue's drainer). A root comes
-from `root_span` over a TraceCollector, an in-memory ring of traces; the
-W3C traceparent ingress, crash stitching and the traces.jsonl writer come
-with the REST slice, and so does the operator's on/off switch. With no
-root installed a span costs one ContextVar read.
+The JAX control plane's obs/trace.py cut to what the node layer and the
+services call: child spans of the current context (`span`, and the
+`traced` method decorator, which labels the span from an argument), a
+captured context resumed on another thread (`capture` / `resume`, the
+write-behind queue's drainer), and a non-lexical span installed by
+`start` and closed by `finish` (an intent from begin() to done()). So a
+service call nests as svc.* -> intent.* -> backend.* -> sched.*, the tree
+JAX's daemon serves. Spans carry point-in-time events (intent steps,
+backend retries, breaker rejections). A root comes from `root_span` over
+a TraceCollector, an in-memory ring of traces; the W3C traceparent
+ingress, crash stitching (`resume_trace`) and the traces.jsonl writer
+come with the REST slice and the reconciler, and so does the operator's
+on/off switch. With no root installed a span costs one ContextVar read.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import contextvars
+import functools
+import inspect
 import os
 import random
 import threading
@@ -44,7 +51,7 @@ class Span:
 
     __slots__ = ("collector", "trace_id", "span_id", "parent_id", "op",
                  "target", "start", "_t0", "duration_ms", "outcome", "attrs",
-                 "_root", "_finished")
+                 "events", "_root", "_prev", "_finished")
 
     def __init__(self, collector: "TraceCollector", trace_id: str,
                  parent_id: Optional[str], op: str, target: str,
@@ -60,8 +67,18 @@ class Span:
         self.duration_ms = 0.0
         self.outcome = "ok"
         self.attrs = attrs
+        self.events: list[dict] = []
         self._root = root
+        self._prev: Optional[Span] = None
         self._finished = False
+
+    def event(self, name: str, **attrs) -> None:
+        """A point-in-time marker inside this span; `t` is ms since the
+        span started."""
+        e = {"name": name,
+             "t": round((time.perf_counter() - self._t0) * 1e3, 3)}
+        e.update(attrs)
+        self.events.append(e)
 
     def set(self, **attrs) -> None:
         self.attrs.update(attrs)
@@ -79,6 +96,8 @@ class Span:
         }
         if self.attrs:
             out["attrs"] = dict(self.attrs)
+        if self.events:
+            out["events"] = list(self.events)
         return out
 
     def _finish(self) -> None:
@@ -91,6 +110,18 @@ class Span:
 
 _current: contextvars.ContextVar[Optional[Span]] = contextvars.ContextVar(
     "tdapi_span", default=None)
+
+
+def current_trace_id() -> str:
+    s = _current.get()
+    return s.trace_id if s is not None else ""
+
+
+def current_ids() -> tuple[str, str]:
+    """(trace_id, span_id) of the current span, or ("", ""): what
+    intents.begin() journals for the request."""
+    s = _current.get()
+    return (s.trace_id, s.span_id) if s is not None else ("", "")
 
 
 @contextlib.contextmanager
@@ -128,6 +159,60 @@ def span(op: str, target: str = "", **attrs) -> Iterator[Optional[Span]]:
     with _installed(Span(parent.collector, parent.trace_id, parent.span_id,
                          op, target, attrs)) as s:
         yield s
+
+
+def traced(op: str, target: str = ""):
+    """Method decorator: run the call inside ``span(op)``. `target` names
+    the parameter that labels the span, directly (``"name"``) or one
+    attribute deep for a DTO argument (``"req.replicaSetName"``). With no
+    current span the wrapper costs one ContextVar read."""
+    base, _, attr = target.partition(".")
+
+    def deco(fn):
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if _current.get() is None:
+                return fn(*args, **kwargs)
+            tgt = ""
+            if base:
+                try:
+                    v = sig.bind_partial(*args, **kwargs).arguments.get(base)
+                except TypeError:
+                    v = None
+                if v is not None and attr:
+                    v = getattr(v, attr, None)
+                if v is not None:
+                    tgt = str(v)
+            with span(op, target=tgt):
+                return fn(*args, **kwargs)
+        return wrapper
+    return deco
+
+
+def start(op: str, target: str = "", **attrs) -> Optional[Span]:
+    """Open a non-lexical child span and install it as current; pair with
+    finish(). The previous current span is restored from the span itself,
+    so begin and done may live in different frames of one thread."""
+    parent = _current.get()
+    if parent is None:
+        return None
+    s = Span(parent.collector, parent.trace_id, parent.span_id, op, target,
+             attrs)
+    s._prev = parent
+    _current.set(s)
+    return s
+
+
+def finish(s: Optional[Span], status: str = "") -> None:
+    if s is None:
+        return
+    if status:
+        s.outcome = status
+    if _current.get() is s:      # tolerate a finish from an outer frame
+        _current.set(s._prev)
+    s._finish()
 
 
 def capture() -> Optional[Span]:

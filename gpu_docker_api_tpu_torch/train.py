@@ -754,10 +754,13 @@ class QuiesceSignal:
 
     @staticmethod
     def park() -> None:
-        """Hold the process alive until the control plane's stop (SIGTERM)."""
-        import signal
+        """Hold the process alive until the control plane's stop (SIGTERM).
+        A short sleep and not signal.pause(): a stop that lands just before
+        the pause, or on another thread, would leave pause() blocked until
+        the stop's SIGKILL; after a sleep the main thread runs the handler."""
+        import time
         while True:
-            signal.pause()
+            time.sleep(0.05)
 
 
 def _fsync_dir(path: str) -> None:

@@ -4,9 +4,10 @@ Reference parity: utils/file.go (DirSize :12-21, ToBytes :23-46); unlike
 the reference's ToBytes we reject malformed sizes loudly instead of
 returning 0.
 
-The part of the JAX control plane's utils/file.py the process backend
-uses (to_bytes, dir_size); the rest, with the directory copy and move
-helpers over utils/copyfast.py, comes with the services slice.
+The part of the JAX control plane's utils/file.py the ported modules use
+(to_bytes, dir_size). The services copy and move directories through
+utils/copyfast.py directly; the rest (the size formatting and checks the
+REST routes use) comes with the REST slice.
 """
 
 from __future__ import annotations

@@ -140,6 +140,42 @@ def test_the_node_layer_is_walked_and_scanned():
         assert os.path.dirname(mod.__file__).startswith(PORT_DIR)
 
 
+def test_the_services_and_their_substrate_are_walked_and_scanned():
+    """The services slice is the port's own: the services, the backends
+    (mock, guarded, docker, the warm pool), the CPU and port schedulers,
+    the version maps, idempotency, the intent journal, the event log, the
+    rotating writer, copyfast and lockwatch are walked, imported with jax
+    blocked (test_port_imports_with_jax_blocked), import nothing of
+    gpu_docker_api_tpu, and import no torch either (the warm pool's worker
+    imports torch only in the worker process, from its source string)."""
+    mods = set(_modules())
+    subpackages = ("services", "analysis")
+    modules = ("version", "idempotency", "intents", "events", "obs.rotate",
+               "schedulers.cpu", "schedulers.port", "utils.copyfast",
+               "backend.mock", "analysis.lockwatch", "backend.guard",
+               "services.volume", "services.replicaset", "backend.docker",
+               "backend.warmpool")
+    assert {f"gpu_docker_api_tpu_torch.{m}"
+            for m in subpackages + modules} <= mods
+    for m in subpackages + modules:
+        rel = m.replace(".", "/")
+        path = os.path.join(PORT_DIR, rel, "__init__.py") \
+            if m in subpackages else os.path.join(PORT_DIR, rel + ".py")
+        tops = {n.split(".")[0] for n in _imports(path)}
+        assert not tops & {"jax", "gpu_docker_api_tpu", "torch"}, m
+        assert "jax" not in open(path, encoding="utf-8").read().replace(
+            "JAX", ""), m
+    import importlib
+    for m in modules:
+        mod = importlib.import_module(f"gpu_docker_api_tpu_torch.{m}")
+        assert os.path.dirname(mod.__file__).startswith(PORT_DIR)
+    from gpu_docker_api_tpu_torch.services import ReplicaSetService
+    from gpu_docker_api_tpu_torch.schedulers import GpuScheduler
+    import inspect
+    assert inspect.signature(ReplicaSetService).parameters[
+        "tpu"].annotation in (GpuScheduler, "GpuScheduler")
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     names = set(_imports(os.path.join(REPO, "chip_smoke.py")))
     assert not {n for n in names

@@ -5,7 +5,8 @@ process.py):
   injection case carries the card grant (CUDA_VISIBLE_DEVICES);
 - the daemon's own CUDA_VISIBLE_DEVICES never reaches a container: the
   grant overrides it, and a container granted no card sees none;
-- asking for the warm pool raises (not yet ported);
+- the warm pool, which used to be refused, is built and runs a job
+  (tests/test_torch_warmpool.py holds it to JAX's pool);
 - the memory grant holds where the kernel sets RLIMIT_DATA without
   enforcing it (as gVisor does): the watchdog kills the container, and an
   exec, over its grant, and walks /proc once a poll however many
@@ -137,9 +138,18 @@ def test_daemon_visible_devices_do_not_leak(tmp_path, monkeypatch):
         b.close()
 
 
-def test_warm_pool_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ProcessBackend(str(tmp_path / "s"), warm_pool=2)
+def test_warm_pool_is_built_and_runs_a_job(tmp_path):
+    """warm_pool > 0 builds a pool, and a python job runs on a worker."""
+    b = ProcessBackend(str(tmp_path / "s"), warm_pool=2,
+                       warm_preimport="json")
+    try:
+        assert b._pool is not None and b._pool.size == 2
+        b.create("rs-1", _spec(cmd=[sys.executable, "-c", "print('warm')"]))
+        b.start("rs-1")
+        assert b.wait("rs-1", timeout=30) == 0
+        assert "warm" in b.log_text("rs-1")
+    finally:
+        b.close()
 
 
 def test_pause_continue(backend):

@@ -1051,7 +1051,7 @@ def test_phase_tp_at_tiny_width_on_the_cpu():
 def test_cut_phases_feed_the_launch_formulas():
     """Phases 8c, 9 and 10 run 2 steps a layout (2 keep every check: the
     step time is the median of the steps after the first), phases 9 and
-    10 llama 1b at 4 of its 20 layers and 13a at 10, full width; the
+    10, 8c and 13a llama 1b at 4 of its 20 layers, full width; the
     launches a rank and step follow from the cut depth by the same
     formula."""
     assert cs.SP_TRAIN["steps"] == 2 and cs.FSDP_TRAIN["steps"] == 2
@@ -1066,11 +1066,10 @@ def test_cut_phases_feed_the_launch_formulas():
     assert [cs.fsdp_launches({"tp": 2, "sp": 2}, r, cut.n_layers)
             ["flash_bwd_dkv"] for r in (0, 1)] == [4, 8]
     assert cs.tp_sums_a_step(cut.n_layers, {"tp": 4}) == 24
-    mw = cs.smoke_config(cs.MW_CONFIG)
-    assert mw.n_layers == 10 and dataclasses.replace(mw, n_layers=20) == full
-    assert cs.fsdp_launches(cs.MW_PLAN, 0, mw.n_layers) == {
-        "flash_fwd": 20, "flash_bwd_dq": 10, "flash_bwd_dkv": 10}
-    assert cs.tp_sums_a_step(mw.n_layers, {"tp": 4}) == 54
+    assert cs.MW_SCALE["config"] == cs.FSDP_CONFIG
+    assert cs.fsdp_launches(cs.MW_PLAN, 0, cut.n_layers) == {
+        "flash_fwd": 8, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
+    assert cs.smoke_config(cs.SP_CONFIG) == cut
     assert cs.smoke_config("mini") == cs_config("mini")
     assert cs.smoke_config(("moe", "1b", None)).n_layers == 16
 
@@ -1383,3 +1382,54 @@ def test_uuid_reference_prefers_nvidia_smi():
         Chip(0, (0, 0, 0), "/dev/nvidia5", "")], chips_per_host=1)
     with pytest.raises(cs.SmokeFailure, match="no UUID"):
         cs.uuid_reference(redacted, 0)
+
+
+# ---- phase 15 -----------------------------------------------------------------
+
+SVC_TINY_STEPS = 40    # tiny takes tens of ms a step: v1 is still running
+
+
+def test_phase_services_at_tiny_width_on_the_cpu(tmp_path, keep_sigusr1):
+    """Phase 15 end to end on the CPU at `tiny`, over a one-card mock
+    topology: the volume and the replicaSet through the services on the
+    guarded process backend with a warm torch worker, the span trees, the
+    quiesced memory patch on the same card (held in the store throughout),
+    the gapless steps with an uninterrupted run's losses, both versions
+    warm-started, history, stop, delete, and the card free again; the card
+    guard's worker, whose preimport finds no driver on this build, runs
+    its job warm."""
+    from gpu_docker_api_tpu_torch.topology import make_topology
+    from gpu_docker_api_tpu_torch.workloads import train_llama
+    argv = cs.seam_argv("cpu", "tiny", SEAM_TINY, SVC_TINY_STEPS)
+    assert train_llama.main(argv + ["--workdir", str(tmp_path),
+                                    "--checkpoint-every", "1000"]) == 0
+    steps, _ = cs.read_metrics(str(tmp_path / "metrics.jsonl"))
+    out = cs.phase_services(torch, [r["loss"] for r in steps], device="cpu",
+                            topo=make_topology("h100-1"), config="tiny",
+                            shape=SEAM_TINY, steps=SVC_TINY_STEPS,
+                            want_per_step=dict.fromkeys(att.LAUNCHES, 0))
+    assert out["loss_diffs"] == [0.0] * SVC_TINY_STEPS
+    assert out["steps"] == list(range(1, SVC_TINY_STEPS + 1))
+    assert out["replace"]["quiesced"] and out["replace"]["quiesceStep"] >= 1
+    assert all(c["warm"] for c in out["children"].values())
+    assert [c["rc"] for c in out["children"].values()] == [143, 0]
+    assert out["card0_history"][-1][1] is None
+    revs = out["revisions"]
+    assert revs["boot"] < revs["run"] < revs["patch"] < revs["stop"] \
+        < revs["delete"]
+    assert out["checkpoint_bytes"] > 0 and out["quiesce_ack_ms"] > 0
+    guard = out["driver_guard"]
+    assert (guard["driver_initialised"], guard["cold"], guard["count"]) \
+        == (False, False, 0)
+
+
+def test_phase_services_fails_on_losses_that_are_not_the_reference(
+        tmp_path, keep_sigusr1):
+    """Losses that are not the uninterrupted run's fail the phase, after
+    the replace (the services clean up behind the failure)."""
+    from gpu_docker_api_tpu_torch.topology import make_topology
+    with pytest.raises(cs.SmokeFailure, match="against the reference"):
+        cs.phase_services(torch, [0.0] * SVC_TINY_STEPS, device="cpu",
+                          topo=make_topology("h100-1"), config="tiny",
+                          shape=SEAM_TINY, steps=SVC_TINY_STEPS,
+                          want_per_step=dict.fromkeys(att.LAUNCHES, 0))

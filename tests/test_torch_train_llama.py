@@ -215,3 +215,30 @@ def test_sigusr1_quiesce_parks_with_ack(tmp_path, monkeypatch, keep_sigusr1):
     steps, _ = _records(str(wd))
     assert [r["step"] for r in steps] == list(range(1, parked + 3))
     assert not (ckpt_dir / "QUIESCED").exists()
+
+
+
+# a SIGTERM to one thread other than the main one, once the main thread
+# parks: the kernel may hand a process-directed stop to any thread
+PARK_PROBE = """
+import signal, sys, threading, time
+from gpu_docker_api_tpu_torch.train import QuiesceSignal
+signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+def side():
+    time.sleep(0.3)
+    signal.pthread_kill(threading.get_ident(), signal.SIGTERM)
+threading.Thread(target=side, daemon=True).start()
+QuiesceSignal.park()
+"""
+
+
+def test_a_parked_trainer_takes_a_stop_delivered_to_another_thread():
+    """A stop that lands on a thread other than the main one still ends
+    the park: the main thread runs the handler after its next sleep."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen([sys.executable, "-c", PARK_PROBE], cwd=repo)
+    try:
+        assert proc.wait(timeout=10) == 143
+    finally:
+        proc.kill()
+        proc.wait()
