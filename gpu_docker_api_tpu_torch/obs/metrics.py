@@ -1,20 +1,56 @@
-"""Thread-safe metrics registry rendering Prometheus text exposition.
+"""Prometheus exposition: a registry of counters, gauges and histograms.
 
-The JAX control plane's obs/metrics.py, cut to the instruments the node
-layer and the services feed: the guarded backend's op latency
-(backend/guard.py), the scheduler's grant latency (schedulers/gpu.py), the
-WAL's group-commit flushes (store/mvcc.py), the store's synchronous writes
-(store/client.py), the rolling replace's downtime windows
-(utils/copyfast.py) and the span count (obs/trace.py). Names, label shapes
-and buckets are the JAX daemon's, so a dashboard reads either.
+The port's copy of the JAX control plane's obs/metrics.py, without the
+external shard source of the data-plane workers and the gateway's two
+histograms (neither is ported). The co-tenancy regulator's chunk
+histogram lives in the top-level metrics.py, which the workloads import
+on their own; it renders here, in the JAX registry's place for it.
+
+Instruments are declared once (name, help, type, label names), mutated
+from the hot paths with one lock-guarded dict update, and rendered into
+the v0.0.4 text format with proper label-value escaping. Names, label
+shapes and buckets are the JAX daemon's, so a dashboard reads either.
+
+Two registries exist at runtime:
+
+- the module-level :data:`REGISTRY` holds process-global instruments fed
+  by modules that have no App handle (backend/guard.py, store/*,
+  regulator.py, utils/copyfast.py, obs/trace.py);
+- each App builds its own Registry for the inventory gauges whose truth
+  lives on that App's schedulers/queues, refreshed by a collect callback
+  at scrape time.
+
+GET /metrics renders both, App-local first. Instrument names for BOTH
+are registered in obs/names.py.
 """
 
 from __future__ import annotations
 
 import threading
+from typing import Callable, Optional
+
+from .. import metrics as _workload_metrics
+
+# Hot-path disarm switch, mirroring trace.set_enabled(): an overhead A/B
+# flips BOTH so the measured delta prices the whole obs layer (tracing
+# and histograms), not just the span half. Gates only Histogram.observe,
+# the per-request / per-op distribution instruments on the hot paths;
+# counters and gauges stay on.
+_enabled = True
+
+
+def set_enabled(on: bool) -> None:
+    global _enabled
+    _enabled = bool(on)
+
+
+# ---- value / label formatting -------------------------------------------
+
 
 def _fmt(v) -> str:
-    """Prometheus sample value: integral floats render as ints."""
+    """Prometheus sample value: integral floats render as ints (the
+    pre-registry exposition printed `2`, not `2.0` — tests and dashboards
+    match on that)."""
     if isinstance(v, bool):
         return "1" if v else "0"
     if isinstance(v, float) and v.is_integer():
@@ -37,8 +73,8 @@ def _labels_str(names: tuple, values: tuple, extra: str = "") -> str:
 
 
 class _Instrument:
-    """A name, a TYPE, a HELP line, fixed label names, and a lock-guarded
-    child table keyed by label-value tuples."""
+    """Shared shape: a name, a TYPE, a HELP line, fixed label names, and
+    a lock-guarded child table keyed by label-value tuples."""
 
     typ = "untyped"
 
@@ -78,10 +114,55 @@ class Counter(_Instrument):
         with self._lock:
             self._children[key] = self._children.get(key, 0) + n
 
+    def value(self, **labelkw) -> float:
+        key = self._key(labelkw)
+        with self._lock:
+            return self._children.get(key, 0)
+
     def render(self) -> list[str]:
         out = self.header()
         with self._lock:
             items = sorted(self._children.items())
+        if not self.labels:
+            # an unlabeled counter always exposes a sample (0 before the
+            # first inc), like the pre-registry hand-built lines did
+            out.append(f"{self.name} {_fmt(items[0][1] if items else 0)}")
+            return out
+        for key, v in items:
+            out.append(f"{self.name}{_labels_str(self.labels, key)} "
+                       f"{_fmt(v)}")
+        return out
+
+
+class Gauge(_Instrument):
+    """Set-valued instrument. `typ` may be overridden to "counter" for
+    series whose VALUE is a monotonic count owned elsewhere (workqueue
+    coalesced, breaker failures) — the registry renders it, the owner
+    counts it. reset() drops all children; collect callbacks that emit
+    per-entity lines (per-chip shares, per-chip regulators) call it first
+    so departed entities don't linger as stale series."""
+
+    typ = "gauge"
+
+    def __init__(self, name: str, help: str = "",
+                 labels: tuple[str, ...] = (), typ: str = "gauge"):
+        super().__init__(name, help, labels)
+        self.typ = typ
+
+    def set(self, v, **labelkw) -> None:
+        key = self._key(labelkw)
+        with self._lock:
+            self._children[key] = v
+
+    def reset(self) -> None:
+        with self._lock:
+            self._children.clear()
+
+    def render(self) -> list[str]:
+        out = self.header()
+        with self._lock:
+            items = sorted(self._children.items(), key=lambda kv: [
+                str(x) for x in kv[0]])
         if not self.labels:
             out.append(f"{self.name} {_fmt(items[0][1] if items else 0)}")
             return out
@@ -91,14 +172,17 @@ class Counter(_Instrument):
         return out
 
 
-#: default latency buckets (milliseconds)
+#: default latency buckets (milliseconds): sub-ms store writes up to
+#: multi-second replaces
 LATENCY_BUCKETS_MS = (0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500,
                       1000, 2500, 5000)
 
 
 class Histogram(_Instrument):
-    """Fixed-bucket histogram with _sum/_count, cumulative on render (bucket
-    counts are le-cumulative and +Inf equals _count)."""
+    """Fixed-bucket histogram with _sum/_count, cumulative on render (the
+    Prometheus contract: bucket counts are le-cumulative and +Inf equals
+    _count). observe() is the hot path: one bucket scan over a dozen
+    floats + two adds under the lock."""
 
     typ = "histogram"
 
@@ -110,8 +194,9 @@ class Histogram(_Instrument):
         if not b:
             raise ValueError(f"{name}: histogram needs >= 1 bucket")
         self.buckets = b
-
     def observe(self, v: float, **labelkw) -> None:
+        if not _enabled:
+            return
         key = self._key(labelkw)
         idx = 0
         for bound in self.buckets:          # ~12 floats: scan beats bisect
@@ -130,7 +215,7 @@ class Histogram(_Instrument):
 
     def snapshot(self, **labelkw) -> dict:
         """{bucketBound: cumulativeCount}, plus sum/count — for tests and
-        readings, not for rendering."""
+        bench assertions, not for rendering."""
         key = self._key(labelkw)
         with self._lock:
             child = self._children.get(key)
@@ -145,9 +230,9 @@ class Histogram(_Instrument):
 
     def render(self) -> list[str]:
         out = self.header()
-        n_cells = len(self.buckets) + 1
         with self._lock:
             items = sorted((k, list(v)) for k, v in self._children.items())
+        n_cells = len(self.buckets) + 1
         if not items and not self.labels:
             items = [((), [0] * n_cells + [0.0, 0])]
         for key, child in items:
@@ -168,13 +253,31 @@ class Histogram(_Instrument):
         return out
 
 
+class _Adopted(Histogram):
+    """Renders a top-level metrics.Histogram (unlabeled; its snapshot's
+    per-bucket counts end with the overflow cell) as this family."""
+
+    def __init__(self, source) -> None:
+        super().__init__(source.name, source.help, (), source.buckets)
+        self.source = source
+
+    def render(self) -> list[str]:
+        snap = self.source.snapshot()
+        with self._lock:
+            self._children = {(): snap["buckets"] + [snap["sum"],
+                                                     snap["count"]]}
+        return super().render()
+
+
 class Registry:
-    """Instrument table; render() emits every instrument in registration
-    order."""
+    """Instrument table + collect hooks. render() runs the hooks (owners
+    refresh gauges from live state), then emits every instrument in
+    registration order — stable output, stable diffs."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._instruments: dict[str, _Instrument] = {}
+        self._collectors: list[Callable[[], None]] = []
 
     def register(self, inst: _Instrument) -> _Instrument:
         with self._lock:
@@ -187,24 +290,47 @@ class Registry:
                 labels: tuple[str, ...] = ()) -> Counter:
         return self.register(Counter(name, help, labels))  # type: ignore[return-value]
 
+    def gauge(self, name: str, help: str = "",
+              labels: tuple[str, ...] = (), typ: str = "gauge") -> Gauge:
+        return self.register(Gauge(name, help, labels, typ))  # type: ignore[return-value]
+
     def histogram(self, name: str, help: str = "",
                   labels: tuple[str, ...] = (),
                   buckets: tuple[float, ...] = LATENCY_BUCKETS_MS,
                   ) -> Histogram:
         return self.register(Histogram(name, help, labels, buckets))  # type: ignore[return-value]
 
+    def collector(self, fn: Callable[[], None]) -> None:
+        with self._lock:
+            self._collectors.append(fn)
+
+    def get(self, name: str) -> Optional[_Instrument]:
+        with self._lock:
+            return self._instruments.get(name)
+
     def render(self) -> str:
         with self._lock:
+            collectors = list(self._collectors)
             instruments = list(self._instruments.values())
+        for fn in collectors:
+            fn()
         lines: list[str] = []
         for inst in instruments:
             lines.extend(inst.render())
         return "\n".join(lines) + "\n"
 
 
-# ---- process-global instruments of the node layer and the services -------
+# ---- process-global instruments -----------------------------------------
+# Fed by modules with no App handle; App renders this registry after its
+# own. Names are in obs/names.py (tdlint untraced-op checks both sides).
 
 REGISTRY = Registry()
+
+REQUEST_LATENCY = REGISTRY.histogram(
+    "tdapi_http_request_duration_ms",
+    "request latency through the full stack, labeled by route PATTERN "
+    "(bounded cardinality), not raw path",
+    labels=("method", "route"))
 
 BACKEND_OP_LATENCY = REGISTRY.histogram(
     "tdapi_backend_op_duration_ms",
@@ -234,6 +360,9 @@ REPLACE_DOWNTIME = REGISTRY.histogram(
     "rolling-replace stop->start windows (the cards-idle time); the "
     "last-value gauge tdapi_replace_downtime_ms stays for dashboards",
     buckets=(1, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000, 10000))
+
+REGULATOR_CHUNK = REGISTRY.register(
+    _Adopted(_workload_metrics.REGULATOR_CHUNK))
 
 SPANS_TOTAL = REGISTRY.counter(
     "tdapi_trace_spans_total",

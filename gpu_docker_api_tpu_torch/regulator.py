@@ -30,7 +30,9 @@ Mechanics per chip (ChipRegulator):
 
 The registry (`for_chip`) is process-global: serving loops in one OS
 process that share a chip index share one regulator. Each chunk's time is
-observed into metrics.REGULATOR_CHUNK.
+observed into metrics.REGULATOR_CHUNK; the daemon's /metrics exports every
+chip's queue depth and preemption counters (snapshot()), and
+`regulator.preempt` events land on its event log via set_events().
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ from . import metrics as obs_metrics
 
 LATENCY = "latency"
 BEST_EFFORT = "best_effort"
+#: accepted spec values ("" defaults to best-effort)
+PRIORITIES = ("", LATENCY, BEST_EFFORT)
 
 
 class Tenant:
@@ -100,8 +104,9 @@ class Tenant:
 class ChipRegulator:
     """Admission control for one chip's decode chunks."""
 
-    def __init__(self, chip: int = -1):
+    def __init__(self, chip: int = -1, events=None):
         self.chip = chip
+        self.events = events
         self._cond = threading.Condition()
         # keyed by registration seq, NOT name: two tenants picking the
         # same name must both stay admittable (a silent dict replace
@@ -171,6 +176,10 @@ class ChipRegulator:
                 self._holder.yield_flag = True
                 self._holder.preempted += 1
                 self.preempt_total += 1
+                if self.events is not None:
+                    self.events.record(
+                        "regulator.preempt", target=f"chip{self.chip}",
+                        tenant=tenant.name, holder=self._holder.name)
             while self._holder is not None or self._pick() is not tenant:
                 self._cond.wait()
             tenant.waiting = False
@@ -233,6 +242,7 @@ class ChipRegulator:
 
 _LOCK = threading.Lock()
 _REGULATORS: dict[int, ChipRegulator] = {}
+_EVENTS = None
 
 
 def for_chip(chip: int) -> ChipRegulator:
@@ -241,8 +251,25 @@ def for_chip(chip: int) -> ChipRegulator:
     with _LOCK:
         reg = _REGULATORS.get(chip)
         if reg is None:
-            reg = _REGULATORS[chip] = ChipRegulator(chip)
+            reg = _REGULATORS[chip] = ChipRegulator(chip, events=_EVENTS)
         return reg
+
+
+def set_events(events) -> None:
+    """Route regulator.preempt events onto the daemon's event log
+    (existing and future regulators)."""
+    global _EVENTS
+    with _LOCK:
+        _EVENTS = events
+        for reg in _REGULATORS.values():
+            reg.events = events
+
+
+def snapshot() -> list[dict]:
+    """describe() of every live regulator (the /metrics walk)."""
+    with _LOCK:
+        regs = list(_REGULATORS.values())
+    return [r.describe() for r in regs]
 
 
 def reset() -> None:

@@ -635,6 +635,8 @@ class GpuScheduler(Scheduler):
                 "cordoned": c.index in self.cordoned,
                 "shares": dict(self.shares.get(c.index, {})),
                 "freeShares": self._allocatable_quanta(c.index),
+                # the card's identity, where discovery read it
+                **({"uuid": c.uuid, "name": c.name} if c.uuid else {}),
             } for c in self.topology.chips]
             free_q = sum(self._allocatable_quanta(i) for i in self.status)
             fc = free_q / SHARE_QUANTA
@@ -717,7 +719,8 @@ def _bbox_volume(coords: list[tuple[int, int, int]]) -> int:
 
 def _stored_topology(d: dict) -> GpuTopology:
     """The topology a stored state describes (either package's keys; a
-    `devices` list names each card's node where it is not the default)."""
+    `devices` list names each card's node where it is not the default,
+    `uuids` and `names` each card's identity where discovery read it)."""
     shape = tuple(d["shape"])
     n = shape[0] * shape[1] * shape[2]
     workers = d.get("numWorkers", 1)
@@ -731,12 +734,15 @@ def _stored_topology(d: dict) -> GpuTopology:
         chips_per_host=d.get("chipsPerHost", -(-n // max(workers, 1))),
         ici_connected=d.get("iciConnected", True),
     )
-    devices = d.get("devices")
-    if devices:
+    devices = d.get("devices") or [c.device_path for c in topo.chips]
+    uuids = d.get("uuids") or [""] * len(topo.chips)
+    names = d.get("names") or [""] * len(topo.chips)
+    if d.get("devices") or d.get("uuids") or d.get("names"):
         topo = GpuTopology(
             topo.accelerator_type, topo.generation, topo.shape,
-            chips=[Chip(c.index, c.coord, path)
-                   for c, path in zip(topo.chips, devices)],
+            chips=[Chip(c.index, c.coord, path, uuid, name)
+                   for c, path, uuid, name
+                   in zip(topo.chips, devices, uuids, names)],
             wraparound=topo.wraparound, chips_per_host=topo.chips_per_host,
             worker_id=topo.worker_id, num_workers=topo.num_workers,
             ici_connected=topo.ici_connected)

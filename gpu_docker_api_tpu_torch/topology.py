@@ -252,7 +252,9 @@ class GpuTopology:
     def serialize(self) -> dict:
         """The JAX topology's keys, so either package's scheduler reboots
         from the other's stored state; `devices` is added only where a
-        card's node is not /dev/nvidia<local index>."""
+        card's node is not /dev/nvidia<local index>, and `uuids` and
+        `names` only where discovery read them (a daemon rebooting from
+        its store keeps the cards' identities)."""
         out = {
             "acceleratorType": self.accelerator_type,
             "generation": self.generation,
@@ -267,6 +269,10 @@ class GpuTopology:
         if paths != [default_device_path(self._local(c.index))
                      for c in self.chips]:
             out["devices"] = paths
+        for key, attr in (("uuids", "uuid"), ("names", "name")):
+            values = [getattr(c, attr) for c in self.chips]
+            if any(values):
+                out[key] = values
         return out
 
 

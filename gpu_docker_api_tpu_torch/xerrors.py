@@ -4,88 +4,15 @@ The JAX control plane's twin (gpu_docker_api_tpu/xerrors.py) with the
 scheduler's errors named for cards. Matching is isinstance(); every class
 carries a stable sentinel message and, where the REST routes map it to one
 envelope code, that code (`code`). The codes are the JAX daemon's
-(server/codes.py): `AppCode` keeps every one of them, so the REST slice of
-the port answers with the same wire envelopes. An error whose code depends
-on the route (a missing store key reads as container, volume or gateway
-"not found") has `code = None`.
+(server/codes.py, whose ResCode the port keeps number for number), so
+the port's daemon answers with the same wire envelopes. An error whose
+code depends on the route (a missing store key reads as container,
+volume or gateway "not found") has `code = None`.
 """
 
 from __future__ import annotations
 
-import enum
-
-
-class AppCode(enum.IntEnum):
-    """Envelope codes, number for number the JAX daemon's ResCode. The
-    TPU-named codes keep their names (the wire is shared); the card names
-    are aliases of the same numbers."""
-
-    Success = 200
-    ServerBusy = 500
-    Forbidden = 403
-    BackendUnavailable = 503
-    PreconditionFailed = 412
-    TooManyRequests = 429
-    Conflict = 409
-
-    InvalidParams = 1000
-    ImageNameCannotBeEmpty = 1001
-    ContainerNameCannotBeEmpty = 1002
-    ContainerNameCannotContainDash = 1003
-    ContainerRunFailed = 1004
-    ContainerDeleteFailed = 1005
-    ContainerExecuteFailed = 1006
-    ContainerPatchFailed = 1007
-    ContainerAlreadyExist = 1008
-    ContainerNoNeedPatch = 1009
-    ContainerStopFailed = 1010
-    ContainerRestartFailed = 1011
-    TpuCountMustBeGreaterThanOrEqualZero = 1012
-    ContainerTpuNotEnough = 1013
-    ContainerPortNotEnough = 1014
-    ContainerCommitFailed = 1015
-    ContainerGetInfoFailed = 1016
-    ContainerGetHistoryFailed = 1017
-    ContainerShutDownFailed = 1018
-    ContainerStartUpFailed = 1019
-    ContainerVersionMustBeGreaterThanOrEqualZero = 1020
-    ContainerRollbackFailed = 1021
-    ContainerNoNeedRollback = 1022
-    ContainerCpuNotEnough = 1023
-    CpuCountMustBeGreaterThanOrEqualZero = 1024
-    ContainerMemorySizeNotSupported = 1025
-    ContainerTpuOversubscribed = 1026
-
-    GatewayTimeout = 504
-    GatewayExisted = 1030
-    GatewayGetInfoFailed = 1031
-    GatewayCreateFailed = 1032
-    GatewayScaleFailed = 1033
-    GatewayDeleteFailed = 1034
-    GatewayRequestFailed = 1035
-
-    WatchCompacted = 1036
-    FleetNotOwner = 1037
-    FleetLeaseFailed = 1038
-
-    VolumeCreateFailed = 1100
-    VolumeNameCannotBeEmpty = 1101
-    VolumeDeleteFailed = 1102
-    VolumeExisted = 1103
-    VolumeNameMustContainVersion = 1104
-    VolumeSizeNoNeedPatch = 1105
-    VolumeSizeNotSupported = 1106
-    VolumeSizeUsedGreaterThanReduce = 1107
-    VolumeNameNotContainsDash = 1108
-    VolumeNameNotBeginWithForwardSlash = 1109
-    VolumeGetInfoFailed = 1110
-    VolumeGetHistoryFailed = 1111
-    VolumePatchFailed = 1112
-
-    # the same numbers under the card's name
-    GpuCountMustBeGreaterThanOrEqualZero = 1012
-    ContainerGpuNotEnough = 1013
-    ContainerGpuOversubscribed = 1026
+from .server.codes import ResCode
 
 
 class XError(Exception):
@@ -93,7 +20,7 @@ class XError(Exception):
 
     sentinel = "tpu-docker-api error"
     #: the envelope code the routes answer with; None = route-dependent
-    code: "AppCode | None" = None
+    code: "ResCode | None" = None
 
     def __init__(self, detail: str = ""):
         self.detail = detail
@@ -104,7 +31,7 @@ class XError(Exception):
 
 class GpuNotEnoughError(XError):
     sentinel = "gpu not enough"
-    code = AppCode.ContainerGpuNotEnough
+    code = ResCode.ContainerGpuNotEnough
 
 
 class GpuOversubscribedError(GpuNotEnoughError):
@@ -115,24 +42,24 @@ class GpuOversubscribedError(GpuNotEnoughError):
     releases)."""
 
     sentinel = "gpu shares oversubscribed"
-    code = AppCode.ContainerGpuOversubscribed
+    code = ResCode.ContainerGpuOversubscribed
 
 
 class CpuNotEnoughError(XError):
     sentinel = "cpu not enough"
-    code = AppCode.ContainerCpuNotEnough
+    code = ResCode.ContainerCpuNotEnough
 
 
 class PortNotEnoughError(XError):
     sentinel = "port not enough"
-    code = AppCode.ContainerPortNotEnough
+    code = ResCode.ContainerPortNotEnough
 
 
 # --- container errors (reference internal/xerrors/container.go) ---
 
 class ContainerExistedError(XError):
     sentinel = "container already existed"
-    code = AppCode.ContainerAlreadyExist
+    code = ResCode.ContainerAlreadyExist
 
 
 class NoPatchRequiredError(XError):
@@ -143,14 +70,14 @@ class NoPatchRequiredError(XError):
 
 class NoRollbackRequiredError(XError):
     sentinel = "no rollback required"
-    code = AppCode.ContainerNoNeedRollback
+    code = ResCode.ContainerNoNeedRollback
 
 
 # --- gateway errors (inference gateway, no reference counterpart) ---
 
 class GatewayExistedError(XError):
     sentinel = "gateway already existed"
-    code = AppCode.GatewayExisted
+    code = ResCode.GatewayExisted
 
 
 class GatewayShedError(XError):
@@ -158,7 +85,7 @@ class GatewayShedError(XError):
     waits (429 + Retry-After)."""
 
     sentinel = "gateway admission queue full"
-    code = AppCode.TooManyRequests
+    code = ResCode.TooManyRequests
 
 
 class GatewayDeadlineError(XError):
@@ -166,7 +93,7 @@ class GatewayDeadlineError(XError):
     serve it (HTTP 504)."""
 
     sentinel = "gateway request deadline exceeded"
-    code = AppCode.GatewayTimeout
+    code = ResCode.GatewayTimeout
 
 
 class GatewayRetryBudgetError(XError):
@@ -174,7 +101,7 @@ class GatewayRetryBudgetError(XError):
     instead of retried (HTTP 503 + Retry-After)."""
 
     sentinel = "gateway retry budget exhausted"
-    code = AppCode.BackendUnavailable
+    code = ResCode.BackendUnavailable
 
     def __init__(self, detail: str = "", retry_after: float = 1.0):
         super().__init__(detail)
@@ -185,12 +112,12 @@ class GatewayRetryBudgetError(XError):
 
 class VolumeExistedError(XError):
     sentinel = "volume already existed"
-    code = AppCode.VolumeExisted
+    code = ResCode.VolumeExisted
 
 
 class VolumeSizeUsedGreaterThanReducedError(XError):
     sentinel = "volume used size greater than reduced size"
-    code = AppCode.VolumeSizeUsedGreaterThanReduce
+    code = ResCode.VolumeSizeUsedGreaterThanReduce
 
 
 # --- substrate errors ---
@@ -200,7 +127,7 @@ class BackendUnavailableError(XError):
     fast (HTTP 503 + Retry-After) while reads degrade to the store."""
 
     sentinel = "backend unavailable (circuit open)"
-    code = AppCode.BackendUnavailable
+    code = ResCode.BackendUnavailable
 
     def __init__(self, detail: str = "", retry_after: float = 5.0):
         super().__init__(detail)
@@ -212,7 +139,7 @@ class PreconditionFailedError(XError):
     the current version in `X-Current-Version`)."""
 
     sentinel = "version precondition failed"
-    code = AppCode.PreconditionFailed
+    code = ResCode.PreconditionFailed
 
     def __init__(self, detail: str = "", current: int = 0):
         super().__init__(detail)

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Read the llama checks of chip_smoke.py phases 9, 10 and 12 over several
+"""Read the layout checks of chip_smoke.py phases 9, 10 and 12 over several
 seeds on one card.
 
 For each phase asked for and each seed: the one-rank bf16 Trainer of each
-llama config the phase's layouts run (llama 1b's width at the phase's
-depth cut; the phase's batch shape, 2 steps, remat "dots"; init and
-batches from the seed) and each llama layout of the phase (FSDP_LAYOUTS,
-TP_LAYOUTS, PP_LAYOUTS' 12a-12c) over 4 gloo ranks on the card, the
-relative differences of their losses and grad norms (what SP_LOSS_TOL
-and SP_NORM_TOL bound there). Prints one JSON line per phase and seed,
-then one with the largest reading of each layout over the seeds
-(PERF.md).
+config the phase's layouts run (llama 1b's width at the phase's depth
+cut, and for 12d moe_1b's at its cut, whose reference is the plain
+microbatched version at 12d's batch, as phase 12 runs it; the phase's
+batch shape, 2 steps, remat "dots"; init and batches from the seed) and
+each layout of the phase (FSDP_LAYOUTS, TP_LAYOUTS, PP_LAYOUTS) over 4
+gloo ranks on the card, the relative differences of their losses and
+grad norms (what SP_LOSS_TOL and SP_NORM_TOL bound for llama, EP_LOSS_TOL
+and EP_NORM_TOL for MoE). Prints one JSON line per phase and seed, then
+one with the largest reading of each layout over the seeds (PERF.md).
 
     python3 scripts/torch_layout_margin.py [--phases 9 10 12] [--seeds 0 1 2 3]
     python3 scripts/torch_layout_margin.py --device cpu --config tiny --s 32
@@ -34,9 +35,9 @@ import chip_smoke as cs  # noqa: E402
 RANKS = 4
 
 
-def llama_layouts(phase: int, train: dict, config: str = "") -> dict:
-    """The llama layouts of `phase` as run_layouts takes them, each
-    config at its depth cut (`config`: another llama config at the same
+def layouts_of(phase: int, train: dict, config: str = "") -> dict:
+    """The layouts of `phase` as run_layouts takes them, each config at its
+    depth cut (`config`: another config name of each family at the same
     cuts)."""
     def named(spec):
         return (spec[0], config, spec[2]) if config and isinstance(
@@ -50,8 +51,11 @@ def llama_layouts(phase: int, train: dict, config: str = "") -> dict:
                 for name, (role, plan, attn) in cs.TP_LAYOUTS.items()}
     layouts = cs.pp_layouts({k: named(v) for k, v in cs.PP_CONFIGS.items()},
                             train)
-    return {name: layouts[name] for name, (fam, *_) in cs.PP_LAYOUTS.items()
-            if fam != "moe"}
+    return layouts
+
+
+def is_moe(config) -> bool:
+    return isinstance(config, tuple) and config[0] == "moe"
 
 
 def margin_rank(rank, world, tmp, spec):
@@ -69,7 +73,8 @@ def margin_rank(rank, world, tmp, spec):
                 config, plan, attn, _, opts = cs.layout_fields(entry)
                 groups = MeshGroups.build(MeshPlan(**plan))
                 res[seed, name] = cs.sp_train(
-                    torch, device, cs.smoke_config(config), train, attn,
+                    torch, device, cs.smoke_config(config),
+                    dict(train, b=opts.get("b", train["b"])), attn,
                     groups, seed=seed, tc=opts.get("tc"))
                 if device.type == "cuda":
                     torch.cuda.empty_cache()
@@ -83,8 +88,8 @@ def main(argv=None) -> int:
     p.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3])
     p.add_argument("--device", default="cuda")
     p.add_argument("--config", default="",
-                   help="another llama config for every cut layout, at "
-                        "the same depth cuts")
+                   help="another config name (llama's and MoE's) for "
+                        "every cut layout, at the same depth cuts")
     p.add_argument("--s", type=int, default=2048)
     args = p.parse_args(argv)
 
@@ -102,14 +107,19 @@ def main(argv=None) -> int:
     phases = {}
     for phase in args.phases:
         train = dict(trains[phase], s=args.s)
-        phases[phase] = (llama_layouts(phase, train, args.config), train)
+        phases[phase] = (layouts_of(phase, train, args.config), train)
     one = {}
     for phase, (layouts, train) in phases.items():
         for seed in args.seeds:
-            for config in dict.fromkeys(e[0] for e in layouts.values()):
-                one[seed, config, train["b"]] = cs.sp_train(
-                    torch, device, cs.smoke_config(config), train, "ring",
-                    seed=seed)
+            for entry in layouts.values():
+                config, _, _, _, opts = cs.layout_fields(entry)
+                b = opts.get("b", train["b"])
+                if (seed, config, b) in one:
+                    continue
+                m = opts["tc"]["n_microbatches"] if is_moe(config) else 0
+                one[seed, config, b] = cs.sp_train(
+                    torch, device, cs.smoke_config(config), dict(train, b=b),
+                    "ring", seed=seed, microbatches=m)
                 if device.type == "cuda":
                     torch.cuda.empty_cache()
     spec = {"device": f"{args.device}:0" if args.device == "cuda"
@@ -125,7 +135,8 @@ def main(argv=None) -> int:
         line = {"phase": phase, "seed": seed, "layouts": {}}
         for name, entry in layouts.items():
             got = ranks[0][seed, name]
-            base = one[seed, entry[0], train["b"]]
+            opts = cs.layout_fields(entry)[4]
+            base = one[seed, entry[0], opts.get("b", train["b"])]
             same = all(r[seed, name]["losses"] == got["losses"] and
                        r[seed, name]["grad_norms"] == got["grad_norms"]
                        for r in ranks)
@@ -144,6 +155,8 @@ def main(argv=None) -> int:
     print(json.dumps({"worst_over_seeds": worst, "seeds": args.seeds,
                       "limits": {"loss": cs.SP_LOSS_TOL,
                                  "grad_norm": cs.SP_NORM_TOL},
+                      "moe_limits": {"loss": cs.EP_LOSS_TOL,
+                                     "grad_norm": cs.EP_NORM_TOL},
                       "card": smi}), flush=True)
     return 0
 

@@ -25,6 +25,7 @@ from gpu_docker_api_tpu_torch import topology as ttopo
 from gpu_docker_api_tpu_torch import xerrors as tx
 from gpu_docker_api_tpu_torch.meshplan import PlanSpec as TPlan
 from gpu_docker_api_tpu_torch.schedulers import GpuScheduler, parse_gpu_count
+from gpu_docker_api_tpu_torch.server.codes import ResCode as TResCode
 from gpu_docker_api_tpu_torch.store import MVCCStore as TStore
 from gpu_docker_api_tpu_torch.store import StateClient as TClient
 from gpu_docker_api_tpu_torch.workqueue import WorkQueue as TQueue
@@ -316,9 +317,9 @@ def test_error_codes_are_the_jax_routes_codes():
         ResCode.ContainerTpuOversubscribed == 1026
     assert issubclass(tx.GpuOversubscribedError, tx.GpuNotEnoughError)
     assert {m.name: int(m) for m in ResCode} == {
-        name: int(m) for name, m in tx.AppCode.__members__.items()
+        name: int(m) for name, m in TResCode.__members__.items()
         if name in ResCode.__members__}
-    assert tx.AppCode.ContainerGpuNotEnough is tx.AppCode.ContainerTpuNotEnough
+    assert TResCode.ContainerGpuNotEnough is TResCode.ContainerTpuNotEnough
 
 
 def test_sentinel_errors_match_by_name_and_code():

@@ -255,3 +255,36 @@ def test_chip_smoke_alone_or_without_a_card_fails_and_prints_no_result(
                                       PYTHONPATH=""))
         assert out.returncode != 0
         assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_the_daemon_is_walked_and_scanned():
+    """The daemon slice is the port's own: the REST server and its codes,
+    the App, the reconciler, the health monitor, federation's watch half,
+    the telemetry catalog and flight recorder, the client and the cli are
+    walked, imported with jax blocked (test_port_imports_with_jax_blocked),
+    import nothing of gpu_docker_api_tpu and no torch either (the daemon is
+    a control-plane process: it never touches the card's driver)."""
+    mods = set(_modules())
+    subpackages = ("server",)
+    modules = ("server.codes", "server.http", "server.app", "obs.names",
+               "obs.recorder", "obs.metrics", "obs.trace", "federation",
+               "health", "reconcile", "client", "cli", "regulator",
+               "metrics", "utils.file")
+    assert {f"gpu_docker_api_tpu_torch.{m}"
+            for m in subpackages + modules} <= mods
+    for m in subpackages + modules:
+        rel = m.replace(".", "/")
+        path = os.path.join(PORT_DIR, rel, "__init__.py") \
+            if m in subpackages else os.path.join(PORT_DIR, rel + ".py")
+        tops = {n.split(".")[0] for n in _imports(path)}
+        assert not tops & {"jax", "gpu_docker_api_tpu", "torch"}, m
+        assert "jax" not in open(path, encoding="utf-8").read().replace(
+            "JAX", ""), m
+    import importlib
+    for m in modules:
+        mod = importlib.import_module(f"gpu_docker_api_tpu_torch.{m}")
+        assert os.path.dirname(mod.__file__).startswith(PORT_DIR)
+    from gpu_docker_api_tpu_torch.server.app import App
+    from gpu_docker_api_tpu_torch.schedulers import GpuScheduler
+    assert App.__module__ == "gpu_docker_api_tpu_torch.server.app"
+    assert GpuScheduler.__module__.startswith("gpu_docker_api_tpu_torch.")

@@ -6,6 +6,8 @@ its batcher hooks:
   virtual time, the latency class admitted first and its preemption
   counted) on a fake clock gives the port's regulator and JAX's the same
   admission order and the same describe() fields, the seconds aside;
+- the preempt events set_events routes onto a daemon's event log, and
+  the /metrics walk (snapshot), equal JAX's on the same scenario;
 - tenant_from_env on the same envs as JAX's;
 - the chunk histogram keeps JAX's name and buckets;
 - a tiny _Batcher with a tenant gives the streams of one without, each
@@ -23,11 +25,13 @@ import pytest
 import torch
 
 from gpu_docker_api_tpu import regulator as jreg
+from gpu_docker_api_tpu.events import EventLog as JEvents
 from gpu_docker_api_tpu.models import llama as jllama
 from gpu_docker_api_tpu.obs import metrics as jmetrics
 from gpu_docker_api_tpu_torch import convert
 from gpu_docker_api_tpu_torch import metrics as tmetrics
 from gpu_docker_api_tpu_torch import regulator as treg
+from gpu_docker_api_tpu_torch.events import EventLog as TEvents
 from gpu_docker_api_tpu_torch.models import llama as tllama
 from gpu_docker_api_tpu_torch.workloads import serve as tserve
 
@@ -106,6 +110,43 @@ def test_admission_order_and_describe_equal_the_jax_regulators(monkeypatch):
     assert got[2]["chunksTotal"] == 8    # 3 solo, the gate, 4 queued
     assert [t["busySeconds"] for t in got[2]["tenants"]] == [
         t["busySeconds"] for t in want[2]["tenants"]]
+
+
+def _preempt_events(mod, events_cls, clock):
+    """_scenario with the registry's events routed to an EventLog (set
+    before a regulator exists, and onto one that already does) ->
+    (event rows without their clock and sequence, snapshot())."""
+    mod.reset()
+    early = mod.for_chip(3)
+    log = events_cls()
+    mod.set_events(log)
+    try:
+        assert early.events is log
+        order, _, _ = _scenario(mod, clock)
+        with early.register("x", 1).slice():
+            pass
+        rows = [{k: v for k, v in e.items() if k not in ("ts", "seq")}
+                for e in log.recent()]
+        return order, rows, mod.snapshot()
+    finally:
+        mod.set_events(None)
+        log.close()
+
+
+def test_preempt_events_and_snapshot_equal_the_jax_regulators(monkeypatch):
+    clock = [100.0]
+    monkeypatch.setattr(time, "perf_counter", lambda: clock[0])
+    got = _preempt_events(treg, TEvents, clock)
+    clock[0] = 100.0
+    want = _preempt_events(jreg, JEvents, clock)
+    assert got[0] == want[0]
+    assert got[1] == want[1]
+    assert [(e["op"], e["target"], e["tenant"], e["holder"])
+            for e in got[1]] == [("regulator.preempt", "chip7", "l", "gate")]
+    assert [_strip(r) for r in got[2]] == [_strip(r) for r in want[2]]
+    assert [r["chip"] for r in got[2]] == [7]
+    treg.reset()
+    assert treg.for_chip(1).events is None    # unset again
 
 
 def test_latency_preemption_is_counted_once_per_held_chunk():

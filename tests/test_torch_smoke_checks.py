@@ -1074,6 +1074,23 @@ def test_cut_phases_feed_the_launch_formulas():
     assert cs.smoke_config(("moe", "1b", None)).n_layers == 16
 
 
+def test_the_cuts_that_make_room_for_phase_16():
+    """12d runs moe_1b at phase 11's depth (4 of 16 layers, full width);
+    13b's f32 ranks and 13c's batchers run llama 1b and moe_1b at 4 of
+    their layers (13b's HTTP half serves llama 1b whole, by name); 13b's
+    burst is 4 requests of 8-16 new tokens and its timed decodes 17
+    tokens."""
+    assert cs.PP_CONFIGS["moe"] == cs.EP_CONFIG == ("moe", "1b", 4)
+    full = cs.smoke_config(("moe", "1b", None))
+    assert dataclasses.replace(cs.smoke_config(cs.PP_CONFIGS["moe"]),
+                               n_layers=16) == full
+    assert (cs.MW_SCALE["llama"], cs.MW_SCALE["moe"],
+            cs.MW_SCALE["depth"]) == ("1b", "1b", 4)
+    assert cs.MH_TRAFFIC == dict(requests=4, clients=4, prompt=(128, 256),
+                                 new=(8, 16))
+    assert cs.MH_TIME == dict(prompt=128, new=17)
+
+
 # ---- phase 11 ---------------------------------------------------------------
 
 def moe_config(name):
@@ -1207,7 +1224,8 @@ def test_phase_ep_at_tiny_width_on_the_cpu():
 
 def test_phase_12_state_bytes_and_launches():
     """The per-rank state of each phase 12 layout at its size (llama 1b's
-    width at 4 of its 20 layers, moe_1b whole; the prediction in PERF.md:
+    width at 4 of its 20 layers, moe_1b's at 4 of its 16; the prediction
+    in PERF.md:
     under pp every layer leaf 1/pp too, embed and lm_head whole on each
     stage) and its launches a rank and step: a stage's layers once a
     microbatch, the ring's rank + 1 times in 12c."""
@@ -1223,7 +1241,7 @@ def test_phase_12_state_bytes_and_launches():
     assert got == {"12a": (1069621248, [8], 4, 2),
                    "12b": (676454400, [8], 4, 2),
                    "12c": (1352785920, [8, 16], 4, 2),
-                   "12d": (2055155712, [32], 8, 2)}
+                   "12d": (808710144, [8], 8, 2)}
     assert cs.fsdp_launches({"pp": 4}, 0, 20, 4) == {
         "flash_fwd": 40, "flash_bwd_dq": 20, "flash_bwd_dkv": 20}
     # without pp the microbatches change nothing (phases 9-11)
@@ -1281,7 +1299,7 @@ def test_served_ungrouped_check_finds_a_changed_leaf(tmp_path):
 
 MW_TINY = dict(
     config=("llama", "tiny", None), train=dict(b=4, s=32, steps=2),
-    llama="tiny", moe="tiny",
+    llama="tiny", moe="tiny", depth=1,   # the card cuts 13b and 13c to 4
     sizes=dict(slots=4, max_len=96, lens=(7, 12, 20, 9, 15, 11), new=8,
                prefix=20, suffixes=(3, 5, 8, 11), prefix_cache=4),
     moe_sizes=dict(slots=3, max_len=48, lens=(5, 9, 6, 12), at=(0, 1, 3, 6),
