@@ -42,7 +42,8 @@ Phases (any failure exits non-zero and prints no result):
      and decode times in bf16 at B=1 and B=8, with the int8 KV cache and
      with w8 weights, each beside its bound and the device-busy share.
   5. the dense continuous batcher at llama 1b (batching.py, the _Batcher of
-     workloads/serve.py; no kernel on this path). 5a, in-process, f32: six
+     workloads/serve.py; no kernel on this path). 5a, in-process, f32, at
+     4 of the 20 layers: six
      staggered requests into 4 slots, each greedy stream held to its solo
      (B=1) stream, where it may leave only at a near tie (top-2 gap under
      TIE_GAP, at most one stream a run); again with chunked prefill, the
@@ -77,7 +78,8 @@ Phases (any failure exits non-zero and prints no result):
      trunk in f32 through the kernels and the reference attention, each
      layer's routing recorded: a decision may differ only at a near tie
      (router probabilities within TIE_GAP, at most one), the logits
-     compared before it. 7b, f32, in-process: the cached path against
+     compared before it. 7b, f32, in-process, at 4 of the 16 layers: the
+     cached path against
      moe_forward through the forward kernel with a capacity under which
      nothing drops; the dense and the paged _Batcher driven by hand under
      one schedule at the real capacity, each paged stream equal to its
@@ -113,7 +115,8 @@ Phases (any failure exits non-zero and prints no result):
      and 4 of its 20 layers (bf16, B=4, S=2048, remat "dots"): the
      one-rank Trainer here, then four processes on this one card in a
      gloo group (as in phase 8) through 9a fsdp=4, 9b dp=2 x fsdp=2 and
-     9c fsdp=2 x sp=2 (the ring; 2 steps each): every rank's loss and
+     9c fsdp=2 x sp=2 (the ring; 2 steps in 9a, which checkpoints, 1 in
+     9b and 9c): every rank's loss and
      grad norm equal, each
      within SP_LOSS_TOL / SP_NORM_TOL of the one-rank run's; the bytes of
      each rank's parameters, mu and nu after init exactly the whole
@@ -128,7 +131,8 @@ Phases (any failure exits non-zero and prints no result):
      10a tp=4, 10b fsdp=2 x tp=2 and 10c tp=2 x sp=2 (the ring) at phase
      9's llama 1b cut, and 10d tp=4 at llama_mini (4 q / 2 kv heads: the
      head-gather
-     fallback); 2 steps each, against phase 9's one-rank run (10d against
+     fallback); 2 steps in 10b, which checkpoints, 1 in the others,
+     against phase 9's one-rank run (10d against
      its own): every rank's loss and grad norm equal, each within
      SP_LOSS_TOL / SP_NORM_TOL of one rank's, the first near its value at
      init; each rank's params, mu and nu exactly 1/(fsdp * tp) of every
@@ -146,7 +150,8 @@ Phases (any failure exits non-zero and prints no result):
      processes on this one card in a gloo group through 11a ep=4, 11b
      fsdp=2 x ep=2 (MeshPlan.auto's plan for --ep 2 on four cards), 11c
      tp=4 (JAX's un-planned MoE launch on four cards) and 11d ep=2 x
-     sp=2 (the ring; the interleaved global prefix); 2 steps each: every
+     sp=2 (the ring; the interleaved global prefix); 2 steps in 11b, which
+     checkpoints, 1 in the others: every
      rank's loss and grad norm equal, each within EP_LOSS_TOL /
      EP_NORM_TOL of one rank's (the difference printed), the first near
      its value at init; each rank's params, mu and nu exactly each leaf's
@@ -159,7 +164,8 @@ Phases (any failure exits non-zero and prints no result):
      the drops only where a decision does; 11b's gathered checkpoint restored
      under the one-rank template, shard for shard over fsdp and ep. Step
      time and tokens/s labelled "gloo, 4 ranks on one card".
- 12. pipeline parallelism over the same four gloo ranks (2 steps, bf16,
+ 12. pipeline parallelism over the same four gloo ranks (2 steps in 12b,
+     which checkpoints, 1 in the others; bf16,
      stage remat): 12a llama 1b at full width and 4 of its 20 layers,
      pp=4 (GPipe, M=4, B=4),
      12b fsdp=2 x pp=2 interleaved (v=2, M=2), 12c pp=2 x sp=2 ring (M=2)
@@ -176,7 +182,7 @@ Phases (any failure exits non-zero and prints no result):
      gloo group formed at the coordinator. 13a: the training workload's
      loop (train_llama._run) on 2 workers x 2 ranks, fsdp=2 x tp=2 (tp
      inside a worker), llama 1b at full width and 4 of its 20 layers on
-     phase 9's batches, 2 steps, against the one-rank run of that cut by
+     phase 9's batches, 1 step, against the one-rank run of that cut by
      phase 9's checks (losses, grad
      norms, bytes 1/4 of every matrix, launches 20/10/10, q heads, tp
      sums); rank 0 alone writes the records, with "process": "0/2", and
@@ -236,15 +242,47 @@ Phases (any failure exits non-zero and prints no result):
      rebuilt scheduler sees card 0 free. 15d: a warm worker whose
      preimport initialised the driver through torch.cuda.is_available()
      starts its job cold, and the job sees its one card.
+ 16. the port's own daemon: `python -m gpu_docker_api_tpu_torch.cli -b
+     process --warm-pool 1` with real discovery. 16a: the card over REST,
+     a volume and a replicaSet of phase 2's trainer through the port's
+     client. 16b: a keyed memory PATCH crashed at replace.after_quiesce
+     once the trainer's quiesce checkpoint is parked, a node-level crash
+     (the daemon and its children's process groups), and a restarted
+     daemon whose boot reconcile rolls the replace forward: v2 resumes
+     with no step lost and phase 2's losses, the key's retry replays v2.
+     16c: history, stop, delete, the card free in /resources/gpus and in
+     nvidia-smi's contexts, /metrics parsed, the patch's trace stitched
+     across the restart.
+ 17. the serving control plane: the port's daemon with `--gw-workers 2`
+     (two SO_REUSEPORT data-plane workers over the port's build of
+     native/shm_atomics.cc) runs gateway g1b over the port's serve.py at
+     llama 1b, full width, with 5b's batcher flags, its replicas 0.5 of
+     card 0 each (minReplicas 1, maxReplicas 2, slots 8, maxQueue 16,
+     scaleUpQueue 4, readiness http). 17a, the in-process route: r0
+     READY with its share of card 0; four prompts sent alone give r0's
+     own envelope through the gateway; 5b's burst through the gateway,
+     each answer the replica's 200 or a 429 / 504 shed with Retry-After,
+     no replica above 8 active, a cloned scale-up whose r1 takes the
+     second share of card 0; tokens/s and latency beside 5b's. 17b, the
+     worker tier: both workers answer on the data port; the burst through
+     it while one worker is SIGKILLed: respawned, its claims subtracted,
+     the shm in-flight and queue counters 0 after the drain, the latency
+     family counting both tiers' answers; each replica's own flash
+     launches (serve.py's GET /launches) read 0: serving attends through
+     infer._attend_cached. 17c: scale to 1 stops r1 and releases its
+     share; a request's trace stitched daemon -> worker -> replica
+     through the span spool; DELETE leaves card 0 with no share and no
+     replica.
 
 Prints one `{"kernels": [...]}` line (with each kernel's launches in 7a
-and phases 8-15 too), the readings, one `{"serve": ...}` line, one
+and phases 8-17 too), the readings, one `{"serve": ...}` line, one
 `{"batching": ...}` line, one `{"paged": ...}` line, one `{"moe": ...}`
 line, one `{"sp": ...}` line, one `{"fsdp": ...}` line, one `{"tp": ...}`
 line, one `{"ep": ...}` line, one `{"pp": ...}` line, one
 `{"multiworker": ...}` line, one `{"seam": ...}` line, one
-`{"services": ...}` line, the wall times of the whole script and of phases
-11-15, the nvidia-smi line, and last
+`{"services": ...}` line, one `{"daemon": ...}` line, one `{"gateway":
+...}` line, the wall times of the whole script and of phases 11-17, the
+nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 """
 
@@ -940,6 +978,7 @@ HTTP_PROMPT = 128      # the HTTP greedy request: prompt, new tokens
 HTTP_NEW = 32
 TIME_CONTEXT = 512     # the timed prompt, and the decode steps' context
 TIME_STEPS = 64
+TIME_BUSY_STEPS = 2    # the traced decode steps (4 until the room for 17)
 HTTP_DEADLINE_S = 300  # the serve subprocess must answer /healthz by then
 # kv8 cache against the f32 full forward: |err| <= KV8_TOL * (1 + |ref|).
 # Per-token-per-head int8 K/V moves the 1b logits far more than f32
@@ -1160,7 +1199,7 @@ def serve_times(torch, cfg, params, label, b, kv_quant=False,
                            kv_quant)
     busy = busy_share(torch, {
         "prefill": (lambda: infer.prefill(params, prompt, fresh(), cfg), 1),
-        "decode": (one_step, 4)})
+        "decode": (one_step, TIME_BUSY_STEPS)})
     out = {
         "batch": b, "context": context, "kv8": kv_quant,
         "prefill_ms": statistics.median(prefill_ms[1:]),
@@ -1364,6 +1403,11 @@ def phase_serve(torch, att):
 # where the solo logits' top two are closer than TIE_GAP: a row decoded in
 # a batch of slots goes through other GEMM shapes than at B=1, and its
 # logits may differ by rounding. At most one stream a run may do so.
+# 5a's and 7b's f32 in-process runs: llama 1b's and moe_1b's width at 4 of
+# their layers (13b's f32 depth), cut to make room for phase 17 (6a stays
+# whole: its pool must run short under STAGGER_S, a race it wins only at
+# the whole model's step time)
+EXACT_DEPTH = 4
 BATCH_EXACT = dict(slots=4, max_len=512, lens=(37, 64, 100, 160, 200, 256),
                    new=24, prefix=128, suffixes=(16, 40, 72, 100),
                    prefill_chunk=64, prefix_cache=4, decode_chunk=8, gamma=4)
@@ -1378,7 +1422,8 @@ BATCH_TRAFFIC = dict(requests=32, clients=16, prompt=(128, 512),
                      new=(64, 128))
 BATCH_ADMIT_QUEUE = 2
 BUSY_WINDOW_STEPS = 64  # the timed window of steady 8-slot decode, in steps
-BUSY_STEPS = 16        # the traced decode steps (a multiple of 8)
+BUSY_STEPS = 8         # the traced decode steps (a multiple of 8; 16
+                       # until the room for phase 17)
 BATCH_HEADERS = ("X-TDAPI-Slots", "X-TDAPI-Active", "X-TDAPI-Queued",
                  "X-TDAPI-Queue-Wait-EWMA-Ms", "X-TDAPI-Queue-Wait-Ms")
 MULTIROW_REFUSAL = (
@@ -1885,19 +1930,21 @@ def check_decode_sync_free(torch, b):
 
 
 def phase_batching(torch, att):
-    """Phase 5: the dense continuous batcher at llama 1b, full width and
-    depth: 5a in-process in f32, 5b the serve process over HTTP in bf16."""
+    """Phase 5: the dense continuous batcher at llama 1b, full width: 5a
+    in-process in f32 at EXACT_DEPTH of its layers, 5b the serve process
+    (the whole model) over HTTP in bf16."""
     from gpu_docker_api_tpu_torch.models import llama
     from gpu_docker_api_tpu_torch.train import Trainer
     from gpu_docker_api_tpu_torch.workloads.serve import _load_params
 
     cfg = llama.LlamaConfig.llama_1b()
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                n_layers=EXACT_DEPTH)
     mini32 = dataclasses.replace(llama.LlamaConfig.llama_mini(),
                                  dtype=torch.float32)
-    print(f"phase 5: continuous batcher, llama 1b (5a f32 in-process: "
-          f"{BATCH_EXACT}; 5b bf16 serve process: {' '.join(BATCH_SERVE)}, "
-          f"{BATCH_TRAFFIC})", flush=True)
+    print(f"phase 5: continuous batcher, llama 1b (5a f32 in-process at "
+          f"{EXACT_DEPTH} layers: {BATCH_EXACT}; 5b bf16 serve process: "
+          f"{' '.join(BATCH_SERVE)}, {BATCH_TRAFFIC})", flush=True)
     wall = {}
     t0 = time.perf_counter()
     params = llama.init_params(cfg32, torch.Generator(device="cuda")
@@ -2131,7 +2178,8 @@ MOE_BATCH = dict(slots=4, max_len=512, lens=(37, 100, 64, 200, 160, 256),
 # prompts, dense and w8 (the JAX moe_w8 cell, bench.py:630-656); the
 # host-load path; serve --host-load --quantize w8 beside serve --quantize w8
 MOE_SERVE = ("--family", "moe")
-MOE_TRAFFIC = dict(requests=16, clients=8, prompt=(128, 512), new=(64, 64))
+# 7c's burst: 32 new tokens a request (64 until the room for phase 17)
+MOE_TRAFFIC = dict(requests=16, clients=8, prompt=(128, 512), new=(32, 32))
 MOE_TIME = dict(context=128, steps=32)
 MOE_GREEDY = dict(b=2, prompt=128, new=16, seed=13)
 
@@ -2616,8 +2664,8 @@ def phase_moe(torch, att):
 
     cfg = moe.MoEConfig.moe_1b()
     print(f"phase 7: MoE, moe_1b (7a train_llama --family moe --config 1b "
-          f"{MOE_TRAIN}; 7b f32 {MOE_ORACLE}, {MOE_BATCH}; 7c bf16 "
-          f"{MOE_TRAFFIC}, {MOE_TIME})", flush=True)
+          f"{MOE_TRAIN}; 7b f32 at {EXACT_DEPTH} layers {MOE_ORACLE}, "
+          f"{MOE_BATCH}; 7c bf16 {MOE_TRAFFIC}, {MOE_TIME})", flush=True)
     wall = {}
     t0 = time.perf_counter()
     train = moe_train(torch, att, cfg)
@@ -2625,7 +2673,8 @@ def phase_moe(torch, att):
     wall["7a_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                n_layers=EXACT_DEPTH)
     oracle = serve_oracle(
         torch, att, dataclasses.replace(
             cfg32, capacity_factor=MOE_ORACLE["capacity_factor"]),
@@ -2634,9 +2683,9 @@ def phase_moe(torch, att):
     print(f"  7b f32 against moe_forward (capacity factor "
           f"{MOE_ORACLE['capacity_factor']}, tol {F32_TOL}): {oracle}",
           flush=True)
-    check(oracle["flash_fwd_launches"] == cfg.n_layers,
+    check(oracle["flash_fwd_launches"] == cfg32.n_layers,
           f"the 7b oracle's forward launched flash_fwd "
-          f"{oracle['flash_fwd_launches']} times, want {cfg.n_layers}")
+          f"{oracle['flash_fwd_launches']} times, want {cfg32.n_layers}")
     params = moe.init_params(cfg32, torch.Generator(device="cuda")
                              .manual_seed(0))
     batchers = moe_batchers(torch, att, cfg32, params)
@@ -3152,8 +3201,16 @@ FSDP_RANKS = 4
 # room for phases 11-13 (PERF.md §4); phase 10 takes the same
 FSDP_CONFIG = ("llama", "1b", 4)
 FSDP_TRAIN = dict(b=4, s=2048, steps=2)  # phase 2's shape; bf16, "dots"
+# the steps on the card of a layout of phases 10-12 beside its phase's
+# checkpointing one, which takes its phase's (2): the second step's
+# comparison with one rank, which holds the sharded update, stays on one
+# layout of each axis (fsdp 9a, dp 9b, the sp ring 9c, tp 10b, ep 11b, pp
+# 12b); the others stop after their first (the cut that makes room for
+# phase 17). The phases take `layout_steps` in its place (the CPU tests:
+# 2 everywhere)
+LAYOUT_STEPS = 1
 FSDP_LAYOUTS = {                         # name: (plan, steps)
-    "9a": ({"fsdp": 4}, 2),
+    "9a": ({"fsdp": 4}, 2),              # checkpointed
     "9b": ({"dp": 2, "fsdp": 2}, 2),
     "9c": ({"fsdp": 2, "sp": 2}, 2),     # the ring
 }
@@ -3518,7 +3575,9 @@ def check_layouts(att, ranks, layouts, ones, device, tokens) -> dict:
             check(all(s["calls"] == sums for s in run["tp_sums"]),
                   f"{label}: rank {r} tp sums {run['tp_sums']}, want "
                   f"{sums} a step")
-        step_s = statistics.median(runs[0]["step_times_s"][1:])
+        # the steps after the first (its warm-up); a one-step layout's own
+        step_s = statistics.median(runs[0]["step_times_s"][1:]
+                                   or runs[0]["step_times_s"])
         readings[name] = {
             "config": config, "plan": plan, "sp_attn": attn, "steps": steps,
             "losses": runs[0]["losses"], "grad_norms": runs[0]["grad_norms"],
@@ -3716,7 +3775,7 @@ def tp_heads(cfg, plan) -> int:
 
 
 def phase_tp(torch, att, one=None, device="cuda", configs=None,
-             train=TP_TRAIN):
+             train=TP_TRAIN, layout_steps=LAYOUT_STEPS):
     """Phase 10: tensor parallelism. The one-rank Trainer of each config
     (`one`: phase 9's run of the main config on the same batches, if
     given), then TP_RANKS processes on this one card through each layout
@@ -3738,7 +3797,8 @@ def phase_tp(torch, att, one=None, device="cuda", configs=None,
     one_rank_s = time.perf_counter() - t0
     for name, run in ones.items():
         print(f"  10 one rank, {name}: {run}", flush=True)
-    layouts = {name: (configs[role], plan, attn, train["steps"])
+    layouts = {name: (configs[role], plan, attn, train["steps"]
+                      if name == TP_CHECKPOINT else layout_steps)
                for name, (role, plan, attn) in TP_LAYOUTS.items()}
     ranks, n, wall = run_layouts(torch, device, layouts, train,
                                  TP_CHECKPOINT, TP_RANKS)
@@ -3781,7 +3841,8 @@ EP_LOSS_TOL = 5e-4
 EP_NORM_TOL = 1.25e-2
 
 
-def phase_ep(torch, att, device="cuda", config=EP_CONFIG, train=EP_TRAIN):
+def phase_ep(torch, att, device="cuda", config=EP_CONFIG, train=EP_TRAIN,
+             layout_steps=LAYOUT_STEPS):
     """Phase 11: ep and MoE over ranks. The one-rank Trainer of `config`
     here and the f32 routing of its first batch; then EP_RANKS processes on
     this one card through each layout of EP_LAYOUTS (run_layouts), held
@@ -3813,7 +3874,8 @@ def phase_ep(torch, att, device="cuda", config=EP_CONFIG, train=EP_TRAIN):
     one_rank_s = time.perf_counter() - t0
     print(f"  11 one rank: "
           f"{({k: v for k, v in one.items() if k != 'routes'})}", flush=True)
-    layouts = {name: (config, plan, attn, train["steps"])
+    layouts = {name: (config, plan, attn, train["steps"]
+                      if name == EP_CHECKPOINT else layout_steps)
                for name, (plan, attn) in EP_LAYOUTS.items()}
     ranks, n, wall = run_layouts(torch, device, layouts, train,
                                  EP_CHECKPOINT, EP_RANKS)
@@ -3853,15 +3915,18 @@ PP_LAYOUTS = {  # name: (family, plan, sp_attn, TrainConfig fields, B / b)
 PP_CHECKPOINT = "12b"                    # stored grouped, [2, 2, 1, ...]
 
 
-def pp_layouts(configs, train) -> dict:
+def pp_layouts(configs, train, layout_steps=LAYOUT_STEPS) -> dict:
     """PP_LAYOUTS as run_layouts takes them: (config spec, plan, sp_attn,
-    steps, {"tc": TrainConfig fields, "b": the layout's batch})."""
-    return {name: (configs[fam], plan, attn, train["steps"],
+    steps (train's for PP_CHECKPOINT, `layout_steps` for the others),
+    {"tc": TrainConfig fields, "b": the layout's batch})."""
+    return {name: (configs[fam], plan, attn, train["steps"]
+                   if name == PP_CHECKPOINT else layout_steps,
                    {"tc": tc, "b": train["b"] * scale})
             for name, (fam, plan, attn, tc, scale) in PP_LAYOUTS.items()}
 
 
-def phase_pp(torch, att, device="cuda", configs=None, train=PP_TRAIN):
+def phase_pp(torch, att, device="cuda", configs=None, train=PP_TRAIN,
+             layout_steps=LAYOUT_STEPS):
     """Phase 12: pipeline parallelism. The one-rank references here: the
     llama Trainer (the pipeline changes no number of llama's) and, for
     MoE, the plain microbatched version (the pipeline's routing pools, M
@@ -3874,7 +3939,7 @@ def phase_pp(torch, att, device="cuda", configs=None, train=PP_TRAIN):
     checkpoint restored under its template shard for shard, and through
     serve's loader ungrouped, bit for bit."""
     configs = configs or PP_CONFIGS
-    layouts = pp_layouts(configs, train)
+    layouts = pp_layouts(configs, train, layout_steps)
     print(f"phase 12: pp, {configs} ({train}, stage remat) over {PP_RANKS} "
           f"gloo ranks on one card: {layouts}", flush=True)
     for name, entry in layouts.items():
@@ -3943,7 +4008,11 @@ COTENANCY = dict(be_weight=3, lat_weight=1, slots=4, max_len=256,
 # ranks and 13c's batchers run llama 1b and moe_1b at full width and
 # `depth` of their layers (the cut that makes room for phase 16), 13b's
 # HTTP half serves llama 1b whole
-MW_SCALE = dict(config=FSDP_CONFIG, train=FSDP_TRAIN, llama="1b", moe="1b",
+# 13a trains one step of phase 9's cut (phase 9's two-step one-rank run is
+# its reference; its plan, 10b's, keeps two steps in phase 10), the cut
+# that makes room for phase 17
+MW_TRAIN = dict(FSDP_TRAIN, steps=1)
+MW_SCALE = dict(config=FSDP_CONFIG, train=MW_TRAIN, llama="1b", moe="1b",
                 depth=4,
                 sizes=BATCH_EXACT, moe_sizes=MH_MOE, oracle=MH_ORACLE,
                 kv_block=16, serve=MH_SERVE, traffic=MH_TRAFFIC,
@@ -4117,11 +4186,12 @@ def phase_multiworker_train(torch, att, one, device="cuda",
                                  train["b"] * train["s"])
         steps, recs = read_metrics(os.path.join(tmp, "work",
                                                 "metrics.jsonl"))
-        check([r["step"] for r in steps] == [1, 2]
+        want_steps = list(range(1, train["steps"] + 1))
+        check([r["step"] for r in steps] == want_steps
               and all(r["process"] == f"0/{MW_WORKERS}" and r["devices"] == n
                       for r in steps)
-              and [r["checkpoint"] for r in recs if "checkpoint" in r] == [2],
-              f"13a records {recs}")
+              and [r["checkpoint"] for r in recs if "checkpoint" in r]
+              == [train["steps"]], f"13a records {recs}")
         t0 = time.perf_counter()
         shards = check_resharded_checkpoint(
             os.path.join(tmp, "work", "checkpoints"), smoke_config(config),
@@ -5627,10 +5697,11 @@ def rest_ok(port, method, path, label=""):
     return env["data"]
 
 
-def prometheus_families(text) -> dict:
-    """{family: TYPE} of a Prometheus text exposition; fails on a line that
-    is not a comment, a TYPE/HELP header or `name[{labels}] value`."""
-    fams = {}
+def prometheus_families(text) -> tuple:
+    """({family: TYPE}, [(sample name, {label: value}, value)]) of a
+    Prometheus text exposition; fails on a line that is not a comment, a
+    TYPE/HELP header or `name[{labels}] value`."""
+    fams, samples = {}, []
     for ln in text.splitlines():
         if ln.startswith("# TYPE "):
             _, _, name, typ = ln.split(None, 3)
@@ -5638,13 +5709,16 @@ def prometheus_families(text) -> dict:
         elif ln and not ln.startswith("#"):
             name_labels, _, value = ln.rpartition(" ")
             try:
-                float(value)
+                value = float(value)
             except ValueError:
-                raise SmokeFailure(f"16c /metrics sample value: {ln!r}")
-            check(re.fullmatch(r"[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})?",
-                               name_labels) is not None,
-                  f"16c /metrics line is no sample: {ln!r}")
-    return fams
+                raise SmokeFailure(f"/metrics sample value: {ln!r}")
+            m = re.fullmatch(r"([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})?",
+                             name_labels)
+            check(m is not None, f"/metrics line is no sample: {ln!r}")
+            labels = dict(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"',
+                                     m.group(2) or ""))
+            samples.append((m.group(1), labels, value))
+    return fams, samples
 
 
 def compute_apps():
@@ -5718,8 +5792,9 @@ def node_crash(daemon, timeout=60.0) -> list:
 
 
 def start_daemon(state, port, log_path, env, args=()):
-    """The port's daemon (cli.py) on `state`, serving 127.0.0.1:`port`;
-    returns (the process, seconds from its start to a /ping)."""
+    """The port's daemon (cli.py) on `state`, serving 127.0.0.1:`port`,
+    its containers' host ports from DMN_PORTS; returns (the process,
+    seconds from its start to a /ping)."""
     argv = [sys.executable, "-m", "gpu_docker_api_tpu_torch.cli",
             "-b", "process", "-a", f"127.0.0.1:{port}", "-s", state,
             "-p", DMN_PORTS, *args]
@@ -5740,7 +5815,7 @@ def start_daemon(state, port, log_path, env, args=()):
             with open(log_path, errors="replace") as f:
                 tail = f.read()[-3000:]
             proc.kill()
-            raise SmokeFailure(f"16: the daemon did not answer /ping "
+            raise SmokeFailure(f"the daemon did not answer /ping "
                                f"(exit {proc.poll()}): {tail}")
         time.sleep(0.05)
 
@@ -6027,7 +6102,7 @@ def phase_daemon(torch, main_losses, device="cuda", mock_topology=None,
             check(apps == base_apps, f"16c {apps - base_apps} other "
                   f"contexts on the card after delete")
         status, hdrs, raw = rest(port, "GET", "/metrics")
-        fams = prometheus_families(raw.decode())
+        fams, _ = prometheus_families(raw.decode())
         check(status == 200 and hdrs.get("Content-Type", "").startswith(
                   "text/plain") and fams.get(
                   "tdapi_regulator_chunk_duration_ms") == "histogram"
@@ -6065,6 +6140,604 @@ def phase_daemon(torch, main_losses, device="cuda", mock_topology=None,
           f"first step {out['restart_to_v2_first_step_s']:.2f} s, "
           f"downtimeMs {out['downtime_ms']:.1f}; phase 16 wall time "
           f"{out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# ---- phase 17: the serving control plane ------------------------------------
+
+GW_NAME = "g1b"                    # the gateway; its replicas g1br0, g1br1
+GW_SHARE = 0.5                     # each replica's share of card 0
+GW_SPEC = dict(minReplicas=1, maxReplicas=2, slots=8, maxQueue=16,
+               scaleUpQueue=4, cooldownS=1, readiness="http",
+               readyTimeoutS=600, deadlineMs=300000, scaleDownIdleS=3600)
+GW_WORKERS = 2                     # --gw-workers: the SO_REUSEPORT tier
+# 17a's relay check: prompts sent alone, directly and through the gateway
+GW_PROMPTS = dict(n=4, prompt=(64, 256), new=8, seed=11)
+GW_KILL_AFTER = 8                  # 17b: answers before a worker's SIGKILL
+GW_READY_S = 600                   # a replica's start to READY, at most
+GW_DRAIN_S = 300                   # a burst's leftovers to an idle gateway
+
+
+def gateway_replica_cmd(config, device, serve_args, repo):
+    """A replica's container cmd: the port's serve.py, launched from `repo`
+    on any cwd (the process substrate chdirs into the container's rootfs),
+    in the `-c` form a warm-pool worker can take; its port is the
+    substrate's $PORT."""
+    argv = ["--config", config, *serve_args, "--decode-chunk", "1",
+            "--host", "127.0.0.1", "--device", device]
+    code = (f"import sys; sys.path.insert(0, {repo!r}); "
+            "from gpu_docker_api_tpu_torch.workloads.serve import main; "
+            f"raise SystemExit(main({argv!r}))")
+    return [sys.executable, "-u", "-c", code]
+
+
+def fixed_prompts(vocab, spec=GW_PROMPTS):
+    """17a's prompts: [(tokens, max_new)]."""
+    import numpy as np
+    rng = np.random.default_rng(spec["seed"])
+    lo, hi = spec["prompt"]
+    return [(rng.integers(0, vocab, int(n)).tolist(), spec["new"])
+            for n in rng.integers(lo, hi + 1, spec["n"])]
+
+
+def relay_check(direct, relayed, label):
+    """Each request's envelope through the gateway is the replica's own:
+    the same code, message and tokens, byte for byte after JSON."""
+    check(len(direct) == len(relayed), f"{label}: {len(direct)} direct, "
+          f"{len(relayed)} relayed answers")
+    for i, (d, g) in enumerate(zip(direct, relayed)):
+        check(d[0] == 200 and d[1].get("code") == 200,
+              f"{label} prompt {i} directly: HTTP {d[0]} {str(d[1])[:300]}")
+        check(g[0] == 200 and g[1] == d[1],
+              f"{label} prompt {i}: through the gateway HTTP {g[0]} "
+              f"{str(g[1])[:300]}, directly {str(d[1])[:300]}")
+
+
+def shares_check(gpus, want, label):
+    """Card 0's share ledger holds exactly `want` ({owner: quanta}) and no
+    other card holds a share."""
+    chips = gpus["chips"]
+    check(chips[0]["shares"] == want, f"{label}: card 0's shares "
+          f"{chips[0]['shares']}, want {want}")
+    others = {c["index"]: c["shares"] for c in chips[1:] if c["shares"]}
+    check(not others, f"{label}: shares on other cards {others}")
+
+
+def burst_check(results, requests, vocab, label):
+    """Every answer of a burst through the gateway: the replica's 200 with
+    max_new tokens in range, or the gateway's 429 / 504 shed with its
+    Retry-After. A request the burst's kill dropped (None) is counted, not
+    judged. Returns (answered by a replica, shed, dropped)."""
+    answered = shed = dropped = 0
+    for i, (res, (_, max_new)) in enumerate(zip(results, requests)):
+        if res is None:
+            dropped += 1
+            continue
+        status, env, hdrs, _ = res
+        if status in (429, 504):
+            check(env.get("code") == status and hdrs.get("Retry-After"),
+                  f"{label} request {i}: shed HTTP {status} {env} "
+                  f"{hdrs}")
+            shed += 1
+            continue
+        toks = env.get("data", {}).get("tokens") if env.get("code") == 200 \
+            else None
+        check(status == 200 and toks is not None and len(toks) == 1
+              and len(toks[0]) == max_new
+              and all(0 <= x < vocab for x in toks[0]),
+              f"{label} request {i}: HTTP {status} {str(env)[:300]}")
+        answered += 1
+    return answered, shed, dropped
+
+
+def active_check(peaks, slots, label):
+    """No replica ever held more than `slots` requests in flight (the
+    gateway's claims and the replica's own count)."""
+    over = {name: n for name, n in peaks.items() if n > slots}
+    check(not over, f"{label}: replicas above {slots} active: {over}")
+
+
+def drained_check(tier, label):
+    """The worker tier's shared counters of the gateway after a drain: no
+    claim in flight and no request queued."""
+    check(tier["inflight"] == 0 and tier["queued"] == 0,
+          f"{label}: the shm counters after the drain {tier}")
+
+
+def latency_count_check(count, answered, hedges, dropped, label):
+    """tdapi_gateway_request_duration_ms's count over both tiers: one
+    observation a request a replica answered, one more a hedge's loser
+    that finished; a worker killed between its replica's answer and its
+    own may have observed a request it never delivered."""
+    check(answered <= count <= answered + hedges + dropped, f"{label}: the latency family counts {count} "
+          f"requests; {answered} answered, {hedges} hedges, {dropped} "
+          f"dropped by the kill")
+
+
+def histogram_quantiles(samples, family, labels, qs=(0.5, 0.9)):
+    """Bucket upper bounds at quantiles `qs` of histogram `family` under
+    `labels` (prometheus_families' samples: the first bucket whose
+    cumulative count reaches q of the total), or None where it holds no
+    sample."""
+    buckets = sorted((float(lab["le"]), v) for name, lab, v in samples
+                     if name == f"{family}_bucket" and {
+                         k: x for k, x in lab.items() if k != "le"} == labels)
+    if not buckets or buckets[-1][1] == 0:
+        return [None for _ in qs]
+    total = buckets[-1][1]
+    return [next(le for le, c in buckets if c >= q * total) for q in qs]
+
+
+def replica_launches_check(by_replica, names, kernels, label) -> dict:
+    """Each of the replicas `names` reported its flash launches, and none
+    launched one (serving attends through infer._attend_cached): their
+    sum, kernel by kernel."""
+    check(sorted(by_replica) == sorted(names) and all(
+              set(c) == set(kernels) for c in by_replica.values()),
+          f"{label} the replicas' launches {by_replica}, want {names}")
+    total = {k: sum(c[k] for c in by_replica.values()) for k in kernels}
+    check(not any(total.values()), f"{label} flash launches in the "
+          f"replicas {by_replica}")
+    return total
+
+
+def gateway_info(port, label):
+    return rest_ok(port, "GET", f"/api/v1/gateways/{GW_NAME}",
+                   label=label)["gateway"]
+
+
+def wait_gateway(port, pred, timeout, label):
+    """The gateway's describe() once pred(describe) holds."""
+    deadline = time.monotonic() + timeout
+    while True:
+        gw = gateway_info(port, label)
+        if pred(gw):
+            return gw
+        check(time.monotonic() < deadline, f"{label}: the gateway after "
+              f"{timeout} s: {gw}")
+        time.sleep(0.2)
+
+
+def replica_of(gw, name):
+    return next((r for r in gw["replicas"] if r["name"] == name), None)
+
+
+class ActiveSampler:
+    """Polls, every `period` s while a burst runs, the gateway's claims a
+    replica (the daemon's describe()) and each replica's own active count
+    (its /healthz); `peaks` keeps each replica's highest reading of
+    either."""
+
+    def __init__(self, port, period=0.1):
+        import threading
+        self.port, self.period = port, period
+        self.peaks: dict = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _note(self, name, n):
+        self.peaks[name] = max(self.peaks.get(name, 0), int(n))
+
+    def _run(self):
+        while not self._stop.wait(self.period):
+            try:
+                gw = gateway_info(self.port, "17 sampler")
+                for r in gw["replicas"]:
+                    self._note(r["name"], r["inflight"])
+                    if r["state"] == "ready" and r["hostPort"]:
+                        hz, _ = http_call(r["hostPort"], "GET", "/healthz")
+                        self._note(r["name"],
+                                   hz["data"]["batching"]["active"])
+            except (OSError, SmokeFailure, KeyError, ValueError):
+                pass
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+
+def gateway_burst(port, requests, clients, on_answer=None):
+    """Every (tokens, max_new) of `requests` POSTed to the gateway's
+    generate route on `port` from `clients` concurrent clients. Returns
+    ([(HTTP status, envelope, headers, latency s) or None where the
+    connection dropped], wall s). on_answer(n) runs after each answer."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    lock = threading.Lock()
+    done = [0]
+
+    def one(req):
+        tokens, max_new = req
+        t0 = time.perf_counter()
+        try:
+            status, hdrs, raw = rest(
+                port, "POST", f"/api/v1/gateways/{GW_NAME}/generate",
+                {"tokens": [tokens], "max_new": max_new}, timeout=600)
+        except OSError:
+            return None
+        out = (status, json.loads(raw), hdrs, time.perf_counter() - t0)
+        with lock:
+            done[0] += 1
+            n = done[0]
+        if on_answer is not None:
+            on_answer(n)
+        return out
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as ex:
+        results = list(ex.map(one, requests))
+    return results, time.perf_counter() - t0
+
+
+def burst_readings(results, requests, wall):
+    lat = [r[3] for r in results if r is not None and r[0] == 200]
+    served = sum(m for r, (_, m) in zip(results, requests)
+                 if r is not None and r[0] == 200)
+    return {"requests": len(requests), "wall_s": wall,
+            "tokens_s": served / wall,
+            "latency_s_p50_p90": ([percentile(lat, 0.5),
+                                   percentile(lat, 0.9)] if lat else None)}
+
+
+def replica_queue_wait(gw):
+    """{replica: (count, total ms)} of each ready replica's queue waits
+    (its /healthz)."""
+    out = {}
+    for r in gw["replicas"]:
+        if r["state"] == "ready" and r["hostPort"]:
+            hz, _ = http_call(r["hostPort"], "GET", "/healthz")
+            qw = hz["data"]["batching"]["queueWait"]
+            out[r["name"]] = (qw["count"], qw["totalMs"])
+    return out
+
+
+def mean_queue_wait_ms(before, after):
+    n = sum(after[k][0] - before.get(k, (0, 0.0))[0] for k in after)
+    ms = sum(after[k][1] - before.get(k, (0, 0.0))[1] for k in after)
+    return ms / n if n else None
+
+
+def worker_pids(data_port, want, tries=400):
+    """{worker index: pid} of the tier's workers, asked over fresh
+    connections to the shared data port until `want` workers answered."""
+    seen = {}
+    for _ in range(tries):
+        try:
+            status, _, raw = rest(data_port, "GET", "/api/v1/healthz",
+                                  timeout=10)
+        except OSError:
+            time.sleep(0.05)
+            continue
+        if status == 200:
+            data = json.loads(raw)["data"]
+            seen[data["worker"]] = data["pid"]
+        if len(seen) == want:
+            break
+    return seen
+
+
+def wait_drained(port, label, timeout=GW_DRAIN_S):
+    """Once no replica of the gateway holds or queues a request (each
+    replica's /healthz) and the daemon's and the tier's counters read 0:
+    the tier's counters of the gateway."""
+    deadline = time.monotonic() + timeout
+    while True:
+        gw = gateway_info(port, label)
+        busy = [r["name"] for r in gw["replicas"] if r["inflight"]]
+        for r in gw["replicas"]:
+            if r["state"] == "ready" and r["hostPort"]:
+                b = http_call(r["hostPort"], "GET",
+                              "/healthz")[0]["data"]["batching"]
+                if b["active"] or b["queued"]:
+                    busy.append(r["name"])
+        hz = rest_ok(port, "GET", "/api/v1/healthz", label=label)
+        tier = hz["workers"]["gateways"].get(GW_NAME, {})
+        if not busy and gw["queueDepth"] == 0 and not tier.get(
+                "inflight") and not tier.get("queued"):
+            return tier
+        check(time.monotonic() < deadline,
+              f"{label}: not drained after {timeout} s: busy {busy}, "
+              f"queue {gw['queueDepth']}, tier {tier}")
+        time.sleep(0.2)
+
+
+def phase_gateway(torch, att, direct=None, device="cuda",
+                  mock_topology=None, config="1b", traffic=BATCH_TRAFFIC,
+                  prompts=GW_PROMPTS, serve_args=BATCH_SERVE, spec=GW_SPEC):
+    """Phase 17: the serving control plane. The port's daemon (`python -m
+    gpu_docker_api_tpu_torch.cli -b process --gw-workers 2`, real
+    discovery) runs gateway g1b over the port's serve.py at `config`
+    (llama 1b, full width, 5b's batcher flags) with replicas of 0.5 of
+    card 0. 17a, the in-process route: r0 READY with its share; four
+    prompts alone give the replica's own envelope through the gateway;
+    5b's burst through the gateway is served (or shed with Retry-After)
+    with no replica above its 8 slots, and scales up by a clone of r0
+    whose replica r1 takes the second share of card 0. 17b, the worker
+    tier: both workers answer on the shared data port; the burst through
+    it while one worker is SIGKILLed: respawned, its claims subtracted,
+    the shm counters 0 after the drain, the latency family counting both
+    tiers' answers, no flash launch in r0 or r1 (their GET /launches).
+    17c: scale to 1 releases r1's share, a request's
+    trace is stitched daemon -> worker -> replica through the spool, and
+    DELETE leaves card 0 with no share and no replica. `direct` is 5b's
+    readings (printed beside 17a's); `device`, `mock_topology`, `config`,
+    `traffic`, `prompts` and `serve_args` stand in for the card, its
+    discovery, the model and its traffic in a small run on the CPU."""
+    import signal
+
+    from gpu_docker_api_tpu_torch import topology
+    from gpu_docker_api_tpu_torch.models import named_config
+    from gpu_docker_api_tpu_torch.obs import trace
+    from gpu_docker_api_tpu_torch.schedulers.gpu import SHARE_QUANTA
+
+    cfg = named_config("llama", config)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    quanta = int(GW_SHARE * SHARE_QUANTA)
+    r0, r1 = f"{GW_NAME}r0", f"{GW_NAME}r1"
+    out = {"config": f"llama {config}", "share": GW_SHARE,
+           "workers": GW_WORKERS}
+    print(f"phase 17: the serving control plane (gateway {GW_NAME} over "
+          f"serve.py llama {config}, replicas of {GW_SHARE} of card 0, "
+          f"--gw-workers {GW_WORKERS})", flush=True)
+    t_phase = time.perf_counter()
+    topo = (topology.make_topology(mock_topology) if mock_topology
+            else topology.discover_topology())
+    base_apps = compute_apps() or None
+    state = tempfile.mkdtemp(prefix="smoke17-")
+    logs = tempfile.mkdtemp(prefix="smoke17-logs-")
+    log_path = os.path.join(logs, "daemon.log")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH", "")) if p))
+    args = ["--gw-workers", str(GW_WORKERS)]
+    if mock_topology:
+        args += ["--topology", mock_topology, "--health-interval", "0"]
+    port = free_port()
+    daemon = None
+    gen_path = f"/api/v1/gateways/{GW_NAME}/generate"
+    try:
+        daemon, out["boot_to_ping_s"] = start_daemon(state, port, log_path,
+                                                     env, args)
+        # the daemon answers /ping before it starts the tier (App.start,
+        # as JAX's): its port reads 0 until the tier has bound one
+        deadline = time.monotonic() + 60
+        while True:
+            tier = rest_ok(port, "GET", "/api/v1/healthz",
+                           label="17b")["workers"]
+            if tier is None or (tier["port"] and tier["alive"]
+                                == tier["count"]):
+                break
+            check(time.monotonic() < deadline, f"17b the worker tier did "
+                  f"not come up: {tier}")
+            time.sleep(0.05)
+        check(tier is not None and tier["count"] == GW_WORKERS,
+              f"17b the worker tier is not running ({tier}): the daemon "
+              f"degraded to the in-process data plane")
+        data_port = tier["port"]
+
+        # 17a: the gateway, r0 and its share
+        body = {"name": GW_NAME, "image": "python", "port": "8000",
+                "cmd": gateway_replica_cmd(config, device, serve_args, repo),
+                "tpuCount": GW_SHARE, **spec}
+        t0 = time.perf_counter()
+        made, _ = http_call(port, "POST", "/api/v1/gateways", body)
+        check(made["code"] == 200, f"17a POST /gateways: {made}")
+        gw = wait_gateway(port, lambda g: g["readyReplicas"] >= 1,
+                          GW_READY_S, "17a r0")
+        out["r0_ready_s"] = time.perf_counter() - t0
+        rep0 = replica_of(gw, r0)
+        check(rep0 is not None and rep0["state"] == "ready"
+              and rep0["chips"] == [0], f"17a r0 {rep0}")
+        gpus = rest_ok(port, "GET", "/api/v1/resources/gpus",
+                       label="17a")["tpus"]
+        shares_check(gpus, {r0: quanta}, "17a")
+        print(f"  17a daemon /ping {out['boot_to_ping_s']:.2f} s; {r0} "
+              f"READY {out['r0_ready_s']:.2f} s after POST /gateways; "
+              f"card 0 shares {gpus['chips'][0]['shares']}", flush=True)
+
+        # the relay: four prompts alone, directly and through the gateway
+        fixed = fixed_prompts(cfg.vocab_size, prompts)
+
+        def answers(p, path, reqs, headers=None):
+            """(HTTP status, envelope) of each request, sent alone."""
+            return [(status, json.loads(raw)) for status, _, raw in (
+                rest(p, "POST", path, {"tokens": [t], "max_new": n},
+                     headers) for t, n in reqs)]
+
+        direct_envs = answers(rep0["hostPort"], "/generate", fixed)
+        relay_check(direct_envs, answers(port, gen_path, fixed), "17a")
+        # 17c's traced request, through a worker while r0 is the one
+        # replica and no latency digest gives a hedge delay: a request the
+        # worker hedges goes out without a gateway.forward span, as JAX's
+        tid = trace.new_trace_id()
+        parent = trace.format_traceparent(tid, trace.new_span_id())
+        relay_check(direct_envs[:1], answers(data_port, gen_path, fixed[:1],
+                                             {"traceparent": parent}),
+                    "17c the traced request")
+
+        # 5b's burst through the in-process route
+        requests = http_traffic(cfg.vocab_size, traffic)
+        qw0 = replica_queue_wait(gateway_info(port, "17a"))
+        with ActiveSampler(port) as sampler:
+            results, wall = gateway_burst(port, requests,
+                                          traffic["clients"])
+            gw = wait_gateway(port, lambda g: g["readyReplicas"] == 2,
+                              GW_READY_S, "17a r1")
+        answered_a, shed_a, _ = burst_check(results, requests,
+                                            cfg.vocab_size, "17a")
+        active_check(sampler.peaks, spec["slots"], "17a")
+        out["in_process"] = r = burst_readings(results, requests, wall)
+        r.update(answered=answered_a, shed=shed_a,
+                 peak_active=dict(sampler.peaks),
+                 replica_queue_wait_ms_mean=mean_queue_wait_ms(
+                     qw0, replica_queue_wait(gw)))
+        events = rest_ok(port, "GET", f"/api/v1/events?limit=2000&target="
+                         f"{GW_NAME}", label="17a")["events"]
+        ups = [e for e in events if e["op"] == "gateway.scale_up"]
+        check(any(e.get("cloned") and e.get("replica") == r1 for e in ups),
+              f"17a no cloned scale-up to {r1}: {ups}")
+        rep1 = replica_of(gw, r1)
+        check(rep1 is not None and rep1["state"] == "ready"
+              and rep1["chips"] == [0], f"17a r1 {rep1}")
+        gpus = rest_ok(port, "GET", "/api/v1/resources/gpus",
+                       label="17a")["tpus"]
+        shares_check(gpus, {r0: quanta, r1: quanta}, "17a")
+        out["scale_up"] = {k: ups[-1].get(k) for k in ("replica", "cloned",
+                                                       "via", "reason")}
+        out["scale_ready_ms"] = gw.get("scaleReadyMsHistory")
+        out["direct_5b"] = ((direct or {}).get("http", {})
+                            .get("decode_chunk_1"))
+        print(f"  17a burst through the gateway: {r}; scale-up {ups[-1]}; "
+              f"{r1} READY; card 0 shares {gpus['chips'][0]['shares']}; "
+              f"GATEWAY_SCALE_READY ms {out['scale_ready_ms']}; 5b directly: "
+              f"{out['direct_5b']}", flush=True)
+
+        # 17b: the worker tier, one worker killed mid-burst
+        pids = worker_pids(data_port, GW_WORKERS)
+        out["worker_pids"] = pids
+        check(len(pids) == GW_WORKERS and len(set(pids.values()))
+              == GW_WORKERS, f"17b the workers answering on the data port "
+              f"{data_port}: {pids}")
+        killed = {}
+
+        def kill_one(n):
+            if n == GW_KILL_AFTER and not killed:
+                killed["pid"] = pids[0]
+                os.kill(pids[0], signal.SIGKILL)
+
+        qw0 = replica_queue_wait(gateway_info(port, "17b"))
+        with ActiveSampler(port) as sampler:
+            results, wall = gateway_burst(data_port, requests,
+                                          traffic["clients"], kill_one)
+        answered_b, shed_b, dropped_b = burst_check(
+            results, requests, cfg.vocab_size, "17b")
+        check(killed, f"17b the burst answered fewer than {GW_KILL_AFTER} "
+              f"requests")
+        active_check(sampler.peaks, spec["slots"], "17b")
+        deadline = time.monotonic() + 120
+        while True:
+            tier = rest_ok(port, "GET", "/api/v1/healthz",
+                           label="17b")["workers"]
+            if tier["respawns"] >= 1 and tier["alive"] == GW_WORKERS:
+                break
+            check(time.monotonic() < deadline, f"17b the killed worker "
+                  f"was not respawned: {tier}")
+            time.sleep(0.2)
+        counters = wait_drained(port, "17b")
+        drained_check(counters, "17b")
+        tier = rest_ok(port, "GET", "/api/v1/healthz", label="17b")["workers"]
+        if dropped_b:
+            check(tier["reclaimedClaims"] >= 1, f"17b {dropped_b} requests "
+                  f"dropped with the killed worker, no claim reclaimed: "
+                  f"{tier}")
+        out["worker_tier"] = r = burst_readings(results, requests, wall)
+        gw = gateway_info(port, "17b")
+        status, _, raw = rest(port, "GET", "/metrics")
+        check(status == 200, f"17b /metrics: HTTP {status}")
+        _, samples = prometheus_families(raw.decode())
+        sel = {"gateway": GW_NAME}
+
+        def sample(name):
+            return sum(v for n, lab, v in samples if n == name and lab == sel)
+
+        r.update(answered=answered_b, shed=shed_b, dropped=dropped_b,
+                 killed_pid=killed["pid"], respawns=tier["respawns"],
+                 reclaimed_claims=tier["reclaimedClaims"],
+                 postmortems=len(tier["postmortems"]),
+                 peak_active=dict(sampler.peaks), counters=counters,
+                 replica_queue_wait_ms_mean=mean_queue_wait_ms(
+                     qw0, replica_queue_wait(gw)),
+                 tier_queue_wait_ms_p50_p90=histogram_quantiles(
+                     samples, "tdapi_gw_worker_queue_wait_ms", sel))
+        count = sample("tdapi_gateway_request_duration_ms_count")
+        hedges = sample("tdapi_gateway_hedges_total")
+        answered = len(fixed) + 1 + answered_a + answered_b
+        latency_count_check(count, answered, hedges, dropped_b, "17b")
+        out["latency_family"] = {
+            "count": count, "answered": answered, "hedges": hedges,
+            "p50_p90_ms": histogram_quantiles(
+                samples, "tdapi_gateway_request_duration_ms", sel)}
+        # each replica's own flash launches since its start (serve.py's
+        # GET /launches), after both bursts
+        out["launches_by_replica"] = {
+            rep["name"]: http_call(rep["hostPort"], "GET",
+                                   "/launches")[0]["data"]
+            for rep in gw["replicas"] if rep["state"] == "ready"}
+        out["launches"] = replica_launches_check(
+            out["launches_by_replica"], (r0, r1), att.LAUNCHES, "17b")
+        print(f"  17b worker pids {pids}, {killed['pid']} SIGKILLed after "
+              f"{GW_KILL_AFTER} answers: {r}; the latency family "
+              f"{out['latency_family']}; the replicas' flash launches "
+              f"{out['launches_by_replica']}", flush=True)
+
+        # 17c: scale to 1, the stitched trace, delete
+        scaled, _ = http_call(port, "PATCH", f"/api/v1/gateways/{GW_NAME}/"
+                              f"scale", {"replicas": 1})
+        check(scaled["code"] == 200, f"17c PATCH scale 1: {scaled}")
+        gw = wait_gateway(port, lambda g: (replica_of(g, r1) or {}).get(
+            "state") == "stopped", 120, "17c")
+        check(replica_of(gw, r0)["state"] == "ready", f"17c {r0} "
+              f"{replica_of(gw, r0)}")
+        gpus = rest_ok(port, "GET", "/api/v1/resources/gpus",
+                       label="17c")["tpus"]
+        shares_check(gpus, {r0: quanta}, "17c")
+        deadline = time.monotonic() + 60
+        while True:
+            got = json.loads(rest(port, "GET", f"/api/v1/traces/{tid}")[2])
+            spans = (got.get("data") or {}).get("trace", {}).get("spans", [])
+            if got.get("code") == 200 and len(spans) >= 3:
+                break
+            check(time.monotonic() < deadline, f"17c the worker's spans "
+                  f"never reached the daemon: "
+                  f"{[(s['op'], s.get('parentId')) for s in spans]}")
+            time.sleep(0.2)
+        ops = {s["op"]: s for s in spans}
+        root = ops.get("POST /api/v1/gateways/:name/generate")
+        fwd = ops.get("gateway.forward")
+        check(root is not None and "gateway.admit" in ops
+              and fwd is not None and fwd["parentId"] == root["spanId"]
+              and root["traceId"] == tid
+              and any(e["name"] == "replica.queue_wait"
+                      for e in fwd.get("events", [])),
+              f"17c the stitched trace "
+              f"{[(s['op'], s.get('parentId')) for s in spans]}")
+        out["trace"] = {"traceId": tid, "spans": sorted(ops)}
+        deleted, _ = http_call(port, "DELETE", f"/api/v1/gateways/{GW_NAME}")
+        check(deleted["code"] == 200, f"17c DELETE: {deleted}")
+        gpus = rest_ok(port, "GET", "/api/v1/resources/gpus",
+                       label="17c")["tpus"]
+        shares_check(gpus, {}, "17c")
+        check(gpus["freeCount"] == topo.num_chips,
+              f"17c the cards after delete {gpus}")
+        left = rest_ok(port, "GET", "/api/v1/gateways", label="17c")
+        check(left["gateways"] == [], f"17c gateways left {left}")
+        apps = settled_apps(base_apps)
+        if base_apps is not None:
+            check(apps == base_apps, f"17c {apps - base_apps} other "
+                  f"contexts on the card after the delete")
+        print(f"  17c scaled to 1 ({r1} stopped, its share released); the "
+              f"trace {out['trace']}; deleted: card 0 free, no replica",
+              flush=True)
+        rc = stop_daemon(daemon)
+        daemon = None
+        check(rc == 0, f"17c the daemon exited {rc} on SIGTERM")
+    except BaseException:
+        if os.path.exists(log_path):
+            with open(log_path, errors="replace") as f:
+                print(f"  17 the daemon's log, its end: {f.read()[-4000:]}",
+                      flush=True)
+        raise
+    finally:
+        if daemon is not None:
+            node_crash(daemon)
+        shutil.rmtree(state, ignore_errors=True)
+        shutil.rmtree(logs, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  17 timings: r0 READY {out['r0_ready_s']:.2f} s; phase 17 wall "
+          f"time {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -6199,6 +6872,8 @@ def main() -> int:
               f"{seam['launch_to_first_step_s']:.2f} s", flush=True)
         before_dmn = time.perf_counter() - start
         dmn = phase_daemon(torch, m["losses"])
+        before_gw = time.perf_counter() - start
+        gw = phase_gateway(torch, att, batching)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -6223,6 +6898,7 @@ def main() -> int:
             "launches_services": [svc["children"][v]["launches"][name]
                                   for v in (1, 2)],
             "launches_daemon": dmn["child2"]["launches"][name],
+            "launches_gateway": gw["launches"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": bnd[name][0],
             "bound_by": bnd[name][1], "library_ms": k["library_ms"]})
@@ -6247,6 +6923,7 @@ def main() -> int:
     print(json.dumps({"seam": seam}), flush=True)
     print(json.dumps({"services": svc}), flush=True)
     print(json.dumps({"daemon": dmn}), flush=True)
+    print(json.dumps({"gateway": gw}), flush=True)
     wall = time.perf_counter() - start
     print(f"wall time: the whole script {wall:.1f} s, phases 0-10 "
           f"{before_ep:.1f} s, phase 11 {before_pp - before_ep:.1f} s, "
@@ -6254,7 +6931,8 @@ def main() -> int:
           f"{before_seam - before_mw:.1f} s, phase 14 "
           f"{before_svc - before_seam:.1f} s, phase 15 "
           f"{before_dmn - before_svc:.1f} s, phase 16 "
-          f"{wall - before_dmn:.1f} s", flush=True)
+          f"{before_gw - before_dmn:.1f} s, phase 17 "
+          f"{wall - before_gw:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

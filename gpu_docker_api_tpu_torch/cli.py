@@ -6,9 +6,9 @@ Reference parity: cmd/gpu-docker-api/main.go — flags --addr/-a, --etcd/-e
 SIGTERM graceful stop with full state flush (:139-154).
 
 The port's copy of the JAX control plane's cli.py, without the flags of
-the planes not ported (the gateway workers, the fleet, replication,
-placement and defrag). Discovery of the node's cards raises without one,
-so the CPU is asked for with a mock topology:
+the planes not ported (the fleet, replication, placement and defrag).
+Discovery of the node's cards raises without one, so the CPU is asked for
+with a mock topology:
 
     python -m gpu_docker_api_tpu_torch.cli --backend mock --topology h100-8
 
@@ -89,6 +89,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-auto-cordon", action="store_true",
                    help="report unhealthy chips on /healthz but never "
                         "cordon them automatically")
+    p.add_argument("--gw-workers", type=int, default=None, metavar="N",
+                   help="multi-process serving data plane: N worker "
+                        "processes share the gateway generate port via "
+                        "SO_REUSEPORT with router state in shared memory "
+                        "(default: TDAPI_GW_WORKERS env, else 0 = "
+                        "in-process)")
+    p.add_argument("--gw-data-port", type=int, default=None, metavar="PORT",
+                   help="explicit data-plane port for --gw-workers "
+                        "(default: TDAPI_GW_DATA_PORT env, else pick a "
+                        "free one; see /api/v1/healthz workers.port)")
     p.add_argument("--cpu-cores", type=int, default=None, metavar="N",
                    help="override the schedulable core count (default: "
                         "probe /proc/cpuinfo; mock-backend fleets on "
@@ -220,6 +230,8 @@ def main(argv=None) -> int:
               guard_backend=not args.no_guard,
               health_interval=args.health_interval,
               auto_cordon=not args.no_auto_cordon,
+              gw_workers=args.gw_workers,
+              gw_data_port=args.gw_data_port,
               cpu_cores=args.cpu_cores)
     app.start()
 

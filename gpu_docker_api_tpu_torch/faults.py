@@ -2,9 +2,9 @@
 faults.
 
 The port's copy of the JAX control plane's faults.py, cut to what the
-ported modules cross: the services' and the write-behind queue's
-crashpoints, the guarded backend's transient faults, the HTTP layer's
-drop_response gate, and the store's WAL disk faults.
+ported modules cross: the services', the write-behind queue's and the
+gateway's crashpoints, the guarded backend's transient faults, the HTTP
+layer's drop_response gate, and the store's WAL disk faults.
 
 **Crashpoints** are named step boundaries. One is inert until armed, by
 the TDAPI_CRASHPOINTS env var (comma-separated names) or by arm(). An armed
@@ -52,9 +52,10 @@ class InjectedCrash(BaseException):
 
 
 #: name -> where it sits in its mutation: the services' steps (run,
-#: replace, stop, delete, volumes) and the write-behind queue's. The
-#: federation, replication, gateway and defrag ones come with the slices
-#: that port those modules.
+#: replace, stop, delete, volumes), the write-behind queue's and the
+#: gateway's (scale-up clone, KV handoff, hedge). The federation,
+#: replication and defrag ones come with the slices that port those
+#: modules.
 CRASHPOINTS: dict[str, str] = {
     # run = grant -> create -> start -> persist
     "run.after_grant": "chips/cores granted, container not yet created",
@@ -102,6 +103,21 @@ CRASHPOINTS: dict[str, str] = {
     "volume.delete.after_remove": "backend volume removed, store keys remain",
     # write-behind persistence: the daemon dies before a queued write exists
     "workqueue.before_submit": "mutation applied in memory, persist never queued",
+    # disaggregated KV handoff (gateway.py _forward_disagg): prefill ran
+    # and the prompt KV sits exported under its key on the prefill
+    # replica — the gateway dies before the decode claim. The export's
+    # TTL purge frees the blocks (zero leaked KV), and the prefill claim
+    # must be released by the forward's own unwind (no stuck slot)
+    "kvhandoff.after_prefill": "prefill done + prompt KV exported, decode "
+                               "phase never dispatched",
+    # hedged requests (gateway.py _forward_hedged / workers.py): the
+    # hedge replica's slot is claimed and the hedge counters are about
+    # to move, but the duplicate call has not been dispatched — a crash
+    # here must leak no inflight claim in either tier (the in-process
+    # gateway's claim dies with the process; the worker's claim ledger
+    # is reconciled by the watchdog)
+    "hedge.in_flight": "hedge slot claimed, duplicate request not yet "
+                       "dispatched",
 }
 
 _lock = threading.Lock()

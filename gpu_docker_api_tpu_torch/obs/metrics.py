@@ -1,10 +1,9 @@
 """Prometheus exposition: a registry of counters, gauges and histograms.
 
-The port's copy of the JAX control plane's obs/metrics.py, without the
-external shard source of the data-plane workers and the gateway's two
-histograms (neither is ported). The co-tenancy regulator's chunk
-histogram lives in the top-level metrics.py, which the workloads import
-on their own; it renders here, in the JAX registry's place for it.
+The port's copy of the JAX control plane's obs/metrics.py. The
+co-tenancy regulator's chunk histogram lives in the top-level metrics.py,
+which the workloads import on their own; it renders here, in the JAX
+registry's place for it.
 
 Instruments are declared once (name, help, type, label names), mutated
 from the hot paths with one lock-guarded dict update, and rendered into
@@ -194,6 +193,39 @@ class Histogram(_Instrument):
         if not b:
             raise ValueError(f"{name}: histogram needs >= 1 bucket")
         self.buckets = b
+        # external shard source (cross-process telemetry): a callable
+        # returning {label_tuple: (bucket_counts, sum, count)} merged into
+        # the in-process children at render/snapshot time. This is how the
+        # worker tier's shared-memory metric shards feed the SAME family
+        # the in-process path observes into (obs/shm_metrics.py) — one
+        # truthful tdapi_gateway_request_duration_ms whether a request was
+        # served by the daemon or a worker process. bucket_counts must use
+        # THIS histogram's bucket layout plus one overflow cell.
+        self._extern = None
+
+    def set_extern(self, fn) -> None:
+        """Install (or clear, fn=None) the external shard source."""
+        self._extern = fn
+
+    def _extern_children(self) -> dict:
+        fn = self._extern
+        if fn is None:
+            return {}
+        try:
+            return dict(fn())
+        # a scrape must render even when the shard segment is mid-teardown;
+        # the in-process children still render
+        except Exception:  # noqa: BLE001
+            return {}
+
+    @staticmethod
+    def _merge_child(child: list, ext, n_cells: int) -> None:
+        counts, total, count = ext
+        for i, n in enumerate(counts[:n_cells]):
+            child[i] += n
+        child[-2] += total
+        child[-1] += count
+
     def observe(self, v: float, **labelkw) -> None:
         if not _enabled:
             return
@@ -215,12 +247,16 @@ class Histogram(_Instrument):
 
     def snapshot(self, **labelkw) -> dict:
         """{bucketBound: cumulativeCount}, plus sum/count — for tests and
-        bench assertions, not for rendering."""
+        bench assertions, not for rendering. Includes external shard data
+        (set_extern) so the view matches what /metrics renders."""
         key = self._key(labelkw)
+        extern = self._extern_children()
         with self._lock:
             child = self._children.get(key)
             child = list(child) if child else \
                 [0] * (len(self.buckets) + 1) + [0.0, 0]
+        if key in extern:
+            self._merge_child(child, extern[key], len(self.buckets) + 1)
         cum, out = 0, {}
         for bound, n in zip(self.buckets, child):
             cum += n
@@ -230,9 +266,16 @@ class Histogram(_Instrument):
 
     def render(self) -> list[str]:
         out = self.header()
-        with self._lock:
-            items = sorted((k, list(v)) for k, v in self._children.items())
+        extern = self._extern_children()
         n_cells = len(self.buckets) + 1
+        with self._lock:
+            merged = {k: list(v) for k, v in self._children.items()}
+        for key, ext in extern.items():
+            child = merged.get(key)
+            if child is None:
+                child = merged[key] = [0] * n_cells + [0.0, 0]
+            self._merge_child(child, ext, n_cells)
+        items = sorted(merged.items())
         if not items and not self.labels:
             items = [((), [0] * n_cells + [0.0, 0])]
         for key, child in items:
@@ -367,3 +410,19 @@ REGULATOR_CHUNK = REGISTRY.register(
 SPANS_TOTAL = REGISTRY.counter(
     "tdapi_trace_spans_total",
     "spans recorded by every trace collector in this process")
+
+GATEWAY_LATENCY = REGISTRY.histogram(
+    "tdapi_gateway_request_duration_ms",
+    "gateway data-plane latency: admission wait + replica forward + "
+    "relay, per gateway (gateway.py)",
+    labels=("gateway",),
+    buckets=(1, 2.5, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000,
+             10000))
+
+GATEWAY_SCALE_READY = REGISTRY.histogram(
+    "tdapi_gateway_scale_ready_ms",
+    "autoscale trigger -> new replica READY (serving /healthz): the "
+    "CoW-clone + warm-pool path this distribution prices against a cold "
+    "start",
+    labels=("gateway",),
+    buckets=(25, 50, 100, 250, 500, 1000, 2500, 5000, 10000, 30000))

@@ -22,9 +22,9 @@ The recorder is telemetry, not a ledger: a torn shm slot or a lost
 buffered tail is acceptable by contract; the in-memory ring is always
 whole for the process that owns it.
 
-The port's copy of the JAX control plane's obs/recorder.py, unchanged;
-the port's daemon is its only process (the workers are not ported), so
-it records into the in-process ring and flushes on graceful stop.
+The port's copy of the JAX control plane's obs/recorder.py, unchanged:
+the daemon records into the in-process ring and flushes on graceful
+stop; each data-plane worker (server/workers.py) into its shm ring.
 """
 
 from __future__ import annotations

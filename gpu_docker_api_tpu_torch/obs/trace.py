@@ -39,9 +39,7 @@ entry point into a ContextVar read + None check. bench.py measures the
 armed-vs-disarmed difference as obs_overhead_pct (criterion: <= 5% on
 the c16 scheduling sweep).
 
-The port's copy of the JAX control plane's obs/trace.py, without
-TraceCollector.ingest_row (the merge of the data-plane workers' span
-spools, which are not ported).
+The port's copy of the JAX control plane's obs/trace.py.
 """
 
 from __future__ import annotations
@@ -447,6 +445,37 @@ class TraceCollector:
                                      span.duration_ms, span.outcome)
         if row is not None:
             self._write_row(row)
+        _metrics.SPANS_TOTAL.inc()
+
+    def ingest_row(self, row: dict) -> None:
+        """Adopt an externally-produced span dict — the worker span-spool
+        merge (obs/spool.py SpoolTailer). ``"root": true`` rows finalize
+        their trace exactly like a local root finish, so keep-slowest
+        retention and the traces.jsonl record treat worker-served
+        data-plane requests like any other trace."""
+        row = dict(row)
+        is_root = bool(row.pop("root", False))
+        trace_id = row.get("traceId")
+        if not trace_id:
+            return
+        out = None
+        with self._lock:
+            self.spans_total += 1
+            t = self._traces.get(trace_id)
+            if t is None:
+                t = _Trace(trace_id)
+                self._traces[trace_id] = t
+                self._order.append(trace_id)
+            if len(t.spans) < self.max_spans_per_trace:
+                t.spans.append(row)
+            if is_root:
+                out = self._finalize(
+                    t, row.get("op", ""), row.get("target", ""),
+                    row.get("start", 0.0),
+                    float(row.get("durationMs", 0.0)),
+                    row.get("status", "ok"))
+        if out is not None:
+            self._write_row(out)
         _metrics.SPANS_TOTAL.inc()
 
     def _write_row(self, row: dict) -> None:

@@ -44,12 +44,11 @@ must report zero actions):
 The result is a report dict (also emitted to the EventLog and served at
 GET /api/v1/reconcile) whose "actions" total is the no-op indicator.
 
-The port's copy of the JAX control plane's reconcile.py. The intents of
-the planes the port does not serve yet (a gateway's scale or delete, a
-defrag run) cannot be settled here: their replay needs gateway.py or
-defrag.py. Such an open intent is refused by name
-(UnportedIntentError), so the daemon does not boot over a state it cannot
-settle, and the intent stays journaled for a daemon that can.
+The port's copy of the JAX control plane's reconcile.py. The intent of
+the one plane the port does not serve yet (a defrag run) cannot be
+settled here: its replay needs defrag.py. Such an open intent is refused
+by name (UnportedIntentError), so the daemon does not boot over a state
+it cannot settle, and the intent stays journaled for a daemon that can.
 """
 
 from __future__ import annotations
@@ -116,9 +115,7 @@ INFORMATIONAL_STEPS = frozenset({
 KNOWN_STEPS = CONSULTED_STEPS | INFORMATIONAL_STEPS
 
 #: intent ops of the planes not ported yet -> the module their replay needs
-UNPORTED_INTENT_OPS = {"gateway.scale": "gateway.py",
-                       "gateway.delete": "gateway.py",
-                       "defrag": "defrag.py"}
+UNPORTED_INTENT_OPS = {"defrag": "defrag.py"}
 
 
 class UnportedIntentError(RuntimeError):
@@ -289,6 +286,8 @@ class Reconciler:
             "volume.create": self._replay_volume_create,
             "volume.scale": self._replay_volume_scale,
             "volume.delete": self._replay_volume_delete,
+            "gateway.scale": self._replay_gateway_scale,
+            "gateway.delete": self._replay_gateway_delete,
         }.get(rec.op)
         if handler is None:
             # an op nobody here can replay means a NEWER (or corrupt)
@@ -680,6 +679,43 @@ class Reconciler:
             if v is None or v < info.version:
                 self.volume_versions.set(name, info.version)
                 report["versionFixes"] += 1
+
+    # ------------------------------------------- intent replay: gateways
+
+    def _replay_gateway_scale(self, rec: IntentRecord, report: dict) -> None:
+        """A gateway scale died mid-flight. The replica's own `run` /
+        `stop` intent (journaled by the inner mutation) settles the
+        replica's containers and grants; this record settles the
+        REQUEST's outcome for the idempotency sweep: the scale completed
+        exactly when the replica's stored record reflects the requested
+        direction. The gateway's replica roster itself is derived from
+        stored container records at boot (gateway.py adopt-by-name), so
+        there is no roster state to repair here."""
+        replica = rec.meta.get("replica", "")
+        stored = self._stored(replica) if replica else None
+        if rec.meta.get("direction") == "down":
+            done = stored is None or stored.resourcesReleased
+        else:
+            # up completed only if the replica HOLDS capacity: a crashed
+            # warm re-admission leaves its pre-existing record with
+            # resourcesReleased=True, which must read as unwound (the
+            # scale added nothing; a keyed retry re-executes)
+            done = stored is not None and not stored.resourcesReleased
+        outcome = "completed" if done else "unwound"
+        report["opsCompleted"].append(
+            f"gateway.scale-{outcome}:{rec.target}")
+
+    def _replay_gateway_delete(self, rec: IntentRecord, report: dict) -> None:
+        """Finish a half-done gateway delete: purge every replica
+        replicaSet the roster scan still finds (idempotent — already-
+        deleted replicas purge to nothing) and drop the gateway record."""
+        from .gateway import GATEWAYS, replica_names_for
+        for rname in replica_names_for(self.client, rec.target):
+            self._purge_container_state(rname, report)
+        if self.client.get(GATEWAYS, rec.target) is not None:
+            self.client.delete(GATEWAYS, rec.target)
+        report["opsCompleted"].append(
+            f"gateway.delete-completed:{rec.target}")
 
     # -------------------------------------------------- volume cross-check
 

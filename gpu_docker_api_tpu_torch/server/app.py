@@ -12,8 +12,10 @@ store -> workqueue -> schedulers -> version maps -> backend -> services.
 
 The port's copy of the JAX control plane's server/app.py, over the card
 scheduler (GpuScheduler: `tpu` and the `/tpus` routes keep JAX's names).
-The planes not ported yet are left out: the inference gateways and their
-data-plane workers, the fleet, its replication, placement and defrag.
+The inference gateways and their SO_REUSEPORT data-plane workers are
+served as in the JAX daemon (gateway.py, server/workers.py). The planes
+not ported yet are left out: the fleet, its replication, placement and
+defrag.
 Each of their routes answers a NotPorted (501) envelope
 that names the route (UNPORTED_ROUTES), and the served OpenAPI document
 describes only the routes this daemon serves.
@@ -48,6 +50,7 @@ from ..obs import metrics as obs_metrics
 from ..obs.metrics import Registry
 from ..obs.recorder import FlightRecorder
 from ..obs.trace import TraceCollector
+from ..gateway import GatewayConfig, GatewayManager
 from ..reconcile import Reconciler
 from .. import regulator
 from ..schedulers import (
@@ -73,12 +76,6 @@ log = logging.getLogger(__name__)
 #: (METHOD, route) -> the plane that serves it in the JAX daemon; each
 #: answers a NotPorted envelope until that plane is ported
 UNPORTED_ROUTES = {
-    ("POST", "/api/v1/gateways"): "gateways",
-    ("GET", "/api/v1/gateways"): "gateways",
-    ("GET", "/api/v1/gateways/:name"): "gateways",
-    ("PATCH", "/api/v1/gateways/:name/scale"): "gateways",
-    ("DELETE", "/api/v1/gateways/:name"): "gateways",
-    ("POST", "/api/v1/gateways/:name/generate"): "gateways",
     ("POST", "/api/v1/fleet/lease"): "fleet",
     ("POST", "/api/v1/fleet/lease/:member/renew"): "fleet",
     ("DELETE", "/api/v1/fleet/lease/:member"): "fleet",
@@ -250,8 +247,10 @@ class _WrappingRouter:
     """Registration facade used by App._router(): every mutating method
     (POST/PATCH/DELETE) is wrapped with the admission gate + idempotency
     middleware at add() time, so no mutating route can forget it.
-    raw=True opts a route out (the refusals of the planes not ported:
-    they mutate nothing, so they take no gate slot and cache no key)."""
+    raw=True opts a route out: data-plane traffic (the gateway generate
+    route), which is not a control mutation, takes no gate slot and
+    applies its own admission policy (gateway.py queue bound + deadline);
+    and the refusals of the planes not ported, which mutate nothing."""
 
     MUTATING = ("POST", "PATCH", "DELETE")
 
@@ -286,7 +285,9 @@ class App:
                  mutation_queue_depth: Optional[int] = None,
                  per_client_mutations: Optional[int] = None,
                  mutation_wait_timeout: float = 10.0,
-                 idem_ttl: Optional[float] = None):
+                 idem_ttl: Optional[float] = None,
+                 gw_workers: Optional[int] = None,
+                 gw_data_port: Optional[int] = None):
         os.makedirs(state_dir, exist_ok=True)
         self.state_dir = state_dir
 
@@ -415,12 +416,51 @@ class App:
         # their preempt events onto this App's event log and export their
         # counters at /metrics
         regulator.set_events(self.events)
+        # inference gateways (gateway.py): rebuilt from their stored
+        # records AFTER the reconciler settled half-done scale mutations —
+        # replica rosters are re-derived from stored container records
+        self.gateways = GatewayManager(self.replicasets, self.client,
+                                       self.intents, events=self.events,
+                                       traces=self.traces)
+        self.gateways.boot()
+        # multi-process SO_REUSEPORT data plane (server/workers.py): N
+        # worker processes share the gateway data-plane port, each
+        # parsing/routing/admitting end-to-end against the shared-memory
+        # router state; 0/unset (or no native shm-atomics core) keeps the
+        # in-process single-daemon data plane
+        from . import workers as gw_workers_mod
+        self.workers = None
         # per-process flight recorder (obs/recorder.py): every event row
         # mirrors into a cheap bounded ring, flushed to the state dir on
         # graceful stop (the cli's SIGTERM handler drives App.stop) — the
-        # daemon's own postmortem segment
+        # daemon's own postmortem segment, the in-process twin of the
+        # workers' shm rings
         self.recorder = FlightRecorder()
         self.events.mirror = self.recorder.note_event
+        n_workers = _env_int(gw_workers_mod.GW_WORKERS_ENV, gw_workers, 0)
+        if n_workers > 0:
+            if gw_workers_mod.available():
+                self.workers = gw_workers_mod.WorkerTier(
+                    self.gateways, n=n_workers,
+                    port=_env_int(gw_workers_mod.GW_DATA_PORT_ENV,
+                                  gw_data_port, 0),
+                    events=self.events,
+                    traces=self.traces,
+                    spool_dir=os.path.join(state_dir, "spans"),
+                    api_key=(api_key if api_key is not None
+                             else os.environ.get("APIKEY", "")))
+                # worker-served requests merge into the SAME latency
+                # family the in-process path observes into: the family is
+                # truthful whichever tier served the request (metric-
+                # family parity). Cleared in stop() — the instrument is
+                # module-global and this App's tier must not outlive it.
+                obs_metrics.GATEWAY_LATENCY.set_extern(
+                    self.workers.latency_extern)
+            else:
+                log.warning("TDAPI_GW_WORKERS=%d but the worker tier is "
+                            "unavailable (native shm-atomics core not "
+                            "built?) — serving stays in-process",
+                            n_workers)
         # store.read_only event edge detector (one event per latch trip)
         self._ro_trips_seen = 0
         # SSE follower count (tdapi_events_stream_clients) — mutated from
@@ -430,7 +470,12 @@ class App:
         self.metrics = self._build_registry()
         self.server = ApiServer(
             self._router(), addr=addr, api_key=api_key,
-            events=self.events, traces=self.traces)
+            events=self.events, traces=self.traces,
+            # the serving data plane must not write one event row per
+            # request: at load it evicts the whole control-plane ring
+            # (scale/shed events included) and taxes every decode
+            quiet_routes=frozenset(
+                {("POST", "/api/v1/gateways/:name/generate")}))
 
     # ------------------------------------------------------------- routes
 
@@ -456,6 +501,16 @@ class App:
         r.add("DELETE", f"{v1}/volumes/:name", self.h_vol_delete)
         r.add("GET", f"{v1}/volumes/:name", self.h_vol_info)
         r.add("GET", f"{v1}/volumes/:name/history", self.h_vol_history)
+        r.add("POST", f"{v1}/gateways", self.h_gw_create)
+        r.add("GET", f"{v1}/gateways", self.h_gw_list)
+        r.add("GET", f"{v1}/gateways/:name", self.h_gw_info)
+        r.add("PATCH", f"{v1}/gateways/:name/scale", self.h_gw_scale)
+        r.add("DELETE", f"{v1}/gateways/:name", self.h_gw_delete)
+        # DATA PLANE: serving traffic, not a control mutation — bypasses
+        # the mutation gate + idempotency middleware (raw); the gateway
+        # applies its own admission policy (queue bound, deadline, shed)
+        r.add("POST", f"{v1}/gateways/:name/generate", self.h_gw_generate,
+              raw=True)
         r.add("GET", f"{v1}/events", self.h_events)
         # list+watch on MVCC revisions
         r.add("GET", f"{v1}/watch", self.h_watch)
@@ -909,6 +964,131 @@ class App:
         except xerrors.NotExistInStoreError:
             return err(ResCode.VolumeGetHistoryFailed)
 
+    # ---------------------------------------------------- gateway handlers
+
+    def h_gw_create(self, req: Request) -> Response:
+        try:
+            cfg = GatewayConfig.from_json(req.json())
+            cfg.validate()
+        except (ValueError, TypeError) as e:
+            return err(ResCode.InvalidParams, str(e))
+        try:
+            return ok({"gateway": self.gateways.create(cfg)})
+        except xerrors.GatewayExistedError:
+            return err(ResCode.GatewayExisted)
+        except xerrors.GpuOversubscribedError:
+            return err(ResCode.ContainerTpuOversubscribed)
+        except xerrors.GpuNotEnoughError:
+            return err(ResCode.ContainerTpuNotEnough)
+        except xerrors.CpuNotEnoughError:
+            return err(ResCode.ContainerCpuNotEnough)
+        except xerrors.PortNotEnoughError:
+            return err(ResCode.ContainerPortNotEnough)
+        except xerrors.BackendUnavailableError as e:
+            return unavailable(e)
+        except Exception:  # noqa: BLE001
+            log.exception("gateway create failed [%s]", req.request_id)
+            return err(ResCode.GatewayCreateFailed)
+
+    def h_gw_list(self, req: Request) -> Response:
+        return ok({"gateways": self.gateways.list()})
+
+    def h_gw_info(self, req: Request) -> Response:
+        try:
+            return ok({"gateway": self.gateways.get(
+                req.params["name"]).describe()})
+        except xerrors.NotExistInStoreError:
+            return err(ResCode.GatewayGetInfoFailed)
+
+    def h_gw_scale(self, req: Request) -> Response:
+        try:
+            n = int(req.json().get("replicas", -1))
+        except (TypeError, ValueError):
+            return err(ResCode.InvalidParams)
+        if n < 0:
+            return err(ResCode.InvalidParams,
+                       "replicas must be an integer >= 0")
+        try:
+            return ok({"gateway": self.gateways.scale_to(
+                req.params["name"], n)})
+        except xerrors.NotExistInStoreError:
+            return err(ResCode.GatewayGetInfoFailed)
+        except xerrors.GpuOversubscribedError:
+            return err(ResCode.ContainerTpuOversubscribed)
+        except xerrors.GpuNotEnoughError:
+            return err(ResCode.ContainerTpuNotEnough)
+        except xerrors.CpuNotEnoughError:
+            return err(ResCode.ContainerCpuNotEnough)
+        except xerrors.PortNotEnoughError:
+            return err(ResCode.ContainerPortNotEnough)
+        except xerrors.BackendUnavailableError as e:
+            return unavailable(e)
+        except Exception:  # noqa: BLE001
+            log.exception("gateway scale failed [%s]", req.request_id)
+            return err(ResCode.GatewayScaleFailed)
+
+    def h_gw_delete(self, req: Request) -> Response:
+        try:
+            self.gateways.delete(req.params["name"])
+            return ok()
+        except xerrors.NotExistInStoreError:
+            return err(ResCode.GatewayGetInfoFailed)
+        except xerrors.BackendUnavailableError as e:
+            return unavailable(e)
+        except Exception:  # noqa: BLE001
+            log.exception("gateway delete failed [%s]", req.request_id)
+            return err(ResCode.GatewayDeleteFailed)
+
+    def h_gw_generate(self, req: Request) -> Response:
+        """The serving data plane: route one generate request through the
+        gateway's continuous-batching router. The replica's envelope is
+        relayed verbatim (RawResponse); ?stream=1 relays it as a
+        close-delimited streamed body (StreamingResponse) instead of
+        buffering."""
+        try:
+            gw = self.gateways.get(req.params["name"])
+        except xerrors.NotExistInStoreError:
+            return err(ResCode.GatewayGetInfoFailed)
+        # strict-priority admission class (the gateway twin of the
+        # regulator's latency class): an SLO-bound caller stamps it and
+        # bypasses the best-effort burst queue
+        priority = req.header("X-TDAPI-Priority").strip().lower()
+        try:
+            if req.query_flag("stream"):
+                _status, chunks = gw.forward(req.body, stream=True,
+                                             priority=priority)
+                return StreamingResponse(chunks,
+                                         content_type="application/json")
+            _status, payload = gw.forward(req.body, priority=priority)
+            return RawResponse(payload)
+        except xerrors.GatewayShedError:
+            self.events.record("gateway.shed", target=req.params["name"],
+                               code=int(ResCode.TooManyRequests),
+                               reason="queue_full",
+                               request_id=req.request_id)
+            return too_many("gateway queue full")
+        except xerrors.GatewayDeadlineError as e:
+            self.events.record("gateway.shed", target=req.params["name"],
+                               code=int(ResCode.GatewayTimeout),
+                               reason="deadline",
+                               request_id=req.request_id)
+            return Response(ResCode.GatewayTimeout, None, msg=str(e),
+                            http_status=504,
+                            headers={"Retry-After": "1"})
+        except xerrors.GatewayRetryBudgetError as e:
+            # retry-budget exhaustion sheds instead of amplifying a
+            # brownout: 503 with a Retry-After the client can honor
+            self.events.record("gateway.shed", target=req.params["name"],
+                               code=int(ResCode.BackendUnavailable),
+                               reason="retry_budget",
+                               request_id=req.request_id)
+            return Response(ResCode.BackendUnavailable, None, msg=str(e),
+                            http_status=503,
+                            headers={"Retry-After": str(e.retry_after)})
+        except Exception:  # noqa: BLE001
+            log.exception("gateway generate failed [%s]", req.request_id)
+            return err(ResCode.GatewayRequestFailed)
+
     # --------------------------------------------------- resource handlers
 
     def h_events(self, req: Request) -> Response:
@@ -1162,10 +1342,12 @@ class App:
             "breaker": breaker,
             "workqueue": {"pending": self.wq.pending(),
                           "dropped": self.wq.dropped_count()},
-            # the planes not ported read as a JAX daemon without them:
-            # no worker tier, no gateway, no replication peer
-            "workers": None,
-            "gateways": {},
+            "workers": (self.workers.describe()
+                        if self.workers is not None else None),
+            # per-gateway tail-tolerance posture: knobs, probation roster,
+            # ejection/hedge/retry-budget counters (gateway.py describe)
+            "gateways": {g["name"]: {"tailTolerance": g["tailTolerance"]}
+                         for g in self.gateways.list()},
             "reconcileActions": self.last_reconcile["actions"],
             "storeReadOnly": read_only,
             "replication": None,
@@ -1213,8 +1395,8 @@ class App:
         latency histograms fed by guard/store/schedulers/regulator) live
         in obs_metrics.REGISTRY and render after these. Series names are
         the JAX daemon's, registered in obs/names.py; the families of the
-        planes not ported (fleet, replication, gateways, the worker tier,
-        placement, defrag) are not declared."""
+        planes not ported (fleet, replication, placement, defrag) are not
+        declared."""
         m = Registry()
         g_chips = m.gauge("tdapi_tpu_chips", labels=("state",))
         g_cores = m.gauge("tdapi_cpu_cores", labels=("state",))
@@ -1303,6 +1485,98 @@ class App:
                            "(keep-slowest retention, obs/trace.py)")
         g_followers = m.gauge("tdapi_events_stream_clients",
                               "live SSE followers of /api/v1/events")
+        # inference gateways (gateway.py)
+        g_gw_rep = m.gauge("tdapi_gateway_replicas",
+                           "replica count per gateway and state",
+                           labels=("gateway", "state"))
+        g_gw_q = m.gauge("tdapi_gateway_queue_depth",
+                         "requests parked in the gateway admission queue",
+                         labels=("gateway",))
+        g_gw_in = m.gauge("tdapi_gateway_inflight", labels=("gateway",))
+        g_gw_req = m.gauge("tdapi_gateway_requests_total",
+                           labels=("gateway",), typ="counter")
+        g_gw_shed = m.gauge(
+            "tdapi_gateway_shed_total",
+            "gateway requests refused (queue bound or deadline)",
+            labels=("gateway",), typ="counter")
+        g_gw_scale = m.gauge("tdapi_gateway_scale_events_total",
+                             labels=("gateway", "direction"),
+                             typ="counter")
+        # KV-aware routing: affinity picks by the in-process
+        # router + every worker process (same family-parity contract as
+        # the request counters), replica prefix-cache occupancy, and
+        # disaggregated prefill->decode handoffs completed
+        g_gw_aff = m.gauge("tdapi_gw_affinity_hits_total",
+                           "requests steered to a prefix-warm replica "
+                           "by the KV affinity scorer",
+                           labels=("gateway",), typ="counter")
+        g_gw_aff_tok = m.gauge(
+            "tdapi_gw_affinity_tokens_total",
+            "prompt tokens the affinity scorer predicted KV-resident on "
+            "the picked replica", labels=("gateway",), typ="counter")
+        g_kv_blocks = m.gauge("tdapi_kv_prefix_blocks",
+                              "cached prefix entries advertised per "
+                              "replica (X-TDAPI-KV-Occ)",
+                              labels=("gateway", "replica"))
+        g_kv_handoff = m.gauge(
+            "tdapi_kv_prefix_handoffs_total",
+            "disaggregated prefill->decode KV handoffs completed",
+            labels=("gateway",), typ="counter")
+        # tail-tolerant serving: gray-failure ejections by the
+        # in-process router's control loop; hedges/wins and retry-budget
+        # sheds are per-tier counters folded at scrape (same parity
+        # contract as the request counters above)
+        g_gw_eject = m.gauge(
+            "tdapi_gateway_ejections_total",
+            "replicas ejected into probation by the latency outlier "
+            "detector", labels=("gateway",), typ="counter")
+        g_gw_hedge = m.gauge(
+            "tdapi_gateway_hedges_total",
+            "hedged (duplicated) requests dispatched against a slow "
+            "primary", labels=("gateway",), typ="counter")
+        g_gw_hedge_win = m.gauge(
+            "tdapi_gateway_hedge_wins_total",
+            "hedged requests whose duplicate finished first",
+            labels=("gateway",), typ="counter")
+        g_gw_rb = m.gauge(
+            "tdapi_gateway_retry_budget_exhausted_total",
+            "requests shed 503 because the retry token bucket was empty",
+            labels=("gateway",), typ="counter")
+        # multi-process data-plane worker tier (server/workers.py +
+        # obs/shm_metrics.py). Declared UNCONDITIONALLY: family presence
+        # must not depend on TDAPI_GW_WORKERS, or dashboards built in one
+        # mode break in the other (the metric-family parity contract —
+        # same names/labels whichever tier serves; the values are simply
+        # zero/empty when the tier is off)
+        g_wk_alive = m.gauge("tdapi_gw_workers_alive",
+                             "live SO_REUSEPORT data-plane workers")
+        g_wk_respawn = m.gauge(
+            "tdapi_gw_worker_respawns_total",
+            "dead workers reaped and respawned by the watchdog",
+            typ="counter")
+        g_wk_req = m.gauge("tdapi_gw_worker_requests_total",
+                           "data-plane requests served, per worker "
+                           "process and gateway",
+                           labels=("worker", "gateway"), typ="counter")
+        g_wk_shed = m.gauge("tdapi_gw_worker_shed_total",
+                            "queue-bound 429 sheds, per worker process",
+                            labels=("worker", "gateway"), typ="counter")
+        g_wk_dead = m.gauge("tdapi_gw_worker_deadline_total",
+                            "deadline 504 kills, per worker process",
+                            labels=("worker", "gateway"), typ="counter")
+        g_wk_retry = m.gauge(
+            "tdapi_gw_worker_retries_total",
+            "replica transport failures retried on another replica, per "
+            "worker process", labels=("worker", "gateway"), typ="counter")
+        h_wk_qw = m.histogram(
+            "tdapi_gw_worker_queue_wait_ms",
+            "admission queue wait in the worker tier (claim start -> "
+            "slot claimed), summed across workers per gateway",
+            labels=("gateway",),
+            buckets=obs_metrics.LATENCY_BUCKETS_MS)
+        if self.workers is not None:
+            h_wk_qw.set_extern(self.workers.queue_wait_extern)
+
         def collect() -> None:
             tpu = self.tpu.get_status()
             cpu = self.cpu.get_status()
@@ -1369,6 +1643,77 @@ class App:
                 g_brk.set(breaker_gauge(brk["state"]))
                 g_brk_f.set(brk["consecutiveFailures"])
             g_traces.set(self.traces.stats()["retained"])
+            for g in (g_gw_rep, g_gw_q, g_gw_in, g_gw_req, g_gw_shed,
+                      g_gw_scale, g_gw_aff, g_gw_aff_tok, g_kv_blocks,
+                      g_kv_handoff, g_gw_eject, g_gw_hedge,
+                      g_gw_hedge_win, g_gw_rb, g_wk_req, g_wk_shed,
+                      g_wk_dead, g_wk_retry):
+                g.reset()
+            # worker-tier counts fold into the SAME gateway families the
+            # in-process router feeds (metric-family parity: a dashboard
+            # sum over tdapi_gateway_requests_total is the whole data
+            # plane, whichever tier served it)
+            tier = self.workers
+            tier_desc = tier.describe() if tier is not None else None
+            tier_gw = (tier_desc or {}).get("gateways", {})
+            for gw in self.gateways.snapshot():
+                name = gw["name"]
+                by_state: dict[str, int] = {}
+                for r in gw["replicas"]:
+                    by_state[r["state"]] = by_state.get(r["state"], 0) + 1
+                for state, count in by_state.items():
+                    g_gw_rep.set(count, gateway=name, state=state)
+                wk = tier_gw.get(name, {})
+                g_gw_q.set(gw["queueDepth"] + wk.get("queued", 0),
+                           gateway=name)
+                g_gw_in.set(gw["inflight"] + wk.get("inflight", 0),
+                            gateway=name)
+                g_gw_req.set(gw["requestsTotal"]
+                             + wk.get("requestsTotal", 0), gateway=name)
+                g_gw_shed.set(gw["shedTotal"] + wk.get("shedTotal", 0),
+                              gateway=name)
+                g_gw_scale.set(gw["scaleUps"], gateway=name,
+                               direction="up")
+                g_gw_scale.set(gw["scaleDowns"], gateway=name,
+                               direction="down")
+                g_gw_aff.set(gw.get("affinityHits", 0)
+                             + wk.get("affinityHits", 0), gateway=name)
+                g_gw_aff_tok.set(gw.get("affinityTokens", 0)
+                                 + wk.get("affinityTokens", 0),
+                                 gateway=name)
+                g_kv_handoff.set(gw.get("kvHandoffs", 0), gateway=name)
+                tt = gw.get("tailTolerance", {})
+                g_gw_eject.set(tt.get("ejections", 0), gateway=name)
+                g_gw_hedge.set(tt.get("hedges", 0)
+                               + wk.get("hedges", 0), gateway=name)
+                g_gw_hedge_win.set(tt.get("hedgeWins", 0)
+                                   + wk.get("hedgeWins", 0),
+                                   gateway=name)
+                g_gw_rb.set(tt.get("retryBudgetExhausted", 0)
+                            + wk.get("retryBudgetExhausted", 0),
+                            gateway=name)
+                for r in gw["replicas"]:
+                    if r.get("kvOcc"):
+                        g_kv_blocks.set(r["kvOcc"], gateway=name,
+                                        replica=r["name"])
+            if tier_desc is not None:
+                g_wk_alive.set(tier_desc["alive"])
+                g_wk_respawn.set(tier_desc["respawns"])
+                for name, rows in tier.per_worker_counts().items():
+                    for w, row in enumerate(rows):
+                        if not any(row.values()):
+                            continue    # bounded exposition: quiet cells
+                        g_wk_req.set(row["requests"], worker=w,
+                                     gateway=name)
+                        g_wk_shed.set(row["shed"], worker=w,
+                                      gateway=name)
+                        g_wk_dead.set(row["deadline"], worker=w,
+                                      gateway=name)
+                        g_wk_retry.set(row["retries"], worker=w,
+                                       gateway=name)
+            else:
+                g_wk_alive.set(0)
+                g_wk_respawn.set(0)
             with self._stream_lock:
                 g_followers.set(self._stream_clients)
 
@@ -1418,6 +1763,8 @@ class App:
 
     def start(self) -> None:
         self.server.start()
+        if self.workers is not None:
+            self.workers.start()
         self._start_store_maintenance()
         self.health.start()   # no-op when health_interval <= 0
         log.info("tpu-docker-api (PyTorch port) listening on %s:%d "
@@ -1459,6 +1806,15 @@ class App:
         """Graceful shutdown: drain queue, flush all state (reference Stop,
         main.go:139-154)."""
         self.server.stop()
+        if self.workers is not None:
+            # the module-global latency family must not keep scraping a
+            # dead tier's unlinked segment (and a later App's tier will
+            # install its own hook)
+            if (obs_metrics.GATEWAY_LATENCY._extern
+                    == self.workers.latency_extern):
+                obs_metrics.GATEWAY_LATENCY.set_extern(None)
+            self.workers.stop()    # drain the data-plane tier first
+        self.gateways.stop_all()   # autoscaler loops, before services go
         self.health.stop()
         if self._maint_stop is not None:
             # join, don't just signal: an in-flight maintain() racing past

@@ -31,8 +31,8 @@ class ResCode(enum.IntEnum):
     PreconditionFailed = 412
     TooManyRequests = 429
     Conflict = 409
-    # the port's own: a route of a plane not yet ported (the gateways,
-    # the fleet, placement and defrag); the envelope's data names it
+    # the port's own: a route of a plane not yet ported (the fleet,
+    # placement and defrag); the envelope's data names it
     NotPorted = 501
 
     InvalidParams = 1000

@@ -7,8 +7,7 @@ envelope ResponseData{code,msg,data} with HTTP status always 200
 (response.go:9-29). stdlib only — the image has no web framework, and a
 control plane doesn't need one.
 
-The port's copy of the JAX control plane's server/http.py, without the
-SO_REUSEPORT bind of the multi-process data-plane workers (not ported).
+The port's copy of the JAX control plane's server/http.py.
 """
 
 from __future__ import annotations
@@ -216,11 +215,28 @@ class _KeepAliveHTTPServer(ThreadingHTTPServer):
     # of a fleet must not stall.
     request_queue_size = 128
 
+    # SO_REUSEPORT before bind: N processes may bind the SAME port and the
+    # kernel load-balances accepts across them — the multi-process data
+    # plane (server/workers.py). Must be set between socket creation and
+    # bind, hence the server_bind override (set on the instance by
+    # ApiServer._bind before binding).
+    reuse_port = False
+
+    def server_bind(self):
+        if self.reuse_port:
+            self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        super().server_bind()
+
 
 class ApiServer:
     def __init__(self, router: Router, addr: str = "127.0.0.1:2378",
                  api_key: Optional[str] = None, events=None, traces=None,
-                 quiet_routes: Optional[frozenset] = None):
+                 quiet_routes: Optional[frozenset] = None,
+                 reuse_port: bool = False):
+        #: bind with SO_REUSEPORT (multi-process front tier): several
+        #: ApiServers — across processes — share one port and the kernel
+        #: load-balances accepted connections between them
+        self.reuse_port = reuse_port
         self.router = router
         self.events = events
         # (METHOD, route pattern) pairs whose requests do NOT land an
@@ -437,8 +453,19 @@ class ApiServer:
         return _Handler
 
     def _bind(self) -> None:
+        # bind_and_activate=False: reuse_port must land on the socket
+        # BETWEEN creation and bind (server_bind reads it)
         self._httpd = _KeepAliveHTTPServer((self.host, self.port),
-                                           self._make_handler())
+                                           self._make_handler(),
+                                           bind_and_activate=False)
+        self._httpd.reuse_port = self.reuse_port
+        try:
+            self._httpd.server_bind()
+            self._httpd.server_activate()
+        except Exception:
+            self._httpd.server_close()
+            self._httpd = None
+            raise
         self.port = self._httpd.server_address[1]
 
     def serve_forever(self) -> None:

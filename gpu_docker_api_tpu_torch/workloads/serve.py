@@ -15,6 +15,11 @@ generation requests over HTTP, byte-compatible with the JAX server:
                               -> {"code":200, "data":{"tokens": [[...]]}}
   GET  /kv?key=K              -> a paged batcher's prompt-KV export (the
                                   handoff; once, then 404)
+  GET  /launches              -> {"code":200, "data":{kernel: launches}}:
+                                  the flash kernels this process launched
+                                  (ops.attention.LAUNCHES; the port's own
+                                  route, for a caller that checks which
+                                  kernels a replica ran)
 
 Every response is HTTP 200 with the control plane's {code, msg, data}
 envelope (an --admit-queue shed is code 429 with Retry-After and
@@ -1457,6 +1462,9 @@ def _handler_for(srv: _Server, model_name: str, admit_queue: int = 0):
                 self._send(200, "Success", data)
             elif self.path.startswith("/kv?") or self.path == "/kv":
                 self._send_kv()
+            elif self.path == "/launches":
+                from ..ops import attention
+                self._send(200, "Success", dict(attention.LAUNCHES))
             else:
                 self._send(404, "route not found", None)
 

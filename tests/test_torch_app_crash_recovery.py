@@ -7,9 +7,9 @@ their mock backends, and the two records (every envelope, every reconcile
 report with the store's records after it) must be equal
 (tests/torch_app_twins.py says how, and what is normalised).
 
-- The sweep covers every crashpoint the port registers but
-  gwscale.after_clone, whose scenario is a gateway's scale-up (gateway.py
-  is not ported); a test pins that this is the only one skipped.
+- The sweep covers every crashpoint the port registers, the gateway's
+  (gwscale.after_clone, kvhandoff.after_prefill, hedge.in_flight)
+  included; a test pins that none is skipped.
 - The targeted recovery cases are those of tests/test_crash_recovery.py
   from test_clean_reboot_is_noop on.
 - One case is new: a patch that dies at replace.after_quiesce on a node
@@ -30,15 +30,8 @@ torch.set_num_threads(1)
 
 pytestmark = pytest.mark.crash
 
-#: the registered crashpoints the port's sweep leaves out, and why: the
-#: scenario of gwscale.after_clone is a gateway scale-up (not ported)
-SKIPPED = frozenset({"gwscale.after_clone"})
-SWEPT = tuple(cp for cp in tfaults.all_crashpoints() if cp not in SKIPPED)
-
-# a daemon death takes its threads with it: the port has no gateway
-# manager to stop
-PATCHES = (("    app.gateways.stop_all()      # daemon death takes its "
-            "threads with it\n", "", "torch"),)
+#: every crashpoint the port registers
+SWEPT = tuple(tfaults.all_crashpoints())
 
 WIPE_AFTER_QUIESCE = '''
 
@@ -66,12 +59,14 @@ def test_substrate_wipe_with_open_replace_after_quiesce(tmp_path):
 
 
 def test_the_sweep_skips_exactly_the_gateway_crashpoint():
-    assert set(tfaults.all_crashpoints()) - set(SWEPT) == {
-        "gwscale.after_clone"}
+    """Since the gateway is ported, the sweep skips no crashpoint: the
+    gateway's three are swept like the rest."""
+    assert {"gwscale.after_clone", "kvhandoff.after_prefill",
+            "hedge.in_flight"} <= set(SWEPT)
     # every swept crashpoint is JAX's too, and JAX's sweep has its scenario
     assert set(SWEPT) <= set(jfaults.all_crashpoints())
-    prefixes = [p for p, _ in load_variant("test_crash_recovery", "torch",
-                                           PATCHES).SCENARIOS]
+    prefixes = [p for p, _ in load_variant("test_crash_recovery",
+                                           "torch").SCENARIOS]
     for cp in SWEPT:
         assert any(cp.startswith(p) for p in prefixes), cp
 
@@ -79,16 +74,16 @@ def test_the_sweep_skips_exactly_the_gateway_crashpoint():
 @pytest.mark.parametrize("cp", SWEPT)
 def test_crashpoint_sweep(cp, tmp_path):
     twin("test_crash_recovery", "test_crashpoint_sweep", tmp_path,
-         {"cp": cp}, PATCHES)
+         {"cp": cp})
 
 
 def test_substrate_wipe_with_open_replace_after_quiesce(tmp_path):
     twin("test_crash_recovery",
          "test_substrate_wipe_with_open_replace_after_quiesce", tmp_path,
-         patches=PATCHES, extra=WIPE_AFTER_QUIESCE)
+         extra=WIPE_AFTER_QUIESCE)
 
 
-globals().update(twin_tests("test_crash_recovery", patches=PATCHES, select=(
+globals().update(twin_tests("test_crash_recovery", select=(
     "test_clean_reboot_is_noop",
     "test_substrate_wipe_recreates_containers",
     "test_orphan_backend_container_removed",

@@ -288,3 +288,35 @@ def test_the_daemon_is_walked_and_scanned():
     from gpu_docker_api_tpu_torch.schedulers import GpuScheduler
     assert App.__module__ == "gpu_docker_api_tpu_torch.server.app"
     assert GpuScheduler.__module__.startswith("gpu_docker_api_tpu_torch.")
+
+
+def test_the_serving_control_plane_is_walked_and_scanned():
+    """The serving control plane is the port's own: tail tolerance, the
+    mock replica, the gateway, the native loader, the worker tier's shm
+    metrics and span spool, and the SO_REUSEPORT workers are walked,
+    imported with jax blocked (test_port_imports_with_jax_blocked), import
+    nothing of gpu_docker_api_tpu and no torch, and the native loader
+    builds into the port's own build directory, never native/build."""
+    mods = set(_modules())
+    modules = ("tailtolerance", "workloads.mock_model", "gateway", "_native",
+               "obs.shm_metrics", "obs.spool", "server.workers")
+    assert {f"gpu_docker_api_tpu_torch.{m}" for m in modules} <= mods
+    for m in modules:
+        path = os.path.join(PORT_DIR, m.replace(".", "/") + ".py")
+        tops = {n.split(".")[0] for n in _imports(path)}
+        assert not tops & {"jax", "gpu_docker_api_tpu", "torch"}, m
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.path.insert(0, sys.argv[1]); "
+         "sys.modules['jax'] = None\n"
+         "import gpu_docker_api_tpu_torch.server.workers, "
+         "gpu_docker_api_tpu_torch.gateway, "
+         "gpu_docker_api_tpu_torch.workloads.mock_model\n"
+         "print('torch' in sys.modules)", REPO],
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
+    from gpu_docker_api_tpu_torch import _native
+    build = os.path.join(PORT_DIR, "build")
+    assert os.path.dirname(str(_native.lib_path("shmatomics"))) == build
+    assert _native._LIB_SOURCES == {"shmatomics": "shm_atomics.cc"}

@@ -128,6 +128,23 @@ def test_greedy_over_http_equals_generate(servers):
     assert out["data"]["tokens"] == want.tolist()
 
 
+def test_launches_reads_the_flash_kernels_counts_of_the_process(
+        servers, monkeypatch):
+    """GET /launches (the port's own route) answers ops.attention.LAUNCHES
+    of the serving process: none after a generate, which attends through
+    the cached path, and a count set on the module as it stands."""
+    from gpu_docker_api_tpu_torch.ops import attention as att
+    _, ours, _ = servers
+    assert _call(ours, "POST", "/generate",
+                 {"tokens": PROMPT, "max_new": 3})["code"] == 200
+    assert _call(ours, "GET", "/launches") == {
+        "code": 200, "msg": "Success",
+        "data": dict.fromkeys(att.LAUNCHES, 0)}
+    monkeypatch.setitem(att.LAUNCHES, "flash_bwd_dq", 7)
+    assert _call(ours, "GET", "/launches")["data"] == dict(
+        att.LAUNCHES, flash_bwd_dq=7)
+
+
 @pytest.mark.parametrize("case, code", [
     ({"tokens": [[1, 2]], "max_new": 0}, 400),
     ({"tokens": [[1, 2]], "top_p": 0.0}, 400),

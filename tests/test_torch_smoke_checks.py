@@ -1034,12 +1034,12 @@ def test_phase_tp_at_tiny_width_on_the_cpu():
     check over fsdp and tp."""
     out = cs.phase_tp(torch, att, device="cpu",
                       configs={"main": "tiny", "fallback": "tiny"},
-                      train=dict(b=4, s=32, steps=2))
+                      train=dict(b=4, s=32, steps=2), layout_steps=2)
     assert set(out["layouts"]) == set(cs.TP_LAYOUTS)
     assert out["checkpoint_shards"] == 3 * 12 * 4
     for name, (_, plan, _) in cs.TP_LAYOUTS.items():
         got = out["layouts"][name]
-        assert len(got["losses"]) == cs.TP_TRAIN["steps"]
+        assert len(got["losses"]) == 2
         assert max(got["rel_to_one_rank"]["loss"]) <= 1e-5
         assert got["tp_sums_a_step"]["calls"] == cs.tp_sums_a_step(2, plan)
         assert got["state_bytes_a_rank"] == [cs.fsdp_state_bytes(
@@ -1049,13 +1049,16 @@ def test_phase_tp_at_tiny_width_on_the_cpu():
 # ---- A1: the cut phases 8-10 ------------------------------------------------
 
 def test_cut_phases_feed_the_launch_formulas():
-    """Phases 8c, 9 and 10 run 2 steps a layout (2 keep every check: the
-    step time is the median of the steps after the first), phases 9 and
-    10, 8c and 13a llama 1b at 4 of its 20 layers, full width; the
-    launches a rank and step follow from the cut depth by the same
-    formula."""
+    """Phases 8c, 9 and 10 run 2 steps in 8c, in every layout of phase 9
+    and in phase 10's checkpointing layout (2 keep every check there: the
+    step time is the median of the steps after the first), LAYOUT_STEPS
+    in phase 10's others;
+    phases 9 and 10, 8c and 13a llama 1b at 4 of its 20 layers, full
+    width; the launches a rank and step follow from the cut depth by the
+    same formula."""
     assert cs.SP_TRAIN["steps"] == 2 and cs.FSDP_TRAIN["steps"] == 2
-    assert all(steps == 2 for _, steps in cs.FSDP_LAYOUTS.values())
+    assert {name: steps for name, (_, steps) in cs.FSDP_LAYOUTS.items()} \
+        == {"9a": 2, "9b": 2, "9c": 2}
     assert cs.TP_TRAIN["steps"] == 2
     cut, full = cs.smoke_config(cs.FSDP_CONFIG), cs_config("1b")
     assert cut.n_layers == 4 and full.n_layers == 20
@@ -1089,6 +1092,38 @@ def test_the_cuts_that_make_room_for_phase_16():
     assert cs.MH_TRAFFIC == dict(requests=4, clients=4, prompt=(128, 256),
                                  new=(8, 16))
     assert cs.MH_TIME == dict(prompt=128, new=17)
+
+
+def test_the_cuts_that_make_room_for_phase_17():
+    """5a's f32 batchers run llama 1b and 7b's f32 oracle and batchers
+    moe_1b at 4 of their layers (13b's f32 depth; 6a and every serve
+    process stay whole), 7c's burst asks 32 new tokens a request, the
+    traced decode windows are 8 steps in 5b and 6b and 2 in the serving
+    times, the layouts of phases 10-12 beside each phase's checkpointing
+    one take one step on the card (phase 9's dp and sp layouts keep two:
+    each axis keeps a two-step layout), as does 13a (its plan, 10b's,
+    keeps two), and
+    phase 17's relay asks 8 new tokens a prompt: depth and steps, never
+    width."""
+    import inspect
+    assert cs.EXACT_DEPTH == cs.MW_SCALE["depth"] == 4
+    assert cs.BUSY_STEPS == 8 and cs.MOE_TIME == dict(context=128, steps=32)
+    assert cs.MOE_TRAFFIC == dict(requests=16, clients=8, prompt=(128, 512),
+                                  new=(32, 32))
+    assert cs.TIME_STEPS == 64 and cs.BATCH_TRAFFIC["new"] == (64, 128)
+    # phases 10-12: each phase's checkpointing layout takes 2 steps, the
+    # others one; phase 9's take 2
+    assert cs.LAYOUT_STEPS == 1
+    assert {steps for _, steps in cs.FSDP_LAYOUTS.values()} == {2}
+    assert cs.MW_SCALE["train"] == cs.MW_TRAIN == dict(cs.FSDP_TRAIN,
+                                                         steps=1)
+    assert cs.TIME_BUSY_STEPS == 2 and cs.GW_PROMPTS["new"] == 8
+    layouts = cs.pp_layouts(cs.PP_CONFIGS, cs.PP_TRAIN)
+    assert {n: e[3] for n, e in layouts.items()} == {
+        "12a": 1, "12b": 2, "12c": 1, "12d": 1}
+    for fn, cut in ((cs.phase_batching, True), (cs.phase_moe, True),
+                    (cs.phase_paged, False)):
+        assert ("n_layers=EXACT_DEPTH" in inspect.getsource(fn)) is cut
 
 
 # ---- phase 11 ---------------------------------------------------------------
@@ -1206,12 +1241,12 @@ def test_phase_ep_at_tiny_width_on_the_cpu():
     plain versions), the heads and the tp sums a step, the routing of
     every layer, the checkpoint check over fsdp and ep."""
     out = cs.phase_ep(torch, att, device="cpu", config=("moe", "tiny", None),
-                      train=dict(b=8, s=32, steps=2))
+                      train=dict(b=8, s=32, steps=2), layout_steps=2)
     assert set(out["layouts"]) == set(cs.EP_LAYOUTS)
     assert out["checkpoint_shards"] == 3 * 13 * 4
     for name, (plan, _) in cs.EP_LAYOUTS.items():
         got = out["layouts"][name]
-        assert len(got["losses"]) == cs.EP_TRAIN["steps"]
+        assert len(got["losses"]) == 2
         assert max(got["rel_to_one_rank"]["loss"]) <= 1e-5
         assert got["routing_flips"] == []
         assert got["tp_sums_a_step"]["calls"] == cs.tp_sums_a_step(
@@ -1228,7 +1263,8 @@ def test_phase_12_state_bytes_and_launches():
     in PERF.md:
     under pp every layer leaf 1/pp too, embed and lm_head whole on each
     stage) and its launches a rank and step: a stage's layers once a
-    microbatch, the ring's rank + 1 times in 12c."""
+    microbatch, the ring's rank + 1 times in 12c; 2 steps in 12b, which
+    checkpoints, and one in the others."""
     layouts = cs.pp_layouts(cs.PP_CONFIGS, cs.PP_TRAIN)
     got = {}
     for name, entry in layouts.items():
@@ -1238,10 +1274,10 @@ def test_phase_12_state_bytes_and_launches():
             cs.fsdp_launches(plan, r, cfg.n_layers,
                              opts["tc"]["n_microbatches"])["flash_fwd"]
             for r in range(plan.get("sp", 1))], opts["b"], steps)
-    assert got == {"12a": (1069621248, [8], 4, 2),
+    assert got == {"12a": (1069621248, [8], 4, 1),
                    "12b": (676454400, [8], 4, 2),
-                   "12c": (1352785920, [8, 16], 4, 2),
-                   "12d": (808710144, [8], 8, 2)}
+                   "12c": (1352785920, [8, 16], 4, 1),
+                   "12d": (808710144, [8], 8, 1)}
     assert cs.fsdp_launches({"pp": 4}, 0, 20, 4) == {
         "flash_fwd": 40, "flash_bwd_dq": 20, "flash_bwd_dkv": 20}
     # without pp the microbatches change nothing (phases 9-11)
@@ -1256,7 +1292,7 @@ def test_phase_pp_at_tiny_width_on_the_cpu():
     the grouped checkpoint shard for shard and served ungrouped."""
     configs = {"llama": ("llama", "tiny", 4), "moe": ("moe", "tiny", 4)}
     out = cs.phase_pp(torch, att, device="cpu", configs=configs,
-                      train=dict(b=4, s=32, steps=2))
+                      train=dict(b=4, s=32, steps=2), layout_steps=2)
     assert set(out["layouts"]) == set(cs.PP_LAYOUTS)
     assert out["checkpoint_shards"] == 3 * 12 * 4
     assert "serve_restore_s" in out["wall"]
@@ -1298,7 +1334,7 @@ def test_served_ungrouped_check_finds_a_changed_leaf(tmp_path):
 # ---- phase 13 ---------------------------------------------------------------
 
 MW_TINY = dict(
-    config=("llama", "tiny", None), train=dict(b=4, s=32, steps=2),
+    config=("llama", "tiny", None), train=dict(b=4, s=32, steps=1),
     llama="tiny", moe="tiny", depth=1,   # the card cuts 13b and 13c to 4
     sizes=dict(slots=4, max_len=96, lens=(7, 12, 20, 9, 15, 11), new=8,
                prefix=20, suffixes=(3, 5, 8, 11), prefix_cache=4),
@@ -1322,7 +1358,9 @@ def test_phase_multiworker_at_tiny_width_on_the_cpu():
     (a preemption, single steps while contended) and a co-tenant serve
     process."""
     cfg = cs.smoke_config(MW_TINY["config"])
-    one = cs.sp_train(torch, "cpu", cfg, MW_TINY["train"], "ring")
+    # the card's 13a trains one step against phase 9's two-step run
+    one = cs.sp_train(torch, "cpu", cfg, dict(MW_TINY["train"], steps=2),
+                      "ring")
     out = cs.phase_multiworker(torch, att, one, {}, device="cpu",
                                scale=MW_TINY)
     train = out["train"]
@@ -1330,6 +1368,7 @@ def test_phase_multiworker_at_tiny_width_on_the_cpu():
     assert train["state_bytes_a_rank"] == [cs.state_bytes(
         cfg, cs.MW_PLAN)] * (cs.MW_WORKERS * cs.MW_LOCAL)
     assert all(r["process"] == "0/2" for r in train["records"])
+    assert [r["step"] for r in train["records"]] == [1]
     serve = out["serve"]
     assert serve["shard_kv"]["kv_bytes_a_rank"] == [
         serve["whole_kv_bytes"] // cs.MH_TP] * cs.MW_WORKERS
@@ -1451,3 +1490,129 @@ def test_phase_services_fails_on_losses_that_are_not_the_reference(
                           topo=make_topology("h100-1"), config="tiny",
                           shape=SEAM_TINY, steps=SVC_TINY_STEPS,
                           want_per_step=dict.fromkeys(att.LAUNCHES, 0))
+
+
+# ---- phase 17: the serving control plane ------------------------------------
+
+GW_TINY = dict(
+    traffic=dict(requests=24, clients=16, prompt=(16, 48), new=(48, 64)),
+    prompts=dict(n=4, prompt=(16, 48), new=8, seed=11),
+    serve_args=("--batch-slots", "8", "--batch-max-len", "128",
+                "--batch-prefill-chunk", "32"))
+
+
+def _answer(status, code, n, hdrs=None):
+    env = {"code": code, "msg": "ok",
+           "data": {"tokens": [list(range(n))]} if code == 200 else None}
+    return status, env, hdrs or {}, 0.1
+
+
+def test_relay_check_holds_the_gateway_to_the_replicas_envelope():
+    env = {"code": 200, "msg": "ok", "data": {"tokens": [[1, 2, 3]]}}
+    cs.relay_check([(200, env)] * 2, [(200, dict(env))] * 2, "t")
+    altered = {"code": 200, "msg": "ok", "data": {"tokens": [[1, 2, 4]]}}
+    with pytest.raises(cs.SmokeFailure, match="through the gateway"):
+        cs.relay_check([(200, env)], [(200, altered)], "t")
+    with pytest.raises(cs.SmokeFailure, match="through the gateway"):
+        cs.relay_check([(200, env)], [(429, env)], "t")
+    with pytest.raises(cs.SmokeFailure, match="directly"):
+        cs.relay_check([(200, {"code": 500})], [(200, env)], "t")
+    with pytest.raises(cs.SmokeFailure, match="relayed answers"):
+        cs.relay_check([(200, env)], [], "t")
+
+
+def test_shares_check_reads_card_0s_ledger():
+    gpus = {"chips": [{"index": 0, "shares": {"g1br0": 2, "g1br1": 2}},
+                      {"index": 1, "shares": {}}]}
+    cs.shares_check(gpus, {"g1br0": 2, "g1br1": 2}, "t")
+    with pytest.raises(cs.SmokeFailure, match="card 0's shares"):
+        cs.shares_check(gpus, {"g1br0": 2}, "t")
+    gpus["chips"][1]["shares"] = {"g1br1": 2}
+    gpus["chips"][0]["shares"] = {"g1br0": 2}
+    with pytest.raises(cs.SmokeFailure, match="other cards"):
+        cs.shares_check(gpus, {"g1br0": 2}, "t")
+
+
+def test_drained_check_wants_the_shm_counters_at_0():
+    cs.drained_check({"inflight": 0, "queued": 0, "requestsTotal": 9}, "t")
+    for left in ({"inflight": 1, "queued": 0}, {"inflight": 0, "queued": 2}):
+        with pytest.raises(cs.SmokeFailure, match="after the drain"):
+            cs.drained_check(left, "t")
+
+
+def test_burst_and_active_checks_judge_each_answer():
+    reqs = [([1], 4), ([2], 5), ([3], 6), ([4], 7)]
+    results = [_answer(200, 200, 4), _answer(429, 429, 0,
+                                             {"Retry-After": "1"}),
+               None, _answer(504, 504, 0, {"Retry-After": "1"})]
+    assert cs.burst_check(results, reqs, 10, "t") == (1, 2, 1)
+    with pytest.raises(cs.SmokeFailure, match="request 0"):
+        cs.burst_check([_answer(200, 200, 3)], reqs[:1], 10, "t")
+    with pytest.raises(cs.SmokeFailure, match="shed"):
+        cs.burst_check([_answer(429, 429, 0)], reqs[:1], 10, "t")
+    cs.active_check({"g1br0": 8, "g1br1": 3}, 8, "t")
+    with pytest.raises(cs.SmokeFailure, match="above 8 active"):
+        cs.active_check({"g1br0": 9}, 8, "t")
+
+
+def test_replica_launches_check_wants_every_replicas_zero():
+    zero = dict.fromkeys(att.LAUNCHES, 0)
+    both = {"g1br0": zero, "g1br1": dict(zero)}
+    assert cs.replica_launches_check(both, ("g1br0", "g1br1"), att.LAUNCHES,
+                                     "t") == zero
+    with pytest.raises(cs.SmokeFailure, match="flash launches"):
+        cs.replica_launches_check(dict(both, g1br1=dict(zero, flash_fwd=2)),
+                                  ("g1br0", "g1br1"), att.LAUNCHES, "t")
+    with pytest.raises(cs.SmokeFailure, match="want"):
+        cs.replica_launches_check({"g1br0": zero}, ("g1br0", "g1br1"),
+                                  att.LAUNCHES, "t")
+    with pytest.raises(cs.SmokeFailure, match="want"):
+        cs.replica_launches_check({"g1br0": {}, "g1br1": zero},
+                                  ("g1br0", "g1br1"), att.LAUNCHES, "t")
+
+
+def test_latency_count_check_and_the_exposition_readers():
+    cs.latency_count_check(40, 40, 0, 0, "t")
+    cs.latency_count_check(42, 40, 2, 0, "t")
+    with pytest.raises(cs.SmokeFailure, match="latency family"):
+        cs.latency_count_check(39, 40, 0, 3, "t")
+    with pytest.raises(cs.SmokeFailure, match="latency family"):
+        cs.latency_count_check(44, 40, 1, 2, "t")
+    text = "\n".join([
+        '# TYPE h histogram',
+        'h_bucket{gateway="g",le="1.0"} 1',
+        'h_bucket{gateway="g",le="10.0"} 6',
+        'h_bucket{gateway="g",le="+Inf"} 10',
+        'h_count{gateway="g"} 10',
+        'h_bucket{gateway="x",le="+Inf"} 0'])
+    fams, samples = cs.prometheus_families(text)
+    assert fams == {"h": "histogram"}
+    assert ("h_count", {"gateway": "g"}, 10.0) in samples
+    assert cs.histogram_quantiles(samples, "h", {"gateway": "g"}) == [
+        10.0, float("inf")]
+    for other in ({"gateway": "x"}, {"gateway": "y"}):
+        assert cs.histogram_quantiles(samples, "h", other) == [None, None]
+    with pytest.raises(cs.SmokeFailure, match="sample value"):
+        cs.prometheus_families('h_count{gateway="g"} ten')
+
+
+def test_phase_gateway_at_tiny_width_on_the_cpu():
+    """Phase 17 end to end on the CPU at `tiny`, over a one-card mock line:
+    the daemon with two SO_REUSEPORT workers, gateway g1b of serve.py
+    replicas at 0.5 of card 0, the relay, the burst scaling up by a clone,
+    the worker tier's burst with a worker SIGKILLed and respawned, the
+    counters drained, the latency family over both tiers, scale to 1, the
+    stitched trace and the delete."""
+    out = cs.phase_gateway(torch, att, device="cpu", mock_topology="h100-1",
+                           config="tiny", **GW_TINY)
+    assert out["scale_up"]["cloned"] and out["scale_up"]["replica"] == "g1br1"
+    assert out["in_process"]["answered"] == GW_TINY["traffic"]["requests"]
+    tier = out["worker_tier"]
+    assert tier["respawns"] >= 1 and tier["counters"]["inflight"] == 0
+    assert tier["answered"] + tier["dropped"] + tier["shed"] == \
+        GW_TINY["traffic"]["requests"]
+    assert out["trace"]["spans"] == sorted(
+        ["POST /api/v1/gateways/:name/generate", "gateway.admit",
+         "gateway.forward"])
+    assert out["launches"] == dict.fromkeys(att.LAUNCHES, 0)
+    assert sorted(out["launches_by_replica"]) == ["g1br0", "g1br1"]

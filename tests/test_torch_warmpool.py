@@ -308,6 +308,24 @@ TORCH_PROBE = ("import os, sys, json\n"
                "          open('marker.json', 'w'))\n")
 
 
+#: the deadline of a worker's preimports, `import torch` among them: 2.9-
+#: 5.1 s measured with the whole suite beside it under xdist -n 6, while
+#: the same wait failed once at 10 s; the job's own start after them (exec
+#: included) took 0.1 s and keeps the 10 s default
+TORCH_IMPORT_S = 60.0
+
+
+def stamped(libs, source=""):
+    """A preimport module's source that ends by writing libs/imported: the
+    worker is through its preimports once that file exists."""
+    return source + f"\nopen({str(libs / 'imported')!r}, 'w').close()\n"
+
+
+def imported(libs):
+    wait_for(lambda: (libs / "imported").exists(), timeout=TORCH_IMPORT_S,
+             msg="the worker's preimports")
+
+
 def torch_backend(tmp_path, preimport="torch", env=None):
     return TBackend(str(tmp_path / "b"), warm_pool=1, warm_preimport=preimport,
                     warm_env=env)
@@ -315,8 +333,13 @@ def torch_backend(tmp_path, preimport="torch", env=None):
 
 def test_torch_worker_leaves_cuda_uninitialised_and_takes_the_grant(
         tmp_path):
-    b = torch_backend(tmp_path)
+    libs = tmp_path / "libs"
+    libs.mkdir()
+    (libs / "torch_done.py").write_text(stamped(libs))
+    b = torch_backend(tmp_path, preimport="torch,torch_done",
+                      env={"PYTHONPATH": str(libs)})
     try:
+        imported(libs)
         pool_pids = set(b._pool.idle_pids())
         b.create("t1", TSpec(image="", cmd=[PY, "-c", TORCH_PROBE, "x"],
                              tpu_chips=[3],
@@ -337,12 +360,13 @@ def test_a_worker_with_cuda_initialised_starts_its_job_cold(tmp_path):
     with the job's argv and grant."""
     libs = tmp_path / "libs"
     libs.mkdir()
-    (libs / "cuda_up.py").write_text(
-        "import torch\ntorch.cuda.is_initialized = lambda: True\n")
+    (libs / "cuda_up.py").write_text(stamped(
+        libs, "import torch\ntorch.cuda.is_initialized = lambda: True\n"))
     b = torch_backend(tmp_path, preimport="torch,cuda_up",
                       env={"PYTHONPATH": str(libs)})
     try:
         wait_for(lambda: b._pool.idle_pids(), msg="a worker")
+        imported(libs)
         pool_pids = set(b._pool.idle_pids())
         b.create("t2", TSpec(image="", cmd=[PY, "-c", TORCH_PROBE, "y"],
                              tpu_env={"CUDA_VISIBLE_DEVICES": "1"}))
@@ -392,12 +416,13 @@ def test_the_card_guard_asks_the_driver(tmp_path, status, cold):
     sees its own grant."""
     libs = tmp_path / "libs"
     libs.mkdir()
-    (libs / "probe_driver.py").write_text(DRIVER_PROBE)
+    (libs / "probe_driver.py").write_text(stamped(libs, DRIVER_PROBE))
     b = torch_backend(tmp_path, preimport="torch,probe_driver",
                       env={"PYTHONPATH": str(libs), "DRIVER_DIR": str(libs),
                            "DRIVER_STATUS": str(status)})
     try:
         wait_for(lambda: b._pool.idle_pids(), msg="a worker")
+        imported(libs)
         pool_pids = set(b._pool.idle_pids())
         b.create("t3", TSpec(image="", cmd=[PY, "-c", TORCH_PROBE, "z"],
                              tpu_env={"CUDA_VISIBLE_DEVICES": "2"}))

@@ -5,7 +5,8 @@ module bound to one package: "jax" keeps its imports, "torch" reads every
 `gpu_docker_api_tpu` import as the port's `gpu_docker_api_tpu_torch` (and
 JAX's TPU class names as the port's card names). In both variants every
 accelerator type the test names is a line of as many cards as the type has
-chips (v4-32 -> h100-16, v4-8 and v5p-8 -> h100-4), one node, built the
+chips (v4-32 -> h100-16, v4-16 -> h100-8, v4-8 and v5p-8 -> h100-4), one
+node, built the
 way tests/test_torch_services.py builds it: JAX's
 TpuTopology("h100-N", "h100", (N, 1, 1)) and the port's GpuTopology of the
 same shape.
@@ -32,15 +33,18 @@ What is normalised, and nothing else:
   compile-cache bind and env are dropped (the port injects none:
   tests/test_torch_services.py::test_no_compile_cache_is_injected);
 - what the port does not serve yet: the JAX spec's operations and the
-  /metrics families of the unported planes (gateways, their worker tier,
-  the fleet, replication, placement, defrag) are dropped from the JAX
-  record, as are the traces of their refused routes;
+  /metrics families of the unported planes (the fleet, replication,
+  placement, defrag) are dropped from the JAX record, as are the traces
+  of their refused routes;
 - /metrics is recorded as its sample names and labels, with values for the
-  inventory families only (latency histograms are wall-clock).
+  inventory families only (latency histograms are wall-clock);
+- a list of trace summaries (GET /traces answers them slowest first, an
+  order of wall-clock durations) is recorded in a canonical order.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 import inspect
 import json
@@ -65,7 +69,7 @@ from test_torch_topology import card_env_of
 TESTS = os.path.dirname(os.path.abspath(__file__))
 
 #: chips of each accelerator type the twinned tests name
-TYPE_CHIPS = {"v4-32": 16, "v4-8": 4, "v5p-8": 4}
+TYPE_CHIPS = {"v4-32": 16, "v4-16": 8, "v4-8": 4, "v5p-8": 4}
 
 #: JAX test-source names -> the port's, in the torch variant
 PORT_NAMES = (
@@ -91,10 +95,8 @@ PORT_KEYS = frozenset({"portBindings", "port_bindings", "usedPortSet",
 XLA_CACHE_ENV = ("JAX_COMPILATION_CACHE_DIR=",
                  "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS=",
                  "JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES=")
-UNPORTED_PREFIXES = ("/api/v1/gateways", "/api/v1/fleet",
-                     "/api/v1/placement")
-UNPORTED_FAMILIES = re.compile(
-    r"^tdapi_(gateway_|gw_|kv_prefix_|fed_|repl_|placement_|defrag_)")
+UNPORTED_PREFIXES = ("/api/v1/fleet", "/api/v1/placement")
+UNPORTED_FAMILIES = re.compile(r"^tdapi_(fed_|repl_|placement_|defrag_)")
 #: /metrics families whose values are deterministic inventories
 VALUED_FAMILIES = re.compile(
     r"^tdapi_(tpu_chips|cpu_cores|ports|replicasets|volumes|"
@@ -203,7 +205,11 @@ class Norm:
                 out[k] = self(v, k)
             return out
         if isinstance(x, (list, tuple)):
-            return [self(v, key) for v in x]
+            out = [self(v, key) for v in x]
+            if key == "traces" and all(isinstance(v, dict) and "rootOp" in v
+                                       for v in out):
+                out.sort(key=lambda v: json.dumps(v, sort_keys=True))
+            return out
         if isinstance(x, str):
             x = x.replace(self.root, "<root>")
             x = _HEX.sub("<id>", x)
@@ -339,10 +345,6 @@ class Recorder:
     def stored(self, app):
         if self.codes_only:
             return
-        if self.pkg == "jax":
-            gw = getattr(app, "gateways", None)
-            if gw is not None and gw.list():
-                pytest.fail("a twinned case created a gateway")
         self.stored_from(app.store)
 
     def stored_from(self, store):
@@ -482,8 +484,9 @@ def assert_same(jrows, trows):
     jset = sorted(_key(r) for r in jrows)
     tset = sorted(_key(r) for r in trows)
     if jset != tset:
-        only_j = [r for r in jset if r not in tset]
-        only_t = [r for r in tset if r not in jset]
+        jn, tn = collections.Counter(jset), collections.Counter(tset)
+        only_j = sorted((jn - tn).elements())
+        only_t = sorted((tn - jn).elements())
         raise AssertionError(
             "the JAX App and the port's answered differently\n"
             f"only JAX ({len(only_j)}):\n  " + "\n  ".join(only_j[:6])
@@ -500,11 +503,13 @@ def twin(name, fn_name, tmp_path, params=None, patches=(),
     assert_same(jrows, trows)
 
 
-def twin_tests(name, select=None, patches=(), races=(), extra="") -> dict:
+def twin_tests(name, select=None, patches=(), races=(), extra="",
+               runner=None) -> dict:
     """{test name: test} for every test function of tests/<name>.py
     (or those in `select`), each a twin run; parametrize and other marks
     are carried over. The cases named in `races` record codes only
-    (Recorder)."""
+    (Recorder). `runner(fn_name, tmp_path, params)`, when given, runs a
+    case in place of `twin`."""
     jmod = load_variant(name, "jax", patches, extra)
     out = {}
     for fn_name, fn in vars(jmod).items():
@@ -521,8 +526,11 @@ def twin_tests(name, select=None, patches=(), races=(), extra="") -> dict:
                              if isinstance(names, str) else list(names))
 
         def test(tmp_path, _fn_name=fn_name, **params):
-            twin(name, _fn_name, tmp_path, params, patches,
-                 codes_only=_fn_name in races, extra=extra)
+            if runner is not None:
+                runner(_fn_name, tmp_path, params)
+            else:
+                twin(name, _fn_name, tmp_path, params, patches,
+                     codes_only=_fn_name in races, extra=extra)
         sig = [inspect.Parameter("tmp_path",
                                  inspect.Parameter.POSITIONAL_OR_KEYWORD)]
         sig += [inspect.Parameter(a, inspect.Parameter.KEYWORD_ONLY)
