@@ -273,16 +273,46 @@ Phases (any failure exits non-zero and prints no result):
      share; a request's trace stitched daemon -> worker -> replica
      through the span spool; DELETE leaves card 0 with no share and no
      replica.
+ 18. the fleet and the native engines. 18a: g++ builds the native MVCC
+     store and box finder (native/mvcc_store.cc, topology_alloc.cc) into
+     the port's build/ beside phase 0's nvcc; tests/test_engine_parity.py's
+     randomized lockstep (3000 seeded operations) gives equal answers,
+     reads, revisions and WAL bytes on the Python and the native engine,
+     each reading the other's WAL; the native finder picks the Python
+     search's box on the discovered topology and on mock h100-8 lines
+     under random free sets; each engine's put and get and each finder's
+     grant are timed. 18b: daemon B (the fleet's arbiter host, member b,
+     --repl-peer A, --placement-policy max_throughput) and daemon A
+     (--fleet-member a --fleet-host B, --fleet-ttl 2), both on the
+     native store with real discovery and the process backend; A runs
+     phase 2's trainer as a replicaSet A's ring slice owns, resuming from
+     phase 16's parked checkpoint (a hard link: no second 6.45 GB save);
+     once it has run a step and B's replica holds A's newest record, A
+     and its children's process groups are SIGKILLed; B steals the grant
+     behind the next epoch (one takeover, one steal, one promote), its
+     promoted record A's, at or below the horizon; B recreates the
+     trainer on card 0, which resumes from the checkpoint gapless, its
+     losses phase 2's and A's where the steps overlap, its launches
+     counted; GET /placement shows the pool with card 0 held, POST
+     /placement/defrag for one card answers as the JAX daemon's does;
+     stop, delete, card 0 free.
+
+Every rank and worker of phases 8-13 (distributed.launch) and every
+serve process of phases 4-7 and 13c forks from one rank server,
+multiprocessing's fork server, which imports torch and serve.py once,
+beside phase 0's build; phase 1 starts once it has: `import torch` is
+6.5-6.9 s of a cold serve start's 7.4-7.9 s on the card's host
+(scripts/torch_serve_start.py).
 
 Prints one `{"kernels": [...]}` line (with each kernel's launches in 7a
-and phases 8-17 too), the readings, one `{"serve": ...}` line, one
+and phases 8-18 too), the readings, one `{"serve": ...}` line, one
 `{"batching": ...}` line, one `{"paged": ...}` line, one `{"moe": ...}`
 line, one `{"sp": ...}` line, one `{"fsdp": ...}` line, one `{"tp": ...}`
 line, one `{"ep": ...}` line, one `{"pp": ...}` line, one
 `{"multiworker": ...}` line, one `{"seam": ...}` line, one
 `{"services": ...}` line, one `{"daemon": ...}` line, one `{"gateway":
-...}` line, the wall times of the whole script and of phases 11-17, the
-nvidia-smi line, and last
+...}` line, one `{"fleet": ...}` line, the wall times of the whole
+script and of each phase 0-18, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 """
 
@@ -1223,6 +1253,49 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+# ---- the rank server --------------------------------------------------------
+#: what the rank server imports once before it forks: torch (CUDA left
+#: uninitialised), the launcher and the serve module. The ranks and
+#: workers of phases 8-13 (distributed.launch forks them from it) and every
+#: serve process (spawn_serve) import none of it again: `import torch` is
+#: 6.46-6.88 s of a serve start's 7.43-7.88 s to /healthz on the card's
+#: host (scripts/torch_serve_start.py; PERF.md section 6)
+RANK_PRELOAD = ["torch", "gpu_docker_api_tpu_torch.distributed",
+                "gpu_docker_api_tpu_torch.workloads.serve"]
+SERVE_MODULE = "gpu_docker_api_tpu_torch.workloads.serve"
+
+
+def start_rank_server() -> None:
+    """Start multiprocessing's fork server with RANK_PRELOAD: main starts
+    it before the kernels' build, so its imports run beside phase 0."""
+    import multiprocessing as mp
+    from multiprocessing import forkserver
+    mp.set_forkserver_preload(RANK_PRELOAD)
+    forkserver.ensure_running()
+
+
+def await_rank_server() -> None:
+    """Return once the rank server has imported RANK_PRELOAD (it forks its
+    first process only then): main waits here before phase 1, so no
+    import runs beside a kernel check or a timed window."""
+    import multiprocessing as mp
+    p = mp.get_context("forkserver").Process(target=os.getpid)
+    p.start()
+    p.join()
+
+
+def stop_rank_server() -> None:
+    """End the rank server and multiprocessing's resource tracker, which
+    its start started (each would end with this process; this waits for
+    them, so neither is left unreaped)."""
+    from multiprocessing import forkserver, resource_tracker
+    for server in (forkserver._forkserver,
+                   resource_tracker._resource_tracker):
+        stop = getattr(server, "_stop", None)
+        if stop is not None:
+            stop()
+
+
 def http_call(port, method, path, body=None, headers=None):
     """(envelope, response headers) of one request to the serve process."""
     from http.client import HTTPConnection
@@ -1249,19 +1322,41 @@ def start_serve(name, logs_dir, extra_args=()):
 
 def spawn_serve(name, logs_dir, extra_args=(), env=None,
                 log_name="serve_subprocess.log"):
-    """start_serve's first half: the process (env: its environment, by
-    default this one's; its output in logs_dir/<log_name>), not waited
-    for. Returns (process, port, log path)."""
+    """start_serve's first half: `python -m
+    gpu_docker_api_tpu_torch.workloads.serve` forked from the rank server
+    (a multiprocessing Process), not waited for; env: its environment, by
+    default this one's; its output in logs_dir/<log_name>. Returns
+    (process, port, log path)."""
+    import multiprocessing as mp
     port = free_port()
     log_path = os.path.join(logs_dir, log_name)
-    repo = os.path.dirname(os.path.abspath(__file__))
-    with open(log_path, "w", encoding="utf-8") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "gpu_docker_api_tpu_torch.workloads.serve",
-             "--config", name, "--host", "127.0.0.1", "--port", str(port),
-             *extra_args], cwd=repo, stdout=log, stderr=subprocess.STDOUT,
-            env=env)
+    argv = ["--config", name, "--host", "127.0.0.1", "--port", str(port),
+            *extra_args]
+    open(log_path, "w", encoding="utf-8").close()
+    proc = mp.get_context("forkserver").Process(
+        target=serve_entry, daemon=True, args=(
+            argv, dict(os.environ if env is None else env),
+            os.path.dirname(os.path.abspath(__file__)), log_path))
+    proc.start()
     return proc, port, log_path
+
+
+def serve_entry(argv, env, cwd, log_path):
+    """A serve process forked from the rank server: its output to
+    log_path, the start's environment (CUDA reads it at its first call)
+    and directory, then the serve module's __main__ with argv."""
+    import runpy
+    fd = os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+    for stream in (sys.stdout, sys.stderr):
+        stream.reconfigure(line_buffering=True)
+    os.environ.clear()
+    os.environ.update(env)
+    os.chdir(cwd)
+    sys.argv = [SERVE_MODULE, *argv]
+    runpy.run_module(SERVE_MODULE, run_name="__main__", alter_sys=True)
 
 
 def wait_serve(proc, port, log_path):
@@ -1270,7 +1365,7 @@ def wait_serve(proc, port, log_path):
     try:
         t0 = time.perf_counter()
         while True:
-            check(proc.poll() is None, "the serve process exited: "
+            check(proc.exitcode is None, "the serve process exited: "
                   + open(log_path, encoding="utf-8").read()[-2000:])
             check(time.perf_counter() - t0 < HTTP_DEADLINE_S,
                   f"no /healthz within {HTTP_DEADLINE_S} s")
@@ -1281,7 +1376,7 @@ def wait_serve(proc, port, log_path):
                 time.sleep(0.5)
     except BaseException:
         proc.kill()
-        proc.wait(timeout=60)
+        proc.join(60)
         raise
 
 
@@ -1342,7 +1437,7 @@ def serve_http(torch, name, cfg, params, logs_dir, extra_args=()):
               f"/kv {codes['GET /kv']}")
     finally:
         proc.kill()
-        proc.wait(timeout=60)
+        proc.join(60)
     out = {"ready_s": ready_s, "greedy_request_s": greedy_s,
            "greedy_tokens_equal": True}
     print(f"  HTTP: /healthz {health['data']}; {out}", flush=True)
@@ -1759,7 +1854,7 @@ def batching_http(torch, name, cfg, logs_dir, decode_chunk,
               f"two-row request: {refusal}")
     finally:
         proc.kill()
-        proc.wait(timeout=60)
+        proc.join(60)
     latency = [r[2] for r in results]
     waits = [float(r[1]["X-TDAPI-Queue-Wait-Ms"]) for r in results]
     extra = ({"paged": pool, "prefix_cache": {
@@ -1787,7 +1882,7 @@ def batching_shed(torch, name, cfg, logs_dir, traffic=BATCH_TRAFFIC,
         results, _ = drive_traffic(port, requests, traffic["clients"])
     finally:
         proc.kill()
-        proc.wait(timeout=60)
+        proc.join(60)
     shed = [(env, hdrs) for env, hdrs, _ in results if env["code"] == 429]
     served = sum(env["code"] == 200 for env, _, _ in results)
     check(shed, f"--admit-queue {BATCH_ADMIT_QUEUE}: no request shed")
@@ -2089,7 +2184,7 @@ def handoff_http(torch, name, cfg, logs_dir, spec=HANDOFF, extra_args=()):
     finally:
         for proc, _, _ in procs:
             proc.kill()
-            proc.wait(timeout=60)
+            proc.join(60)
     return {"requests": len(rows), "prompt_lens": rows, "new": n,
             "handoffs_in": dec["handoffsIn"], "ready_s": [ready_p, ready_d],
             "wall_s": wall, "orphan_blocks": held, "orphan_freed_s": freed_s,
@@ -2640,7 +2735,7 @@ def moe_host_load_http(torch, cfg, logs_dir, spec=MOE_GREEDY, name="1b",
     finally:
         for proc, _, _ in procs:
             proc.kill()
-            proc.wait(timeout=60)
+            proc.join(60)
     health = [h["data"] for _, _, _, h in ready]
     check(all(a["code"] == 200 for a in answers), f"greedy: {answers}")
     check(health[0] == health[1], f"healthz {health}")
@@ -4049,7 +4144,7 @@ def start_workers(target, args, local, workers=MW_WORKERS,
 
     from gpu_docker_api_tpu_torch import distributed
     coordinator = f"127.0.0.1:{distributed.free_port()}"
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context("forkserver")
     procs = [ctx.Process(target=worker_main, args=(
         contract_env(w, workers, coordinator), local, target, args,
         timeout)) for w in range(workers)]
@@ -4754,7 +4849,7 @@ def cotenancy_serve(logs_dir, name="1b", extra=()):
         check_batching_headers(hdrs, "13c serve")
     finally:
         proc.kill()
-        proc.wait(timeout=60)
+        proc.join(60)
     log = open(log_path, encoding="utf-8").read()
     check("chip co-tenancy: weight 2, class best_effort" in log,
           f"13c serve: no co-tenancy line in {log[-2000:]}")
@@ -5791,19 +5886,40 @@ def node_crash(daemon, timeout=60.0) -> list:
     return kids
 
 
+def link_checkpoint(src_dir, step, dst_dir):
+    """A hard link of the checkpoint of `step` under src_dir in dst_dir (no
+    copy of the 6.45 GB file; the link outlives the source's removal)."""
+    from gpu_docker_api_tpu_torch.train import STATE_FILE
+    os.makedirs(os.path.join(dst_dir, str(step)), exist_ok=True)
+    os.link(os.path.join(src_dir, str(step), STATE_FILE),
+            os.path.join(dst_dir, str(step), STATE_FILE))
+
+
 def start_daemon(state, port, log_path, env, args=()):
     """The port's daemon (cli.py) on `state`, serving 127.0.0.1:`port`,
     its containers' host ports from DMN_PORTS; returns (the process,
     seconds from its start to a /ping)."""
+    return wait_daemon(spawn_daemon(state, port, log_path, env, args),
+                       port, log_path)
+
+
+def spawn_daemon(state, port, log_path, env, args=()) -> dict:
+    """start_daemon's first half: the daemon's process, not waited for."""
     argv = [sys.executable, "-m", "gpu_docker_api_tpu_torch.cli",
             "-b", "process", "-a", f"127.0.0.1:{port}", "-s", state,
             "-p", DMN_PORTS, *args]
     t0 = time.perf_counter()
-    log = open(log_path, "ab")
-    proc = subprocess.Popen(argv, env=env, stdout=log,
-                            stderr=subprocess.STDOUT,
-                            start_new_session=True)
-    log.close()
+    with open(log_path, "ab") as log:
+        proc = subprocess.Popen(argv, env=env, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    return {"proc": proc, "t0": t0}
+
+
+def wait_daemon(spawned, port, log_path):
+    """start_daemon's second half: the daemon once it answers /ping, and
+    the seconds since its spawn; kills it when the wait fails."""
+    proc, t0 = spawned["proc"], spawned["t0"]
     deadline = time.monotonic() + DMN_BOOT_S
     while True:
         try:
@@ -5839,7 +5955,8 @@ def stop_daemon(proc, timeout=120.0):
 
 def phase_daemon(torch, main_losses, device="cuda", mock_topology=None,
                  config="1b", shape=None, steps=DMN_STEPS,
-                 patch_at=DMN_PATCH_AT, want_per_step=None, warm_pool=1):
+                 patch_at=DMN_PATCH_AT, want_per_step=None, warm_pool=1,
+                 handoff=None):
     """Phase 16: the port's own daemon. 16a `python -m
     gpu_docker_api_tpu_torch.cli -b process --warm-pool 1` on a fresh
     state dir discovers the card (GET /api/v1/resources/gpus), takes a
@@ -5854,7 +5971,10 @@ def phase_daemon(torch, main_losses, device="cuda", mock_topology=None,
     stitched across the restart. `mock_topology`, `config`, `shape`,
     `steps` and `want_per_step` replace the card's discovery, phase 2's
     model and shape, the run's steps and phase 2's launches (a small run
-    on the CPU); `main_losses` are an uninterrupted run's."""
+    on the CPU); `main_losses` are an uninterrupted run's. `handoff`, a
+    directory, receives a hard link of v1's parked checkpoint at
+    `checkpoints/<k>/` before 16c deletes the volume (phase 18's trainer
+    resumes from it): out["handoff_step"] is k."""
     from gpu_docker_api_tpu_torch import topology
     from gpu_docker_api_tpu_torch.client import ApiClient
     from gpu_docker_api_tpu_torch.models import named_config
@@ -6084,6 +6204,10 @@ def phase_daemon(torch, main_losses, device="cuda", mock_topology=None,
             check(child2["count"] == 1
                   and child2["uuid"] == uuid_reference(topo, 0),
                   f"16b v2's card {child2}")
+        if handoff is not None:
+            link_checkpoint(os.path.join(workdir, "checkpoints"), k,
+                            os.path.join(handoff, "checkpoints"))
+            out["handoff_step"] = k
 
         # 16c: history, stop, delete, the card free, /metrics, the trace
         history = c.replicaSetHistory(name=DMN_NAME)["history"]
@@ -6345,6 +6469,7 @@ def gateway_burst(port, requests, clients, on_answer=None):
     generate route on `port` from `clients` concurrent clients. Returns
     ([(HTTP status, envelope, headers, latency s) or None where the
     connection dropped], wall s). on_answer(n) runs after each answer."""
+    import http.client
     import threading
     from concurrent.futures import ThreadPoolExecutor
     lock = threading.Lock()
@@ -6357,7 +6482,9 @@ def gateway_burst(port, requests, clients, on_answer=None):
             status, hdrs, raw = rest(
                 port, "POST", f"/api/v1/gateways/{GW_NAME}/generate",
                 {"tokens": [tokens], "max_new": max_new}, timeout=600)
-        except OSError:
+        except (OSError, http.client.HTTPException):
+            # dropped before or during the answer (a killed worker's
+            # connection can close mid-body: IncompleteRead)
             return None
         out = (status, json.loads(raw), hdrs, time.perf_counter() - t0)
         with lock:
@@ -6741,6 +6868,558 @@ def phase_gateway(torch, att, direct=None, device="cuda",
     return out
 
 
+# ---- phase 18: the fleet and the native engines ----------------------------
+
+FLEET_TTL = 2.0                    # both daemons' --fleet-ttl (renew TTL/3)
+FLEET_PARITY = dict(ops=3000, seed=7, check_every=97)   # 18a's lockstep
+FLEET_FINDER = dict(trials=200, seed=3, sizes=(1, 2, 4, 8), grants=400)
+FLEET_TIMED_OPS = 2000             # 18a: timed puts and gets an engine
+FLEET_RESUMED = 2                  # 18b: steps B's trainer records
+FLEET_DEADLINE_S = 300             # each wait of 18b
+FLEET_POLICY = "max_throughput"    # B's --placement-policy
+#: the JAX daemon's answer to POST /placement/defrag {"tpuCount": 1} on a
+#: one-card pool whose card is held (no box to open: not blocked)
+FLEET_DEFRAG_ONE_CARD = {"n": 1, "opened": False, "migrations": [],
+                         "movedChips": 0, "stepsLost": 0,
+                         "denied": "not fragmentation-blocked"}
+PARITY_KEYS = [f"/par/{c}" for c in "abcdefgh"] + ["/other/x",
+                                                  "/par/nested/deep"]
+
+
+def native_builds() -> dict:
+    """Build (or find built) the two native host cores the port loads
+    here: the MVCC store and the box finder (g++ into the package's
+    build/, _native.py). Returns {lib: {"path", "s"}}, s the seconds this
+    call spent on it."""
+    from gpu_docker_api_tpu_torch import _native
+    out = {}
+    for lib in ("mvccstore", "topoalloc"):
+        t0 = time.perf_counter()
+        handle = _native.load(lib)
+        out[lib] = {"path": str(_native.lib_path(lib)) if handle is not None
+                    else None, "s": time.perf_counter() - t0}
+    return out
+
+
+def parity_observable(s) -> dict:
+    return {"rev": s.revision,
+            "range": [(kv.key, kv.value, kv.create_revision,
+                       kv.mod_revision, kv.version) for kv in s.range("/")],
+            "hist": {k: [(kv.value, kv.mod_revision, kv.version)
+                         for kv in s.history(k)] for k in PARITY_KEYS}}
+
+
+def engine_lockstep(tmp, spec=FLEET_PARITY) -> dict:
+    """tests/test_engine_parity.py's randomized lockstep at spec's size:
+    one seeded run of puts, batches, deletes and compactions through the
+    Python and the native engine. Returns the readings engine_parity_check
+    holds: the first step whose answers differ (None), the observable
+    state's equality at every check and at the end, both WALs' bytes
+    equal, and each engine's reading of the other's WAL."""
+    import random
+
+    from gpu_docker_api_tpu_torch.store import open_store
+    rng = random.Random(spec["seed"])
+    wals = {e: os.path.join(tmp, f"{e}.wal") for e in ("python", "native")}
+    stores = {e: open_store(wals[e], engine=e) for e in wals}
+    first_diff, observed = None, []
+    try:
+        for step in range(spec["ops"]):
+            roll = rng.random()
+            if roll < 0.45:
+                op = ("put", rng.choice(PARITY_KEYS),
+                      f"v{step}-{rng.randint(0, 9)}")
+            elif roll < 0.6:
+                op = ("put_many", [(rng.choice(PARITY_KEYS), f"b{step}-{i}")
+                                   for i in range(rng.randint(0, 5))])
+            elif roll < 0.8:
+                op = ("delete", rng.choice(PARITY_KEYS))
+            else:
+                op = ("compact", rng.randint(0, stores["python"].revision),
+                      rng.choice([(), ("/par/",), ("/other/",)]))
+            answers = []
+            for s in stores.values():
+                if op[0] == "put":
+                    answers.append(s.put(op[1], op[2]))
+                elif op[0] == "put_many":
+                    answers.append(s.put_many(op[1]))
+                elif op[0] == "delete":
+                    answers.append(s.delete(op[1]))
+                else:
+                    answers.append(s.compact(op[1], op[2]))
+            if first_diff is None and answers[0] != answers[1]:
+                first_diff = step
+            if step % spec["check_every"] == 0 or step == spec["ops"] - 1:
+                obs = [parity_observable(s) for s in stores.values()]
+                observed.append(obs[0] == obs[1])
+        final = parity_observable(stores["python"])
+    finally:
+        for s in stores.values():
+            s.close()
+    wal_bytes = {e: open(p, "rb").read() for e, p in wals.items()}
+    crossed = {}
+    for reader, writer in (("native", "python"), ("python", "native")):
+        s = open_store(wals[writer], engine=reader)
+        try:
+            crossed[f"{reader}_reads_{writer}"] = parity_observable(s) == final
+        finally:
+            s.close()
+    return {"ops": spec["ops"], "seed": spec["seed"],
+            "first_answer_diff": first_diff,
+            "observable_checks": len(observed),
+            "observable_equal": all(observed),
+            "revision": final["rev"],
+            "wal_bytes": {e: len(b) for e, b in wal_bytes.items()},
+            "wal_equal": wal_bytes["python"] == wal_bytes["native"],
+            "cross_reads_equal": crossed}
+
+
+def engine_parity_check(r, label):
+    check(r["first_answer_diff"] is None,
+          f"{label}: the engines answered step {r['first_answer_diff']} "
+          f"apart")
+    check(r["observable_checks"] > 0 and r["observable_equal"],
+          f"{label}: the engines' reads or revisions differ")
+    check(r["wal_equal"], f"{label}: the WALs' bytes differ "
+          f"({r['wal_bytes']})")
+    check(r["cross_reads_equal"] and all(r["cross_reads_equal"].values()),
+          f"{label}: an engine reads the other's WAL apart: "
+          f"{r['cross_reads_equal']}")
+
+
+def engine_times(tmp, n=FLEET_TIMED_OPS) -> dict:
+    """Each engine's mean put and get on its own WAL (no fsync), in us,
+    host clock over n operations of each."""
+    from gpu_docker_api_tpu_torch.store import open_store
+    out = {}
+    for engine in ("python", "native"):
+        s = open_store(os.path.join(tmp, f"timed-{engine}.wal"),
+                       engine=engine, fsync=False)
+        try:
+            t0 = time.perf_counter()
+            for i in range(n):
+                s.put(f"/t/k{i % 64}", f"v{i}")
+            put_us = (time.perf_counter() - t0) / n * 1e6
+            t0 = time.perf_counter()
+            for i in range(n):
+                s.get(f"/t/k{i % 64}")
+            get_us = (time.perf_counter() - t0) / n * 1e6
+        finally:
+            s.close()
+        out[engine] = {"put_us": put_us, "get_us": get_us}
+    return out
+
+
+def finder_pairs(topo_of, spec=FLEET_FINDER) -> list:
+    """(the native finder's box, the Python search's) for random free sets
+    of the topology topo_of() makes, each size of spec that fits."""
+    import random
+
+    from gpu_docker_api_tpu_torch.schedulers import GpuScheduler
+    rng = random.Random(spec["seed"])
+    pairs = []
+    for _ in range(spec["trials"]):
+        sched = GpuScheduler(topology=topo_of(), native_finder=True)
+        total = sched.topology.num_chips
+        used = rng.sample(range(total), rng.randint(0, total - 1))
+        free = set(range(total)) - set(used)
+        for n in spec["sizes"]:
+            if n <= len(free):
+                pairs.append((sched._native_find_box(n, free),
+                              GpuScheduler(topology=topo_of())._find_box(
+                                  n, free)))
+    return pairs
+
+
+def finder_check(pairs, label):
+    check(pairs, f"{label}: no grant compared")
+    apart = [(nat, py) for nat, py in pairs
+             if nat != (py if py is not None else [])]
+    check(not apart, f"{label}: the native finder and the Python search "
+          f"picked apart: {apart[:4]}")
+
+
+def grant_ms(topo_of, native, n=FLEET_FINDER["grants"]) -> float:
+    """A one-card grant and its release through GpuScheduler.apply /
+    restore, mean ms, with or without the native finder."""
+    from gpu_docker_api_tpu_torch.schedulers import GpuScheduler
+    sched = GpuScheduler(topology=topo_of(), native_finder=native)
+    t0 = time.perf_counter()
+    for i in range(n):
+        chips = sched.apply(1, f"g{i}")
+        sched.restore(chips, f"g{i}")
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def takeover_check(before, after, takeovers, steals, label):
+    """The standby's steal: A's grant (holder a) is b's after the kill,
+    behind the next epoch, and taken over once."""
+    check(before is not None and before["holder"] == "a",
+          f"{label}: before the kill the grant is {before}")
+    check(after is not None and after["holder"] == "b"
+          and after["epoch"] == before["epoch"] + 1,
+          f"{label}: after the takeover the grant is {after} (before "
+          f"{before})")
+    check(takeovers == 1 and steals == 1,
+          f"{label}: {takeovers} takeovers, {steals} steals, want 1 each")
+
+
+def horizon_check(horizon, acked_rev, record_rev, promoted, acked, label):
+    """The promote's horizon covers every revision A acknowledged before
+    the kill, the record sits at or below it, and B's promoted record is
+    A's acknowledged one."""
+    check(horizon >= acked_rev, f"{label}: the replica's horizon {horizon} "
+          f"is below A's acknowledged revision {acked_rev}")
+    check(record_rev <= horizon, f"{label}: the record's revision "
+          f"{record_rev} is above the horizon {horizon}")
+    check(promoted is not None and promoted == acked,
+          f"{label}: the promoted record differs from A's acknowledged "
+          f"one")
+
+
+def gapless_resume_check(a_steps, b_steps, ckpt, min_b, label):
+    """A's steps after the checkpoint and B's resumed ones: each run starts
+    at ckpt + 1 and has no gap, and B's records at least min_b steps."""
+    check(a_steps and a_steps == list(range(ckpt + 1, ckpt + 1
+                                            + len(a_steps))),
+          f"{label}: A's steps {a_steps} after checkpoint {ckpt}")
+    check(len(b_steps) >= min_b
+          and b_steps == list(range(ckpt + 1, ckpt + 1 + len(b_steps))),
+          f"{label}: B resumed with steps {b_steps} from checkpoint {ckpt} "
+          f"(at least {min_b} wanted)")
+
+
+def resumed_launches_check(launches, per_step, steps, label):
+    """The recreated trainer's own launches, read when it was stopped:
+    every recorded step's, and no more than one further step's."""
+    for name, n in per_step.items():
+        got = launches.get(name, 0)
+        check(n * steps <= got <= n * (steps + 1),
+              f"{label}: {name} launched {got} times over {steps} "
+              f"recorded steps ({n} a step)")
+
+
+def split_runs(step_recs, ckpt):
+    """(A's steps, B's steps) of a metrics.jsonl written by A and then by
+    B: B's run begins at the second record of step ckpt + 1."""
+    steps = [r["step"] for r in step_recs]
+    starts = [i for i, s in enumerate(steps) if s == ckpt + 1]
+    cut = starts[1] if len(starts) > 1 else len(steps)
+    return step_recs[:cut], step_recs[cut:]
+
+
+def ring_name_of(member, members, prefix="fleettrainer"):
+    """The first `<prefix><i>` the ring gives `member` among `members`."""
+    from gpu_docker_api_tpu_torch.federation import HashRing
+    i = 0
+    while HashRing.owner_of(f"containers/{prefix}{i}",
+                            set(members)) != member:
+        i += 1
+    return f"{prefix}{i}"
+
+
+def fleet_events(port) -> list:
+    return [e["op"] for e in rest_ok(port, "GET", "/api/v1/events?limit=500",
+                                     label="18b")["events"]]
+
+
+def fleet_grant(port, name):
+    grants = rest_ok(port, "GET", "/api/v1/fleet/grants",
+                     label="18b")["grants"]
+    return next((g for g in grants if g["resource"] == "containers"
+                 and g["name"] == name), None)
+
+
+def wait_until(pred, timeout, label):
+    deadline = time.monotonic() + timeout
+    while True:
+        got = pred()
+        if got:
+            return got
+        check(time.monotonic() < deadline, f"{label}: timed out")
+        time.sleep(0.05)
+
+
+def fleet_daemons(mock_topology=None) -> dict:
+    """Phase 18's daemons' settings, none started: a scratch directory,
+    A's and B's ports, their environment and the flags each takes
+    (fleet_spawn starts one)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    fl = {"tmp": tempfile.mkdtemp(prefix="smoke18-"),
+          "ports": {"a": free_port(), "b": free_port()},
+          "env": dict(os.environ, PYTHONPATH=os.pathsep.join(
+              p for p in (repo, os.environ.get("PYTHONPATH", "")) if p))}
+    base = ["--fleet-ttl", str(FLEET_TTL)]
+    if mock_topology:
+        base += ["--topology", mock_topology, "--health-interval", "0"]
+    fl["flags"] = {
+        "b": base + ["--fleet-member", "b", "--repl-peer",
+                     f"127.0.0.1:{fl['ports']['a']}", "--placement-policy",
+                     FLEET_POLICY],
+        "a": base + ["--fleet-member", "a", "--fleet-host",
+                     f"127.0.0.1:{fl['ports']['b']}"]}
+    return fl
+
+
+def fleet_spawn(fl, member) -> dict:
+    return spawn_daemon(os.path.join(fl["tmp"], f"state-{member}"),
+                        fl["ports"][member],
+                        os.path.join(fl["tmp"], f"daemon-{member}.log"),
+                        fl["env"], fl["flags"][member])
+
+
+def phase_fleet(torch, main_losses, handoff, native=None, device="cuda",
+                mock_topology=None, config="1b", shape=None,
+                want_per_step=None):
+    """Phase 18: the fleet and the native engines. 18a: the native cores
+    built by g++ into the port's build/ (`native`: native_builds()'s
+    readings, started at the script's start), the engines' lockstep
+    parity, the native box finder against the Python search on the
+    discovered topology and on mock h100-8 lines, each engine's put and
+    get and each finder's grant timed before anything else starts. 18b,
+    its daemons booting beside 18a's untimed checks: daemon B (the
+    fleet's arbiter host, member b, --repl-peer A, --placement-policy,
+    real discovery, the process backend) and daemon A (--fleet-member a
+    --fleet-host B, a short --fleet-ttl) on the native store; A runs
+    phase 2's trainer as a replicaSet A's ring slice owns, resuming from
+    phase 16's parked checkpoint (`handoff`: its directory and step); once
+    B's replica holds A's acknowledged revisions and the trainer has run
+    a step, A and its children's process groups are SIGKILLed; B steals
+    the grant behind the next epoch, promotes A's record, recreates the
+    trainer on card 0, which resumes from the checkpoint gapless with
+    phase 2's losses;
+    GET /placement shows the pool with the grant, POST /placement/defrag
+    for one card answers as the JAX daemon does; stop, delete. The other
+    arguments stand in for the card, its discovery and the model in a
+    small run on the CPU."""
+    from gpu_docker_api_tpu_torch import topology
+    from gpu_docker_api_tpu_torch.models import named_config
+
+    cuda = device == "cuda"
+    cfg = named_config("llama", config)
+    per_step = want_per_step or {"flash_fwd": 2 * cfg.n_layers,
+                                 "flash_bwd_dq": cfg.n_layers,
+                                 "flash_bwd_dkv": cfg.n_layers}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    print(f"phase 18: the fleet and the native engines (18a the native "
+          f"store and box finder; 18b a standby daemon taking over the "
+          f"trainer, --fleet-ttl {FLEET_TTL})", flush=True)
+    t_phase = time.perf_counter()
+    topo = (topology.make_topology(mock_topology) if mock_topology
+            else topology.discover_topology())
+    fl = fleet_daemons(mock_topology)
+    tmp, ports = fl["tmp"], fl["ports"]
+    logs = {m: os.path.join(tmp, f"daemon-{m}.log") for m in ports}
+    daemons, spawned = {}, {}
+    out["boot_to_ping_s"] = {}
+
+    def spawn(member):
+        spawned[member] = fleet_spawn(fl, member)
+        daemons[member] = spawned[member]["proc"]
+
+    def boot(member):
+        daemons[member], out["boot_to_ping_s"][member] = wait_daemon(
+            spawned[member], ports[member], logs[member])
+
+    try:
+        # 18a: the native engines on this host
+        native = native or native_builds()
+        out["native_builds"] = native
+        check(all(v["path"] and os.path.exists(v["path"])
+                  for v in native.values()),
+              f"18a the native cores did not build: {native}")
+        build = os.path.join(repo, "gpu_docker_api_tpu_torch", "build")
+        check(all(os.path.dirname(v["path"]) == build
+                  for v in native.values()),
+              f"18a the cores are not in the port's build/: {native}")
+        line8 = lambda: topology.make_topology("h100-8")   # noqa: E731
+        found = lambda: topo                               # noqa: E731
+        out["engine_us"] = engine_times(tmp)
+        out["grant_ms"] = {"python": grant_ms(line8, False),
+                           "native": grant_ms(line8, True)}
+        # B, then A once B answers (A joins B's fleet as it starts), boot
+        # beside the untimed lockstep and finder checks
+        spawn("b")
+        out["parity"] = r = engine_lockstep(tmp)
+        engine_parity_check(r, "18a lockstep")
+        boot("b")
+        spawn("a")
+        pairs = {"discovered": finder_pairs(found),
+                 "h100-8": finder_pairs(line8)}
+        for name, got in pairs.items():
+            finder_check(got, f"18a finder on {name}")
+        out["finder_grants_compared"] = {k: len(v) for k, v in pairs.items()}
+        boot("a")
+        print(f"  18a cores {native}; lockstep {r}; put/get us "
+              f"{out['engine_us']}; finder grants compared "
+              f"{out['finder_grants_compared']}, grant ms "
+              f"{out['grant_ms']}", flush=True)
+
+        # 18b: the standby and the primary
+        wait_until(lambda: {m["member"] for m in rest_ok(
+            ports["b"], "GET", "/api/v1/fleet/members",
+            label="18b")["members"]} == {"a", "b"}, FLEET_DEADLINE_S,
+            "18b A joining B's fleet")
+        engines = {}
+        for member in daemons:
+            with open(logs[member], errors="replace") as f:
+                m = re.search(r"state store: (\w+) engine", f.read())
+            engines[member] = m.group(1) if m else None
+        out["store_engines"] = engines
+        check(engines == {"a": "native", "b": "native"},
+              f"18a the daemons' store engines {engines}")
+        gpus = rest_ok(ports["b"], "GET", "/api/v1/resources/gpus",
+                       label="18b")["tpus"]
+        check(gpus["chips"][0]["owner"] == "",
+              f"18b the standby holds card 0 before any takeover: "
+              f"{gpus['chips'][0]}")
+
+        name = ring_name_of("a", ("a", "b"))
+        k = handoff["step"]
+        workdir = os.path.join(tmp, "run")
+        os.makedirs(workdir)
+        ckpts = os.path.join(workdir, "checkpoints")
+        link_checkpoint(os.path.join(handoff["dir"], "checkpoints"), k,
+                        ckpts)
+        metrics_path = os.path.join(workdir, "metrics.jsonl")
+        argv = seam_argv(device, config, shape, 1000) + [
+            "--workdir", workdir, "--checkpoint-every", "100000"]
+        ran, _ = http_call(ports["a"], "POST", "/api/v1/replicaSet", {
+            "imageName": "python", "replicaSetName": name, "tpuCount": 1,
+            "meshPlan": {"dp": 1}, "memory": DMN_MEMORY[0],
+            "cmd": [sys.executable, "-c", SVC_WRAPPER, json.dumps(argv)]})
+        check(ran["code"] == 200 and ran["data"]["tpuChips"] == [0],
+              f"18b A's run {ran}")
+        wait_step(metrics_path, k + 1, lambda: True, FLEET_DEADLINE_S,
+                  "18b A's trainer")
+        before = fleet_grant(ports["b"], name)
+        # every watch-visible revision A acknowledged (its newest record's;
+        # history rows are not streamed), and B's replica holding them
+        snap = rest_ok(ports["a"], "GET", "/api/v1/watch?list=1",
+                       label="18b")
+        acked = next(i for i in snap["items"] if i["resource"]
+                     == "containers" and i["name"] == name)
+        acked_rev = max(i["modRevision"] for i in snap["items"])
+        repl = wait_until(lambda: (lambda r: r if r["horizon"]
+                                   >= acked_rev else None)(
+            rest_ok(ports["b"], "GET", "/api/v1/healthz",
+                    label="18b")["replication"]), FLEET_DEADLINE_S,
+            "18b B's replica catching up with A")
+        horizon = repl["horizon"]
+        check(os.path.exists(os.path.join(ckpts, str(k))),
+              "18b the trainer has no checkpoint")
+
+        # the kill: A and its children's process groups
+        t_kill = time.time()
+        killed = node_crash(daemons.pop("a"))
+        after = wait_until(lambda: (lambda g: g if g and g["holder"] == "b"
+                                    else None)(fleet_grant(ports["b"], name)),
+                           FLEET_DEADLINE_S, "18b B's takeover")
+        out["kill_to_takeover_s"] = time.time() - t_kill
+        ops = wait_until(lambda: (lambda o: o if "fed.takeover" in o
+                                  else None)(fleet_events(ports["b"])),
+                         FLEET_DEADLINE_S, "18b the takeover's event")
+        _, samples = prometheus_families(
+            rest(ports["b"], "GET", "/metrics")[2].decode())
+        steals = next(v for n, _, v in samples
+                      if n == "tdapi_fed_steals_total")
+        takeover_check(before, after, ops.count("fed.takeover"),
+                       int(steals), "18b")
+        check(ops.count("fed.promote") == 1,
+              f"18b {ops.count('fed.promote')} promotes, want 1")
+        promoted = next((i for i in rest_ok(
+            ports["b"], "GET", "/api/v1/watch?list=1&resource=containers",
+            label="18b")["items"] if i["name"] == name), None)
+        horizon_check(horizon, acked_rev, acked["modRevision"],
+                      promoted and promoted["value"], acked["value"], "18b")
+        out.update(horizon=horizon, acked_revision=acked_rev,
+                   record_revision=acked["modRevision"], killed=len(killed),
+                   grant_before=before, grant_after=after)
+
+        # B recreates the trainer on card 0; it resumes from checkpoint k
+        _, b_recs = wait_until(lambda: (lambda ab: ab if len(ab[1])
+                                        >= FLEET_RESUMED else None)(
+            split_runs(read_metrics(metrics_path)[0], k)),
+            FLEET_DEADLINE_S, "18b B's resumed trainer")
+        out["kill_to_first_step_s"] = b_recs[0]["time"] - t_kill
+        gpus = rest_ok(ports["b"], "GET", "/api/v1/resources/gpus",
+                       label="18b")["tpus"]
+        info = rest_ok(ports["b"], "GET", f"/api/v1/replicaSet/{name}",
+                       label="18b")["info"]
+        check(info["running"] and gpus["chips"][0]["owner"] == name
+              and info["spec"]["tpu_chips"] == [0],
+              f"18b B's card 0 {gpus['chips'][0]} and record {info}")
+        placement = rest_ok(ports["b"], "GET", "/api/v1/placement",
+                            label="18b")
+        pool = placement["placement"]["pools"][0]
+        check(placement["placement"]["policyActive"]
+              and pool["name"] == topo.generation
+              and pool["freeChips"] == topo.num_chips - 1,
+              f"18b GET /placement {placement['placement']}")
+        defrag, _ = http_call(ports["b"], "POST", "/api/v1/placement/defrag",
+                              {"tpuCount": 1})
+        check(defrag["code"] == 200 and defrag["data"]["defrag"]
+              == FLEET_DEFRAG_ONE_CARD,
+              f"18b POST /placement/defrag {defrag}")
+        out["placement_pool"] = pool
+        out["defrag"] = defrag["data"]["defrag"]
+        rest_ok(ports["b"], "PATCH", f"/api/v1/replicaSet/{name}/stop",
+                label="18b")
+        child = wait_until(lambda: (lambda p: json.load(open(p))
+                                    if os.path.exists(p) else None)(
+            os.path.join(workdir, "child-1.json")), FLEET_DEADLINE_S,
+            "18b the recreated trainer's report")
+        recs, _ = read_metrics(metrics_path)
+        a_recs, b_recs = split_runs(recs, k)
+        a_steps = [r["step"] for r in a_recs]
+        b_steps = [r["step"] for r in b_recs]
+        gapless_resume_check(a_steps, b_steps, k, FLEET_RESUMED, "18b")
+        resumed_launches_check(child["launches"], per_step, len(b_steps),
+                               "18b")
+        if cuda:
+            check(child["count"] == 1
+                  and child["uuid"] == uuid_reference(topo, 0),
+                  f"18b the recreated trainer's card {child}")
+        losses = {r["step"]: r["loss"] for r in b_recs}
+        diffs = [abs(losses[s] - main_losses[s - 1]) for s in losses
+                 if s <= len(main_losses)]
+        diffs += [abs(r["loss"] - losses[r["step"]]) for r in a_recs
+                  if r["step"] in losses]
+        check(diffs and all(math.isfinite(x) for x in losses.values())
+              and max(diffs) <= SEAM_LOSS_TOL,
+              f"18b losses {losses} against phase 2's {main_losses} and "
+              f"A's {a_recs}: {diffs} > {SEAM_LOSS_TOL}")
+        out.update(checkpoint_step=k, a_steps=a_steps, b_steps=b_steps,
+                   loss_diffs=diffs, launches=child["launches"],
+                   replicaset=name)
+        rest_ok(ports["b"], "DELETE", f"/api/v1/replicaSet/{name}",
+                label="18b")
+        gpus = rest_ok(ports["b"], "GET", "/api/v1/resources/gpus",
+                       label="18b")["tpus"]
+        check(gpus["freeCount"] == topo.num_chips,
+              f"18b card 0 after delete {gpus['chips'][0]}")
+        rc = stop_daemon(daemons.pop("b"))
+        check(rc == 0, f"18b the standby exited {rc} on SIGTERM")
+    finally:
+        for d in daemons.values():
+            node_crash(d)
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(handoff["dir"], ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  18 timings: kill to takeover {out['kill_to_takeover_s']:.2f} "
+          f"s, promote horizon {out['horizon']} (A acknowledged "
+          f"{out['acked_revision']}, the record at "
+          f"{out['record_revision']}), kill to the resumed first step "
+          f"{out['kill_to_first_step_s']:.2f} s; phase 18 wall time "
+          f"{out['phase_s']:.1f} s", flush=True)
+    print(f"  18b steps A {out['a_steps']}, B {out['b_steps']} from "
+          f"checkpoint {out['checkpoint_step']}; launches "
+          f"{out['launches']}; pool {out['placement_pool']}; defrag "
+          f"{out['defrag']}", flush=True)
+    return out
+
+
 def build_kernels(torch):
     """Phase 0: the card's name and power limit, then the kernels' build.
     Returns (nvidia-smi line, the attention module)."""
@@ -6835,48 +7514,107 @@ def ptxas_wgmma_losses(log):
     return lost
 
 
+def unwind_on_sigterm() -> None:
+    """A SIGTERM (a caller's time limit) raises SystemExit(143) in the
+    main thread, so every phase's finally still runs: its daemons and
+    their children's process groups end with the script, not after it."""
+    import signal
+    signal.signal(signal.SIGTERM,
+                  lambda signum, frame: sys.exit(128 + signum))
+
+
+def wall_line(whole, walls) -> str:
+    """The wall-time line: the whole script's seconds, then each phase's,
+    0 (the build) first."""
+    return (f"wall time: the whole script {whole:.1f} s; "
+            + ", ".join(f"phase {i} {w:.1f} s" for i, w in enumerate(walls)))
+
+
 def main() -> int:
     import torch
 
+    import threading
+
     start = time.perf_counter()
+    walls = []                     # each phase's wall seconds, in order
+
+    def lap():
+        walls.append(time.perf_counter() - start - sum(walls))
+    try:
+        check(torch.cuda.is_available(), "CUDA is not available")
+        try:
+            import gpu_docker_api_tpu_torch  # noqa: F401
+        except ImportError as e:
+            raise SmokeFailure(f"the port is not importable here: {e}")
+    except SmokeFailure as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
+    unwind_on_sigterm()
+    # phase 18's host cores build with g++ beside the kernels' nvcc
+    native = {}
+    cores = threading.Thread(target=lambda: native.update(native_builds()),
+                             daemon=True)
+    cores.start()
+    handoff = tempfile.mkdtemp(prefix="smoke18-ckpt-")
+    start_rank_server()            # its imports run beside the build
     try:
         smi, att = build_kernels(torch)
+        # nothing phase 0 started runs on beside phase 1's checks and times
+        cores.join()
+        await_rank_server()
+        lap()
         kernels, yardstick, bf16_check = phase_kernels(torch, att)
+        lap()
         m = phase_main_path(torch, att, MAIN_STEPS)
+        lap()
         phase_resume()
+        lap()
         serve = phase_serve(torch, att)
+        lap()
         batching = phase_batching(torch, att)
+        lap()
         paged = phase_paged(torch, att, batching)
+        lap()
         moe = phase_moe(torch, att)
+        lap()
         sp = phase_sp(torch, att)
+        lap()
         fsdp = phase_fsdp(torch, att)
+        lap()
         tp = phase_tp(torch, att, one=fsdp["one_rank"])
-        before_ep = time.perf_counter() - start
+        lap()
         ep = phase_ep(torch, att)
-        before_pp = time.perf_counter() - start
+        lap()
         pp = phase_pp(torch, att)
-        before_mw = time.perf_counter() - start
+        lap()
         torch.cuda.empty_cache()
         mw = phase_multiworker(torch, att, fsdp["one_rank"], {
             "phase4_bf16_b1_decode_ms": serve["times"]["bf16_b1"]["decode_ms"],
             "phase4_bf16_b8_decode_ms": serve["times"]["bf16_b8"]["decode_ms"],
             "phase5_8_slot_step_ms":
                 batching["busy"]["decode_chunk_1"]["step_ms"]})
-        before_seam = time.perf_counter() - start
+        lap()
         seam = phase_seam(torch, m["losses"])
-        before_svc = time.perf_counter() - start
+        lap()
         svc = phase_services(torch, m["losses"])
         print(f"  15d launch to first step: "
               f"{svc['v1_launch_to_first_step_s']:.2f} s on a warm worker "
               f"(15a's v1) against 14c's cold "
               f"{seam['launch_to_first_step_s']:.2f} s", flush=True)
-        before_dmn = time.perf_counter() - start
-        dmn = phase_daemon(torch, m["losses"])
-        before_gw = time.perf_counter() - start
+        lap()
+        dmn = phase_daemon(torch, m["losses"], handoff=handoff)
+        lap()
         gw = phase_gateway(torch, att, batching)
+        lap()
+        fleet = phase_fleet(torch, m["losses"], {
+            "dir": handoff, "step": dmn["handoff_step"]}, native)
+        lap()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
+    finally:
+        stop_rank_server()
+        shutil.rmtree(handoff, ignore_errors=True)
 
     bnd = bounds(MAIN_SHAPE, 2)
     line = []
@@ -6899,6 +7637,7 @@ def main() -> int:
                                   for v in (1, 2)],
             "launches_daemon": dmn["child2"]["launches"][name],
             "launches_gateway": gw["launches"][name],
+            "launches_fleet": fleet["launches"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": bnd[name][0],
             "bound_by": bnd[name][1], "library_ms": k["library_ms"]})
@@ -6924,15 +7663,8 @@ def main() -> int:
     print(json.dumps({"services": svc}), flush=True)
     print(json.dumps({"daemon": dmn}), flush=True)
     print(json.dumps({"gateway": gw}), flush=True)
-    wall = time.perf_counter() - start
-    print(f"wall time: the whole script {wall:.1f} s, phases 0-10 "
-          f"{before_ep:.1f} s, phase 11 {before_pp - before_ep:.1f} s, "
-          f"phase 12 {before_mw - before_pp:.1f} s, phase 13 "
-          f"{before_seam - before_mw:.1f} s, phase 14 "
-          f"{before_svc - before_seam:.1f} s, phase 15 "
-          f"{before_dmn - before_svc:.1f} s, phase 16 "
-          f"{before_gw - before_dmn:.1f} s, phase 17 "
-          f"{wall - before_gw:.1f} s", flush=True)
+    print(json.dumps({"fleet": fleet}), flush=True)
+    print(wall_line(time.perf_counter() - start, walls), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

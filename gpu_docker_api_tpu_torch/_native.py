@@ -1,19 +1,21 @@
-"""Locate (and lazily build) the native host core of the worker tier.
+"""Locate (and lazily build) the native host cores.
 
-The port's copy of the JAX control plane's _native.py, for the one core
-the port's modules load: the shared-memory atomics of the SO_REUSEPORT
-data-plane workers (server/workers.py, obs/shm_metrics.py). Its source is
-the repo's host C++ file `native/shm_atomics.cc`, compiled as it is with
-`g++` into the package's gitignored `build/` (beside the CUDA kernels of
-_build.py), named by a hash of the source and flags, so an edited source
-rebuilds and an unchanged one is reused. The repo's `native/build/`
-belongs to the JAX package's loader and is neither read nor written here.
+The port's copy of the JAX control plane's _native.py, for its three
+cores: the MVCC store (store/native.py), the topology box search
+(schedulers/gpu.py's native finder) and the shared-memory atomics of the
+SO_REUSEPORT data-plane workers (server/workers.py, obs/shm_metrics.py).
+Their sources are the repo's host C++ files under `native/`, each compiled
+as it is with `g++` into the package's gitignored `build/` (beside the CUDA
+kernels of _build.py), named by a hash of the source and flags, so an
+edited source rebuilds and an unchanged one is reused. The repo's
+`native/build/` belongs to the JAX package's loader and is neither read
+nor written here.
 
 A build that cannot run (no compiler) or fails degrades quietly, as JAX's
-loader does: `load()` answers None and the callers keep the in-process
-data plane (`server/workers.available()` is False). A failed build leaves
-a marker so later processes do not rerun a doomed compile. Nothing builds
-at import.
+loader does: `load()` answers None and the callers keep their Python
+paths (the Python store engine, the Python box search, the in-process
+data plane). A failed build leaves a marker so later processes do not
+rerun a doomed compile. Nothing builds at import.
 """
 
 from __future__ import annotations
@@ -32,15 +34,19 @@ _BUILD = Path(__file__).resolve().parent / "build"
 _lock = threading.Lock()
 _cache: dict[str, Optional[ctypes.CDLL]] = {}
 
-#: lib name -> its source under native/ (the ones the port's modules load)
-_LIB_SOURCES = {"shmatomics": "shm_atomics.cc"}
+#: lib name -> its source under native/
+_LIB_SOURCES = {"mvccstore": "mvcc_store.cc",
+                "topoalloc": "topology_alloc.cc",
+                "shmatomics": "shm_atomics.cc"}
 CXX_FLAGS = ("-O2", "-g", "-std=c++17", "-fPIC", "-Wall", "-Wextra",
              "-shared")
 
 #: one symbol per lib that only the CURRENT C ABI exports — the load-time
 #: canary that keeps a stale build from binding the argtypes below to an
 #: older ABI (a segfault, not a clean error)
-_ABI_CANARY = {"shmatomics": "shm_cells_publish"}
+_ABI_CANARY = {"mvccstore": "mvcc_put_at",
+               "topoalloc": "topo_find_box",
+               "shmatomics": "shm_cells_publish"}
 
 
 def lib_path(name: str) -> Path:
@@ -52,7 +58,8 @@ def lib_path(name: str) -> Path:
 
 
 def load(name: str) -> Optional[ctypes.CDLL]:
-    """name: "shmatomics". Returns the CDLL or None."""
+    """name: "mvccstore" | "topoalloc" | "shmatomics". Returns the CDLL
+    or None."""
     return _load(name, nogil=False)
 
 
@@ -64,9 +71,9 @@ def load_nogil(name: str) -> Optional[ctypes.CDLL]:
     busy multi-threaded server every release is a scheduler yield point
     that can hand the thread's whole 5ms switch interval away. PyDLL
     keeps the GIL held across the call, which is only correct because
-    these ops never block. NEVER route a blocking call (futex_wait)
-    through this handle — it would freeze every thread in the process
-    for the wait's duration."""
+    these ops never block. NEVER route a blocking call (futex_wait,
+    store flush) through this handle — it would freeze every thread in
+    the process for the wait's duration."""
     return _load(name, nogil=True)
 
 
@@ -86,7 +93,7 @@ def _load(name: str, nogil: bool) -> Optional[ctypes.CDLL]:
             try:
                 lib = (ctypes.PyDLL if nogil else ctypes.CDLL)(str(path))
                 getattr(lib, _ABI_CANARY[name])
-                _declare(lib)
+                _declare(name, lib)
             except (OSError, AttributeError):
                 lib = None
         _cache[key] = lib
@@ -118,27 +125,87 @@ def _try_build(name: str, out: Path) -> None:
             tmp.unlink()
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def _declare(name: str, lib: ctypes.CDLL) -> None:
     c = ctypes
-    lib.shm_load.restype = c.c_int64
-    lib.shm_load.argtypes = [c.c_void_p]
-    lib.shm_store.restype = None
-    lib.shm_store.argtypes = [c.c_void_p, c.c_int64]
-    lib.shm_add.restype = c.c_int64      # returns the NEW value
-    lib.shm_add.argtypes = [c.c_void_p, c.c_int64]
-    lib.shm_cas.restype = c.c_int
-    lib.shm_cas.argtypes = [c.c_void_p, c.c_int64, c.c_int64]
-    lib.shm_hist_observe.restype = None
-    lib.shm_hist_observe.argtypes = [c.c_void_p, c.c_int64,
-                                     c.c_int64, c.c_int64]
-    lib.shm_futex_wait.restype = c.c_int
-    lib.shm_futex_wait.argtypes = [c.c_void_p, c.c_uint32, c.c_int64]
-    lib.shm_futex_wake.restype = c.c_int
-    lib.shm_futex_wake.argtypes = [c.c_void_p, c.c_int]
-    # KV-affinity sketch cells: mini-seqlock group publish/read
-    lib.shm_cells_publish.restype = c.c_int
-    lib.shm_cells_publish.argtypes = [c.c_void_p, c.c_void_p,
-                                      c.POINTER(c.c_int64), c.c_int64]
-    lib.shm_cells_read.restype = c.c_int
-    lib.shm_cells_read.argtypes = [c.c_void_p, c.c_void_p,
-                                   c.POINTER(c.c_int64), c.c_int64]
+    if name == "mvccstore":
+        lib.mvcc_open.restype = c.c_void_p
+        lib.mvcc_open.argtypes = [c.c_char_p, c.c_int]
+        lib.mvcc_close.argtypes = [c.c_void_p]
+        lib.mvcc_put.restype = c.c_int64
+        lib.mvcc_put.argtypes = [c.c_void_p, c.c_char_p, c.c_char_p]
+        lib.mvcc_put_many.restype = c.c_int64
+        lib.mvcc_put_many.argtypes = [c.c_void_p, c.c_char_p, c.c_int64]
+        lib.mvcc_delete.restype = c.c_int
+        lib.mvcc_delete.argtypes = [c.c_void_p, c.c_char_p]
+        # fast read path: raw bytes through the handle's mmap'd transfer
+        # buffer (NOT freed by the caller; serialized by the wrapper)
+        lib.mvcc_get_fast.restype = c.c_void_p
+        lib.mvcc_get_fast.argtypes = [c.c_void_p, c.c_char_p,
+                                      c.POINTER(c.c_int64)]
+        lib.mvcc_range_fast.restype = c.c_void_p
+        lib.mvcc_range_fast.argtypes = [c.c_void_p, c.c_char_p,
+                                        c.POINTER(c.c_int64)]
+        lib.mvcc_get_at.restype = c.c_void_p
+        lib.mvcc_get_at.argtypes = [c.c_void_p, c.c_char_p, c.c_int64]
+        lib.mvcc_history.restype = c.c_void_p
+        lib.mvcc_history.argtypes = [c.c_void_p, c.c_char_p, c.c_int]
+        lib.mvcc_compact.restype = c.c_int64
+        lib.mvcc_compact.argtypes = [c.c_void_p, c.c_int64, c.c_char_p]
+        lib.mvcc_snapshot.restype = c.c_int
+        lib.mvcc_snapshot.argtypes = [c.c_void_p, c.c_char_p]
+        lib.mvcc_maintain.restype = c.c_int64
+        lib.mvcc_maintain.argtypes = [c.c_void_p, c.c_char_p]
+        lib.mvcc_wal_records.restype = c.c_int64
+        lib.mvcc_wal_records.argtypes = [c.c_void_p]
+        lib.mvcc_wal_flushes.restype = c.c_int64
+        lib.mvcc_wal_flushes.argtypes = [c.c_void_p]
+        lib.mvcc_wal_flushed_records.restype = c.c_int64
+        lib.mvcc_wal_flushed_records.argtypes = [c.c_void_p]
+        lib.mvcc_wal_flush_batch_max.restype = c.c_int64
+        lib.mvcc_wal_flush_batch_max.argtypes = [c.c_void_p]
+        lib.mvcc_revision.restype = c.c_int64
+        lib.mvcc_revision.argtypes = [c.c_void_p]
+        lib.mvcc_free.argtypes = [c.c_void_p]
+        # replica-side exact-revision applies, point-in-time backup,
+        # the read-only detector, the WAL format
+        lib.mvcc_put_at.restype = c.c_int
+        lib.mvcc_put_at.argtypes = [c.c_void_p, c.c_char_p, c.c_char_p,
+                                    c.c_int64, c.c_int64, c.c_int64]
+        lib.mvcc_delete_at.restype = c.c_int
+        lib.mvcc_delete_at.argtypes = [c.c_void_p, c.c_char_p, c.c_int64]
+        lib.mvcc_backup.restype = c.c_int64
+        lib.mvcc_backup.argtypes = [c.c_void_p, c.c_char_p, c.c_int64]
+        lib.mvcc_read_only.restype = c.c_int
+        lib.mvcc_read_only.argtypes = [c.c_void_p]
+        lib.mvcc_clear_read_only.restype = None
+        lib.mvcc_clear_read_only.argtypes = [c.c_void_p]
+        lib.mvcc_wal_format.restype = c.c_int
+        lib.mvcc_wal_format.argtypes = [c.c_void_p]
+    elif name == "topoalloc":
+        lib.topo_find_box.restype = c.c_int
+        lib.topo_find_box.argtypes = [
+            c.c_int, c.c_int, c.c_int,
+            c.POINTER(c.c_int8), c.c_int, c.POINTER(c.c_int32)]
+    elif name == "shmatomics":
+        lib.shm_load.restype = c.c_int64
+        lib.shm_load.argtypes = [c.c_void_p]
+        lib.shm_store.restype = None
+        lib.shm_store.argtypes = [c.c_void_p, c.c_int64]
+        lib.shm_add.restype = c.c_int64      # returns the NEW value
+        lib.shm_add.argtypes = [c.c_void_p, c.c_int64]
+        lib.shm_cas.restype = c.c_int
+        lib.shm_cas.argtypes = [c.c_void_p, c.c_int64, c.c_int64]
+        lib.shm_hist_observe.restype = None
+        lib.shm_hist_observe.argtypes = [c.c_void_p, c.c_int64,
+                                         c.c_int64, c.c_int64]
+        lib.shm_futex_wait.restype = c.c_int
+        lib.shm_futex_wait.argtypes = [c.c_void_p, c.c_uint32, c.c_int64]
+        lib.shm_futex_wake.restype = c.c_int
+        lib.shm_futex_wake.argtypes = [c.c_void_p, c.c_int]
+        # KV-affinity sketch cells: mini-seqlock group publish/read
+        lib.shm_cells_publish.restype = c.c_int
+        lib.shm_cells_publish.argtypes = [c.c_void_p, c.c_void_p,
+                                          c.POINTER(c.c_int64), c.c_int64]
+        lib.shm_cells_read.restype = c.c_int
+        lib.shm_cells_read.argtypes = [c.c_void_p, c.c_void_p,
+                                       c.POINTER(c.c_int64), c.c_int64]

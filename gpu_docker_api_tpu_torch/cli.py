@@ -5,17 +5,19 @@ Reference parity: cmd/gpu-docker-api/main.go — flags --addr/-a, --etcd/-e
 --logLevel/-l (:33-38), banner of chip/port inventory (:107-112), SIGINT/
 SIGTERM graceful stop with full state flush (:139-154).
 
-The port's copy of the JAX control plane's cli.py, without the flags of
-the planes not ported (the fleet, replication, placement and defrag).
-Discovery of the node's cards raises without one, so the CPU is asked for
-with a mock topology:
+The port's copy of the JAX control plane's cli.py. Discovery of the
+node's cards raises without one, so the CPU is asked for with a mock
+topology:
 
     python -m gpu_docker_api_tpu_torch.cli --backend mock --topology h100-8
 
 and the card's node with none (`-b process` discovers the cards through
 nvidia-smi and the device nodes; the daemon itself never initialises
 CUDA). `store scrub|backup|restore` is the offline durability tooling, on
-the Python store engine (`--engine native` raises until it is ported).
+either store engine (`--engine auto|native|python`). Two daemons make a
+fleet with a warm standby: the standby hosts the fleet's arbiter and tails
+the primary's revisions (`--repl-peer PRIMARY:PORT`); the primary is a
+member of that fleet (`--fleet-member a --fleet-host STANDBY:PORT`).
 """
 
 from __future__ import annotations
@@ -99,11 +101,50 @@ def build_parser() -> argparse.ArgumentParser:
                    help="explicit data-plane port for --gw-workers "
                         "(default: TDAPI_GW_DATA_PORT env, else pick a "
                         "free one; see /api/v1/healthz workers.port)")
+    p.add_argument("--fleet-member", default=None, metavar="ID",
+                   help="join a multi-daemon fleet under this member id: "
+                        "lease heartbeats, hash-ring resource ownership, "
+                        "takeover of dead members' slices (default: "
+                        "TDAPI_FLEET_MEMBER env, else single-daemon)")
+    p.add_argument("--fleet-host", default=None, metavar="HOST:PORT",
+                   help="the daemon hosting the fleet arbiter (default: "
+                        "TDAPI_FLEET_HOST env, else this daemon hosts "
+                        "its own — the fleet's one shared point, like "
+                        "the reference's etcd endpoint)")
+    p.add_argument("--fleet-ttl", type=float, default=None, metavar="SEC",
+                   help="fleet lease TTL; heartbeat runs at TTL/3 "
+                        "(default: TDAPI_FLEET_TTL env, else 5)")
+    p.add_argument("--repl-peer", default=None, metavar="HOST:PORT",
+                   help="warm-standby replication: tail this peer "
+                        "daemon's revision watch into a local replica "
+                        "store, so a fleet takeover of the dead peer "
+                        "promotes its records instead of losing them "
+                        "(default: TDAPI_REPL_PEER env, else off)")
     p.add_argument("--cpu-cores", type=int, default=None, metavar="N",
                    help="override the schedulable core count (default: "
                         "probe /proc/cpuinfo; mock-backend fleets on "
                         "small hosts need more cores than exist)")
+    p.add_argument("--placement-policy", default=None, metavar="POLICY",
+                   help="score whole-card grants with this placement "
+                        "objective (max_throughput | "
+                        "finish_time_fairness | cost | first_fit) "
+                        "instead of mechanism-layer first-fit (default: "
+                        "TDAPI_PLACEMENT_POLICY env, else off)")
+    p.add_argument("--defrag-interval", type=float, default=None,
+                   metavar="SEC",
+                   help="run the background defragmenter every SEC "
+                        "seconds over gang shapes the admission path "
+                        "refused on capacity (default: "
+                        "TDAPI_DEFRAG_INTERVAL env, else 0 = on-demand "
+                        "only via POST /api/v1/placement/defrag)")
     return p
+
+
+def store_engine(store) -> str:
+    """"native" or "python": the engine under the App's (watched) store."""
+    from .store.native import NativeMVCCStore
+    inner = getattr(store, "_inner", store)
+    return "native" if isinstance(inner, NativeMVCCStore) else "python"
 
 
 def build_store_parser() -> argparse.ArgumentParser:
@@ -159,11 +200,7 @@ def store_main(argv) -> int:
         if not os.path.exists(wal):
             print(f"no WAL at {wal}", file=sys.stderr)
             return 1
-        try:
-            store = open_store(wal_path=wal, engine=args.engine)
-        except NotImplementedError as e:
-            print(str(e), file=sys.stderr)
-            return 2
+        store = open_store(wal_path=wal, engine=args.engine)
         try:
             info = store.backup(args.out, revision=args.revision)
         finally:
@@ -232,7 +269,13 @@ def main(argv=None) -> int:
               auto_cordon=not args.no_auto_cordon,
               gw_workers=args.gw_workers,
               gw_data_port=args.gw_data_port,
-              cpu_cores=args.cpu_cores)
+              fleet_member=args.fleet_member,
+              fleet_host=args.fleet_host,
+              fleet_ttl=args.fleet_ttl,
+              repl_peer=args.repl_peer,
+              cpu_cores=args.cpu_cores,
+              placement_policy=args.placement_policy,
+              defrag_interval=args.defrag_interval)
     app.start()
 
     status = app.tpu.get_status()
@@ -240,6 +283,7 @@ def main(argv=None) -> int:
              status["topology"]["acceleratorType"], len(status["chips"]),
              status["freeCount"])
     log.info("port pool: %s", app.ports.get_status()["range"])
+    log.info("state store: %s engine", store_engine(app.store))
     log.info("listening on %s — Ctrl-C to stop", app.address)
 
     stop = threading.Event()

@@ -15,10 +15,8 @@ Usage:
     c.getReplicaSet(name="t")
     c.deleteReplicaSet(name="t")
 
-The port's copy of the JAX control plane's client.py, without the
-placement and defrag helpers (their plane is not ported). Against the
-port's daemon the spec it fetches describes only the routes that daemon
-serves, so an operation of a plane not ported is no method of the client.
+The port's copy of the JAX control plane's client.py. Against the port's
+daemon the spec it fetches describes the routes that daemon serves.
 """
 
 from __future__ import annotations
@@ -521,6 +519,37 @@ class ApiClient:
         out = self._envelope(self._raw("GET", path), "traces")
         data = out.get("data") or {}
         return data.get("trace") if trace_id else data.get("traces")
+
+    # ---- placement + defrag helpers (docs/scheduling.md) ----
+
+    def placement_status(self) -> dict:
+        """GET /placement: the active scoring policy (policyActive False =
+        mechanism-layer first-fit), each pool's capacity/fragmentation
+        view — largestFreeBox is the biggest gang admissible right now —
+        and the profile-ledger sizes."""
+        data = self._envelope(self._raw("GET", "/api/v1/placement"),
+                              "getPlacement").get("data") or {}
+        return data.get("placement") or {}
+
+    def defrag_status(self) -> dict:
+        """The defragmenter's counters from GET /placement: budget floor,
+        queued fragmentation-blocked shapes, runs/migrations/denials."""
+        data = self._envelope(self._raw("GET", "/api/v1/placement"),
+                              "getPlacement").get("data") or {}
+        return data.get("defrag") or {}
+
+    def run_defrag(self, tpu_count: int,
+                   mesh_plan: Optional[dict] = None) -> dict:
+        """POST /placement/defrag: synchronously open an ICI-contiguous
+        box for a fragmentation-blocked gang shape. Returns the run
+        report; `opened` True means re-POSTing the gang will admit it."""
+        body: dict = {"tpuCount": int(tpu_count)}
+        if mesh_plan:
+            body["meshPlan"] = dict(mesh_plan)
+        raw = self._raw("POST", "/api/v1/placement/defrag",
+                        json.dumps(body).encode("utf-8"))
+        data = self._envelope(raw, "runDefrag").get("data") or {}
+        return data.get("defrag") or {}
 
     def follow_events(self, target: str = "",
                       last_event_id: Optional[int] = None,

@@ -19,9 +19,10 @@ coordinator, which global rank 0 hosts.
 launch() starts a host's ranks: every rank of a single-host run (what
 `train_llama --sp N` runs), or under a cluster this worker's (run_cluster;
 one local rank runs in the worker's own process). Ranks are processes
-(spawned, never threads: autograd runs a device's backward on one
-thread, so ranks as threads of one process would deadlock in a collective
-inside the backward), each given its rank and the rendezvous. A
+(never threads: autograd runs a device's backward on one thread, so ranks
+as threads of one process would deadlock in a collective inside the
+backward), forked from multiprocessing's fork server, each given its
+rank, the launcher's environment and the rendezvous. A
 rank that exits non-zero stops the others and fails the launch; the
 signals of the control plane's drain and stop (SIGUSR1, SIGTERM, SIGINT)
 are forwarded to every rank.
@@ -187,10 +188,15 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_entry(target, rank, world, backend, init_method, args, local):
-    """A spawned rank: one intra-op thread (the ranks share the host),
+def _rank_entry(target, rank, world, backend, init_method, args, local,
+                env):
+    """A rank: the launcher's environment `env` (the fork server's is
+    the one it started with; CUDA reads its variables at its first call,
+    which comes later), one intra-op thread (the ranks share the host),
     its card (the `local`-th) under NCCL, the group formed, then
     target(rank, world, *args)."""
+    os.environ.clear()
+    os.environ.update(env)
     torch.set_num_threads(1)
     if backend == "nccl":
         torch.cuda.set_device(local)
@@ -221,7 +227,7 @@ def launch(target: Callable, args: tuple, world: int, backend: str,
            init_method: Optional[str] = None,
            timeout: Optional[float] = None,
            ranks: Optional[Sequence[int]] = None) -> None:
-    """Run target(rank, world, *args) in spawned processes over a
+    """Run target(rank, world, *args) in rank processes over a
     `backend` group of `world` ranks (the caller picks the backend:
     backend_for, or gloo by name) and wait for them: every rank, or only
     `ranks` (this worker's of a multi-worker run; the others' workers
@@ -231,17 +237,23 @@ def launch(target: Callable, args: tuple, world: int, backend: str,
     between by another group's connections). Returns when every rank
     exits 0; raises RuntimeError as soon as one exits otherwise,
     TimeoutError after `timeout` seconds, stopping the others in both
-    cases. target and args must pickle (a module-level function)."""
+    cases. target and args must pickle (a module-level function). The
+    ranks fork from multiprocessing's fork server, which its first launch
+    starts (a fresh interpreter, never a fork of this process, so a card
+    this process holds is no rank's); what the server imported before it
+    forks (set_forkserver_preload, torch with CUDA left uninitialised)
+    no rank imports again."""
     if init_method is None:
         with tempfile.TemporaryDirectory() as tmp:
             return launch(target, args, world, backend,
                           f"file://{os.path.join(tmp, 'rdzv')}", timeout,
                           ranks)
     ranks = list(range(world) if ranks is None else ranks)
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context("forkserver")
+    env = dict(os.environ)
     procs = [ctx.Process(target=_rank_entry, daemon=True,
                          args=(target, rank, world, backend, init_method,
-                               args, i))
+                               args, i, env))
              for i, rank in enumerate(ranks)]
     stopping: list = []
 

@@ -1,10 +1,10 @@
 """Deterministic fault injection: crashpoints, transient faults and disk
 faults.
 
-The port's copy of the JAX control plane's faults.py, cut to what the
-ported modules cross: the services', the write-behind queue's and the
-gateway's crashpoints, the guarded backend's transient faults, the HTTP
-layer's drop_response gate, and the store's WAL disk faults.
+The port's copy of the JAX control plane's faults.py: every crashpoint of
+the services, the write-behind queue, federation, replication, the gateway
+and the defragmenter, the guarded backend's transient faults, the gates of
+the HTTP layer and the fleet's RPC, and the store's WAL disk faults.
 
 **Crashpoints** are named step boundaries. One is inert until armed, by
 the TDAPI_CRASHPOINTS env var (comma-separated names) or by arm(). An armed
@@ -52,10 +52,9 @@ class InjectedCrash(BaseException):
 
 
 #: name -> where it sits in its mutation: the services' steps (run,
-#: replace, stop, delete, volumes), the write-behind queue's and the
-#: gateway's (scale-up clone, KV handoff, hedge). The federation,
-#: replication and defrag ones come with the slices that port those
-#: modules.
+#: replace, stop, delete, volumes), the write-behind queue's, federation's
+#: and replication's, the gateway's (scale-up clone, KV handoff, hedge)
+#: and the defragmenter's.
 CRASHPOINTS: dict[str, str] = {
     # run = grant -> create -> start -> persist
     "run.after_grant": "chips/cores granted, container not yet created",
@@ -103,6 +102,27 @@ CRASHPOINTS: dict[str, str] = {
     "volume.delete.after_remove": "backend volume removed, store keys remain",
     # write-behind persistence: the daemon dies before a queued write exists
     "workqueue.before_submit": "mutation applied in memory, persist never queued",
+    # federation leases (federation.py FleetMember): the member dies
+    # between the arbiter persisting a grant and the member recording /
+    # acting on it; the grant is held until the lease TTL expires, when a
+    # surviving ring owner steals and adopts it
+    "fed.after_acquire": "grant persisted by the arbiter, member died "
+                         "before recording ownership",
+    "fed.after_takeover": "orphaned grant stolen, member died before "
+                          "adopting the resource state",
+    # promote-on-loss (FleetMember + replication.py): the taker-over dies
+    # after installing the dead member's replicated records into its own
+    # store but before booting the resource; the records are durable and
+    # the stolen grant re-orphans, so the next sweep adopts without
+    # re-promoting
+    "fed.after_promote": "replicated records installed after a takeover "
+                         "steal, member died before adopting/booting",
+    # standby replication (replication.py StandbyReplicator): death right
+    # after a replica checkpoint (replica WAL compacted, horizon sidecar
+    # persisted); resume re-tails from the persisted horizon, and
+    # re-applying an applied revision is a no-op (put_at / delete_at)
+    "repl.after_snapshot": "replica checkpointed + horizon persisted, "
+                           "replicator died before resuming the tail",
     # disaggregated KV handoff (gateway.py _forward_disagg): prefill ran
     # and the prompt KV sits exported under its key on the prefill
     # replica — the gateway dies before the decode claim. The export's
@@ -118,6 +138,14 @@ CRASHPOINTS: dict[str, str] = {
     # is reconciled by the watchdog)
     "hedge.in_flight": "hedge slot claimed, duplicate request not yet "
                        "dispatched",
+    # defragmenter (defrag.py Defragmenter.run_for): the umbrella defrag
+    # intent is journaled, but recovery is carried by the per-tenant
+    # replace intents; after a crash at either point a re-run re-diagnoses
+    # live state, skips tenants already moved, and opens the box with
+    # nothing leaked
+    "defrag.after_plan": "eviction plan journaled, no tenant migrated yet",
+    "defrag.after_migrate": "first tenant migrated (its replace committed), "
+                            "remaining evictions not yet run",
 }
 
 _lock = threading.Lock()

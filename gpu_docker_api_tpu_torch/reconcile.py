@@ -44,11 +44,7 @@ must report zero actions):
 The result is a report dict (also emitted to the EventLog and served at
 GET /api/v1/reconcile) whose "actions" total is the no-op indicator.
 
-The port's copy of the JAX control plane's reconcile.py. The intent of
-the one plane the port does not serve yet (a defrag run) cannot be
-settled here: its replay needs defrag.py. Such an open intent is refused
-by name (UnportedIntentError), so the daemon does not boot over a state
-it cannot settle, and the intent stays journaled for a daemon that can.
+The port's copy of the JAX control plane's reconcile.py.
 """
 
 from __future__ import annotations
@@ -114,13 +110,6 @@ INFORMATIONAL_STEPS = frozenset({
 
 KNOWN_STEPS = CONSULTED_STEPS | INFORMATIONAL_STEPS
 
-#: intent ops of the planes not ported yet -> the module their replay needs
-UNPORTED_INTENT_OPS = {"defrag": "defrag.py"}
-
-
-class UnportedIntentError(RuntimeError):
-    """An open intent of a plane the port does not serve yet."""
-
 
 class Reconciler:
     def __init__(self, backend, client, wq, tpu, cpu, ports,
@@ -169,14 +158,7 @@ class Reconciler:
         # idempotency sweep below settles the key's cache entry the SAME
         # way, so a post-crash client retry sees exactly one state change
         idem_outcomes: dict[str, str] = {}
-        open_intents = self.intents.open_intents()
-        for rec in open_intents:
-            if rec.op in UNPORTED_INTENT_OPS:
-                raise UnportedIntentError(
-                    f"open {rec.op} intent for {rec.target!r}: its replay "
-                    f"needs {UNPORTED_INTENT_OPS[rec.op]}, which the PyTorch "
-                    f"port does not have yet; settle it with the JAX daemon")
-        for rec in open_intents:
+        for rec in self.intents.open_intents():
             ops_before = len(report["opsCompleted"])
             replay_ok = True
             try:
@@ -288,6 +270,7 @@ class Reconciler:
             "volume.delete": self._replay_volume_delete,
             "gateway.scale": self._replay_gateway_scale,
             "gateway.delete": self._replay_gateway_delete,
+            "defrag": self._replay_defrag,
         }.get(rec.op)
         if handler is None:
             # an op nobody here can replay means a NEWER (or corrupt)
@@ -360,6 +343,16 @@ class Reconciler:
         if ports:
             self.ports.restore(ports, owner)
             report["grantsFreed"]["ports"] += len(ports)
+
+    def _replay_defrag(self, rec: IntentRecord, report: dict) -> None:
+        """A defrag run died mid-eviction. The umbrella intent carries no
+        recovery of its own: every tenant move journaled its OWN replace
+        intent (replayed above like any interrupted replace), and the next
+        defrag run re-diagnoses live state — already-moved tenants no
+        longer occupy the box, so the re-run is a smaller plan, not a
+        repeat. Clearing the record (done by the caller) is the whole
+        replay."""
+        report["opsCompleted"].append(f"defrag-cleared:{rec.target}")
 
     def _replay_run(self, rec: IntentRecord, report: dict) -> None:
         """A run that never persisted its record is fully unwound; one that

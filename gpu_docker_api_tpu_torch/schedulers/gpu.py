@@ -14,8 +14,10 @@ that shape:
 3. else — only when allow_fragmented — any N free cards, like the
    reference.
 
-The box search is the Python one; JAX's C++ finder
-(native/topology_alloc.cc) is not ported yet, and asking for it raises.
+The box search is the Python one. With `native_finder=True` JAX's C++
+finder (native/topology_alloc.cc, built by _native.py) searches first, as
+JAX's scheduler does whenever its core loads, and the Python search stays
+the fallback when the core cannot load.
 The state persists under JAX's key (`tpus/tpuStatusMap`).
 """
 
@@ -75,11 +77,11 @@ class GpuScheduler(Scheduler):
                  topology: Optional[GpuTopology] = None,
                  allow_fragmented: bool = True,
                  native_finder: bool = False):
-        if native_finder:
-            raise NotImplementedError(
-                "the native box finder (native/topology_alloc.cc) is not "
-                "yet ported; the Python box search is the path")
         super().__init__(client, wq)
+        # the C++ box search (native/topology_alloc.cc) in front of the
+        # Python one, as JAX's scheduler takes it whenever its core loads;
+        # opt-in here (see _find_box)
+        self.native_finder = native_finder
         self.allow_fragmented = allow_fragmented
         # per-n memo of candidate boxes: the topology's geometry never
         # changes after construction, so enumerating sub_boxes + computing
@@ -415,7 +417,9 @@ class GpuScheduler(Scheduler):
         SURVEY §7 hard part 1: the new grant should CONTAIN the old one
         when an equally good box does), then the most packed placement
         (fewest free ICI neighbors outside the box — keeps the remaining
-        free space contiguous).
+        free space contiguous). With native_finder, the C++ core
+        (native/topology_alloc.cc, _native_find_box) searches first when
+        it loads.
 
         With a plan, only boxes whose geometry hosts the plan's axis
         factors qualify (topology.plan_fits_box), and among those the
@@ -423,6 +427,24 @@ class GpuScheduler(Scheduler):
         wins the tie — "tp/sp inside a host where possible" is a score,
         not a hard requirement, exactly like the whole-box worker span."""
         prefer = prefer or set()
+        # the native core is gated BEHIND the memo: it doesn't score
+        # worker spans, so when no candidate box of this size is
+        # single-worker (cands sort (span, sa)-ascending — check the
+        # head) its pick would always be discarded below and the call
+        # would be a pure pessimization on top of the python scan
+        if self.native_finder and plan is None \
+                and (cands := self._box_candidates(n)) and cands[0][4] == 1:
+            native = self._native_find_box(n, free)
+            if native is not None:
+                if not native:
+                    return None  # core searched the same space: no box exists
+                # the core doesn't score worker spans or reuse overlap —
+                # accept its pick only when neither axis could rank another
+                # box higher (full prefer containment can't be beaten on
+                # the overlap axis)
+                if (prefer <= set(native)
+                        and len(self.topology.workers_spanned(native)) == 1):
+                    return native
         factors = plan.factors() if plan is not None else None
         inner = (plan.tp * plan.sp) if plan is not None else 1
         best: Optional[list[int]] = None
@@ -497,6 +519,29 @@ class GpuScheduler(Scheduler):
         factors = plan.factors()
         return any(plan_fits_box(dims, factors)
                    for *_, dims in self._box_candidates(n))
+
+    def _native_find_box(self, n: int, free: set[int]) -> Optional[list[int]]:
+        """C++ box search. Returns None when the core doesn't apply (torus,
+        lib missing), [] when it applies but found nothing, else a candidate
+        grant (caller re-checks worker span)."""
+        if self.topology.wraparound:
+            return None
+        from .._native import load
+        lib = load("topoalloc")
+        if lib is None:
+            return None
+        import ctypes
+        sx, sy, sz = self.topology.shape
+        total = sx * sy * sz
+        # bulk-fill through a bytearray: the per-index ctypes __setitem__
+        # loop was the dominant cost of the whole native call
+        raw = bytearray(b"\x01" * total)
+        for i in free:
+            raw[i] = 0
+        status = (ctypes.c_int8 * total).from_buffer(raw)
+        out = (ctypes.c_int32 * n)()
+        ok = lib.topo_find_box(sx, sy, sz, status, n, out)
+        return [int(out[i]) for i in range(n)] if ok else []
 
     def enumerate_candidates(self, n: int,
                              plan: Optional[PlanSpec] = None) -> list[dict]:

@@ -12,13 +12,10 @@ store -> workqueue -> schedulers -> version maps -> backend -> services.
 
 The port's copy of the JAX control plane's server/app.py, over the card
 scheduler (GpuScheduler: `tpu` and the `/tpus` routes keep JAX's names).
-The inference gateways and their SO_REUSEPORT data-plane workers are
-served as in the JAX daemon (gateway.py, server/workers.py). The planes
-not ported yet are left out: the fleet, its replication, placement and
-defrag.
-Each of their routes answers a NotPorted (501) envelope
-that names the route (UNPORTED_ROUTES), and the served OpenAPI document
-describes only the routes this daemon serves.
+Every plane of the JAX daemon is served: the inference gateways and their
+SO_REUSEPORT data-plane workers (gateway.py, server/workers.py), the fleet
+and its warm-standby replication (server/fleet.py, replication.py), and
+placement and defrag (placement.py, defrag.py).
 """
 
 from __future__ import annotations
@@ -27,7 +24,6 @@ import json
 import logging
 import math
 import os
-import re
 import threading
 import time
 from collections import deque
@@ -51,12 +47,16 @@ from ..obs.metrics import Registry
 from ..obs.recorder import FlightRecorder
 from ..obs.trace import TraceCollector
 from ..gateway import GatewayConfig, GatewayManager
+from ..defrag import Defragmenter
+from ..placement import DEFAULT_POLICY, POLICIES, FleetModel
 from ..reconcile import Reconciler
 from .. import regulator
 from ..schedulers import (
     SHARE_QUANTA, CpuScheduler, GpuScheduler, PortScheduler, parse_gpu_count,
 )
 from ..services import ReplicaSetService, VolumeService
+from .. import replication
+from ..replication import StandbyReplicator
 from ..store import StateClient, StoreReadOnlyError, open_store
 from ..topology import GpuTopology, discover_topology
 from ..utils import copyfast
@@ -66,57 +66,13 @@ from ..version import (
 )
 from ..workqueue import WorkQueue
 from .codes import ResCode
+from .fleet import FleetPlane
 from .http import (
     ApiServer, RawResponse, Request, Response, Router, StreamingResponse,
     err, ok, precondition_failed, too_many, unavailable,
 )
 
 log = logging.getLogger(__name__)
-
-#: (METHOD, route) -> the plane that serves it in the JAX daemon; each
-#: answers a NotPorted envelope until that plane is ported
-UNPORTED_ROUTES = {
-    ("POST", "/api/v1/fleet/lease"): "fleet",
-    ("POST", "/api/v1/fleet/lease/:member/renew"): "fleet",
-    ("DELETE", "/api/v1/fleet/lease/:member"): "fleet",
-    ("GET", "/api/v1/fleet/members"): "fleet",
-    ("GET", "/api/v1/fleet/grants"): "fleet",
-    ("POST", "/api/v1/fleet/grants"): "fleet",
-    ("POST", "/api/v1/fleet/grants/release"): "fleet",
-    ("GET", "/api/v1/placement"): "placement",
-    ("POST", "/api/v1/placement/defrag"): "defrag",
-}
-
-
-def restrict_spec(doc: dict, routes: list[tuple[str, str]]) -> dict:
-    """The OpenAPI document `doc` with only the operations in `routes`
-    ((METHOD, /path/with/:params) pairs), in the document's own order."""
-    served: dict[str, set[str]] = {}
-    for method, route in routes:
-        path = re.sub(r":([a-zA-Z_]+)", r"{\1}", route)
-        served.setdefault(path, set()).add(method.lower())
-    paths = {}
-    for path, item in doc.get("paths", {}).items():
-        keep = {k: v for k, v in item.items()
-                if k not in _HTTP_METHODS or k in served.get(path, ())}
-        if any(k in _HTTP_METHODS for k in keep):
-            paths[path] = keep
-    return {**doc, "paths": paths}
-
-
-_HTTP_METHODS = frozenset({"get", "put", "post", "patch", "delete",
-                           "options", "head", "trace"})
-
-
-def _not_ported(method: str, route: str, plane: str):
-    def handler(req: Request) -> Response:
-        return Response(ResCode.NotPorted,
-                        {"route": f"{method} {route}", "plane": plane},
-                        msg=f"{method} {route} is not yet served by the "
-                            f"PyTorch port's daemon: the {plane} plane is "
-                            f"not ported",
-                        http_status=501)
-    return handler
 
 
 def _if_match(req: Request):
@@ -247,10 +203,10 @@ class _WrappingRouter:
     """Registration facade used by App._router(): every mutating method
     (POST/PATCH/DELETE) is wrapped with the admission gate + idempotency
     middleware at add() time, so no mutating route can forget it.
-    raw=True opts a route out: data-plane traffic (the gateway generate
-    route), which is not a control mutation, takes no gate slot and
-    applies its own admission policy (gateway.py queue bound + deadline);
-    and the refusals of the planes not ported, which mutate nothing."""
+    raw=True opts a route out — ONLY for data-plane traffic (the gateway
+    generate route): serving requests are not control mutations, must not
+    consume mutation-gate slots, and apply their own admission policy
+    (gateway.py queue bound + deadline)."""
 
     MUTATING = ("POST", "PATCH", "DELETE")
 
@@ -287,7 +243,13 @@ class App:
                  mutation_wait_timeout: float = 10.0,
                  idem_ttl: Optional[float] = None,
                  gw_workers: Optional[int] = None,
-                 gw_data_port: Optional[int] = None):
+                 gw_data_port: Optional[int] = None,
+                 fleet_member: Optional[str] = None,
+                 fleet_host: Optional[str] = None,
+                 fleet_ttl: Optional[float] = None,
+                 repl_peer: Optional[str] = None,
+                 placement_policy: Optional[str] = None,
+                 defrag_interval: Optional[float] = None):
         os.makedirs(state_dir, exist_ok=True)
         self.state_dir = state_dir
 
@@ -330,7 +292,7 @@ class App:
         self.traces = TraceCollector(state_dir)
         # every store mutation feeds the watch hub in exact revision
         # order (federation.WatchedStore) — the seam GET /api/v1/watch
-        # and client.Informer resume against
+        # and the fleet's list+watch informers resume against
         self.hub = federation.WatchHub()
         self.store = federation.WatchedStore(
             open_store(wal_path=os.path.join(state_dir, "state.wal"),
@@ -461,6 +423,74 @@ class App:
                             "unavailable (native shm-atomics core not "
                             "built?) — serving stays in-process",
                             n_workers)
+        # fleet control plane (server/fleet.py): the arbiter is ALWAYS
+        # hosted (any daemon can be the --fleet-host others point at);
+        # a member seat only when configured — a single-daemon
+        # deployment pays neither heartbeats nor ownership checks. The
+        # member is configured in start(): its advertised address is
+        # this server's BOUND port, which does not exist yet.
+        if fleet_ttl is None:
+            try:
+                fleet_ttl = float(os.environ.get("TDAPI_FLEET_TTL", "")
+                                  or federation.DEFAULT_TTL)
+            except ValueError:
+                fleet_ttl = federation.DEFAULT_TTL
+        self.fleet = FleetPlane(self.store, self.hub, events=self.events,
+                                ttl=fleet_ttl)
+        self._fleet_member_id = (fleet_member
+                                 or os.environ.get("TDAPI_FLEET_MEMBER", ""))
+        self._fleet_host = (fleet_host if fleet_host is not None
+                            else os.environ.get("TDAPI_FLEET_HOST", ""))
+        self._api_key = (api_key if api_key is not None
+                         else os.environ.get("APIKEY", ""))
+        # warm-standby replication (replication.py): tail a peer daemon's
+        # watch stream into a local replica store; on a fleet takeover
+        # the promote hook installs the dead peer's records from it.
+        # Constructed here (the replica opens immediately — promote must
+        # work even before start()), the tail thread starts in start().
+        self._repl_peer = (repl_peer
+                           or os.environ.get("TDAPI_REPL_PEER", ""))
+        self.replicator: Optional[StandbyReplicator] = None
+        if self._repl_peer:
+            self.replicator = StandbyReplicator(
+                self._repl_peer, os.path.join(state_dir, "replica"),
+                api_key=self._api_key, engine=store_engine,
+                events=self.events)
+        # heterogeneity-aware placement (placement.py) + defragmenter
+        # (defrag.py). The fleet model is ALWAYS built — GET /placement
+        # and the tdapi_placement_* gauges read it — but the scored
+        # enumerate→score→claim path only engages when a policy is
+        # configured (param or TDAPI_PLACEMENT_POLICY); unset keeps the
+        # mechanism layer's first-fit byte-for-byte, so single-daemon
+        # deployments pay nothing new.
+        policy = (placement_policy
+                  or os.environ.get("TDAPI_PLACEMENT_POLICY", "") or "")
+        if policy and policy not in POLICIES:
+            raise ValueError(f"unknown placement policy {policy!r}; "
+                             f"known: {sorted(POLICIES)}")
+        self.placement_policy = policy
+        self.placer = FleetModel(
+            {self.tpu.topology.generation: self.tpu},
+            policy=policy or DEFAULT_POLICY, events=self.events)
+        if policy:
+            self.replicasets.placer = self.placer
+
+        def _owns(name: str) -> bool:
+            # federation gate: on a fleet member, defrag may only migrate
+            # replicaSets THIS daemon owns — moving a peer's tenant would
+            # race its owner's mutations
+            m = self.fleet.member
+            return m is None or ("containers", name) in m.owned
+
+        self.defrag = Defragmenter(self.placer, self.replicasets,
+                                   events=self.events, owns=_owns)
+        if defrag_interval is None:
+            try:
+                defrag_interval = float(
+                    os.environ.get("TDAPI_DEFRAG_INTERVAL", "0") or 0)
+            except ValueError:
+                defrag_interval = 0.0
+        self._defrag_interval = defrag_interval
         # store.read_only event edge detector (one event per latch trip)
         self._ro_trips_seen = 0
         # SSE follower count (tdapi_events_stream_clients) — mutated from
@@ -512,8 +542,11 @@ class App:
         r.add("POST", f"{v1}/gateways/:name/generate", self.h_gw_generate,
               raw=True)
         r.add("GET", f"{v1}/events", self.h_events)
-        # list+watch on MVCC revisions
+        # list+watch on MVCC revisions + fleet lease/grant plane
+        # (server/fleet.py; the fleet routes register raw — heartbeat
+        # traffic must not consume mutation-gate slots)
         r.add("GET", f"{v1}/watch", self.h_watch)
+        self.fleet.register(r, v1)
         r.add("GET", f"{v1}/traces", self.h_traces)
         r.add("GET", f"{v1}/traces/:traceId", self.h_trace)
         r.add("GET", f"{v1}/reconcile", self.h_reconcile)
@@ -521,15 +554,14 @@ class App:
         r.add("POST", f"{v1}/tpus/:id/cordon", self.h_cordon)
         r.add("POST", f"{v1}/tpus/:id/uncordon", self.h_uncordon)
         r.add("POST", f"{v1}/tpus/drain", self.h_drain)
+        r.add("GET", f"{v1}/placement", self.h_placement)
+        r.add("POST", f"{v1}/placement/defrag", self.h_defrag)
         r.add("GET", "/metrics", self.h_metrics)
         r.add("GET", "/openapi.json", self.h_openapi)
         r.add("GET", f"{v1}/resources/tpus", self.h_res_tpus)
         r.add("GET", f"{v1}/resources/gpus", self.h_res_tpus)  # legacy alias
         r.add("GET", f"{v1}/resources/cpus", self.h_res_cpus)
         r.add("GET", f"{v1}/resources/ports", self.h_res_ports)
-        self._served = base.routes()
-        for (method, route), plane in UNPORTED_ROUTES.items():
-            r.add(method, route, _not_ported(method, route, plane), raw=True)
         return base
 
     # -------------------------------------- mutation middleware (tentpole)
@@ -553,6 +585,13 @@ class App:
                                    reason=reason, request_id=req.request_id)
                 return too_many(reason)
             try:
+                # fleet ownership: a member daemon refuses mutations for
+                # resources the hash ring assigns elsewhere (the refusal
+                # names the owner so the client re-routes) — BEFORE the
+                # idempotency layer, so a refused call caches nothing
+                denied = self.fleet.guard_mutation(req)
+                if denied is not None:
+                    return denied
                 denials = getattr(self.store, "read_only_denials", 0)
                 resp = self._with_idempotency(req, handler)
                 if getattr(self.store, "read_only_denials", 0) > denials:
@@ -695,6 +734,11 @@ class App:
         except xerrors.GpuOversubscribedError:
             return err(ResCode.ContainerTpuOversubscribed)
         except xerrors.GpuNotEnoughError:
+            # a capacity-refused gang may be fragmentation-blocked, which
+            # waiting never fixes — note it for the background defragmenter
+            if spec.meshPlan:
+                self.defrag.note_infeasible(int(spec.tpuCount),
+                                            spec.meshPlan)
             return err(ResCode.ContainerTpuNotEnough)
         except xerrors.CpuNotEnoughError:
             return err(ResCode.ContainerCpuNotEnough)
@@ -1192,95 +1236,43 @@ class App:
 
         return StreamingResponse(gen(since))
 
-    #: watch-stream heartbeat cadence (seconds), as the events stream's
-    WATCH_HEARTBEAT_S = 15.0
-
     def h_watch(self, req: Request) -> Response:
-        """`GET /api/v1/watch?resource=&fromRevision=` — list+watch on
-        MVCC revisions (the JAX daemon's server/fleet.py h_watch).
+        """List+watch on MVCC revisions — see FleetPlane.h_watch for the
+        wire contract (snapshot with ?list=1, else SSE of revision
+        frames; `revision too old` forces a relist)."""
+        return self.fleet.h_watch(req, lambda: self.server._draining)
 
-        `?list=1` answers an atomic `{revision, items}` snapshot: the
-        revision is an exact resume point for that item set. Otherwise
-        an SSE stream of `id: <revision>` + `data: <event>` frames from
-        fromRevision (exclusive; default = now). A fromRevision below
-        the hub's retention floor is refused up front with
-        `WatchCompacted` (1036) — and a follower that falls behind the
-        ring mid-stream gets a terminal `event: gap` frame — so a
-        consumer ALWAYS relists rather than silently missing revisions;
-        the informer in client.py does exactly that."""
-        resource = req.query.get("resource", [""])[0]
-        if req.query_flag("list"):
-            rev, items = self.store.list_snapshot(resource)
-            return ok({"resource": resource, "revision": rev,
-                       "items": items})
-        try:
-            hb = float(req.query.get(
-                "heartbeat", [str(self.WATCH_HEARTBEAT_S)])[0])
-        except ValueError:
-            return err(ResCode.InvalidParams)
-        if not math.isfinite(hb):
-            return err(ResCode.InvalidParams)
-        hb = min(max(0.05, hb), 3600.0)
-        raw_from = req.query.get("fromRevision",
-                                 [req.header("Last-Event-ID")])[0]
-        try:
-            since = int(raw_from) if str(raw_from).strip() else \
-                self.hub.head
-        except ValueError:
-            return err(ResCode.InvalidParams)
-        try:
-            # refuse a too-old resume BEFORE streaming: a JSON envelope
-            # the client can branch on beats a dead SSE socket
-            self.hub.events_since(since, resource)
-        except federation.WatchCompactedError as e:
-            return Response(ResCode.WatchCompacted,
-                            {"floor": e.floor,
-                             "fromRevision": e.from_revision})
-        if since > self.hub.head:
-            # a resume AHEAD of this daemon's head is a revision the hub
-            # never minted — a foreign revision space. Waiting for the
-            # counter to catch up would serve the wrong history; force
-            # the relist that re-anchors the cache here.
-            return Response(ResCode.WatchCompacted,
-                            {"floor": self.hub.floor,
-                             "head": self.hub.head,
-                             "fromRevision": since},
-                            msg="fromRevision is ahead of this daemon's "
-                                "current revision — foreign revision "
-                                "space; relist required")
+    def _fleet_promote(self, resource: str, name: str) -> None:
+        """Takeover promotion: before adopting `resource/name` stolen
+        from a dead member, install the replica's copy of its record
+        into this daemon's own store — so _fleet_adopt reconciles real
+        state instead of a hole. Runs behind the steal's fencing epoch
+        (FleetMember.heartbeat_once). Idempotent and non-destructive:
+        a record this store already has wins (it is at least as fresh —
+        this daemon may have served the resource before), so a crash
+        between promote and adopt (crashpoint fed.after_promote) just
+        re-runs it."""
+        if self.replicator is None:
+            return
+        kv = self.replicator.get_record(resource, name)
+        if kv is None:
+            return    # the replica never saw it (or saw its deletion)
+        key = replication.resource_key(resource, name)
+        if self.store.get(key) is None:
+            self.store.put(key, kv.value)
 
-        def gen(since: int):
-            yield b"retry: 2000\n\n"
-            last_sent = time.monotonic()
-            while not self.server._draining:
-                try:
-                    evts = self.hub.wait_since(since, resource,
-                                               timeout=hb)
-                except federation.WatchCompactedError as e:
-                    # the ring lapped this follower while it was parked
-                    # or slow — a silent gap is the one forbidden
-                    # outcome; tell it to relist, then end the stream
-                    self.events.record(
-                        "watch.gap", target=resource or "*",
-                        detail={"fromRevision": e.from_revision,
-                                "floor": e.floor})
-                    yield (f"event: gap\ndata: "
-                           f"{json.dumps({'floor': e.floor})}\n\n"
-                           ).encode()
-                    return
-                if evts:
-                    out = []
-                    for e in evts:
-                        since = e["revision"]
-                        out.append(f"id: {e['revision']}\ndata: "
-                                   f"{json.dumps(e)}\n\n".encode())
-                    yield b"".join(out)
-                    last_sent = time.monotonic()
-                elif time.monotonic() - last_sent >= hb:
-                    yield b": heartbeat\n\n"
-                    last_sent = time.monotonic()
-
-        return StreamingResponse(gen(since))
+    def _fleet_adopt(self, resource: str, name: str) -> None:
+        """Takeover adoption: this daemon just stole `resource/name`
+        from a dead member. Derive-don't-store — nothing is copied from
+        the dead owner; one reconciler pass cross-checks stored records
+        against grants/backends/intents exactly like boot does, and an
+        adopted gateway rebuilds its roster from stored container
+        records (boot_one)."""
+        with self._reconcile_lock:
+            if not self.intents.open_intents():
+                self.last_reconcile = self.reconciler.run()
+        if resource == "gateways":
+            self.gateways.boot_one(name)
 
     def h_traces(self, req: Request) -> Response:
         """Finished-trace summaries, slowest first; ?op= substring-matches
@@ -1350,7 +1342,8 @@ class App:
                          for g in self.gateways.list()},
             "reconcileActions": self.last_reconcile["actions"],
             "storeReadOnly": read_only,
-            "replication": None,
+            "replication": (self.replicator.describe()
+                            if self.replicator is not None else None),
         })
 
     def _chip_index(self, req: Request) -> int:
@@ -1388,15 +1381,49 @@ class App:
             log.exception("drain failed [%s]", req.request_id)
             return err(ResCode.ServerBusy)
 
+    def h_placement(self, req: Request) -> Response:
+        """GET /placement: active policy, per-pool capacity/fragmentation
+        views, profile ledgers, and the defragmenter's counters."""
+        out = self.placer.describe()
+        out["policyActive"] = bool(self.placement_policy)
+        return ok({"placement": out, "defrag": self.defrag.describe()})
+
+    def h_defrag(self, req: Request) -> Response:
+        """POST /placement/defrag {tpuCount, meshPlan?}: synchronously run
+        one defrag cycle for a fragmentation-blocked gang shape — the
+        operator-driven twin of the background loop."""
+        try:
+            body = req.json() or {}
+            n = int(body.get("tpuCount", body.get("n", 0)) or 0)
+            if n <= 0:
+                return err(ResCode.InvalidParams,
+                           "tpuCount must be a positive whole-chip count")
+            plan = (PlanSpec.from_json(body["meshPlan"])
+                    if body.get("meshPlan") else None)
+            if plan is not None and not plan.is_trivial \
+                    and plan.size != n:
+                return err(ResCode.InvalidParams,
+                           f"meshPlan sized {plan.size} cannot shape a "
+                           f"{n}-chip gang")
+        except (ValueError, TypeError, KeyError) as e:
+            return err(ResCode.InvalidParams, str(e))
+        try:
+            report = self.defrag.run_for(n, plan,
+                                         requester=req.request_id)
+        except xerrors.BackendUnavailableError as e:
+            return unavailable(e)
+        except Exception:  # noqa: BLE001
+            log.exception("defrag failed [%s]", req.request_id)
+            return err(ResCode.ServerBusy)
+        return ok({"defrag": report})
+
     def _build_registry(self) -> Registry:
         """App-local metrics registry: every inventory/queue/gate series
         whose truth lives on THIS App's components, refreshed by one
         collect callback at scrape time. Module-global instruments (the
         latency histograms fed by guard/store/schedulers/regulator) live
         in obs_metrics.REGISTRY and render after these. Series names are
-        the JAX daemon's, registered in obs/names.py; the families of the
-        planes not ported (fleet, replication, placement, defrag) are not
-        declared."""
+        the JAX daemon's, registered in obs/names.py."""
         m = Registry()
         g_chips = m.gauge("tdapi_tpu_chips", labels=("state",))
         g_cores = m.gauge("tdapi_cpu_cores", labels=("state",))
@@ -1479,6 +1506,47 @@ class App:
             g_brk = m.gauge("tdapi_breaker_state",
                             "0 = closed, 1 = half-open, 2 = open")
             g_brk_f = m.gauge("tdapi_breaker_consecutive_failures")
+        # federation: fleet membership + grant table + watch hub
+        # (declared unconditionally — family parity across single- and
+        # multi-daemon deployments, zero-valued when no fleet)
+        g_fed_mem = m.gauge("tdapi_fed_members",
+                            "live-leased fleet members (this arbiter)")
+        g_fed_gr = m.gauge("tdapi_fed_grants",
+                           "resource grants in the fleet grant table")
+        g_fed_own = m.gauge("tdapi_fed_owned",
+                            "resources this daemon's member seat "
+                            "believes it owns")
+        g_fed_renew = m.gauge("tdapi_fed_renewals_total", typ="counter")
+        g_fed_steal = m.gauge(
+            "tdapi_fed_steals_total",
+            "grants stolen from expired members (takeovers arbitrated)",
+            typ="counter")
+        g_fed_exp = m.gauge("tdapi_fed_expiries_total",
+                            "leases lazily reaped after TTL",
+                            typ="counter")
+        g_fed_wev = m.gauge("tdapi_fed_watch_events_total",
+                            "store mutations fed to the watch hub",
+                            typ="counter")
+        g_fed_whead = m.gauge("tdapi_fed_watch_head_revision",
+                              "highest MVCC revision the watch hub has "
+                              "seen")
+        # warm-standby replication (replication.py). Declared
+        # unconditionally — same family-parity contract as the fed
+        # gauges; zero-valued when no --repl-peer is configured
+        g_repl_hor = m.gauge("tdapi_repl_horizon",
+                             "highest peer revision contiguously applied "
+                             "to the replica store")
+        g_repl_lag = m.gauge("tdapi_repl_lag_revisions",
+                             "peer head minus replicated horizon")
+        g_repl_ev = m.gauge("tdapi_repl_events_applied_total",
+                            "watch events applied to the replica",
+                            typ="counter")
+        g_repl_rs = m.gauge("tdapi_repl_resyncs_total",
+                            "full snapshot resyncs after WatchCompacted",
+                            typ="counter")
+        g_repl_con = m.gauge("tdapi_repl_connected",
+                             "1 while the replication tail holds a live "
+                             "watch stream to the peer")
         # tracing + streaming self-observation
         g_traces = m.gauge("tdapi_traces_retained",
                            "finished traces held in the ring "
@@ -1577,6 +1645,41 @@ class App:
         if self.workers is not None:
             h_wk_qw.set_extern(self.workers.queue_wait_extern)
 
+        # heterogeneity-aware placement + defragmenter: the
+        # families are declared unconditionally (family parity — a
+        # single-pool no-policy daemon exports zeros, not absences)
+        g_pl_pol = m.gauge("tdapi_placement_policy",
+                           "active placement objective (value 1, policy "
+                           "label; 0 when scoring is not engaged)",
+                           labels=("policy",))
+        g_pl_pools = m.gauge("tdapi_placement_pools")
+        g_pl_free = m.gauge("tdapi_placement_free_chips",
+                            "allocatable whole chips, per pool",
+                            labels=("pool",))
+        g_pl_box = m.gauge("tdapi_placement_largest_free_box",
+                           "largest fully-free ICI-contiguous box, per "
+                           "pool — the gang admission ceiling",
+                           labels=("pool",))
+        g_pl_frag = m.gauge("tdapi_placement_fragmentation",
+                            "1 - largestFreeBox/freeChips, per pool",
+                            labels=("pool",))
+        g_pl_scored = m.gauge("tdapi_placement_scored_total",
+                              "candidate boxes scored", typ="counter")
+        g_pl_placed = m.gauge("tdapi_placement_placements_total",
+                              "scored placements committed", typ="counter")
+        g_df_runs = m.gauge("tdapi_defrag_runs_total", typ="counter")
+        g_df_migs = m.gauge("tdapi_defrag_migrations_total",
+                            "tenants migrated to open gang boxes",
+                            typ="counter")
+        g_df_moved = m.gauge("tdapi_defrag_moved_chips_total", typ="counter")
+        g_df_lost = m.gauge("tdapi_defrag_steps_lost_total",
+                            "training steps lost across defrag migrations "
+                            "(0 while every move quiesces)", typ="counter")
+        g_df_den = m.gauge("tdapi_defrag_denied_total",
+                           "defrag runs refused (not blocked / over "
+                           "budget / eviction failed)", typ="counter")
+        g_df_ms = m.gauge("tdapi_defrag_last_run_ms")
+
         def collect() -> None:
             tpu = self.tpu.get_status()
             cpu = self.cpu.get_status()
@@ -1643,6 +1746,47 @@ class App:
                 g_brk.set(breaker_gauge(brk["state"]))
                 g_brk_f.set(brk["consecutiveFailures"])
             g_traces.set(self.traces.stats()["retained"])
+            arb = self.fleet.arbiter
+            g_fed_mem.set(len(arb.members()))
+            g_fed_gr.set(len(arb.grants()))
+            g_fed_own.set(len(self.fleet.member.owned)
+                          if self.fleet.member is not None else 0)
+            g_fed_renew.set(arb.renewals_total)
+            g_fed_steal.set(arb.steals_total)
+            g_fed_exp.set(arb.expiries_total)
+            g_fed_wev.set(self.hub.events_total)
+            g_fed_whead.set(self.hub.head)
+            pl = self.placer.describe()
+            g_pl_pol.reset()
+            g_pl_pol.set(1 if self.placement_policy else 0,
+                         policy=pl["policy"])
+            g_pl_pools.set(len(pl["pools"]))
+            for g in (g_pl_free, g_pl_box, g_pl_frag):
+                g.reset()
+            for p in pl["pools"]:
+                g_pl_free.set(p["freeChips"], pool=p["name"])
+                g_pl_box.set(p["largestFreeBox"], pool=p["name"])
+                g_pl_frag.set(p["fragmentation"], pool=p["name"])
+            g_pl_scored.set(pl["scoredTotal"])
+            g_pl_placed.set(pl["placementsTotal"])
+            df = self.defrag.describe()
+            g_df_runs.set(df["runsTotal"])
+            g_df_migs.set(df["migrationsTotal"])
+            g_df_moved.set(df["movedChipsTotal"])
+            g_df_lost.set(df["stepsLostTotal"])
+            g_df_den.set(df["deniedTotal"])
+            g_df_ms.set(df["lastRunMs"])
+            if self.replicator is not None:
+                rs = self.replicator.describe()
+                g_repl_hor.set(rs["horizon"])
+                g_repl_lag.set(rs["lagRevisions"])
+                g_repl_ev.set(rs["eventsApplied"])
+                g_repl_rs.set(rs["resyncs"])
+                g_repl_con.set(1 if rs["connected"] else 0)
+            else:
+                for g in (g_repl_hor, g_repl_lag, g_repl_ev, g_repl_rs,
+                          g_repl_con):
+                    g.set(0)
             for g in (g_gw_rep, g_gw_q, g_gw_in, g_gw_req, g_gw_shed,
                       g_gw_scale, g_gw_aff, g_gw_aff_tok, g_kv_blocks,
                       g_kv_handoff, g_gw_eject, g_gw_hedge,
@@ -1733,21 +1877,18 @@ class App:
     _openapi_bytes: Optional[bytes] = None
 
     def h_openapi(self, req: Request) -> Response:
-        """Serve the shipped OpenAPI document (api/openapi.json, the JAX
-        daemon's), restricted to the operations this daemon serves: a
-        route of a plane not ported is not described. Read once, served
-        from memory thereafter."""
+        """Serve the shipped OpenAPI document (reference distributes
+        api/gpu-docker-api-en.openapi.json as a file; here it is also an
+        endpoint). Read once, served from memory thereafter."""
         if self._openapi_bytes is None:
             spec = os.path.join(os.path.dirname(os.path.dirname(
                 os.path.dirname(os.path.abspath(__file__)))),
                 "api", "openapi.json")
             try:
                 with open(spec, "rb") as f:
-                    doc = json.load(f)
-            except (OSError, ValueError):
+                    self._openapi_bytes = f.read()
+            except OSError:
                 return err(ResCode.ServerBusy)
-            self._openapi_bytes = json.dumps(
-                restrict_spec(doc, self._served)).encode()
         return RawResponse(self._openapi_bytes)
 
     def h_res_tpus(self, req: Request) -> Response:
@@ -1765,8 +1906,21 @@ class App:
         self.server.start()
         if self.workers is not None:
             self.workers.start()
+        if self._fleet_member_id:
+            # configured here, not __init__: the advertised address is
+            # the port the server just bound
+            self.fleet.configure_member(
+                self._fleet_member_id, addr=self.address,
+                host=self._fleet_host, api_key=self._api_key,
+                adopt=self._fleet_adopt, promote=self._fleet_promote)
+            self.fleet.start()
+        if self.replicator is not None:
+            self.replicator.start()
         self._start_store_maintenance()
         self.health.start()   # no-op when health_interval <= 0
+        # background defrag loop: retries gang shapes the admission path
+        # noted as fragmentation-blocked (no-op when interval <= 0)
+        self.defrag.start(self._defrag_interval)
         log.info("tpu-docker-api (PyTorch port) listening on %s:%d "
                  "(%d cards, backend ready)", self.server.host,
                  self.server.port, self.tpu.topology.num_chips)
@@ -1806,6 +1960,14 @@ class App:
         """Graceful shutdown: drain queue, flush all state (reference Stop,
         main.go:139-154)."""
         self.server.stop()
+        # leave the fleet while the store (local arbiter) / the host
+        # daemon (remote) is still reachable: a graceful exit releases
+        # this member's grants instead of waiting out the TTL
+        self.fleet.stop()
+        if self.replicator is not None:
+            # after fleet.stop(): a takeover mid-shutdown must still be
+            # able to promote from the replica
+            self.replicator.stop()
         if self.workers is not None:
             # the module-global latency family must not keep scraping a
             # dead tier's unlinked segment (and a later App's tier will
@@ -1815,6 +1977,8 @@ class App:
                 obs_metrics.GATEWAY_LATENCY.set_extern(None)
             self.workers.stop()    # drain the data-plane tier first
         self.gateways.stop_all()   # autoscaler loops, before services go
+        self.defrag.stop()         # before services: a mid-run migrate
+                                   # must not race the queue close
         self.health.stop()
         if self._maint_stop is not None:
             # join, don't just signal: an in-flight maintain() racing past

@@ -7,8 +7,7 @@ reference wire format so existing clients keep working; GPU-named codes are
 kept as aliases of the TPU ones.
 
 The port's copy of the JAX control plane's server/codes.py: the same codes
-and messages, so a client reads either daemon's envelopes, plus NotPorted
-(501) for the routes of the planes the port does not serve yet and the
+and messages, so a client reads either daemon's envelopes, plus the
 card-named aliases of the TPU-named codes. The sentinel errors of
 xerrors.py carry these codes.
 """
@@ -31,9 +30,6 @@ class ResCode(enum.IntEnum):
     PreconditionFailed = 412
     TooManyRequests = 429
     Conflict = 409
-    # the port's own: a route of a plane not yet ported (the fleet,
-    # placement and defrag); the envelope's data names it
-    NotPorted = 501
 
     InvalidParams = 1000
     ImageNameCannotBeEmpty = 1001
@@ -172,9 +168,6 @@ _MESSAGES: dict[ResCode, str] = {
     ResCode.GatewayDeleteFailed: "Failed to delete gateway",
     ResCode.GatewayRequestFailed:
         "Gateway could not serve the request (no replica answered)",
-
-    ResCode.NotPorted:
-        "Route not yet served by the PyTorch port's daemon (see data.route)",
 
     ResCode.WatchCompacted:
         "Watch revision too old — the requested fromRevision predates the "

@@ -3,8 +3,8 @@
 The port's copy of the JAX control plane's Python engine
 (gpu_docker_api_tpu/store/mvcc.py). The WAL and snapshot format is the
 same byte for byte, so a store written by either package opens in the
-other with the same keys, values and revisions. The C++ engine
-(store/native.py over native/mvcc_store.cc) is not ported yet.
+other with the same keys, values and revisions, and the port's C++ engine
+(store/native.py over native/mvcc_store.cc) reads it too.
 
 The reference outsources versioned state to an external etcd 3.x server
 (internal/etcd/client.go:13-24) and implements version history by walking raw

@@ -47,7 +47,7 @@ from typing import Optional
 MAGIC = b"TDWAL1\n"
 
 #: scrub-tool invocation embedded in WalCorruptError messages
-SCRUB_HINT = "python -m gpu_docker_api_tpu_torch.store.walio"
+SCRUB_HINT = "python -m gpu_docker_api_tpu_torch.cli store scrub"
 
 
 class WalCorruptError(RuntimeError):

@@ -50,6 +50,34 @@ GENERIC_GENERATION = "gpu"
 #: the env each grant stamps so CUDA numbers cards as nvidia-smi does
 DEVICE_ORDER = "PCI_BUS_ID"
 
+# ---- cross-generation geometry + baselines (placement.py fleet model) ----
+# Fleet-level facts about each card generation, in the shape of JAX's
+# table: mesh dimensionality (a line of cards: 1), host granularity
+# (CARDS_PER_NODE) and coarse per-card baselines, which only seed placement
+# scoring when a workload declares no profile and no fitted observation
+# exists. rel_throughput is the card's dense BF16 tensor peak normalised to
+# the H100 SXM's 989 TFLOP/s, from NVIDIA's data sheets (A100 Tensor Core
+# GPU: 312 TFLOP/s; H100 Tensor Core GPU, SXM: 989; H200 Tensor Core GPU,
+# SXM: 989), keyed as generation_of names them. rel_cost stays at the
+# neutral 1.0: no public price list is carried. No TPU ratio is carried
+# over.
+GENERATION_SPECS: dict[str, dict] = {
+    "a100": {"dims": 1, "chips_per_host": CARDS_PER_NODE,
+             "rel_throughput": 312 / 989, "rel_cost": 1.0},
+    "h100": {"dims": 1, "chips_per_host": CARDS_PER_NODE,
+             "rel_throughput": 1.0, "rel_cost": 1.0},
+    "h200": {"dims": 1, "chips_per_host": CARDS_PER_NODE,
+             "rel_throughput": 1.0, "rel_cost": 1.0},
+}
+
+
+def generation_spec(generation: str) -> dict:
+    """Cross-generation facts for `generation`; an unknown generation (the
+    generic one included) falls back to the neutral H100 row rather than
+    raising, so a fleet snapshot stays renderable when a daemon joined
+    with a generation this build has never heard of."""
+    return GENERATION_SPECS.get(generation, GENERATION_SPECS["h100"])
+
 
 @dataclass(frozen=True)
 class Chip:

@@ -5,12 +5,12 @@ envelope (tests/torch_app_twins.py says how, and what is normalised). The
 JAX cases' app fixture makes its state dir with tempfile; here it lives
 under the case's tmp_path, so that both variants' directories normalise.
 
-Then the port alone: the document it serves describes exactly the routes
-it serves, which are the JAX daemon's less the left-out planes' (each of
-those answers its NotPorted refusal), and its client has no method for a
-left-out operation. Last, federation's watch half and the client's
-list+watch and Informer against JAX's on the same calls (the watch cases
-of tests/test_federation.py, whose module also needs the fleet half)."""
+Then the document each daemon serves: the port's serves JAX's whole
+api/openapi.json, every route of it is served, and the fleet, placement
+and defrag routes (the planes the port served last) answer as the JAX
+daemon's do. Last, federation's watch half and the client's list+watch and
+Informer against JAX's on the same calls (the twins of every case of
+tests/test_federation.py are tests/test_torch_federation.py)."""
 
 import http.client
 import json
@@ -22,11 +22,8 @@ import torch
 
 from gpu_docker_api_tpu.server.app import App as JApp
 from gpu_docker_api_tpu_torch.client import ApiClient
-from gpu_docker_api_tpu_torch.server.app import (
-    UNPORTED_ROUTES, App, restrict_spec,
-)
-from gpu_docker_api_tpu_torch.server.codes import ResCode
-from torch_app_twins import line, twin_tests
+from gpu_docker_api_tpu_torch.server.app import App
+from torch_app_twins import Norm, line, twin_tests
 
 torch.set_num_threads(1)
 
@@ -63,63 +60,79 @@ def apps(tmp_path):
         a.stop()
 
 
+#: the fleet, placement and defrag routes: (METHOD, route) -> a body
+FLEET_ROUTES = {
+    ("POST", "/api/v1/fleet/lease"): {"member": "m0", "addr": "10.0.0.9:1"},
+    ("POST", "/api/v1/fleet/lease/:member/renew"): None,
+    ("DELETE", "/api/v1/fleet/lease/:member"): None,
+    ("GET", "/api/v1/fleet/members"): None,
+    ("GET", "/api/v1/fleet/grants"): None,
+    ("POST", "/api/v1/fleet/grants"): {"resource": "containers",
+                                       "name": "g0", "member": "m0"},
+    ("POST", "/api/v1/fleet/grants/release"): {
+        "resource": "containers", "name": "g0", "member": "m0"},
+    ("GET", "/api/v1/placement"): None,
+    ("POST", "/api/v1/placement/defrag"): {"tpuCount": 2},
+}
+
+
 def test_served_spec_describes_exactly_the_served_routes(apps):
     japp, tapp = apps
     routes = set(tapp.server.router.routes())
-    unported = set(UNPORTED_ROUTES)
-    # the port registers every JAX route: the left-out ones as refusals
     assert routes == set(japp.server.router.routes())
-    served = routes - unported
     c = ApiClient("127.0.0.1", tapp.server.port)
     with open(os.path.join(REPO, "api", "openapi.json"),
               encoding="utf-8") as f:
         doc = json.load(f)
-    assert c.spec == restrict_spec(doc, sorted(served))
+    assert c.spec == doc
     described = set()
     for path, item in c.spec["paths"].items():
         route = path.replace("{", ":").replace("}", "")
         described |= {(m.upper(), route) for m in item
                       if m in ("get", "post", "patch", "delete")}
-    assert described == served
-    left_out = {"fleetJoin", "fleetRenew", "fleetLeave", "fleetMembers",
-                "fleetGrants", "fleetAcquire", "fleetRelease",
-                "getPlacement", "runDefrag"}
-    jc = ApiClient("127.0.0.1", japp.server.port, spec=doc)
-    for op in left_out:
-        getattr(jc, op)                  # the JAX spec describes it
-        with pytest.raises(AttributeError):
-            getattr(c, op)
-    for op in ("createGateway", "listGateways", "getGateway",
-               "deleteGateway", "scaleGateway", "gatewayGenerate"):
-        getattr(c, op)                   # the gateway plane is served
+    assert described <= routes
+    assert set(FLEET_ROUTES) <= described
+    for op in ("fleetJoin", "fleetRenew", "fleetLeave", "fleetMembers",
+               "fleetGrants", "fleetAcquire", "fleetRelease",
+               "getPlacement", "runDefrag", "createGateway",
+               "listGateways", "getGateway", "deleteGateway",
+               "scaleGateway", "gatewayGenerate"):
+        getattr(c, op)                   # every plane is served
+    for helper in ("placement_status", "defrag_status", "run_defrag"):
+        assert callable(getattr(c, helper))
     c.close()
 
 
-@pytest.mark.parametrize("method,route", sorted(UNPORTED_ROUTES))
-def test_every_left_out_route_answers_its_refusal(apps, method, route):
-    tapp = apps[1]
-    path = route.replace(":name", "g0").replace(":member", "m0")
-    conn = http.client.HTTPConnection("127.0.0.1", tapp.server.port,
-                                      timeout=10)
-    conn.request(method, path, "{}" if method != "GET" else None,
-                 {"Content-Type": "application/json",
-                  "Idempotency-Key": f"k-{method}-{route}"})
-    resp = conn.getresponse()
-    body = json.loads(resp.read())
-    conn.close()
-    assert resp.status == 501
-    assert body["code"] == int(ResCode.NotPorted)
-    assert body["data"] == {"route": f"{method} {route}",
-                            "plane": UNPORTED_ROUTES[(method, route)]}
-    assert f"{method} {route}" in body["msg"]
-    # a refusal changes nothing and caches no key
-    assert tapp.idempotency.record_count() == 0
-    assert tapp.intents.open_intents() == []
+@pytest.mark.parametrize("method,route", sorted(FLEET_ROUTES))
+def test_every_fleet_and_placement_route_answers_as_the_jax_daemon(
+        apps, method, route, tmp_path):
+    """Each route the port answered with a refusal until it served the
+    fleet, placement and defrag planes: the port's daemon answers the
+    request (and the same request again, as a retry would) with the JAX
+    daemon's status and envelope, normalised as the twins normalise."""
+    body = FLEET_ROUTES[(method, route)]
+    path = route.replace(":member", "m0")
+    got = []
+    for app, pkg in zip(apps, ("jax", "torch")):
+        norm = Norm(pkg, str(tmp_path / pkg))
+        answers = []
+        for _ in range(2):
+            conn = http.client.HTTPConnection("127.0.0.1", app.server.port,
+                                              timeout=10)
+            conn.request(method, path,
+                         json.dumps(body) if body is not None else None,
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            answers.append((resp.status, norm(json.loads(resp.read()))))
+            conn.close()
+        got.append(answers)
+    assert got[1] == got[0]
+    assert all(status == 200 for status, _ in got[1])
 
 
 # ---- federation's watch half and the client's list+watch ------------------
-# (tests/test_federation.py's watch cases, on both packages; that module's
-# fleet half is not ported, so its cases are restated here, not twinned)
+# (restated from tests/test_federation.py's watch cases on the same calls;
+# tests/test_torch_federation.py twins the cases themselves)
 
 def _watch_pkg(pkg):
     import importlib

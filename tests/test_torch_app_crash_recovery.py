@@ -8,8 +8,11 @@ report with the store's records after it) must be equal
 (tests/torch_app_twins.py says how, and what is normalised).
 
 - The sweep covers every crashpoint the port registers, the gateway's
-  (gwscale.after_clone, kvhandoff.after_prefill, hedge.in_flight)
-  included; a test pins that none is skipped.
+  (gwscale.after_clone, kvhandoff.after_prefill, hedge.in_flight), the
+  fleet's (fed.after_acquire, fed.after_takeover, fed.after_promote),
+  replication's (repl.after_snapshot) and the defragmenter's
+  (defrag.after_plan, defrag.after_migrate) included; a test pins that
+  none is skipped.
 - The targeted recovery cases are those of tests/test_crash_recovery.py
   from test_clean_reboot_is_noop on.
 - One case is new: a patch that dies at replace.after_quiesce on a node
@@ -59,10 +62,14 @@ def test_substrate_wipe_with_open_replace_after_quiesce(tmp_path):
 
 
 def test_the_sweep_skips_exactly_the_gateway_crashpoint():
-    """Since the gateway is ported, the sweep skips no crashpoint: the
-    gateway's three are swept like the rest."""
+    """Since the gateway, the fleet, replication and the defragmenter are
+    ported, the sweep skips no crashpoint: theirs are swept like the
+    rest, and the port registers every crashpoint JAX's does."""
     assert {"gwscale.after_clone", "kvhandoff.after_prefill",
-            "hedge.in_flight"} <= set(SWEPT)
+            "hedge.in_flight", "fed.after_acquire", "fed.after_takeover",
+            "fed.after_promote", "repl.after_snapshot", "defrag.after_plan",
+            "defrag.after_migrate"} <= set(SWEPT)
+    assert set(SWEPT) == set(jfaults.all_crashpoints())
     # every swept crashpoint is JAX's too, and JAX's sweep has its scenario
     assert set(SWEPT) <= set(jfaults.all_crashpoints())
     prefixes = [p for p, _ in load_variant("test_crash_recovery",

@@ -10,8 +10,8 @@ width on the CPU.
   nothing; its import imports no torch (a control-plane process never
   touches the card's driver).
 - `store scrub|backup|restore` answer what the JAX cli answers on the
-  same WAL (a backup's path and an installed WAL's path are normalised);
-  `--engine native` is refused until that engine is ported.
+  same WAL (a backup's path and an installed WAL's path are normalised),
+  on the Python engine and on the native one.
 - Phase 16 runs its REST drive, the crash at replace.after_quiesce, the
   node-level crash and the reconciling restart over a one-card mock line,
   with `train_llama --config tiny --device cpu` as the trainer.
@@ -216,12 +216,21 @@ def test_store_scrub_flags_a_corrupt_wal_as_the_jax_cli(wal, tmp_path):
     assert t.returncode == 1
 
 
-def test_store_backup_on_the_native_engine_is_refused(wal, tmp_path):
-    out = _store_cli("gpu_docker_api_tpu_torch", "backup", "-s", wal, "-o",
-                     str(tmp_path / "bk.wal"), "--engine", "native")
-    assert out.returncode == 2
-    assert "native store engine" in out.stderr
-    assert not (tmp_path / "bk.wal").exists()
+def test_store_backup_on_the_native_engine_answers_as_the_jax_cli(
+        wal, tmp_path):
+    """`store backup --engine native`: the port's native engine writes the
+    backup the JAX cli's native engine writes, byte for byte."""
+    outs = {}
+    for pkg in ("gpu_docker_api_tpu", "gpu_docker_api_tpu_torch"):
+        d = tmp_path / pkg
+        d.mkdir()
+        out = _store_cli(pkg, "backup", "-s", wal, "-o", str(d / "bk.wal"),
+                         "--engine", "native")
+        with open(d / "bk.wal", "rb") as f:
+            outs[pkg] = (out.returncode, _norm(out.stdout, str(d), wal),
+                         f.read())
+    assert outs["gpu_docker_api_tpu"] == outs["gpu_docker_api_tpu_torch"]
+    assert outs["gpu_docker_api_tpu_torch"][0] == 0
 
 
 def test_a_rebooted_scheduler_keeps_the_cards_identities(tmp_path):
@@ -275,10 +284,17 @@ def test_phase_daemon_at_tiny_width_on_the_cpu(tmp_path, keep_sigusr1):
     assert train_llama.main(argv + ["--workdir", str(tmp_path),
                                     "--checkpoint-every", "1000"]) == 0
     steps, _ = cs.read_metrics(str(tmp_path / "metrics.jsonl"))
+    handoff = tmp_path / "handoff"
     out = cs.phase_daemon(torch, [r["loss"] for r in steps], device="cpu",
                           mock_topology="h100-1", config="tiny", shape=shape,
                           steps=DMN_TINY_STEPS,
-                          want_per_step=dict.fromkeys(att.LAUNCHES, 0))
+                          want_per_step=dict.fromkeys(att.LAUNCHES, 0),
+                          handoff=str(handoff))
+    # v1's parked checkpoint outlives the volume's delete, for phase 18
+    from gpu_docker_api_tpu_torch.train import STATE_FILE
+    assert (handoff / "checkpoints" / str(out["handoff_step"])
+            / STATE_FILE).is_file()
+    assert out["handoff_step"] == out["quiesce_step"]
     assert out["steps"] == list(range(1, DMN_TINY_STEPS + 1))
     assert out["loss_diffs"] == [0.0] * DMN_TINY_STEPS
     assert 1 <= out["quiesce_step"] < DMN_TINY_STEPS

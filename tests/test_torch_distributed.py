@@ -9,6 +9,7 @@ import multiprocessing as mp
 import os
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -84,6 +85,34 @@ def test_launcher_fails_fast_when_a_rank_dies(tmp_path):
         tdist.launch(workers.die_on_rank_1, ("", str(tmp_path)), 2, "gloo",
                      init_method=f"file://{tmp_path}/rdzv", timeout=120)
     assert time.monotonic() - t0 < 60
+    assert set(mp.active_children()) <= before
+
+
+def test_ranks_fork_from_the_server_with_the_launchers_env(tmp_path,
+                                                        monkeypatch):
+    """launch() forks its ranks from multiprocessing's fork server (their
+    parent is the server, not this process; one server for this launch
+    and the next) and gives them this process's environment as it is at
+    the launch, a variable set after the server started too; a rank that
+    dies still fails the launch fast."""
+    import json
+    from multiprocessing import forkserver
+    servers = []
+    for mark in ("one", "two"):
+        monkeypatch.setenv("TDAPI_LAUNCH_MARK", mark)
+        out = tmp_path / mark
+        out.mkdir()
+        tdist.launch(workers.origin, (str(out),), 2, "gloo",
+                     init_method=f"file://{out}/rdzv", timeout=120)
+        servers.append(forkserver._forkserver._forkserver_pid)
+        got = [json.loads((out / f"rank{r}.json").read_text())
+               for r in range(2)]
+        assert got == [{"ppid": servers[-1], "mark": mark}] * 2
+    assert servers[0] == servers[1] != os.getpid()
+    before = set(mp.active_children())
+    with pytest.raises(RuntimeError, match="rank 1 of 2 exited with code 3"):
+        tdist.launch(workers.die_on_rank_1, ("", str(tmp_path)), 2, "gloo",
+                     init_method=f"file://{tmp_path}/rdzv2", timeout=120)
     assert set(mp.active_children()) <= before
 
 

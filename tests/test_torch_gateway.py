@@ -45,6 +45,15 @@ PATCHES = (
     ("    threads.append(t)\n    time.sleep(0.15)\n    hold.set()\n",
      "    threads.append(t)\n    _until(lambda: gw._queued == 4)\n"
      "    hold.set()\n"),
+    # the replicas' records are write-behind (the App's work queue): the
+    # roster read right after create drains the queue first, as the
+    # services do before a store scan (the JAX case reads at once and can
+    # find no record yet, on either package)
+    ('    gw = app.gateways.get("gw")\n'
+     '    assert replica_names_for(app.client, "gw") == ["gwr0"]\n',
+     '    gw = app.gateways.get("gw")\n'
+     '    app.wq.join()\n'
+     '    assert replica_names_for(app.client, "gw") == ["gwr0"]\n'),
 )
 
 MODES = {

@@ -374,10 +374,45 @@ def test_either_package_reboots_from_the_others_state(tmp_path):
     assert back.serialize() == ported.serialize()
 
 
-def test_native_finder_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        GpuScheduler(topology=ttopo.make_topology("h100-8"),
-                     native_finder=True)
+def test_the_native_finder_grants_as_jax_does():
+    """GpuScheduler(native_finder=True) takes JAX's _native_find_box path
+    (the C++ search of native/topology_alloc.cc, each package's own build)
+    on the line of 16 cards: a seeded run of grants and releases gives
+    JAX's TpuScheduler's grants, errors and serialize() at every call."""
+    import random
+
+    from unittest import mock
+    rng = random.Random(11)
+    shape = ("h100-16", "h100", (16, 1, 1))
+    js = TpuScheduler(topology=jtopo.TpuTopology(*shape, chips_per_host=16))
+    ts = GpuScheduler(topology=ttopo.GpuTopology(*shape, chips_per_host=16),
+                      native_finder=True)
+    native = ts._native_find_box
+    calls = []
+    with mock.patch.object(ts, "_native_find_box",
+                           side_effect=lambda *a: calls.append(a)
+                           or native(*a)):
+        held = {}
+        for i in range(60):
+            if held and rng.random() < 0.4:
+                owner = rng.choice(sorted(held))
+                chips = held.pop(owner)
+                js.restore(chips, owner)
+                ts.restore(chips, owner)
+            else:
+                n, owner = rng.choice([1, 2, 4, 8]), f"w{i}"
+                got = []
+                for sched, err in ((js, jx.TpuNotEnoughError),
+                                   (ts, tx.GpuNotEnoughError)):
+                    try:
+                        got.append(sched.apply(n, owner))
+                    except err:
+                        got.append("not enough")
+                assert got[1] == got[0], (i, n)
+                if got[0] != "not enough":
+                    held[owner] = got[0]
+            assert ts.serialize() == js.serialize(), i
+    assert calls, "the native search never ran"
 
 
 def test_device_paths_follow_the_minor_numbers():

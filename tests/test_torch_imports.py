@@ -318,5 +318,50 @@ def test_the_serving_control_plane_is_walked_and_scanned():
     assert out.stdout.strip() == "False"
     from gpu_docker_api_tpu_torch import _native
     build = os.path.join(PORT_DIR, "build")
-    assert os.path.dirname(str(_native.lib_path("shmatomics"))) == build
-    assert _native._LIB_SOURCES == {"shmatomics": "shm_atomics.cc"}
+    assert _native._LIB_SOURCES == {"mvccstore": "mvcc_store.cc",
+                                    "topoalloc": "topology_alloc.cc",
+                                    "shmatomics": "shm_atomics.cc"}
+    for lib in _native._LIB_SOURCES:
+        assert os.path.dirname(str(_native.lib_path(lib))) == build
+
+
+def test_the_fleet_and_the_native_engines_are_walked_and_scanned():
+    """The last modules of the JAX package are the port's own: federation
+    (both halves), replication, the fleet plane, placement, defrag and the
+    native store are walked, imported with jax blocked
+    (test_port_imports_with_jax_blocked), import nothing of
+    gpu_docker_api_tpu and no torch: they are control-plane modules. With
+    them the port has a counterpart of every module of the JAX package."""
+    mods = set(_modules())
+    modules = ("federation", "replication", "server.fleet", "placement",
+               "defrag", "store.native")
+    assert {f"gpu_docker_api_tpu_torch.{m}" for m in modules} <= mods
+    for m in modules:
+        path = os.path.join(PORT_DIR, m.replace(".", "/") + ".py")
+        tops = {n.split(".")[0] for n in _imports(path)}
+        assert not tops & {"jax", "gpu_docker_api_tpu", "torch"}, m
+        assert "jax" not in open(path, encoding="utf-8").read().replace(
+            "JAX", ""), m
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.path.insert(0, sys.argv[1]); "
+         "sys.modules['jax'] = None\n"
+         "import gpu_docker_api_tpu_torch.federation, "
+         "gpu_docker_api_tpu_torch.replication, "
+         "gpu_docker_api_tpu_torch.server.fleet, "
+         "gpu_docker_api_tpu_torch.placement, "
+         "gpu_docker_api_tpu_torch.defrag, "
+         "gpu_docker_api_tpu_torch.store.native\n"
+         "print('torch' in sys.modules)", REPO],
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
+    jax_dir = os.path.join(REPO, "gpu_docker_api_tpu")
+    jax_mods = {os.path.relpath(os.path.join(d, f), jax_dir)
+                for d, _, fs in os.walk(jax_dir) for f in fs
+                if f.endswith(".py") and "__pycache__" not in d}
+    port_mods = {os.path.relpath(os.path.join(d, f), PORT_DIR)
+                 for d, _, fs in os.walk(PORT_DIR) for f in fs
+                 if f.endswith(".py") and "__pycache__" not in d}
+    assert jax_mods - port_mods <= {"schedulers/tpu.py"}, \
+        sorted(jax_mods - port_mods)

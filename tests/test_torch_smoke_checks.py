@@ -1616,3 +1616,249 @@ def test_phase_gateway_at_tiny_width_on_the_cpu():
          "gateway.forward"])
     assert out["launches"] == dict.fromkeys(att.LAUNCHES, 0)
     assert sorted(out["launches_by_replica"]) == ["g1br0", "g1br1"]
+
+
+# ---- the room: serve starts forked from the rank server, the wall line ------
+
+def test_a_serve_start_forks_from_the_rank_server(tmp_path):
+    """start_rank_server starts multiprocessing's fork server with torch
+    and serve.py to import; await_rank_server returns once it forks.
+    spawn_serve forks the serve process from it (its parent is the
+    server), with its output in the start's log, and it answers as the
+    port's serve.py does; a second start forks from the same server."""
+    from multiprocessing import forkserver
+    cs.start_rank_server()
+    cs.await_rank_server()
+    server = forkserver._forkserver._forkserver_pid
+    for log_name in ("a.log", "b.log"):
+        proc, port, log_path = cs.spawn_serve(
+            "tiny", str(tmp_path), ("--device", "cpu"), log_name=log_name)
+        try:
+            proc, port, ready_s, health = cs.wait_serve(proc, port, log_path)
+            with open(f"/proc/{proc.pid}/status") as f:
+                ppid = next(int(line.split()[1]) for line in f
+                            if line.startswith("PPid:"))
+            assert ppid == server != os.getpid()
+            assert health["code"] == 200
+            assert health["data"]["model"] == "llama/tiny"
+            assert "serving llama/tiny" in open(log_path).read()
+        finally:
+            proc.kill()
+            proc.join(60)
+        assert proc.exitcode is not None
+
+
+def test_a_sigterm_unwinds_the_script_through_its_finally_blocks(tmp_path):
+    """After unwind_on_sigterm (main's first step), a SIGTERM raises
+    SystemExit(143): the finally blocks that end a phase's daemons run."""
+    import subprocess
+    src = ("import os, signal, sys, time\n"
+           f"sys.path.insert(0, {os.path.dirname(cs.__file__)!r})\n"
+           "import chip_smoke as cs\n"
+           "cs.unwind_on_sigterm()\n"
+           "try:\n"
+           "    os.kill(os.getpid(), signal.SIGTERM)\n"
+           "    time.sleep(60)\n"
+           "finally:\n"
+           "    print('unwound', flush=True)\n")
+    out = subprocess.run([sys.executable, "-c", src], capture_output=True,
+                         text=True, timeout=120, cwd=str(tmp_path))
+    assert out.returncode == 143, out.stderr
+    assert out.stdout == "unwound\n"
+
+
+def test_the_wall_line_gives_every_phase_on_its_own():
+    line = cs.wall_line(1234.5, [float(i) for i in range(19)])
+    assert line.startswith("wall time: the whole script 1234.5 s; ")
+    for i in range(19):
+        assert f"phase {i} {float(i):.1f} s" in line
+
+
+# ---- phase 18: the fleet and the native engines --------------------------------
+
+def _parity_readings(**change):
+    good = {"first_answer_diff": None, "observable_checks": 3,
+            "observable_equal": True, "wal_equal": True,
+            "wal_bytes": {"python": 9, "native": 9},
+            "cross_reads_equal": {"native_reads_python": True,
+                                  "python_reads_native": True}}
+    return {**good, **change}
+
+
+def test_engine_parity_check_rejects_every_doctored_reading():
+    cs.engine_parity_check(_parity_readings(), "x")
+    for bad in ({"first_answer_diff": 17}, {"observable_equal": False},
+                {"observable_checks": 0}, {"wal_equal": False},
+                {"cross_reads_equal": {"native_reads_python": False,
+                                       "python_reads_native": True}},
+                {"cross_reads_equal": {}}):
+        with pytest.raises(cs.SmokeFailure):
+            cs.engine_parity_check(_parity_readings(**bad), "x")
+
+
+def test_the_lockstep_and_the_finder_pairs_hold_on_the_cpu(tmp_path):
+    """18a's own readings, small: the engines' lockstep (each engine's
+    answers, reads, revisions and WAL bytes, and each reading the other's
+    WAL) and the native finder's boxes against the Python search's."""
+    from gpu_docker_api_tpu_torch.topology import make_topology
+    r = cs.engine_lockstep(str(tmp_path), dict(ops=300, seed=7,
+                                               check_every=29))
+    cs.engine_parity_check(r, "cpu")
+    assert r["wal_bytes"]["python"] == r["wal_bytes"]["native"] > 0
+    pairs = cs.finder_pairs(lambda: make_topology("h100-8"),
+                            dict(trials=30, seed=3, sizes=(1, 2, 4, 8)))
+    cs.finder_check(pairs, "cpu")
+    assert any(nat for nat, _ in pairs)
+    times = cs.engine_times(str(tmp_path), n=50)
+    assert set(times) == {"python", "native"}
+    assert cs.grant_ms(lambda: make_topology("h100-8"), True, n=10) > 0
+
+
+def test_finder_check_rejects_boxes_apart():
+    cs.finder_check([([0, 1], [0, 1]), ([], None)], "x")
+    for bad in ([([0, 1], [1, 2])], [([], [3])], [([2], None)], []):
+        with pytest.raises(cs.SmokeFailure):
+            cs.finder_check(bad, "x")
+
+
+def test_takeover_check_wants_the_next_epoch_and_one_takeover():
+    before = {"holder": "a", "epoch": 1}
+    cs.takeover_check(before, {"holder": "b", "epoch": 2}, 1, 1, "x")
+    for args in ((before, {"holder": "b", "epoch": 1}, 1, 1),
+                 (before, {"holder": "b", "epoch": 3}, 1, 1),
+                 (before, {"holder": "a", "epoch": 2}, 1, 1),
+                 (before, None, 1, 1),
+                 ({"holder": "b", "epoch": 1}, {"holder": "b", "epoch": 2},
+                  1, 1),
+                 (before, {"holder": "b", "epoch": 2}, 2, 1),
+                 (before, {"holder": "b", "epoch": 2}, 1, 0)):
+        with pytest.raises(cs.SmokeFailure):
+            cs.takeover_check(*args, "x")
+
+
+def test_horizon_check_loses_no_acknowledged_revision():
+    cs.horizon_check(40, 38, 12, "rec", "rec", "x")
+    for args in ((37, 38, 12, "rec", "rec"), (40, 38, 41, "rec", "rec"),
+                 (40, 38, 12, None, "rec"), (40, 38, 12, "old", "rec")):
+        with pytest.raises(cs.SmokeFailure):
+            cs.horizon_check(*args, "x")
+
+
+def test_gapless_resume_check_and_the_split_of_the_runs():
+    recs = [{"step": s} for s in (3, 4, 5, 3, 4)]
+    a, b = cs.split_runs(recs, 2)
+    assert [r["step"] for r in a] == [3, 4, 5]
+    assert [r["step"] for r in b] == [3, 4]
+    cs.gapless_resume_check([3, 4, 5], [3, 4], 2, 2, "x")
+    for args in (([3, 4, 5], [4, 5], 2, 2), ([3, 5], [3, 4], 2, 2),
+                 ([], [3, 4], 2, 2), ([3], [3], 2, 2),
+                 ([3], [3, 5], 2, 2), ([4], [3, 4], 2, 2)):
+        with pytest.raises(cs.SmokeFailure):
+            cs.gapless_resume_check(*args, "x")
+
+
+def test_resumed_launches_check_takes_the_recorded_steps_and_one_more():
+    per = {"flash_fwd": 40, "flash_bwd_dq": 20, "flash_bwd_dkv": 20}
+    cs.resumed_launches_check({"flash_fwd": 80, "flash_bwd_dq": 40,
+                               "flash_bwd_dkv": 40}, per, 2, "x")
+    cs.resumed_launches_check({"flash_fwd": 100, "flash_bwd_dq": 50,
+                               "flash_bwd_dkv": 40}, per, 2, "x")
+    for bad in ({"flash_fwd": 79, "flash_bwd_dq": 40, "flash_bwd_dkv": 40},
+                {"flash_fwd": 121, "flash_bwd_dq": 40, "flash_bwd_dkv": 40},
+                {"flash_fwd": 80, "flash_bwd_dq": 40}):
+        with pytest.raises(cs.SmokeFailure):
+            cs.resumed_launches_check(bad, per, 2, "x")
+
+
+def test_the_one_card_defrag_answer_is_the_jax_daemons():
+    """FLEET_DEFRAG_ONE_CARD, which 18b holds the port's daemon to, is what
+    the JAX App answers for one card on a held one-card line."""
+    import json
+    import tempfile
+
+    from gpu_docker_api_tpu import topology as jtopo
+    from gpu_docker_api_tpu.dtos import ContainerRun
+    from gpu_docker_api_tpu.server.app import App
+    from gpu_docker_api_tpu.server.http import Request
+    a = App(state_dir=tempfile.mkdtemp(), backend="mock",
+            addr="127.0.0.1:0", topology=jtopo.TpuTopology(
+                "h100-1", "h100", (1, 1, 1), chips_per_host=1),
+            api_key="", cpu_cores=4, placement_policy=cs.FLEET_POLICY)
+    try:
+        a.replicasets.run_container(ContainerRun(
+            imageName="i", replicaSetName="t", tpuCount=1))
+        resp = a.h_defrag(Request(
+            "POST", "/api/v1/placement/defrag", {},
+            json.dumps({"tpuCount": 1}).encode(), {}, {}))
+        assert resp.data["defrag"] == cs.FLEET_DEFRAG_ONE_CARD
+    finally:
+        a.stop()
+
+
+def test_phase_fleet_at_tiny_width_on_the_cpu(tmp_path, keep_sigusr1):
+    """Phase 18 end to end on the CPU at `tiny`, over a one-card mock line:
+    the native cores, the lockstep and the finders; the standby B and the
+    primary A on the native store, A's trainer resumed from a step-2
+    checkpoint, A SIGKILLed with its children, B's steal behind the next
+    epoch, the promote at the horizon, the trainer recreated and resumed
+    gapless with an uninterrupted run's losses, GET /placement, the
+    one-card defrag, stop and delete."""
+    from gpu_docker_api_tpu_torch.workloads import train_llama
+    shape = dict(b=2, s=16)
+    ref = tmp_path / "ref"
+    assert train_llama.main(cs.seam_argv("cpu", "tiny", shape, 12) + [
+        "--workdir", str(ref), "--checkpoint-every", "1000"]) == 0
+    losses = [r["loss"] for r in cs.read_metrics(
+        str(ref / "metrics.jsonl"))[0]]
+    hand = tmp_path / "handoff"
+    assert train_llama.main(cs.seam_argv("cpu", "tiny", shape, 2) + [
+        "--workdir", str(hand), "--checkpoint-every", "2"]) == 0
+    out = cs.phase_fleet(torch, losses, {"dir": str(hand), "step": 2},
+                         device="cpu", mock_topology="h100-1",
+                         config="tiny", shape=shape,
+                         want_per_step=dict.fromkeys(att.LAUNCHES, 0))
+    assert out["store_engines"] == {"a": "native", "b": "native"}
+    assert sorted(out["boot_to_ping_s"]) == ["a", "b"]
+    assert out["grant_before"]["holder"] == "a"
+    assert out["grant_after"] == {**out["grant_before"], "holder": "b",
+                                  "epoch": out["grant_before"]["epoch"] + 1,
+                                  "modRevision": out["grant_after"][
+                                      "modRevision"]}
+    assert out["horizon"] >= out["acked_revision"] >= out["record_revision"]
+    assert out["a_steps"][0] == out["b_steps"][0] == 3
+    assert out["loss_diffs"] and max(out["loss_diffs"]) == 0.0
+    assert out["placement_pool"]["freeChips"] == 0
+    assert out["defrag"] == cs.FLEET_DEFRAG_ONE_CARD
+    assert not hand.exists()
+
+
+def test_phase_fleet_times_18a_before_it_starts_a_daemon(tmp_path,
+                                                        monkeypatch):
+    """Phase 18 takes 18a's put / get and grant timings before it spawns
+    a daemon, so no daemon's boot runs beside a timed window; a failed
+    phase leaves its scratch directories removed."""
+    calls = []
+
+    def record(name, fn):
+        def wrapped(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        monkeypatch.setattr(cs, name, wrapped)
+
+    record("engine_times", cs.engine_times)
+    record("grant_ms", cs.grant_ms)
+    record("engine_lockstep", cs.engine_lockstep)
+
+    def no_daemon(*a, **kw):
+        calls.append("spawn_daemon")
+        raise cs.SmokeFailure("stop before the daemons")
+
+    monkeypatch.setattr(cs, "spawn_daemon", no_daemon)
+    hand = tmp_path / "handoff"
+    hand.mkdir()
+    with pytest.raises(cs.SmokeFailure, match="stop before the daemons"):
+        cs.phase_fleet(torch, [], {"dir": str(hand), "step": 2},
+                       device="cpu", mock_topology="h100-1", config="tiny")
+    assert calls == ["engine_times", "grant_ms", "grant_ms", "spawn_daemon"]
+    assert not hand.exists()
+

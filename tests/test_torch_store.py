@@ -342,7 +342,7 @@ def test_torn_tail_truncates_and_midlog_damage_raises(tmp_path):
     s2.close()
     faults.corrupt_wal(wal, "bitflip", line_at=0.3)
     assert not walio.scrub(wal)["ok"]
-    with pytest.raises(walio.WalCorruptError, match="store.walio"):
+    with pytest.raises(walio.WalCorruptError, match="cli store scrub"):
         MVCCStore(wal_path=wal)
 
 

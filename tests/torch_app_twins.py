@@ -24,7 +24,8 @@ either order).
 
 What is normalised, and nothing else:
 - random by design: request, trace and span ids (and any 16- or 32-hex
-  token in a string), image ids, host port numbers, and wall-clock values
+  token in a string), image ids, host port numbers (a loopback address's
+  port in a string too), and wall-clock values
   (timestamps, durations, retention counters of ms-timed traces);
 - each variant's own directory reads as <root>;
 - JAX's card mapping: TPU_VISIBLE_CHIPS is CUDA_VISIBLE_DEVICES (with
@@ -32,10 +33,6 @@ What is normalised, and nothing else:
   /dev/accel<i> is /dev/nvidia<i>, chip id tpu-<i> is gpu-<i>, and JAX's
   compile-cache bind and env are dropped (the port injects none:
   tests/test_torch_services.py::test_no_compile_cache_is_injected);
-- what the port does not serve yet: the JAX spec's operations and the
-  /metrics families of the unported planes (the fleet, replication,
-  placement, defrag) are dropped from the JAX record, as are the traces
-  of their refused routes;
 - /metrics is recorded as its sample names and labels, with values for the
   inventory families only (latency histograms are wall-clock);
 - a list of trace summaries (GET /traces answers them slowest first, an
@@ -86,7 +83,7 @@ CLOCK_KEYS = frozenset({
     "start", "t", "startedAt", "lastProbeAt", "expiresAt", "lastRunMs",
     "busySeconds", "waitSeconds", "windowMs", "seconds", "uptimeS",
     "firstRetained", "lastEventId", "seq", "lastSeq", "begunAt",
-    "spanCount", "spansTotal"})
+    "spanCount", "spansTotal", "ttlRemaining"})
 ID_KEYS = frozenset({"requestId", "traceId", "spanId", "parentId"})
 PORT_KEYS = frozenset({"portBindings", "port_bindings", "usedPortSet",
                        "hostPort", "port", "used"})
@@ -95,8 +92,6 @@ PORT_KEYS = frozenset({"portBindings", "port_bindings", "usedPortSet",
 XLA_CACHE_ENV = ("JAX_COMPILATION_CACHE_DIR=",
                  "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS=",
                  "JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES=")
-UNPORTED_PREFIXES = ("/api/v1/fleet", "/api/v1/placement")
-UNPORTED_FAMILIES = re.compile(r"^tdapi_(fed_|repl_|placement_|defrag_)")
 #: /metrics families whose values are deterministic inventories
 VALUED_FAMILIES = re.compile(
     r"^tdapi_(tpu_chips|cpu_cores|ports|replicasets|volumes|"
@@ -104,6 +99,7 @@ VALUED_FAMILIES = re.compile(
     r"tpu_shares_\w+|mutations_\w+|idempotency_\w+|reshards_total|"
     r"breaker_\w+|events_stream_clients|chip_health_failures)")
 _HEX = re.compile(r"\b[0-9a-f]{32}\b|\b[0-9a-f]{16}\b")
+_LOOPBACK_PORT = re.compile(r"\b127\.0\.0\.1:\d+\b")
 
 #: appended to a module whose cases a patch makes wait on a condition
 #: where the JAX case sleeps a fixed time for it (`_until(cond)`): both
@@ -136,7 +132,8 @@ def _make_topology(pkg):
     return make_topology
 
 
-def variant_source(name: str, pkg: str, patches=(), extra="") -> str:
+def variant_source(name: str, pkg: str, patches=(), extra="",
+                   renames=()) -> str:
     src = open(os.path.join(TESTS, name + ".py"), encoding="utf-8").read()
     src += extra
     for tpu_type, n in TYPE_CHIPS.items():
@@ -144,6 +141,8 @@ def variant_source(name: str, pkg: str, patches=(), extra="") -> str:
     if pkg == "torch":
         for pat, rep in PORT_NAMES:
             src = re.sub(pat, rep, src)
+        for old, new in renames:
+            src = src.replace(old, new)
     for patch in patches:
         old, new = patch[0], patch[1]
         only = patch[2] if len(patch) > 2 else None
@@ -155,21 +154,26 @@ def variant_source(name: str, pkg: str, patches=(), extra="") -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _load(name: str, pkg: str, patches: tuple, extra: str) -> types.ModuleType:
+def _load(name: str, pkg: str, patches: tuple, extra: str,
+          renames: tuple = ()) -> types.ModuleType:
     mod = types.ModuleType(f"twin_{name}_{pkg}")
     mod.__file__ = os.path.join(TESTS, name + ".py")
     sys.modules[mod.__name__] = mod
-    exec(compile(variant_source(name, pkg, patches, extra), mod.__file__,
-                 "exec"), mod.__dict__)
+    exec(compile(variant_source(name, pkg, patches, extra, renames),
+                 mod.__file__, "exec"), mod.__dict__)
     mod.make_topology = _make_topology(pkg)
     return mod
 
 
-def load_variant(name: str, pkg: str, patches=(), extra="") -> types.ModuleType:
-    """tests/<name>.py bound to `pkg`, with `patches` ((old, new[, pkg])
-    source replacements, each matching once) applied and `extra` source (a
-    case written against the module's own helpers) appended."""
-    return _load(name, pkg, tuple(tuple(p) for p in patches), extra)
+def load_variant(name: str, pkg: str, patches=(), extra="",
+                 renames=()) -> types.ModuleType:
+    """tests/<name>.py bound to `pkg`, with `renames` ((old, new)
+    replacements of every occurrence, in the torch variant only) and then
+    `patches` ((old, new[, pkg]) source replacements, each matching once)
+    applied, and `extra` source (a case written against the module's own
+    helpers) appended."""
+    return _load(name, pkg, tuple(tuple(p) for p in patches), extra,
+                 tuple(tuple(r) for r in renames))
 
 
 # ---------------------------------------------------------- normalisation
@@ -213,6 +217,7 @@ class Norm:
         if isinstance(x, str):
             x = x.replace(self.root, "<root>")
             x = _HEX.sub("<id>", x)
+            x = _LOOPBACK_PORT.sub("127.0.0.1:<port>", x)
             if self.jax:
                 x = x.replace("/dev/accel", "/dev/nvidia").replace(
                     "sched.tpu.", "sched.gpu.")
@@ -233,9 +238,7 @@ class Norm:
         out = set()
         for ln in text.splitlines():
             if ln.startswith("# TYPE "):
-                fam = ln.split()[2]
-                if not UNPORTED_FAMILIES.match(fam):
-                    out.add(ln)
+                out.add(ln)
                 continue
             if not ln or ln.startswith("#"):
                 continue
@@ -285,11 +288,9 @@ def _ports(key, v):
     return v
 
 
-def _spec_ops(doc: dict, drop_unported: bool) -> list:
+def _spec_ops(doc: dict) -> list:
     ops = []
     for path, item in doc.get("paths", {}).items():
-        if drop_unported and path.startswith(UNPORTED_PREFIXES):
-            continue
         ops += [f"{m.upper()} {path}" for m in item
                 if m in ("get", "post", "patch", "delete", "put")]
     return sorted(ops)
@@ -309,8 +310,6 @@ class Recorder:
         self.rows: list = []
 
     def envelope(self, method, path, status, headers, payload):
-        if self.pkg == "jax" and urlpath(path).startswith(UNPORTED_PREFIXES):
-            return
         row = {"req": f"{method} {self.norm(urlpath(path))}",
                "status": status,
                "headers": {k: self.norm(v) for k, v in sorted(headers.items())
@@ -322,8 +321,7 @@ class Recorder:
         elif ctype.startswith("text/plain"):
             row["body"] = self.norm.metrics(payload.decode())
         elif urlpath(path) == "/openapi.json":
-            row["body"] = _spec_ops(json.loads(payload),
-                                    drop_unported=self.pkg == "jax")
+            row["body"] = _spec_ops(json.loads(payload))
         else:
             try:
                 row["body"] = self.norm(json.loads(payload) if payload
@@ -350,7 +348,7 @@ class Recorder:
     def stored_from(self, store):
         kvs = {}
         for kv in store.range("/tpu-docker-api/"):
-            if "/idempotency/" in kv.key or "/fleet/" in kv.key:
+            if "/idempotency/" in kv.key:
                 continue
             kvs[kv.key] = self.norm(kv.value)
         self.rows.append({"stored": kvs})
@@ -504,9 +502,10 @@ def twin(name, fn_name, tmp_path, params=None, patches=(),
 
 
 def twin_tests(name, select=None, patches=(), races=(), extra="",
-               runner=None) -> dict:
+               runner=None, exclude=()) -> dict:
     """{test name: test} for every test function of tests/<name>.py
-    (or those in `select`), each a twin run; parametrize and other marks
+    (or those in `select`) but those in `exclude` (another file twins
+    them), each a twin run; parametrize and other marks
     are carried over. The cases named in `races` record codes only
     (Recorder). `runner(fn_name, tmp_path, params)`, when given, runs a
     case in place of `twin`."""
@@ -515,7 +514,8 @@ def twin_tests(name, select=None, patches=(), races=(), extra="",
     for fn_name, fn in vars(jmod).items():
         if not fn_name.startswith("test_") or not callable(fn):
             continue
-        if select is not None and fn_name not in select:
+        if (select is not None and fn_name not in select) \
+                or fn_name in exclude:
             continue
         marks = list(getattr(fn, "pytestmark", []))
         argnames = []

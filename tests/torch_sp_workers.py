@@ -524,3 +524,12 @@ def die_on_rank_1(rank: int, world: int, path: str, out_dir: str):
     if rank == 1:
         raise SystemExit(3)
     time.sleep(600)
+
+
+def origin(rank: int, world: int, out_dir: str):
+    """Where this rank came from: its parent's pid and the launch's
+    TDAPI_LAUNCH_MARK, saved to out_dir/rank<r>.json."""
+    import json
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"ppid": os.getppid(),
+                   "mark": os.environ.get("TDAPI_LAUNCH_MARK")}, f)
