@@ -249,10 +249,21 @@ Phases (any failure exits non-zero and prints no result):
      once the trainer's quiesce checkpoint is parked, a node-level crash
      (the daemon and its children's process groups), and a restarted
      daemon whose boot reconcile rolls the replace forward: v2 resumes
-     with no step lost and phase 2's losses, the key's retry replays v2.
-     16c: history, stop, delete, the card free in /resources/gpus and in
-     nvidia-smi's contexts, /metrics parsed, the patch's trace stitched
-     across the restart.
+     with no step lost, the key's retry replays v2. 16c: after v2's first
+     step, PATCH /replicaSet/<name>/rollback {"version": 1} answers
+     version 3 with v1's memory, card and plan (history 3, 2, 1); a
+     quiesced rolling replace: v3 resumes from v2's parked checkpoint and
+     ends the 12 steps, gapless across v1, v2 and v3 with phase 2's
+     losses, v2's and v3's launches 40/20/20 a step of theirs. 16d: the
+     trainer stopped, a serving replicaSet of serve.py --config 1b
+     --checkpoint data/run/checkpoints binds the same volume on the
+     granted card and host port, answers /healthz, logs the restore of
+     v3's last checkpoint, and serves greedy tokens equal to this
+     script's own in-process generation from that checkpoint; its flash
+     launches (GET /launches) read 0. 16e: delete, the card free in
+     /resources/gpus and in nvidia-smi's contexts, /metrics parsed, the
+     patch's trace stitched across the restart and the rollback's trace
+     holding svc.rollback and its quiesce.
  17. the serving control plane: the port's daemon with `--gw-workers 2`
      (two SO_REUSEPORT data-plane workers over the port's build of
      native/shm_atomics.cc) runs gateway g1b over the port's serve.py at
@@ -299,10 +310,12 @@ Phases (any failure exits non-zero and prints no result):
 
 Every rank and worker of phases 8-13 (distributed.launch) and every
 serve process of phases 4-7 and 13c forks from one rank server,
-multiprocessing's fork server, which imports torch and serve.py once,
-beside phase 0's build; phase 1 starts once it has: `import torch` is
-6.5-6.9 s of a cold serve start's 7.4-7.9 s on the card's host
-(scripts/torch_serve_start.py).
+multiprocessing's fork server, which imports torch, serve.py and
+torch._dynamo once, beside phase 0's build; phase 1 starts once it has:
+`import torch` is 6.5-6.9 s of a cold serve start's 7.4-7.9 s on the
+card's host (scripts/torch_serve_start.py), and torch._dynamo, which a
+rank's first checkpointed step imports, cost 12a's one step 34-42 s
+(scripts/torch_phase_times.py).
 
 Prints one `{"kernels": [...]}` line (with each kernel's launches in 7a
 and phases 8-18 too), the readings, one `{"serve": ...}` line, one
@@ -320,6 +333,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -1255,13 +1269,17 @@ def free_port() -> int:
 
 # ---- the rank server --------------------------------------------------------
 #: what the rank server imports once before it forks: torch (CUDA left
-#: uninitialised), the launcher and the serve module. The ranks and
-#: workers of phases 8-13 (distributed.launch forks them from it) and every
-#: serve process (spawn_serve) import none of it again: `import torch` is
-#: 6.46-6.88 s of a serve start's 7.43-7.88 s to /healthz on the card's
-#: host (scripts/torch_serve_start.py; PERF.md section 6)
+#: uninitialised), the launcher, the serve module, and torch._dynamo. The
+#: ranks and workers of phases 8-13 (distributed.launch forks them from it)
+#: and every serve process (spawn_serve) import none of it again: `import
+#: torch` is 6.46-6.88 s of a serve start's 7.43-7.88 s to /healthz on the
+#: card's host (scripts/torch_serve_start.py), and a rank's first
+#: non-reentrant torch.utils.checkpoint (remat, stage remat) imports
+#: torch._dynamo and the modules it pulls in: 12a's one step took 37.8-48.8
+#: s with that import in it, 3.5-6.1 s without (scripts/torch_phase_times.py,
+#: scripts/torch_pp_profile.py; PERF.md section 6)
 RANK_PRELOAD = ["torch", "gpu_docker_api_tpu_torch.distributed",
-                "gpu_docker_api_tpu_torch.workloads.serve"]
+                "gpu_docker_api_tpu_torch.workloads.serve", "torch._dynamo"]
 SERVE_MODULE = "gpu_docker_api_tpu_torch.workloads.serve"
 
 
@@ -5762,13 +5780,18 @@ def phase_services(torch, main_losses, device="cuda", topo=None,
 
 DMN_NAME = "dmntrainer"            # the replicaSet
 DMN_VOLUME = "dmndata"
-DMN_STEPS = SVC_STEPS              # v1 is patched long before; v2 ends them
+# v1 is patched long before; v2 is rolled back after its first step, with
+# its other steps (about 0.3 s each) as the rollback's margin; v3 ends them
+DMN_STEPS = 12
 DMN_PATCH_AT = 1
 DMN_MEMORY = SVC_MEMORY
 DMN_CRASHPOINT = "replace.after_quiesce"
 DMN_KEY = "smoke-16b-memory-patch"  # the patch's Idempotency-Key
 DMN_PORTS = "46000-46100"          # the daemon's host port pool
 DMN_BOOT_S = 180                   # a daemon's start to /ping
+DMN_SERVE = "dmnserve"             # 16d: serve.py on the trainer's volume
+DMN_SERVE_READY_S = 300            # its run to /healthz, at most
+DMN_SERVE_REQUEST = dict(b=2, prompt=64, new=16, seed=19)
 
 
 def rest(port, method, path, body=None, headers=None, timeout=120):
@@ -5953,6 +5976,133 @@ def stop_daemon(proc, timeout=120.0):
     return rc
 
 
+def rollback_check(status, answer, history, label) -> dict:
+    """The rollback's answer is version 3 on card 0, and the stored history
+    is 3, 2, 1 with v3's spec v1's: its memory, its cards and its plan
+    (v2's memory is the patch's, so the rollback changed it back)."""
+    check(status == 200 and answer.get("code") == 200
+          and answer["data"]["version"] == 3
+          and answer["data"]["tpuChips"] == [0],
+          f"{label} the rollback answered HTTP {status} {answer}")
+    check([h["version"] for h in history] == [3, 2, 1],
+          f"{label} history {[h['version'] for h in history]}")
+    spec = {h["version"]: h["status"]["spec"] for h in history}
+    keys = ("memory_bytes", "tpu_chips", "mesh_plan")
+    got = {key: spec[3][key] for key in keys}
+    check(got == {key: spec[1][key] for key in keys}
+          and spec[2]["memory_bytes"] != spec[1]["memory_bytes"],
+          f"{label} v3's spec {got}, v1's "
+          f"{ {key: spec[1][key] for key in keys} }, v2's memory "
+          f"{spec[2]['memory_bytes']}")
+    return {"version": 3, **got}
+
+
+def lifecycle_steps_check(steps, marks, n_steps, label) -> int:
+    """The step sequence across v1, v2 and v3 is 1..n_steps with no gap and
+    no repeat, and two quiesced checkpoints were parked (v1's at the
+    patch, v2's at the rollback), in order, before the last step.
+    Returns v2's."""
+    check(steps == list(range(1, n_steps + 1)),
+          f"{label} steps lost or repeated across v1, v2 and v3: {steps}")
+    check(len(marks) == 2 and 1 <= marks[0] < marks[1] < n_steps,
+          f"{label} parked checkpoints at {marks}: want v1's and then v2's "
+          f"(a v2 that ended before the rollback's quiesce parks none)")
+    return marks[1]
+
+
+def served_tokens_check(served, direct, label) -> None:
+    """Each row of greedy tokens served over HTTP equals this script's own
+    generation from the same checkpoint, token for token."""
+    check(len(served) == len(direct), f"{label}: {len(served)} rows served, "
+          f"{len(direct)} generated")
+    for i, (s, d) in enumerate(zip(served, direct)):
+        diff = next((j for j, (a, b) in enumerate(zip(s, d)) if a != b),
+                    None if len(s) == len(d) else min(len(s), len(d)))
+        check(diff is None, f"{label} row {i}: served {s}, generated {d} "
+              f"(first difference at token {diff})")
+
+
+def checkpoint_greedy(torch, ckpt_dir, cfg, prompt, new, device):
+    """(greedy tokens, step): the newest checkpoint under ckpt_dir loaded
+    here (its parameters, read through the file's mmap onto `device`) and
+    generated from in-process with infer.generate."""
+    from gpu_docker_api_tpu_torch import infer
+    from gpu_docker_api_tpu_torch.train import restore_checkpoint, tree_map
+
+    state, step = restore_checkpoint(ckpt_dir)
+    params = tree_map(lambda t: t.detach().to(device), state["params"])
+    del state
+    with torch.no_grad():
+        toks = infer.generate(params, prompt.to(device), cfg, new)
+    del params
+    return toks.tolist(), step
+
+
+def serve_from_volume(torch, c, port, mount, state, cfg, config, device,
+                      repo, ckpt_dir, want_step):
+    """16d: a replicaSet of the port's serve.py with `--checkpoint
+    data/run/checkpoints` on the volume at `mount` (the trainer's), one card
+    and a host port from the daemon. It answers /healthz, logs that it
+    restored `want_step`, serves greedy tokens equal to checkpoint_greedy's
+    from the same directory, and its own flash launches read 0."""
+    from gpu_docker_api_tpu_torch.ops import attention as att
+
+    argv = ["--checkpoint", "data/run/checkpoints"]
+    ran = c.runReplicaSet(body={
+        "imageName": "python", "replicaSetName": DMN_SERVE, "tpuCount": 1,
+        "containerPorts": ["8000"],
+        "binds": [{"src": mount, "dest": "/data"}],
+        "cmd": gateway_replica_cmd(config, device, argv, repo)})
+    check(ran["version"] == 1 and ran["tpuChips"] == [0]
+          and len(ran["portBindings"]) == 1,
+          f"16d the serving replicaSet {ran}")
+    host_port = int(next(iter(ran["portBindings"].values())))
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + DMN_SERVE_READY_S
+    while True:
+        try:
+            health, _ = http_call(host_port, "GET", "/healthz")
+            break
+        except OSError:
+            check(c.getReplicaSet(name=DMN_SERVE)["info"]["running"],
+                  "16d the serving replicaSet exited before /healthz")
+            check(time.monotonic() < deadline, f"16d no /healthz within "
+                  f"{DMN_SERVE_READY_S} s")
+            time.sleep(0.1)
+    out = {"run_to_healthz_s": time.perf_counter() - t0,
+           "port": host_port}
+    check(health["code"] == 200
+          and health["data"]["model"] == f"llama/{config}",
+          f"16d /healthz {health}")
+    logs = [p for p in glob.glob(os.path.join(state, "**", "logs",
+                                              f"{DMN_SERVE}-1.log"),
+                                 recursive=True)]
+    said = open(logs[0], errors="replace").read() if logs else ""
+    check(f"restored checkpoint step {want_step}" in said,
+          f"16d the serve log {logs} does not say it restored step "
+          f"{want_step}: {said[-2000:]}")
+    spec = DMN_SERVE_REQUEST
+    gen = torch.Generator().manual_seed(spec["seed"])
+    prompt = torch.randint(0, cfg.vocab_size, (spec["b"], spec["prompt"]),
+                           generator=gen)
+    t0 = time.perf_counter()
+    greedy, _ = http_call(host_port, "POST", "/generate",
+                          {"tokens": prompt.tolist(), "max_new": spec["new"]})
+    out["greedy_request_s"] = time.perf_counter() - t0
+    check(greedy["code"] == 200, f"16d greedy /generate: {greedy}")
+    direct, step = checkpoint_greedy(torch, ckpt_dir, cfg, prompt,
+                                     spec["new"], device)
+    check(step == want_step, f"16d this script loaded step {step}, want "
+          f"{want_step}")
+    served_tokens_check(greedy["data"]["tokens"], direct, "16d")
+    launches, _ = http_call(host_port, "GET", "/launches")
+    check(launches.get("code") == 200
+          and launches["data"] == dict.fromkeys(att.LAUNCHES, 0),
+          f"16d the serving replicaSet's flash launches {launches}")
+    out.update(step=step, tokens_equal=True, launches=launches["data"])
+    return out
+
+
 def phase_daemon(torch, main_losses, device="cuda", mock_topology=None,
                  config="1b", shape=None, steps=DMN_STEPS,
                  patch_at=DMN_PATCH_AT, want_per_step=None, warm_pool=1,
@@ -5967,8 +6117,15 @@ def phase_daemon(torch, main_losses, device="cuda", mock_topology=None,
     daemon and its children's process groups, and a restarted daemon's
     boot reconcile rolls the replace forward: v2 resumes from the parked
     checkpoint with no step lost, and the key's retry replays v2; 16c
-    history, stop, delete, the card free, /metrics and the patch's trace
-    stitched across the restart. `mock_topology`, `config`, `shape`,
+    `PATCH /replicaSet/<name>/rollback {"version": 1}` while v2 runs: a
+    quiesced rolling replace to v3 with v1's spec, which resumes from v2's
+    parked checkpoint and ends the steps, gapless across the three
+    versions, each version's launches its steps'; 16d the trainer
+    stopped, a serving replicaSet (serve.py --checkpoint) on the same
+    volume serves the newest checkpoint on the granted card and host port,
+    its greedy tokens this script's own load's and its flash launches 0;
+    16e delete, the card free, /metrics, the patch's trace stitched across
+    the restart and the rollback's trace. `mock_topology`, `config`, `shape`,
     `steps` and `want_per_step` replace the card's discovery, phase 2's
     model and shape, the run's steps and phase 2's launches (a small run
     on the CPU); `main_losses` are an uninterrupted run's. `handoff`, a
@@ -5990,7 +6147,8 @@ def phase_daemon(torch, main_losses, device="cuda", mock_topology=None,
     print("phase 16: the port's daemon (cli.py over REST: a volume, a "
           "replicaSet of the trainer, a keyed patch crashed at "
           f"{DMN_CRASHPOINT}, a node-level crash, the restart's reconcile, "
-          "history, stop, delete)", flush=True)
+          "a rollback to v1 mid-run, serve.py on the trainer's volume, "
+          "delete)", flush=True)
     t_phase = time.perf_counter()
     topo = (topology.make_topology(mock_topology) if mock_topology
             else topology.discover_topology())
@@ -6001,12 +6159,13 @@ def phase_daemon(torch, main_losses, device="cuda", mock_topology=None,
     out["compute_apps_visible"] = base_apps is not None
     out["compute_apps_before"] = base_apps
     # phase 15 removed its state (two 1b checkpoints) on its way out; this
-    # phase writes two more under the same temporary directory
+    # phase writes three (v1's and v2's parked, v3's last) under the same
+    # temporary directory
     out["tmp_free_bytes"] = shutil.disk_usage(tempfile.gettempdir()).free
     if cuda:
-        check(out["tmp_free_bytes"] > 2 * 6.45e9 * 1.2,
+        check(out["tmp_free_bytes"] > 3 * 6.45e9 * 1.2,
               f"16: {out['tmp_free_bytes']} bytes free under "
-              f"{tempfile.gettempdir()}, short of two 1b checkpoints")
+              f"{tempfile.gettempdir()}, short of three 1b checkpoints")
     state = tempfile.mkdtemp(prefix="smoke16-")
     logs = tempfile.mkdtemp(prefix="smoke16-logs-")
     log_path = os.path.join(logs, "daemon.log")
@@ -6019,7 +6178,7 @@ def phase_daemon(torch, main_losses, device="cuda", mock_topology=None,
         args += ["--topology", mock_topology, "--health-interval", "0"]
     port = free_port()
     daemon = None
-    v1, v2 = f"{DMN_NAME}-1", f"{DMN_NAME}-2"
+    v1, v2, v3 = (f"{DMN_NAME}-{v}" for v in (1, 2, 3))
     try:
         # 16a: boot (discovery and the boot reconcile included), the card
         daemon, out["boot_to_ping_s"] = start_daemon(
@@ -6174,56 +6333,85 @@ def phase_daemon(torch, main_losses, device="cuda", mock_topology=None,
               and info["version"] == 2 and info["containerName"] == v2,
               f"16b the key's retry {out['retry']}")
 
+        # 16c: a REST rollback to v1 while v2 runs: a quiesced rolling
+        # replace to v3, which takes v1's spec and resumes from the
+        # checkpoint v2 parks
+        rb_tid = trace.new_trace_id()
+        t0 = time.perf_counter()
+        status, _, raw = rest(
+            port, "PATCH", f"/api/v1/replicaSet/{DMN_NAME}/rollback",
+            {"version": 1}, {"traceparent": trace.format_traceparent(
+                rb_tid, trace.new_span_id())},
+            timeout=SVC_QUIESCE_TIMEOUT_S + 120)
+        out["rollback_s"] = time.perf_counter() - t0
+        history = c.replicaSetHistory(name=DMN_NAME)["history"]
+        out["rollback"] = rollback_check(status, json.loads(raw), history,
+                                         "16c")
+        print(f"  16c rollback to v1 answered in {out['rollback_s']:.2f} s: "
+              f"{out['rollback']}", flush=True)
         deadline = time.monotonic() + SVC_DEADLINE_S
         while c.getReplicaSet(name=DMN_NAME)["info"]["running"]:
-            check(time.monotonic() < deadline, f"16b {v2} ran past "
+            check(time.monotonic() < deadline, f"16c {v3} ran past "
                   f"{SVC_DEADLINE_S} s")
             time.sleep(0.1)
         steps_recs, recs = read_metrics(metrics_path)
         losses = [r["loss"] for r in steps_recs]
-        child2 = json.load(open(os.path.join(workdir, "child-2.json")))
+        children = {v: json.load(open(os.path.join(workdir,
+                                                   f"child-{v}.json")))
+                    for v in (2, 3)}
+        marks = [r["checkpoint"] for r in recs if r.get("quiesced")]
         out.update(steps=[r["step"] for r in steps_recs], losses=losses,
-                   quiesce_step=k, child2=child2,
+                   quiesce_step=k, quiesce_steps=marks,
+                   child2=children[2], child3=children[3],
                    checkpoints=[r for r in recs if "checkpoint" in r])
-        print(f"  16b steps {out['steps']}, losses {losses}; v2 {child2}",
-              flush=True)
-        check(out["steps"] == list(range(1, steps + 1)),
-              f"16b steps lost across the crash: {out['steps']}")
-        want = {name: n * (steps - k) for name, n in per_step.items()}
-        check(child2["rc"] == 0 and child2["launches"] == want,
-              f"16b v2 exit {child2['rc']}, launches {child2['launches']} "
-              f"(want {want})")
+        print(f"  16c steps {out['steps']}, losses {losses}, parked at "
+              f"{marks}; v2 {children[2]}; v3 {children[3]}", flush=True)
+        k2 = lifecycle_steps_check(out["steps"], marks, steps, "16c")
+        for v, n_steps in ((2, k2 - k), (3, steps - k2)):
+            want = {name: n * n_steps for name, n in per_step.items()}
+            check(children[v]["launches"] == want,
+                  f"16c v{v}'s launches {children[v]['launches']} over its "
+                  f"{n_steps} steps (want {want})")
+        check(children[3]["rc"] == 0, f"16c v3 exited {children[3]['rc']}")
         n = min(len(losses), len(main_losses))
         diffs = [abs(a - b) for a, b in zip(losses[:n], main_losses[:n])]
         out["loss_diffs"] = diffs
         check(all(math.isfinite(x) for x in losses)
               and max(diffs) <= SEAM_LOSS_TOL,
-              f"16b losses {losses[:n]} against the reference "
+              f"16c losses {losses[:n]} against the reference "
               f"{main_losses[:n]}: {diffs} > {SEAM_LOSS_TOL}")
         if cuda:
-            check(child2["count"] == 1
-                  and child2["uuid"] == uuid_reference(topo, 0),
-                  f"16b v2's card {child2}")
+            check(all(children[v]["count"] == 1 and children[v]["uuid"]
+                      == uuid_reference(topo, 0) for v in (2, 3)),
+                  f"16c the cards of v2 and v3 {children}")
         if handoff is not None:
             link_checkpoint(os.path.join(workdir, "checkpoints"), k,
                             os.path.join(handoff, "checkpoints"))
             out["handoff_step"] = k
 
-        # 16c: history, stop, delete, the card free, /metrics, the trace
-        history = c.replicaSetHistory(name=DMN_NAME)["history"]
-        check([h["version"] for h in history] == [2, 1],
-              f"16c history {[h['version'] for h in history]}")
+        # 16d: the trainer stopped, a serving replicaSet binds the same
+        # volume and serves its newest checkpoint on the granted card and
+        # host port; its greedy tokens are this script's own load's
         c.stopReplicaSet(name=DMN_NAME)
+        out["serve"] = serve_from_volume(
+            torch, c, port, mount, state, cfg, config, device, repo,
+            os.path.join(workdir, "checkpoints"), steps)
+        print(f"  16d {DMN_SERVE} served checkpoint {steps} from the "
+              f"volume: {out['serve']}", flush=True)
+
+        # 16e: delete, the card free, /metrics, the traces of the crashed
+        # patch and of the rollback
+        c.deleteReplicaSet(name=DMN_SERVE)
         c.deleteReplicaSet(name=DMN_NAME)
         c.deleteVolume(name=DMN_VOLUME)
         gpus = rest_ok(port, "GET", "/api/v1/resources/gpus",
-                       label="16c")["tpus"]
+                       label="16e")["tpus"]
         check(gpus["freeCount"] == topo.num_chips
               and gpus["chips"][0]["owner"] == "",
-              f"16c the card after delete {gpus['chips'][0]}")
+              f"16e the card after delete {gpus['chips'][0]}")
         apps = settled_apps(base_apps)
         if base_apps is not None:
-            check(apps == base_apps, f"16c {apps - base_apps} other "
+            check(apps == base_apps, f"16e {apps - base_apps} other "
                   f"contexts on the card after delete")
         status, hdrs, raw = rest(port, "GET", "/metrics")
         fams, _ = prometheus_families(raw.decode())
@@ -6231,27 +6419,37 @@ def phase_daemon(torch, main_losses, device="cuda", mock_topology=None,
                   "text/plain") and fams.get(
                   "tdapi_regulator_chunk_duration_ms") == "histogram"
               and "tdapi_http_request_duration_ms" in fams,
-              f"16c /metrics {status} {hdrs.get('Content-Type')} "
+              f"16e /metrics {status} {hdrs.get('Content-Type')} "
               f"{sorted(fams)}")
         stitched = rest_ok(port, "GET", f"/api/v1/traces/{tid}",
-                           label="16c")["trace"]
+                           label="16e")["trace"]
         replay = [s for s in stitched["spans"]
                   if s["op"] == "reconcile.replace"]
         check(len(replay) == 1 and replay[0]["traceId"] == tid
               and replay[0]["parentId"] == spans["svc.patch"]["spanId"],
-              f"16c the patch's trace after the restart "
+              f"16e the patch's trace after the restart "
               f"{[(s['op'], s.get('parentId')) for s in stitched['spans']]}"
               f" (the crashed svc.patch span {spans['svc.patch']['spanId']})")
         out["trace"] = {"traceId": tid, "spans": len(stitched["spans"]),
                         "rootOp": stitched["rootOp"]}
+        rolled_trace = rest_ok(port, "GET", f"/api/v1/traces/{rb_tid}",
+                               label="16e")["trace"]
+        ops = {s["op"] for s in rolled_trace["spans"]}
+        check({"svc.rollback", "backend.quiesce"} <= ops
+              and rolled_trace["status"] == "ok",
+              f"16e the rollback's trace {rolled_trace['status']}: "
+              f"{sorted(ops)}")
+        out["rollback_trace"] = {"spans": len(rolled_trace["spans"]),
+                                 "rootOp": rolled_trace["rootOp"]}
         out["metrics_families"] = len(fams)
-        print(f"  16c history {[h['version'] for h in history]}; card 0 "
+        print(f"  16e history {[h['version'] for h in history]}; card 0 "
               f"free; /metrics {len(fams)} families; the patch's trace "
               f"{out['trace']} holds reconcile.replace under the crashed "
-              f"request's svc.patch span", flush=True)
+              f"request's svc.patch span; the rollback's trace "
+              f"{out['rollback_trace']}", flush=True)
         rc = stop_daemon(daemon)
         daemon = None
-        check(rc == 0, f"16c the daemon exited {rc} on SIGTERM")
+        check(rc == 0, f"16e the daemon exited {rc} on SIGTERM")
     finally:
         if daemon is not None:
             node_crash(daemon)
@@ -6262,8 +6460,10 @@ def phase_daemon(torch, main_losses, device="cuda", mock_topology=None,
           f"run to first step {out['rest_run_to_first_step_s']:.2f} s, the "
           f"quiesce ack {out['quiesce_ack_ms']:.1f} ms, restart to v2's "
           f"first step {out['restart_to_v2_first_step_s']:.2f} s, "
-          f"downtimeMs {out['downtime_ms']:.1f}; phase 16 wall time "
-          f"{out['phase_s']:.1f} s", flush=True)
+          f"downtimeMs {out['downtime_ms']:.1f}, the rollback's answer "
+          f"{out['rollback_s']:.2f} s, the serving replicaSet's run to "
+          f"/healthz {out['serve']['run_to_healthz_s']:.2f} s; phase 16 wall "
+          f"time {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -7635,7 +7835,8 @@ def main() -> int:
             "launches_seam": seam["child"]["launches"][name],
             "launches_services": [svc["children"][v]["launches"][name]
                                   for v in (1, 2)],
-            "launches_daemon": dmn["child2"]["launches"][name],
+            "launches_daemon": [dmn[f"child{v}"]["launches"][name]
+                                for v in (2, 3)],
             "launches_gateway": gw["launches"][name],
             "launches_fleet": fleet["launches"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],

@@ -76,8 +76,8 @@ class Tenant:
 
     # -- the serving loop's surface ------------------------------------
 
-    def acquire(self) -> None:
-        self.reg.acquire(self)
+    def acquire(self, timeout: Optional[float] = None) -> bool:
+        return self.reg.acquire(self, timeout)
 
     def release(self, tokens: int = 0) -> None:
         self.reg.release(self, tokens)
@@ -159,8 +159,9 @@ class ChipRegulator:
         return min(waiters, key=lambda t: (t.priority != LATENCY,
                                            t.vt, t._seq))
 
-    def acquire(self, tenant: Tenant) -> None:
-        """Wait until `tenant` holds the chip."""
+    def acquire(self, tenant: Tenant, timeout: Optional[float] = None) -> bool:
+        """Wait until `tenant` holds the chip: True; or, past `timeout`
+        seconds, leave the contention set and answer False."""
         t_wait = time.perf_counter()
         with self._cond:
             # joining the contention set: catch up to the virtual
@@ -180,13 +181,23 @@ class ChipRegulator:
                     self.events.record(
                         "regulator.preempt", target=f"chip{self.chip}",
                         tenant=tenant.name, holder=self._holder.name)
+            deadline = (time.monotonic() + timeout
+                        if timeout is not None else None)
             while self._holder is not None or self._pick() is not tenant:
-                self._cond.wait()
+                left = None
+                if deadline is not None:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        tenant.waiting = False
+                        self._cond.notify_all()
+                        return False
+                self._cond.wait(left)
             tenant.waiting = False
             self._holder = tenant
             self._global_vt = max(self._global_vt, tenant.vt)
             tenant._t0 = time.perf_counter()
             tenant.wait_seconds += tenant._t0 - t_wait
+            return True
 
     def release(self, tenant: Tenant, tokens: int = 0) -> None:
         with self._cond:
@@ -217,6 +228,10 @@ class ChipRegulator:
                        for t in self._tenants.values())
 
     # -- telemetry ------------------------------------------------------
+
+    def queue_depth(self) -> int:
+        with self._cond:
+            return sum(1 for t in self._tenants.values() if t.waiting)
 
     def describe(self) -> dict:
         with self._cond:
@@ -278,7 +293,7 @@ def reset() -> None:
         _REGULATORS.clear()
 
 
-def tenant_from_env() -> Optional[Tenant]:
+def tenant_from_env(default_name: str = "") -> Optional[Tenant]:
     """Build a tenant handle from the env the control plane injects into
     fractionally granted containers: weight from TDAPI_TPU_SHARES, class
     from TDAPI_PRIORITY, chip from the first CUDA_VISIBLE_DEVICES entry
@@ -286,7 +301,8 @@ def tenant_from_env() -> Optional[Tenant]:
     entry when CUDA_VISIBLE_DEVICES is absent (the JAX daemon's grant). An
     entry that is no index (a GPU UUID) keys chip -1. None when the env
     says this workload owns its chips whole (no shares and no explicit
-    priority)."""
+    priority). The tenant's label is `default_name`, or one made of the
+    container's version and the pid."""
     import os
     shares = os.environ.get("TDAPI_TPU_SHARES", "")
     priority = os.environ.get("TDAPI_PRIORITY", "")
@@ -305,7 +321,9 @@ def tenant_from_env() -> Optional[Tenant]:
         chip = -1
     # label only (register() never collides on names), but keep it
     # distinguishable across container versions and processes anyway
-    v = os.environ.get("CONTAINER_VERSION", "")
-    name = f"tenant{'-v' + v if v else ''}-pid{os.getpid()}"
+    name = default_name
+    if not name:
+        v = os.environ.get("CONTAINER_VERSION", "")
+        name = f"tenant{'-v' + v if v else ''}-pid{os.getpid()}"
     return for_chip(chip).register(name, weight=weight,
                                    priority=priority or BEST_EFFORT)

@@ -257,7 +257,9 @@ def test_a_rebooted_scheduler_keeps_the_cards_identities(tmp_path):
     store.close()
 
 
-DMN_TINY_STEPS = 40   # tiny takes tens of ms a step: v1 is still running
+# tiny takes tens of ms a step: v1 is still running at the patch, and v2
+# at the rollback after its first step
+DMN_TINY_STEPS = 80
 
 
 @pytest.fixture
@@ -275,9 +277,12 @@ def test_phase_daemon_at_tiny_width_on_the_cpu(tmp_path, keep_sigusr1):
     replace.after_quiesce with the checkpoint parked, the node-level crash
     (the daemon and its children's process groups), the restart's boot
     reconcile rolling the replace forward, v2 resuming with no step lost
-    and an uninterrupted run's losses, the key's retry replaying v2, then
-    history, stop, delete, /metrics and the patch's trace stitched across
-    the restart."""
+    and an uninterrupted run's losses, the key's retry replaying v2, the
+    REST rollback to v1 while v2 runs (v3 with v1's spec, resumed from
+    v2's parked checkpoint, the steps gapless across the three versions),
+    serve.py on the trainer's volume serving v3's last checkpoint with the
+    greedy tokens of this process's own load, then delete, /metrics, the
+    patch's trace stitched across the restart and the rollback's trace."""
     from gpu_docker_api_tpu_torch.workloads import train_llama
     shape = dict(b=2, s=16)
     argv = cs.seam_argv("cpu", "tiny", shape, DMN_TINY_STEPS)
@@ -304,3 +309,12 @@ def test_phase_daemon_at_tiny_width_on_the_cpu(tmp_path, keep_sigusr1):
     assert out["reconcile"]["containersRecreated"] == ["dmntrainer-2"]
     assert out["quiesce_ack_ms"] > 0 and out["trace"]["spans"] > 0
     assert not out["compute_apps_visible"]
+    assert out["rollback"]["version"] == 3
+    assert out["rollback"]["tpu_chips"] == [0]
+    k, k2 = out["quiesce_steps"]
+    assert k == out["quiesce_step"] < k2 < DMN_TINY_STEPS
+    assert out["child3"]["rc"] == 0
+    assert out["serve"]["step"] == DMN_TINY_STEPS
+    assert out["serve"]["tokens_equal"]
+    assert out["serve"]["launches"] == dict.fromkeys(att.LAUNCHES, 0)
+    assert out["rollback_trace"]["spans"] > 0

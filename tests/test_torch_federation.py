@@ -11,7 +11,10 @@ starts the other daemon from each package's own cli (the JAX one on its
 own `v4-32`); its outcome depends on a lease expiring on the wall clock,
 so it compares codes, and every JAX assertion holds on both. Where a JAX
 case waits a fixed time for a state of another thread or process, the
-twin waits for the state itself."""
+twin waits for the state itself; where it reads the revisions of records
+it created, each write-behind write lands before the request that queued
+it goes on, so the revisions do not depend on how the queue's thread
+interleaves with the request's."""
 
 import torch
 
@@ -59,6 +62,20 @@ PATCHES = (
     ('                 == set(names_b), timeout=10,',
      '                 == set(names_b), timeout=300,'),
     (TAKEOVER_WAIT, TAKEOVER_STATE),
+    # a create's records are write-behind: the queue's thread writes them
+    # while the request's thread goes on with its own writes, so the
+    # listed records' modRevision is the two threads' interleaving; the
+    # twin lets each queued write land before the request goes on
+    ('''    c = watch_client(app)
+    rev0, items0 = c.list_resource("containers")''',
+     '''    c = watch_client(app)
+    _submit = app.wq.submit
+
+    def _landed(msg):
+        _submit(msg)
+        app.wq.join()
+    app.wq.submit = _landed
+    rev0, items0 = c.list_resource("containers")'''),
     ('timeout=10, msg="informer converged on the takeover")',
      'timeout=300, msg="informer converged on the takeover")'),
 )

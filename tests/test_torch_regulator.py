@@ -219,6 +219,39 @@ def test_tenant_chip_comes_from_the_card_grant(monkeypatch, env, chip):
     assert treg.for_chip(chip) is tenant.reg
 
 
+def test_queue_depth_timeout_and_default_name_are_the_jax_regulators(
+        monkeypatch):
+    """queue_depth() counts the waiters, acquire(timeout) leaves the
+    contention set and answers False when the holder keeps the chip past
+    it, and tenant_from_env(default_name) labels the tenant by it: on
+    both regulators, the same answers (JAX's test_multitenancy reads
+    queue_depth; the port lacked all three until its twin found it)."""
+    monkeypatch.setenv("TDAPI_TPU_SHARES", "2")
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0")
+    monkeypatch.setenv("TPU_VISIBLE_CHIPS", "0")
+    got = {}
+    for name, mod in (("jax", jreg), ("torch", treg)):
+        mod.reset()
+        reg = mod.ChipRegulator(0)
+        holder, other = reg.register("h"), reg.register("o")
+        holder.acquire()
+        depth_idle = reg.queue_depth()
+        waiting = threading.Thread(target=other.acquire)
+        waiting.start()
+        _wait(lambda: reg.queue_depth() == 1, f"{name}: o never queued")
+        late = reg.register("late")
+        timed_out = late.acquire(timeout=0.01)
+        depth_after = reg.queue_depth()
+        holder.release()
+        waiting.join(30)
+        other.release()
+        got[name] = (depth_idle, timed_out, depth_after,
+                     late.acquire(timeout=5.0), reg.queue_depth(),
+                     mod.tenant_from_env("named").name)
+        mod.reset()
+    assert got["torch"] == got["jax"] == (0, False, 1, True, 0, "named")
+
+
 def test_chunk_histogram_is_the_jax_one():
     t, j = tmetrics.REGULATOR_CHUNK, jmetrics.REGULATOR_CHUNK
     assert (t.name, t.help, t.buckets) == (j.name, j.help, j.buckets)

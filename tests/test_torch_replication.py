@@ -17,7 +17,9 @@ process (the daemon serving, the member joining, the replica catching up,
 the takeover), the twin waits for the state itself under a bound that only
 ends a hang; the takeover's wait also takes its promote and takeover
 events, which the standby records after it records the ownership the JAX
-case waits for."""
+case waits for. Where a JAX case reads a record right after the request
+that creates it, the twin first drains the write-behind queue that
+writes it."""
 
 import torch
 
@@ -45,6 +47,13 @@ PATCHES = (
     ('timeout=20, msg="replica caught the acked record")',
      'timeout=300, msg="replica caught the acked record")'),
     (TAKEOVER_WAIT, TAKEOVER_STATE),
+    # the volume's record is write-behind: the POST answers before the
+    # queue lands it, so the case's read right after can find no record
+    ('''        pk = a.store.get(resource_key("volumes", "vol"))
+        r.start()''',
+     '''        a.wq.join()
+        pk = a.store.get(resource_key("volumes", "vol"))
+        r.start()'''),
     ('''            wait_for(lambda: r.horizon >= pk.mod_revision,
                      msg="replica caught up")''',
      '''            wait_for(lambda: r.horizon >= pk.mod_revision,

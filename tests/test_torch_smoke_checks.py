@@ -1862,3 +1862,93 @@ def test_phase_fleet_times_18a_before_it_starts_a_daemon(tmp_path,
     assert calls == ["engine_times", "grant_ms", "grant_ms", "spawn_daemon"]
     assert not hand.exists()
 
+
+
+# ---- phase 16's lifecycle: the rollback and the train-to-serve handoff ------
+
+def _history(mem3=48 << 30, chips3=(0,), plan3=None):
+    plan = {"dp": 1, "fsdp": 1, "pp": 1, "ep": 1, "tp": 1, "sp": 1}
+
+    def item(v, mem, chips, mesh):
+        return {"version": v, "status": {"spec": {
+            "memory_bytes": mem, "tpu_chips": list(chips),
+            "mesh_plan": mesh}}}
+    return [item(3, mem3, chips3, plan3 or plan),
+            item(2, 40 << 30, (0,), plan), item(1, 48 << 30, (0,), plan)]
+
+
+def test_rollback_check_wants_version_3_with_v1s_spec():
+    answer = {"code": 200, "data": {"version": 3, "tpuChips": [0]}}
+    got = cs.rollback_check(200, answer, _history(), "t")
+    assert got["version"] == 3 and got["memory_bytes"] == 48 << 30
+    bad_answers = (
+        (500, answer),
+        (200, {"code": 1018, "data": None}),
+        (200, {"code": 200, "data": {"version": 2, "tpuChips": [0]}}),
+        (200, {"code": 200, "data": {"version": 3, "tpuChips": [1]}}))
+    for status, bad in bad_answers:
+        with pytest.raises(cs.SmokeFailure, match="rollback answered"):
+            cs.rollback_check(status, bad, _history(), "t")
+    # v3 keeping v2's memory, another card or another plan is no rollback
+    for hist in (_history(mem3=40 << 30), _history(chips3=(1,)),
+                 _history(plan3={"dp": 2})):
+        with pytest.raises(cs.SmokeFailure, match="v3's spec"):
+            cs.rollback_check(200, answer, hist, "t")
+    with pytest.raises(cs.SmokeFailure, match="history"):
+        cs.rollback_check(200, answer, _history()[:2], "t")
+
+
+def test_lifecycle_steps_check_catches_a_gap_and_a_missing_park():
+    assert cs.lifecycle_steps_check(list(range(1, 13)), [2, 4], 12, "t") == 4
+    gap = [1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 12]          # step 4 lost
+    repeat = [1, 2, 3, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12]  # a replayed step
+    for steps in (gap, repeat, list(range(1, 12))):
+        with pytest.raises(cs.SmokeFailure, match="steps lost"):
+            cs.lifecycle_steps_check(steps, [2, 4], 12, "t")
+    # v2 ended before the rollback's quiesce: one park only
+    for marks in ([2], [4, 2], [2, 12], [2, 4, 6]):
+        with pytest.raises(cs.SmokeFailure, match="parked"):
+            cs.lifecycle_steps_check(list(range(1, 13)), marks, 12, "t")
+
+
+def test_served_tokens_check_catches_a_token_that_differs():
+    cs.served_tokens_check([[1, 2, 3], [4, 5, 6]], [[1, 2, 3], [4, 5, 6]],
+                           "t")
+    for served in ([[1, 2, 3], [4, 9, 6]], [[1, 2, 3]], [[1, 2], [4, 5]]):
+        with pytest.raises(cs.SmokeFailure, match="served|generated"):
+            cs.served_tokens_check(served, [[1, 2, 3], [4, 5, 6]], "t")
+
+
+def test_serve_from_a_trainers_checkpoint_at_tiny_width_on_the_cpu(tmp_path):
+    """16d's readings at `tiny` on the CPU: a trainer's checkpoints, the
+    port's serve.py started on them with --checkpoint, and this process's
+    own load of the newest (checkpoint_greedy): the served greedy tokens
+    equal the in-process ones, and a served token planted to differ is
+    caught."""
+    from gpu_docker_api_tpu_torch.models import named_config
+    from gpu_docker_api_tpu_torch.workloads import train_llama
+    assert train_llama.main(cs.seam_argv("cpu", "tiny", dict(b=2, s=16), 3)
+                            + ["--workdir", str(tmp_path / "run"),
+                               "--checkpoint-every", "2"]) == 0
+    ckpt = str(tmp_path / "run" / "checkpoints")
+    cfg = named_config("llama", "tiny")
+    proc, port, _, health = cs.start_serve(
+        "tiny", str(tmp_path), ("--device", "cpu", "--checkpoint", ckpt))
+    try:
+        assert health["data"]["model"] == "llama/tiny"
+        gen = torch.Generator().manual_seed(19)
+        prompt = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
+        served, _ = cs.http_call(port, "POST", "/generate",
+                                 {"tokens": prompt.tolist(), "max_new": 6})
+    finally:
+        proc.kill()
+        proc.join(60)
+    direct, step = cs.checkpoint_greedy(torch, ckpt, cfg, prompt, 6, "cpu")
+    assert step == 3
+    assert "restored checkpoint step 3" in open(
+        tmp_path / "serve_subprocess.log").read()
+    cs.served_tokens_check(served["data"]["tokens"], direct, "t")
+    planted = [list(row) for row in served["data"]["tokens"]]
+    planted[1][4] = (planted[1][4] + 1) % cfg.vocab_size
+    with pytest.raises(cs.SmokeFailure, match="row 1"):
+        cs.served_tokens_check(planted, direct, "t")

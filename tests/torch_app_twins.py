@@ -132,6 +132,13 @@ def _make_topology(pkg):
     return make_topology
 
 
+def port_names(src: str) -> str:
+    """JAX test-source names read as the port's (PORT_NAMES)."""
+    for pat, rep in PORT_NAMES:
+        src = re.sub(pat, rep, src)
+    return src
+
+
 def variant_source(name: str, pkg: str, patches=(), extra="",
                    renames=()) -> str:
     src = open(os.path.join(TESTS, name + ".py"), encoding="utf-8").read()
@@ -139,8 +146,7 @@ def variant_source(name: str, pkg: str, patches=(), extra="",
     for tpu_type, n in TYPE_CHIPS.items():
         src = src.replace(f'"{tpu_type}"', f'"h100-{n}"')
     if pkg == "torch":
-        for pat, rep in PORT_NAMES:
-            src = re.sub(pat, rep, src)
+        src = port_names(src)
         for old, new in renames:
             src = src.replace(old, new)
     for patch in patches:

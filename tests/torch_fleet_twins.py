@@ -175,6 +175,8 @@ def install(obs: Observer, pkg: str, points) -> list:
     undo.append((topo, "make_topology", topo.make_topology))
     topo.make_topology = tw._make_topology(pkg)
     for mod_name, path, kind in points:
+        if pkg == "torch":
+            path = tw.port_names(path)
         owner = _pkg_mod(pkg, mod_name)
         *outer, attr = path.split(".")
         for part in outer:
@@ -256,18 +258,19 @@ def twin(name, fn_name, tmp_path, params=None, patches=(), mode="exact",
 
 def twin_tests(name, select=None, patches=(), modes=None, extra="",
                names=None, setup=None, sweeps=(), renames=(),
-               exclude=()) -> dict:
+               exclude=(), points=POINTS) -> dict:
     """{test name: test} for each test function of tests/<name>.py (or
     those in `select`) but those in `exclude`, each a twin run in its
     mode (`modes`: name ->
-    mode, default "exact"); the cases in `sweeps` drive the tdcheck
-    models, whose thousands of schedules are recorded as each sweep's
-    statistics alone. Marks are carried over."""
+    mode, default "exact") with `points` observed (JAX's class names,
+    read as the port's in the torch variant); the cases in `sweeps` drive
+    the tdcheck models, whose thousands of schedules are recorded as each
+    sweep's statistics alone. Marks are carried over."""
     modes = modes or {}
 
     def runner(fn_name, tmp_path, params):
         twin(name, fn_name, tmp_path, params, patches,
              modes.get(fn_name, "exact"), extra, names,
-             () if fn_name in sweeps else POINTS, setup, renames)
+             () if fn_name in sweeps else points, setup, renames)
     return tw.twin_tests(name, select=select, patches=patches, extra=extra,
                          runner=runner, exclude=exclude)
