@@ -19,7 +19,10 @@ Routing follows the reference exactly:
 - the experts run in the config dtype on the dispatched [E, C, D] slots;
   the combine sums in f32;
 - aux losses: the Switch load-balance term (top-1 share times mean router
-  probability) and the router z-loss, both f32.
+  probability) and the router z-loss, both f32;
+- armed by count_drops(True), DROPS sums the top-k choices routed and those
+  dropped past capacity, on the device (no host sync), once a forward: a
+  recompute inside the backward (remat) is not counted again.
 
 On one device moe_block takes the gather dispatch, as the JAX package does
 for one expert shard (the one-hot einsum dispatch of its multi-shard path
@@ -245,6 +248,38 @@ def router_losses(logits, probs, frac, t_all: int, config: MoEConfig):
     return aux, z
 
 
+# choices routed and dropped past capacity while armed; "dropped" a device
+# tensor (None before the first count), read by read_drops
+DROPS = {"choices": 0, "dropped": None}
+_count_drops = False
+
+
+def count_drops(on: bool) -> None:
+    global _count_drops
+    _count_drops = bool(on)
+
+
+def reset_drops() -> None:
+    DROPS["choices"], DROPS["dropped"] = 0, None
+
+
+def read_drops() -> dict:
+    """{"choices", "dropped"} as ints (one host sync)."""
+    d = DROPS["dropped"]
+    return {"choices": DROPS["choices"],
+            "dropped": int(d) if d is not None else 0}
+
+
+def _add_drops(keep: torch.Tensor) -> None:
+    # a graph task runs only inside a backward: there this is remat's
+    # recompute of a forward already counted
+    if torch._C._current_graph_task_id() != -1:
+        return
+    d = keep.numel() - keep.sum()
+    DROPS["choices"] += keep.numel()
+    DROPS["dropped"] = d if DROPS["dropped"] is None else DROPS["dropped"] + d
+
+
 def _route(ht: torch.Tensor, router: torch.Tensor, config: MoEConfig,
            data=None, rows: int = 1, n_sp: int = 1):
     """Routing of ht [T, D] (f32 router [D, E]): (logits [T, E] f32, probs
@@ -273,6 +308,8 @@ def _route(ht: torch.Tensor, router: torch.Tensor, config: MoEConfig,
     pos_in_expert, top1 = global_positions(onehot, rows, data, n_sp)
     frac = top1.float() / t_all
     keep = pos_in_expert < cap
+    if _count_drops:
+        _add_drops(keep)
     return (logits, probs, gate_vals, gate_idx, frac, pos_in_expert, keep,
             cap)
 

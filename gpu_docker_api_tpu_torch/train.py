@@ -48,6 +48,7 @@ from .data import to_device
 from .device import resolve_device
 from .models import family_for, param_shapes
 from .models.llama import init_from_shapes, sharded
+from .obs import trace
 from .parallel import comm
 from .parallel.mesh import (
     PARAM_AXES, MeshGroups, MeshPlan, param_sharding_rules, shard,
@@ -197,6 +198,25 @@ class AdamW:
             u = u + tc.weight_decay * p
             p.add_(u * -lr)
         state["count"] = count
+
+
+# ---- hot-path spans -----------------------------------------------------------
+
+def profiler_range(op: str, args: dict):
+    """trace.hot's mirror: a torch.profiler range named `op` with `args` as
+    its keyword inputs (lists joined with commas), opened only while a
+    profiler runs, so it lands on the profiler's clock beside the kernels
+    the span launches. The profiler keeps keyword inputs under
+    record_shapes; record_function would drop an args string and costs
+    several times as much a call."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return trace.NO_SPAN
+    kw = {k: ",".join(map(str, v)) if isinstance(v, (list, tuple)) else v
+          for k, v in args.items()}
+    return torch._C._profiler._RecordFunctionFast(op, (), kw)
+
+
+trace.register_hot_mirror(profiler_range)
 
 
 # ---- loss -------------------------------------------------------------------
@@ -548,12 +568,21 @@ class Trainer:
         every rank calls it with its shard_batch of the same global batch
         and gets the global loss and grad_norm. Under accumulation micro-
         slice i is the i-th accum-th of `tokens` (shard_batch's order)."""
+        with trace.hot("train.step", step=state["step"]):
+            return self._step(state, tokens)
+
+    def _step(self, state: dict, tokens: torch.Tensor):
+        """step() inside its train.step span: train.forward, then
+        train.backward (each micro-slice's under accumulation), then
+        train.grad_norm and train.optimizer."""
         params = state["params"]
         leaves = tree_leaves(params)
         accum = max(self.tc.accum_steps, 1)
         if accum == 1:
-            loss = self._loss(params, tokens)
-            grads = _grad(loss, leaves)
+            with trace.hot("train.forward"):
+                loss = self._loss(params, tokens)
+            with trace.hot("train.backward"):
+                grads = _grad(loss, leaves)
             loss = loss.detach()
         else:
             b = tokens.shape[0]
@@ -563,19 +592,25 @@ class Trainer:
             grad_sum = [torch.zeros_like(p, dtype=torch.float32)
                         for p in leaves]
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
-            for toks in tokens.reshape(accum, b // accum, *tokens.shape[1:]):
-                part = self._loss(params, toks)
-                # sum in f32: adding bf16 micro-grads would bleed precision
-                for acc, g in zip(grad_sum, _grad(part, leaves)):
-                    acc.add_(g.float())
+            for i, toks in enumerate(
+                    tokens.reshape(accum, b // accum, *tokens.shape[1:])):
+                with trace.hot("train.forward", micro=i):
+                    part = self._loss(params, toks)
+                with trace.hot("train.backward", micro=i):
+                    # sum in f32: adding bf16 micro-grads would bleed
+                    # precision
+                    for acc, g in zip(grad_sum, _grad(part, leaves)):
+                        acc.add_(g.float())
                 loss += part.detach()
             loss = loss / accum
             grads = [(g / accum).to(p.dtype) for g, p in zip(grad_sum, leaves)]
         # each leaf's split dims, in the order of `leaves`
         dims = tree_leaves(tree_map_named(lambda _, p, d: d, params,
                                           self.dims))
-        gnorm = self._sum_over_ranks(grads, dims, loss)
-        self.optimizer.update(grads, state["opt_state"], leaves, gnorm)
+        with trace.hot("train.grad_norm"):
+            gnorm = self._sum_over_ranks(grads, dims, loss)
+        with trace.hot("train.optimizer"):
+            self.optimizer.update(grads, state["opt_state"], leaves, gnorm)
         state["step"] += 1
         return state, {"loss": loss, "grad_norm": gnorm}
 

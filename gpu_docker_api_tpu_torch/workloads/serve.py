@@ -28,7 +28,14 @@ at a time runs infer.generate (or infer.speculative_generate for one row
 when a draft is loaded). With --batch-slots N the continuous batcher
 (_Batcher over batching.py) serves single-row requests: they join a
 running slot batch between decode steps, and every response carries the
-batcher's X-TDAPI-Slots / -Active / -Queued / -Queue-Wait-EWMA-Ms headers.
+batcher's X-TDAPI-Slots / -Active / -Queued / -Queue-Wait-EWMA-Ms headers,
+and the request's own X-TDAPI-Queue-Wait-Ms (enqueue to slot admission),
+-First-Token-Ms (enqueue to its first token) and -Token-Gap-Ms (first
+token to last over the tokens after the first; left out for one-token
+answers). The scheduler thread's hot-path spans (obs/trace.hot: serve.tick
+and its serve.admit, serve.prefill_piece, serve.first_token,
+serve.decode_step and serve.emit, and serve.sleep between idle ticks) open
+profiler ranges while armed and a profiler runs.
 With --kv-block B the batcher's cache is paged (paging.py): one block pool
 (--kv-pool), zero-copy prefix sharing, and prefill/decode disaggregation
 (the X-TDAPI-Phase: prefill / X-TDAPI-KV-Key / X-TDAPI-KV-Source request
@@ -60,11 +67,14 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from ..obs import trace
 
 
 def _maybe_ungroup(params: dict, config) -> dict:
@@ -191,6 +201,9 @@ class _Batcher:
 
         import torch
 
+        from ..train import profiler_range
+        trace.register_hot_mirror(profiler_range)
+
         self.config = config
         self.params = params
         self.max_len = max_len
@@ -252,6 +265,7 @@ class _Batcher:
         self._prefixes: "collections.OrderedDict" = collections.OrderedDict()
         self.prefix_hits = 0
         self.queue: "queue.Queue" = queue.Queue()
+        self._rids = itertools.count()       # request ids, for the spans
         # queue-wait telemetry (submit -> slot admission): the per-request
         # value rides stats_out into the response header; the aggregates
         # feed /healthz batching.queueWait. EWMA alpha 0.2.
@@ -342,6 +356,7 @@ class _Batcher:
         """The stream is complete: free the slot, then wake the waiter (so
         its response's X-TDAPI-Active already counts the slot free)."""
         item["out"] = item["stream"]
+        item["done_at"] = time.monotonic()
         self._release_slot(i)
         item["done"].set()
 
@@ -360,11 +375,13 @@ class _Batcher:
         token ids), greedy at temperature 0, else per-request sampling.
         Raises if the scheduler thread has died or the batcher is closed.
         `stats_out` (a dict) receives queueWaitMs, the submit -> slot
-        admission wait, for the response headers. Paged only: `kv_key`
-        exports the prompt's KV under that key once it is prefilled (the
-        prefill phase of a handoff); `kv_import` ({"tokens", "bufs"}, a
-        fetched export) is spliced in instead of prefilling those
-        tokens."""
+        admission wait, firstTokenMs, submit -> the first token, and,
+        past one token, tokenGapMs, the first token -> the last over the
+        tokens after the first, for the response headers. Paged only:
+        `kv_key` exports the prompt's KV under that key once it is
+        prefilled (the prefill phase of a handoff); `kv_import`
+        ({"tokens", "bufs"}, a fetched export) is spliced in instead of
+        prefilling those tokens."""
         import math
 
         import numpy as np
@@ -403,6 +420,7 @@ class _Batcher:
         item = {"prompt": prompt_row, "max_new": int(max_new),
                 "temperature": float(temperature), "top_k": int(top_k),
                 "top_p": float(top_p), "enq_at": time.monotonic(),
+                "rid": next(self._rids),
                 "done": threading.Event(), "out": None, "error": None}
         if kv_key and self._paged:
             item["_kv_key"] = kv_key
@@ -418,8 +436,17 @@ class _Batcher:
         item["done"].wait()
         if item["error"] is not None:
             raise RuntimeError(f"batcher failed: {item['error']}")
-        if stats_out is not None and "wait_ms" in item:
-            stats_out["queueWaitMs"] = round(item["wait_ms"], 3)
+        if stats_out is not None:
+            if "wait_ms" in item:
+                stats_out["queueWaitMs"] = round(item["wait_ms"], 3)
+            if "first_at" in item:
+                stats_out["firstTokenMs"] = round(
+                    (item["first_at"] - item["enq_at"]) * 1e3, 3)
+                n = len(item["out"])
+                if n > 1:
+                    stats_out["tokenGapMs"] = round(
+                        (item["done_at"] - item["first_at"]) * 1e3 / (n - 1),
+                        3)
         return item["out"]
 
     @property
@@ -821,9 +848,11 @@ class _Batcher:
         self._sketch_dirty = False
 
     def _prefill_piece(self, i, item, piece, first: bool):
-        logits, self.cache = self._fn("slot_prefill")(
-            self.params, piece[None], self.cache, i, self.config,
-            append=not first)
+        with trace.hot("serve.prefill_piece", rid=item["rid"],
+                       tokens=int(piece.shape[0])):
+            logits, self.cache = self._fn("slot_prefill")(
+                self.params, piece[None], self.cache, i, self.config,
+                append=not first)
         item["_last_logits"] = logits
         # the write frontier: how many of the prompt's tokens are in the
         # cache (a paged follower waits on its donor's)
@@ -864,6 +893,10 @@ class _Batcher:
     def _arm_or_finish(self, i, item):
         """Prefill complete: the first token comes off the last piece's
         logits; one-token requests answer at once."""
+        with trace.hot("serve.first_token", rid=item["rid"]):
+            self._first_token(i, item)
+
+    def _first_token(self, i, item):
         self._store_prefix(i, item)   # the row holds the full prompt's KV
         if item.get("_kv_key"):
             self._kv_export(i, item)  # the handoff's prefill phase
@@ -882,6 +915,7 @@ class _Batcher:
                 self._gen)[0])
         item["stream"] = [tok]
         item["last"] = tok
+        item["first_at"] = time.monotonic()
         if item["max_new"] <= 1:
             self._finish(i, item)
         else:
@@ -969,14 +1003,15 @@ class _Batcher:
                 n - b if act else n for n, b, act
                 in zip(cache["host_lengths"], back, active)])
         self.spec_rounds += 1
-        for i, s in enumerate(self.slots):
-            if not active[i]:
-                continue
-            take = min(1 + a_host[i], s["max_new"] - len(s["stream"]))
-            self.spec_proposed += g
-            self.spec_accepted += a_host[i]
-            self.spec_emitted += take
-            self._extend(i, s, got[i][1:1 + take])
+        with trace.hot("serve.emit"):
+            for i, s in enumerate(self.slots):
+                if not active[i]:
+                    continue
+                take = min(1 + a_host[i], s["max_new"] - len(s["stream"]))
+                self.spec_proposed += g
+                self.spec_accepted += a_host[i]
+                self.spec_emitted += take
+                self._extend(i, s, got[i][1:1 + take])
 
     def _has_waiters(self) -> bool:
         """Work is waiting to join (defers chunked decode so admission
@@ -996,7 +1031,8 @@ class _Batcher:
             if self._sync() == 0:
                 return
             if not self._tick():
-                time.sleep(0.002)
+                with trace.hot("serve.sleep"):
+                    time.sleep(0.002)
 
     def _chip_slice(self, tokens: int = 0):
         """Admission for one device chunk: the co-tenancy regulator's
@@ -1015,13 +1051,18 @@ class _Batcher:
         latency-class co-tenant both preempts at the chunk boundary and
         (should_yield) drops this batcher to single-step chunks, so the
         next boundary is one step away."""
+        with trace.hot("serve.tick"):
+            return self._tick_inner()
+
+    def _tick_inner(self) -> bool:
         import torch
 
         from .. import batching
         if self._paged:
             self._purge_kv_exports()
         with self._chip_slice():
-            self._admit()
+            with trace.hot("serve.admit"):
+                self._admit()
             fed = self._prefill_tick()      # one prompt piece per tick
         if self._trie is not None and self._sketch_dirty:
             self._refresh_sketch()
@@ -1035,8 +1076,10 @@ class _Batcher:
         toks = batching.to_device(
             [s["last"] if active[i] else 0 for i, s in enumerate(self.slots)],
             torch.long, self.device)
+        rids = [s["rid"] for s, a in zip(self.slots, active) if a]
         if self._draft is not None:
-            with self._chip_slice(tokens=n_active * (self.gamma + 1)):
+            with self._chip_slice(tokens=n_active * (self.gamma + 1)), \
+                    trace.hot("serve.decode_step", rows=n_active, ids=rids):
                 self._spec_round(active, toks)
             return True
         # chunked decode only when nothing is waiting to join and no prefill
@@ -1056,16 +1099,19 @@ class _Batcher:
         if idle:
             remaining = [s["max_new"] - len(s["stream"]) if active[i] else 0
                          for i, s in enumerate(self.slots)]
-            with self._chip_slice(tokens=n_active * chunk):
+            with self._chip_slice(tokens=n_active * chunk), \
+                    trace.hot("serve.decode_step", rows=n_active, ids=rids):
                 steps, self.cache = self._fn("slot_decode_multi")(
                     self.params, toks, self.cache, active, remaining,
                     self.config, chunk, sample=sample)
                 steps = steps.t().tolist()          # [slots, chunk]
-            for i, s in enumerate(self.slots):
-                if active[i]:
-                    self._extend(i, s, steps[i][:remaining[i]])
+            with trace.hot("serve.emit"):
+                for i, s in enumerate(self.slots):
+                    if active[i]:
+                        self._extend(i, s, steps[i][:remaining[i]])
             return True
-        with self._chip_slice(tokens=n_active):
+        with self._chip_slice(tokens=n_active), \
+                trace.hot("serve.decode_step", rows=n_active, ids=rids):
             if sample is not None:
                 picked, self.cache = self._fn("slot_decode_pick")(
                     self.params, toks, self.cache, active, *sample,
@@ -1075,9 +1121,10 @@ class _Batcher:
                     self.params, toks, self.cache, active, self.config)
                 picked = logits.argmax(dim=-1)
             nxt = picked.tolist()
-        for i, s in enumerate(self.slots):
-            if active[i]:
-                self._extend(i, s, nxt[i:i + 1])
+        with trace.hot("serve.emit"):
+            for i, s in enumerate(self.slots):
+                if active[i]:
+                    self._extend(i, s, nxt[i:i + 1])
         return True
 
 
@@ -1227,8 +1274,8 @@ class _LockstepBatcher(_Batcher):
                     "prompt": prompts[j, :plen].to(self.device, torch.long),
                     "max_new": mx, "temperature": floats[2 * j],
                     "top_k": tk, "top_p": floats[2 * j + 1],
-                    "enq_at": time.monotonic(), "done": threading.Event(),
-                    "out": None, "error": None})
+                    "enq_at": time.monotonic(), "rid": next(self._rids),
+                    "done": threading.Event(), "out": None, "error": None})
         return 1
 
     def _run(self):
@@ -1546,6 +1593,11 @@ def _handler_for(srv: _Server, model_name: str, admit_queue: int = 0):
                     # fronting worker's trace
                     extra = {"X-TDAPI-Queue-Wait-Ms":
                              str(stats["queueWaitMs"])}
+                for key, header in (("firstTokenMs", "First-Token-Ms"),
+                                    ("tokenGapMs", "Token-Gap-Ms")):
+                    if key in stats:
+                        extra = extra or {}
+                        extra["X-TDAPI-" + header] = str(stats[key])
                 self._send(200, "Success", {"tokens": out}, extra=extra)
             except (KeyError, TypeError, ValueError) as e:
                 self._send(400, f"bad request: {e}", None)
