@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero and prints no result):
   0. print the card's name and power limit; build the three flash kernels
-     from gpu_docker_api_tpu_torch/csrc with nvcc (sm_90a), all at once;
+     and the optimizer's (csrc/optim.cu) with nvcc (sm_90a), all at once;
      the wgmma kernels (bf16 forward, dQ and dK/dV) must compile with no
      spill stores, no serialised wgmma and no ignored setmaxnreg, and each
      kernel library's machine code must hold wgmma and TMA instructions.
@@ -20,10 +20,23 @@ Phases (any failure exits non-zero and prints no result):
      fault, a second run of each kernel must give the same bits, so must a
      first call on a fresh thread, and each kernel, its plain version and
      the SDPA yardsticks are timed.
+  1b. the optimizer's kernels (ops/optim.py) at Mistral-7B's largest leaf
+     of one pipeline stage (w1, 940 M elements) and its embed (131 M), in
+     bf16: AdamW's p, mu and nu within optim.kernel_gap's tolerance of the
+     plain version (1 bf16 ulp, or 8 f32 ulps where the update cancels p),
+     the sum of squares within 1e-5 of an f64 sum and the same bits twice;
+     at embed also an f32 leaf and, in both dtypes, a step that the weight
+     decay alone moves, where planted faults (no weight decay; f32 math
+     rounded through bf16) must be rejected; each kernel timed beside its
+     bound by bytes, its plain version and a library yardstick
+     (torch._fused_adamw_, torch.linalg.vector_norm; never called by the
+     port).
   2. the main path: train_llama at the llama 1b config, B=4, S=2048, for a
      few steps, with the launch counters set to 0 just before and read just
      after; losses finite, the first near its value at init; every attention
-     call went through the kernels. Then the 1b trunk's logits and loss
+     call went through the kernels, and the optimizer through its kernels
+     (an AdamW and a sum-of-squares launch a leaf, and one sum of the
+     partials a step). Then the 1b trunk's logits and loss
      gradients on a small input, through the kernels and through the
      reference attention: in f32 against each other, in bf16 each against
      the f32 run, where every planted fault standing in for its kernel must
@@ -799,6 +812,154 @@ def phase_kernels(torch, att):
     return results, fwd_bwd, bf16_check
 
 
+# ---- phase 1b: the optimizer's kernels ----------------------------------------
+
+# Mistral-7B's largest leaf on one stage of a two-stage pipeline (w1:
+# 16 x 4096 x 14336) and its embed (32000 x 4096): the training cells' sizes
+OPTIM_SIZES = {"w1": 16 * 4096 * 14336, "embed": 32000 * 4096}
+OPTIM_HYPER = dict(clip=1.0, lr=3e-4, b1=0.9, b2=0.95, eps=1e-8,
+                   weight_decay=0.1)
+# the sum of squares against an f64 sum: f32 squares and per-thread sums,
+# partials added in f64
+OPTIM_SUM_TOL = 1e-5
+
+
+def optim_bound_ms(kernel, n, elem_bytes=2) -> float:
+    """The least time by bytes: AdamW reads g, p, mu and nu and writes p,
+    mu and nu once (14 bytes a bf16 element), the sum of squares reads each
+    gradient once (2)."""
+    tensors = 7 if kernel == "adamw" else 1
+    return tensors * n * elem_bytes / PEAK_BYTES * 1e3
+
+
+def optim_case(torch, p, g, mu, nu, norm, kw, faults=True) -> dict:
+    """One AdamW update from the same state through the kernel (left in p,
+    mu and nu) and through the plain version. Returns, for the kernel and
+    for each planted fault (what an adamw kernel with a known bug would
+    store, made from the plain version: no weight decay; in an f32 leaf,
+    the arithmetic rounded through bf16), the elements of p, mu and nu past
+    optim.kernel_gap's tolerance. The kernel must read all 0, each fault
+    some."""
+    from gpu_docker_api_tpu_torch.ops import optim
+    state = [t.clone() for t in (p, g, mu, nu)]
+
+    def plain(dtype=None, **over):
+        ts = [t.to(dtype or t.dtype, copy=True) for t in state]
+        optim.adamw_plain(*ts, norm, **dict(kw, **over))
+        return [t.to(p.dtype) for t in (ts[0], ts[2], ts[3])]
+
+    want = plain()
+    optim.adamw(p, g, mu, nu, norm, **kw)
+    before = (state[0], state[2], state[3])
+
+    def gaps(got):
+        return {name: optim.kernel_gap(a, b, c) for name, a, b, c in
+                zip(("p", "mu", "nu"), got, want, before)}
+    out = {"kernel": gaps((p, mu, nu))}
+    if faults:
+        planted = {"no_weight_decay": dict(weight_decay=0.0)}
+        if p.dtype == torch.float32:
+            planted["bf16_math"] = dict(dtype=torch.bfloat16)
+        for name, over in planted.items():
+            out[name] = gaps(plain(**over))
+    return out
+
+
+def check_optim_case(label, out) -> None:
+    check(not any(out["kernel"].values()),
+          f"adamw at {label}: elements past the tolerance {out['kernel']}")
+    for name, gaps in out.items():
+        if name != "kernel":
+            check(any(gaps.values()),
+                  f"adamw at {label}: the planted fault {name} passed")
+
+
+def phase_optim(torch):
+    from gpu_docker_api_tpu_torch.ops import optim
+    from gpu_docker_api_tpu_torch.train import TrainConfig, bias_corrections
+
+    print("phase 1b: the optimizer's kernels against their plain versions",
+          flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    bc1, bc2 = bias_corrections(TrainConfig(
+        b1=OPTIM_HYPER["b1"], b2=OPTIM_HYPER["b2"]), 2)
+    kw = dict(OPTIM_HYPER, bc1=bc1, bc2=bc2)
+    out = {}
+    for label, n in OPTIM_SIZES.items():
+        def leaf(scale, dtype=torch.bfloat16):
+            return (scale * torch.randn(n, generator=gen, device=dev)).to(
+                dtype)
+        norm = torch.tensor(50.0, device=dev)       # the clip on
+        if label == "embed":
+            # an f32 leaf (the norms, Mixtral's router), then a step where
+            # the weight decay alone moves p (g = 0, fresh moments,
+            # lr weight_decay = 0.05), in both dtypes: each with the
+            # planted faults, which must be rejected
+            cases = {"f32": (optim_case(
+                torch, leaf(0.02, torch.float32), leaf(1.0, torch.float32),
+                leaf(1e-2, torch.float32), leaf(1e-2, torch.float32).abs_(),
+                norm, kw))}
+            for dtype in (torch.bfloat16, torch.float32):
+                zeros = [torch.zeros(n, dtype=dtype, device=dev)
+                         for _ in range(3)]
+                cases[f"decay_{str(dtype)[6:]}"] = optim_case(
+                    torch, leaf(0.02, dtype), *zeros,
+                    torch.tensor(0.5, device=dev),
+                    dict(kw, lr=0.1, weight_decay=0.5, bc1=1 - OPTIM_HYPER[
+                        "b1"], bc2=1 - OPTIM_HYPER["b2"]))
+                del zeros
+            for case, got in cases.items():
+                print(f"  {label} {case}: {got}", flush=True)
+                check_optim_case(f"{label} {case}", got)
+            out["cases"] = cases
+            torch.cuda.empty_cache()
+        p, g, mu, nu = leaf(0.02), leaf(1.0), leaf(1e-2), leaf(1e-2).abs_()
+        gaps = optim_case(torch, p, g, mu, nu, norm, kw, faults=False)
+        check_optim_case(label, gaps)
+        want = float((g.double() ** 2).sum())
+        got = optim.sum_squares([g])
+        rel = abs(float(got) - want) / want
+        check(rel <= OPTIM_SUM_TOL, f"sum_squares at {label}: {rel:.2e} "
+              f"from the f64 sum")
+        check(torch.equal(got, optim.sum_squares([g])),
+              f"sum_squares at {label}: another result on a second call")
+        torch.cuda.empty_cache()
+        steps = [torch.tensor(2.0, device=dev)]
+        times = {
+            "adamw_ms": time_ms(torch, lambda: optim.adamw(
+                p, g, mu, nu, norm, **kw), 20),
+            "adamw_plain_ms": time_ms(torch, lambda: optim.adamw_plain(
+                p, g, mu, nu, norm, **kw), 3),
+            # yardsticks only, never called by the port: one PyTorch call
+            # over the same tensors (AdamW with no clip; the norm, whose
+            # square is the sum of squares)
+            "adamw_library_ms": time_ms(torch, lambda: torch._fused_adamw_(
+                [p], [g], [mu], [nu], [], steps, lr=kw["lr"],
+                beta1=kw["b1"], beta2=kw["b2"],
+                weight_decay=kw["weight_decay"], eps=kw["eps"],
+                amsgrad=False, maximize=False), 20),
+            "sum_squares_ms": time_ms(torch, lambda: optim.sum_squares([g]),
+                                      20),
+            "sum_squares_plain_ms": time_ms(
+                torch, lambda: optim.sum_squares_plain([g]), 3),
+            "sum_squares_library_ms": time_ms(
+                torch, lambda: torch.linalg.vector_norm(
+                    g, dtype=torch.float32), 20),
+        }
+        bound = {"adamw_bound_ms": optim_bound_ms("adamw", n),
+                 "sum_squares_bound_ms": optim_bound_ms("sum_squares", n)}
+        out[label] = {"elements": n, "sum_rel_err": rel, **times, **bound,
+                      "adamw_roofline": bound["adamw_bound_ms"]
+                      / times["adamw_ms"],
+                      "sum_squares_roofline": bound["sum_squares_bound_ms"]
+                      / times["sum_squares_ms"]}
+        print(f"  {label}: {out[label]}", flush=True)
+        del p, g, mu, nu, norm
+        torch.cuda.empty_cache()
+    return out
+
+
 def read_metrics(path):
     with open(path, encoding="utf-8") as f:
         recs = [json.loads(line) for line in f if line.strip()]
@@ -807,6 +968,8 @@ def read_metrics(path):
 
 def phase_main_path(torch, att, steps: int):
     from gpu_docker_api_tpu_torch.models import llama
+    from gpu_docker_api_tpu_torch.ops import optim
+    from gpu_docker_api_tpu_torch.train import tree_leaves
     from gpu_docker_api_tpu_torch.workloads import train_llama
 
     cfg = llama.LlamaConfig.llama_1b()
@@ -815,12 +978,14 @@ def phase_main_path(torch, att, steps: int):
           f"--steps {steps}", flush=True)
     with tempfile.TemporaryDirectory() as wd:
         att.reset_launches()
+        optim.reset_launches()
         rc = train_llama.main([
             "--config", "1b", "--batch", str(b), "--seq", str(s),
             "--steps", str(steps), "--checkpoint-every", str(steps),
             "--workdir", wd])
         torch.cuda.synchronize()
         launches = dict(att.LAUNCHES)
+        optim_launches = dict(optim.LAUNCHES)
         check(rc == 0, f"train_llama exited {rc}")
         step_recs, _ = read_metrics(os.path.join(wd, "metrics.jsonl"))
     losses = [r["loss"] for r in step_recs]
@@ -843,13 +1008,20 @@ def phase_main_path(torch, att, steps: int):
             "flash_bwd_dq": per_step * steps,
             "flash_bwd_dkv": per_step * steps}
     check(launches == want, f"launches {launches}, want {want}")
+    leaves = len(tree_leaves(llama.param_shapes(cfg)))
+    want = {"adamw": leaves * steps, "sum_squares": leaves * steps,
+            "sum_partials": steps}
+    print(f"  optimizer launches {optim_launches}", flush=True)
+    check(optim_launches == want,
+          f"optimizer launches {optim_launches}, want {want}")
     times = [r["step_time_s"] for r in step_recs[1:]]
     step_s = statistics.median(times)
     tokens_s = b * s / step_s
 
     trunk = trunk_check(torch, att, cfg)
-    return {"launches": launches, "losses": losses, "step_s": step_s,
-            "step_times_s": times, "tokens_s": tokens_s, "trunk": trunk}
+    return {"launches": launches, "optim_launches": optim_launches,
+            "losses": losses, "step_s": step_s, "step_times_s": times,
+            "tokens_s": tokens_s, "trunk": trunk}
 
 
 def trunk_fault_models(torch, att):
@@ -7658,16 +7830,17 @@ def build_kernels(torch):
                 print(f"    {line.strip()}", flush=True)
         lost = ptxas_wgmma_losses(log)
         check(not lost, f"{name}: ptxas undid the wgmma design: {lost}")
-    check_sass(_build)
+    check_sass(_build, tuple(REPLACES))
     return smi, att
 
 
-def check_sass(_build):
-    """Every kernel library's machine code must hold the Hopper
+def check_sass(_build, names):
+    """Every flash kernel library's machine code must hold the Hopper
     instructions its bf16 kernel was written for: HGMMA (wgmma) and UTMALDG
-    (TMA loads); UTMASTG (the TMA-store epilogue) is printed."""
+    (TMA loads); UTMASTG (the TMA-store epilogue) is printed. (The
+    optimizer's kernels stream with vector loads: no products to feed.)"""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    for name in _build.KERNELS:
+    for name in names:
         sass = subprocess.run([cuobjdump, "-sass", str(_build._lib_path(name))],
                               capture_output=True, text=True, timeout=120,
                               check=True).stdout
@@ -7764,6 +7937,7 @@ def main() -> int:
         await_rank_server()
         lap()
         kernels, yardstick, bf16_check = phase_kernels(torch, att)
+        optimizer = phase_optim(torch)
         lap()
         m = phase_main_path(torch, att, MAIN_STEPS)
         lap()
@@ -7843,6 +8017,10 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": bnd[name][0],
             "bound_by": bnd[name][1], "library_ms": k["library_ms"]})
     print(json.dumps({"kernels": line}), flush=True)
+    print(json.dumps({"optimizer": {
+        "route": "cuda", "source": "gpu_docker_api_tpu_torch/csrc/optim.cu",
+        "replaces": None, "launches": m["optim_launches"],
+        "sizes": optimizer}}), flush=True)
     print(json.dumps({"main_path": {
         "config": "llama 1b", "batch": MAIN_SHAPE["b"],
         "seq": MAIN_SHAPE["s"], "step_s": m["step_s"],

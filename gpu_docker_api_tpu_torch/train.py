@@ -41,6 +41,7 @@ import shutil
 from dataclasses import dataclass
 from typing import Any, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -49,6 +50,7 @@ from .device import resolve_device
 from .models import family_for, param_shapes
 from .models.llama import init_from_shapes, sharded
 from .obs import trace
+from .ops import optim
 from .parallel import comm
 from .parallel.mesh import (
     PARAM_AXES, MeshGroups, MeshPlan, param_sharding_rules, shard,
@@ -141,14 +143,18 @@ def tree_map_named(fn, tree: dict, *rest: dict, prefix: str = "") -> dict:
             for k, v in tree.items()}
 
 
-def sum_squares(tensors) -> torch.Tensor:
-    """The sum of squares over every leaf, in f32."""
-    return sum((t.float() * t.float()).sum() for t in tensors)
-
-
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf, in f32."""
-    return torch.sqrt(sum_squares(tensors))
+    """sqrt of the sum of squares over every leaf, in f32, on their device
+    (ops/optim.sum_squares)."""
+    return torch.sqrt(optim.sum_squares(tensors))
+
+
+def bias_corrections(tc: TrainConfig, count: int) -> tuple:
+    """(1 - b1**count, 1 - b2**count) in f32, as optax takes them, as host
+    floats: numpy scalars, so no tensor op (and no device) is involved."""
+    one = np.float32(1.0)
+    return tuple(float(one - np.float32(b) ** np.float32(count))
+                 for b in (tc.b1, tc.b2))
 
 
 class AdamW:
@@ -161,7 +167,11 @@ class AdamW:
       incremented count, the LR schedule the count before it;
     - weight decay applies to every leaf, norms included.
 
-    Updates are in place on the parameters and moments."""
+    Each leaf is one ops/optim.adamw call (a kernel on the card): the chain
+    computed in f32 from one load to one store, each tensor rounded once to
+    its dtype (in f32 leaves exactly optax's arithmetic). The clip reads the
+    norm where it lies, so the update never waits for the host. Updates are
+    in place on the parameters and moments."""
 
     def __init__(self, tc: TrainConfig):
         self.tc = tc
@@ -175,28 +185,20 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: list, state: dict, params: list,
                norm: Optional[torch.Tensor] = None) -> None:
-        """norm: the global norm of the gradients the clip takes (default:
-        theirs; a sharded trainer passes the norm over every shard)."""
+        """norm: the global norm of the gradients the clip takes, a 0-dim
+        f32 tensor on their device (default: theirs; a sharded trainer
+        passes the norm over every shard)."""
         tc = self.tc
         norm = global_norm(grads) if norm is None else norm
-        clip = not bool(norm < tc.grad_clip)
         count = state["count"]
         lr = self.lr(count) if callable(self.lr) else self.lr
         count += 1
-        # 1 - decay**count in f32, then cast to each leaf's dtype
-        bc1 = 1.0 - torch.tensor(tc.b1, dtype=torch.float32) ** count
-        bc2 = 1.0 - torch.tensor(tc.b2, dtype=torch.float32) ** count
+        bc1, bc2 = bias_corrections(tc, count)
         for g, p, mu, nu in zip(grads, params, tree_leaves(state["mu"]),
                                 tree_leaves(state["nu"])):
-            if clip:
-                g = (g / norm.to(g.dtype)) * tc.grad_clip
-            mu.mul_(tc.b1).add_((1 - tc.b1) * g)
-            nu.mul_(tc.b2).add_((1 - tc.b2) * (g * g))
-            mu_hat = mu / bc1.to(mu.dtype).to(mu.device)
-            nu_hat = nu / bc2.to(nu.dtype).to(nu.device)
-            u = mu_hat / (torch.sqrt(nu_hat) + self.eps)
-            u = u + tc.weight_decay * p
-            p.add_(u * -lr)
+            optim.adamw(p, g, mu, nu, norm, clip=tc.grad_clip, lr=lr,
+                        b1=tc.b1, b2=tc.b2, bc1=bc1, bc2=bc2, eps=self.eps,
+                        weight_decay=tc.weight_decay)
         state["count"] = count
 
 
@@ -636,11 +638,11 @@ class Trainer:
             group = g.sum_group(cut)
             if group is not None:
                 comm.all_reduce_sum(by_cut[cut], group)
-        squares: dict = {}
+        leaves_of: dict = {}
         for x, cut in zip(grads, cuts):        # of the summed gradients
-            squares[cut] = squares.get(cut, 0.0) + sum_squares([x])
-        cuts = sorted(squares)
-        total = torch.stack([squares[c] for c in cuts])
+            leaves_of.setdefault(cut, []).append(x)
+        cuts = sorted(leaves_of)
+        total = torch.stack([optim.sum_squares(leaves_of[c]) for c in cuts])
         for axis in PARAM_AXES:
             group = getattr(g, axis)
             rows = [i for i, c in enumerate(cuts) if axis in c]

@@ -185,7 +185,10 @@ def test_chip_smoke_imports_nothing_of_jax():
 def test_every_kernel_source_is_listed_for_the_build():
     from gpu_docker_api_tpu_torch import _build
     csrc = sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
-    assert csrc == sorted(src for src, _ in _build.KERNELS.values())
+    # a source may hold several entry points (optim.cu), one library each
+    assert csrc == sorted({src for src, _ in _build.KERNELS.values()})
+    assert (_build._lib_path("sum_squares") == _build._lib_path("adamw")
+            != _build._lib_path("flash_fwd"))
     assert all((_build.CSRC / h).exists() for h in _build.HEADERS)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # the library name follows the sources: stable across calls
@@ -206,7 +209,7 @@ def test_no_kernel_source_uses_wmma():
 
 def _c_entry_points():
     """{name: [parameter kinds]} of every `extern "C" int name(...)` in
-    csrc/*.cu, each parameter "pointer" or "int"."""
+    csrc/*.cu, each parameter "pointer", "int", "long long" or "float"."""
     import re
     from gpu_docker_api_tpu_torch import _build
     found = {}
@@ -221,8 +224,9 @@ def _c_entry_points():
                 p = " ".join(p.split())
                 if "*" in p:
                     kinds.append("pointer")
-                elif re.fullmatch(r"(const )?int \w+", p):
-                    kinds.append("int")
+                elif m := re.fullmatch(r"(const )?(int|long long|float) \w+",
+                                       p):
+                    kinds.append(m.group(2))
                 else:
                     kinds.append(f"unknown: {p}")
             found[name] = kinds
@@ -235,7 +239,8 @@ def test_every_c_entry_point_matches_its_ctypes_argtypes():
     Each extern "C" signature must match [c_int, *KERNELS[name][1]]."""
     import ctypes
     from gpu_docker_api_tpu_torch import _build
-    kind = {ctypes.c_void_p: "pointer", ctypes.c_int: "int"}
+    kind = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
+            ctypes.c_longlong: "long long", ctypes.c_float: "float"}
     found = _c_entry_points()
     assert sorted(found) == sorted(_build.KERNELS)
     for name, (_, argtypes) in _build.KERNELS.items():

@@ -1952,3 +1952,44 @@ def test_serve_from_a_trainers_checkpoint_at_tiny_width_on_the_cpu(tmp_path):
     planted[1][4] = (planted[1][4] + 1) % cfg.vocab_size
     with pytest.raises(cs.SmokeFailure, match="row 1"):
         cs.served_tokens_check(planted, direct, "t")
+
+
+def _optim_leaves(dtype, n=4097, decay=False):
+    gen = torch.Generator().manual_seed(7)
+
+    def leaf(scale):
+        return (scale * torch.randn(n, generator=gen)).to(dtype)
+    if decay:
+        return [leaf(0.02)] + [torch.zeros(n, dtype=dtype) for _ in range(3)]
+    return [leaf(0.02), leaf(1.0), leaf(1e-2), leaf(1e-2).abs_()]
+
+
+@pytest.mark.parametrize("dtype,decay", [
+    (torch.float32, False), (torch.float32, True), (torch.bfloat16, True)])
+def test_optim_case_passes_the_kernel_and_rejects_every_planted_fault(
+        dtype, decay):
+    """phase 1b's check at a small size: on the CPU the wrapper runs the
+    plain version, which must pass; no weight decay and (f32) bf16 math
+    must each be rejected, as on the card."""
+    kw = dict(cs.OPTIM_HYPER, bc1=0.19, bc2=0.0975)
+    norm = torch.tensor(50.0)
+    if decay:
+        kw.update(lr=0.1, weight_decay=0.5, bc1=0.1, bc2=0.05)
+        norm = torch.tensor(0.5)
+    out = cs.optim_case(torch, *_optim_leaves(dtype, decay=decay), norm, kw)
+    want = {"kernel", "no_weight_decay"} | (
+        {"bf16_math"} if dtype == torch.float32 else set())
+    assert set(out) == want
+    cs.check_optim_case("cpu", out)
+    assert out["kernel"] == {"p": 0, "mu": 0, "nu": 0}
+
+
+def test_optim_case_lets_a_bf16_no_decay_fault_through_at_the_usual_step():
+    """Why phase 1b adds the decay step: at lr 3e-4 and weight decay 0.1
+    the term is under a bf16 ulp of p, so the bf16 check alone cannot
+    see it dropped."""
+    kw = dict(cs.OPTIM_HYPER, bc1=0.19, bc2=0.0975)
+    out = cs.optim_case(torch, *_optim_leaves(torch.bfloat16),
+                        torch.tensor(50.0), kw)
+    with pytest.raises(cs.SmokeFailure, match="no_weight_decay passed"):
+        cs.check_optim_case("cpu", out)
